@@ -1,0 +1,623 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (``spurfies_tpu_torch``).
+
+Run from the root of a checkout on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It imports nothing of JAX or of the JAX package.  Phases, in order (any
+failure exits non-zero before the last line):
+
+  1. device: the card's name and ``nvidia-smi`` name / power limit;
+  2. build: every kernel of ``spurfies_tpu_torch/csrc`` with nvcc for
+     sm_90a, one process per source (seconds, registers, spills);
+  3. scenes: the DUSt3R-like cloud of ``make_dust3r_like_scene`` (the
+     JAX package's bench scene, 192x256 views; ~6k points -> the packed K1
+     variant) and a dense 40k-point sphere (>2**15 points -> the exact K1
+     variant), both with the repo's pretrained prior
+     (``spurfies_tpu_torch/assets/local_prior.npz``) and seeded latents;
+  4. kernels: each kernel against its plain PyTorch version on the card, in
+     bf16, on the inputs of the first 4096-ray chunk of each scene's render
+     (probe and shading shapes of the main path), with timings and bounds;
+  5. main path: launch counters set to 0, then ``make_render_fn`` renders
+     view 0 of both scenes in full (2 x 49,152 rays, default ModelConfig,
+     render_chunk=4096, 5 sampler iterations); outputs must be finite and
+     every kernel's counter must have moved by the count the chunking
+     implies; prints rays/s and the masked PSNR against the analytic view;
+  6. reference: the first 4096-ray chunk rendered again with the plain
+     versions substituted for the kernels, on the card, compared ray by ray;
+  7. where the time goes: view 0 of the DUSt3R-like scene rendered warm
+     TIMED_RENDERS times (rays/s), then once under ``torch.profiler``: the
+     device-busy share, the device time of each of the port's kernels and
+     of PyTorch's own ops, as one ``profile:`` JSON line;
+  8. the ``kernels`` JSON line, then the device JSON line.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+# peak rates of one H100 SXM (NVIDIA data sheet; dense, at 700 W)
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+CHUNK = 4096
+TIMED_RENDERS = 3
+# device-kernel names of the port's kernels, by the kernels line's label
+KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
+                ("K1 select_knn exact", "select_exact_kernel"),
+                ("K2 pair_sdf_value_agg", "pair_mlp_kernel<false>"),
+                ("K3 pair_sdf_aggregate", "pair_mlp_kernel<true>"))
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events,
+    after one warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound_ms(n_bytes, flops, peak_flops):
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def setup_scene(pts, cols, cfg, prior_path, seed, dev):
+    import torch
+
+    from spurfies_tpu_torch.convert.from_jax import load_prior_npz
+    from spurfies_tpu_torch.model.networks import init_model_params
+    from spurfies_tpu_torch.model.neural_points import build_scene
+
+    gen = torch.Generator().manual_seed(seed)
+    scene, latents = build_scene(pts, cfg.model, cols, generator=gen,
+                                 device=dev)
+    params = init_model_params(cfg.model, gen, device=dev)
+    tp = dict(params["train"], **latents)
+    return scene, tp, load_prior_npz(prior_path, device=dev)
+
+
+def first_chunk(scene, view, cfg, dev):
+    """cam_loc / ray_dirs of the first CHUNK occupied rays of a view (the
+    render's first chunk) and the number of occupied rays."""
+    import torch
+
+    from spurfies_tpu_torch.core.cameras import get_camera_params
+    from spurfies_tpu_torch.model.renderer import coarse_ray_occupancy
+
+    uv = torch.as_tensor(view["uv"], device=dev)[None]
+    pose = torch.as_tensor(view["pose"], device=dev)[None]
+    K = torch.as_tensor(view["intrinsics"], device=dev)[None]
+    dirs_b, cam_b = get_camera_params(uv, pose, K)
+    dirs = dirs_b.reshape(-1, 3)
+    cam = cam_b.expand(dirs.shape[0], 3)
+    occ = coarse_ray_occupancy(cam, dirs, scene, cfg.model.ray_sampler)
+    sel = torch.nonzero(occ)[:, 0]
+    return cam[sel[:CHUNK]], dirs[sel[:CHUNK]], int(sel.numel()), sel[:CHUNK]
+
+
+def kernel_inputs(scene, tp, prior, cam, dirs, cfg):
+    """The first chunk's kernel inputs: the first (uniform-z) probe's K1 and
+    K2 inputs, and the shading query's K1 and K3 inputs, made by the port's
+    own functions as ``_render_body`` makes them."""
+    import torch
+
+    from spurfies_tpu_torch.core.density import get_beta
+    from spurfies_tpu_torch.model import field
+    from spurfies_tpu_torch.model.sampler import (
+        error_bound_z_vals,
+        uniform_z_vals,
+    )
+    from spurfies_tpu_torch.ops.voxel_grid import (
+        _cell_ids,
+        compact_rays,
+        fine_occupancy,
+        query_grid,
+    )
+
+    m = cfg.model
+    spec = scene.spec
+    geo = tp["feats_geometry"]
+    n = geo.shape[0]
+    table = field.pair_table(geo, scene.points)
+
+    def k1_in(x):
+        x = x.contiguous()
+        return x, _cell_ids(x, spec)
+
+    # probe: uniform z, occupancy budget 0.25
+    z = uniform_z_vals(cam.shape[0], m.ray_sampler.near, m.ray_sampler.far,
+                       m.ray_sampler.n_samples_eval, False,
+                       device=cam.device)
+    pts = (cam[:, None, :] + z[..., None] * dirs[:, None, :]).reshape(-1, 3)
+    budget = max(int(pts.shape[0] * 0.25) // 128 * 128, 128)
+    sel, sel_ok, _ = field.compact_pair_slots(
+        fine_occupancy(pts, scene.occ_fine, spec), budget)
+    xp, cidp = k1_in(pts[sel])
+    idx_p, _ = query_grid(xp, scene.table, spec, k=m.k)
+    idx_ext_p = field._idx_ext(idx_p, (idx_p >= 0) & sel_ok[:, None], n)
+
+    # shading: the sampler's z-values, then the has-neighbour compaction
+    def probe(x, first=False):
+        return field.sdf_probe(prior, geo, scene, x, m.k, m.r, m.rbf,
+                               budget_frac=0.25, need_grad=False,
+                               return_overflow=True)
+
+    z_all, _ = error_bound_z_vals(probe, cam, dirs, m.ray_sampler,
+                                  get_beta(tp["beta"], m.density.beta_min),
+                                  m.ray_sampler.max_total_iters, False)
+    q = (cam[:, None, :] + z_all[..., None] * dirs[:, None, :]).reshape(-1, 3)
+    xs, cids = k1_in(q)
+    idx_all, _ = query_grid(xs, scene.table, spec, k=m.k)
+    idx_all = idx_all.reshape(cam.shape[0], -1, m.k)
+    csel, cval = compact_rays(torch.any(idx_all >= 0, -1), m.max_shading_pts)
+    zs = torch.gather(z_all, 1, csel)
+    nbr = torch.gather(idx_all, 1, csel[..., None].expand(-1, -1, m.k))
+    x3 = (cam[:, None, :] + zs[..., None] * dirs[:, None, :]).reshape(-1, 3)
+    valid = ((nbr >= 0) & cval[..., None]).reshape(-1, m.k)
+    idx_ext_s = field._idx_ext(nbr.reshape(-1, m.k), valid, n)
+    return {"probe_k1": (xp, cidp), "k2": (table, idx_ext_p, xp.contiguous()),
+            "shade_k1": (xs, cids),
+            "k3": (table, idx_ext_s, x3.contiguous())}
+
+
+def check_k1(name, x, cid, scene, k, packed, reps):
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.ops import select_knn as sk
+
+    qt = scene.table
+    r2 = float(np.float32(scene.spec.radius(qt.r) ** 2))
+    ki, kd = sk.select_knn(x, cid, qt.idx, qt.pos, r2, k, packed)
+    ri, rd = sk.select_knn_ref(x, cid, qt.idx, qt.pos, r2, k, packed)
+    torch.cuda.synchronize()
+    # tolerance: bit-equal ids and d2 (the kernel avoids FMA contraction,
+    # so it does the plain version's f32 operations)
+    if not bool((ki == ri).all()):
+        fail(f"{name}: {int((ki != ri).sum())} neighbour ids differ")
+    fin = torch.isfinite(rd)
+    if not bool((torch.isfinite(kd) == fin).all()):
+        fail(f"{name}: validity differs")
+    err = float((kd[fin] - rd[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if err != 0.0:
+        fail(f"{name}: d2 differs by {err}")
+    ms = cuda_ms(lambda: sk.select_knn(x, cid, qt.idx, qt.pos, r2, k, packed),
+                 reps)
+    plain_ms = cuda_ms(lambda: sk.select_knn_ref(x, cid, qt.idx, qt.pos, r2,
+                                                 k, packed), 3)
+    # library yardstick: torch.topk over the [M, qcap] distance matrix
+    in_grid = (cid >= 0) & (cid < qt.idx.shape[0])
+    c = torch.where(in_grid, cid, 0).long()
+    diff = qt.pos[c] - x[:, :, None]
+    d2m = (diff * diff).sum(1)
+    d2m = torch.where((qt.idx[c] >= 0) & in_grid[:, None] & (d2m <= r2),
+                      d2m, float("inf"))
+    lib_ms = cuda_ms(lambda: torch.topk(d2m, k, dim=1, largest=False), reps)
+    # bound: x, cid and the outputs once, the table rows of the cells that
+    # are queried once; ~9 f32 ops per candidate a query really scans
+    m = x.shape[0]
+    cells = torch.unique(cid[in_grid])
+    q = qt.idx.shape[1]
+    scanned = (qt.idx[c] >= 0).sum(1)[in_grid].sum()
+    n_bytes = m * (12 + 4 + k * 8) + int(cells.numel()) * q * 16
+    b_ms, b_by = bound_ms(n_bytes, 9.0 * float(scanned), PEAK_F32_FLOPS)
+    log(f"{name}: M={m} qcap={q} ids+d2 bit-equal; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, topk {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+
+
+def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
+    import torch
+
+    with torch.no_grad():
+        outs = fn(*args, prior, rbf)
+        refs = ref(*args, prior, rbf)
+        # control: the plain version in f32, read against the limits below
+        # and never held to them; it shows what a change of rounding reads
+        ctrl = ref(*args, prior_f32, rbf)
+    torch.cuda.synchronize()
+    if not isinstance(outs, tuple):
+        outs, refs, ctrl = (outs,), (refs,), (ctrl,)
+    pt, pt_r = outs[0], refs[0]
+    if not bool(torch.isfinite(pt).all()):
+        fail(f"{name}: non-finite output")
+    # tolerance: bf16 on both sides with the same rounding points; only the
+    # f32 sums inside each product run in another order, so a bf16 rounding
+    # can land one ulp (2**-8 relative) apart and carry through the layers
+    err = within(f"{name} per-point sums", pt, pt_r)
+    within(f"{name} per-point sums, control f32 plain", ctrl[0], pt_r,
+           hold=False)
+    if len(outs) == 3:
+        w_err = float((outs[1] - refs[1]).abs().max())
+        if w_err > 1e-6:               # expf against torch.exp, ulps
+            fail(f"{name}: w differs by {w_err}")
+        within(f"{name} r_lat", outs[2].float(), refs[2].float())
+        within(f"{name} r_lat, control f32 plain", ctrl[2].float(),
+               refs[2].float(), hold=False)
+    del ctrl
+    table, idx_ext, x = args
+    p, k = idx_ext.shape
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fn(*args, prior, rbf), reps)
+        plain_ms = cuda_ms(lambda: ref(*args, prior, rbf), 2)
+    # MACs per pair: up 32*256 + 3*256 + 3*256*256 + 256; K3 adds the down
+    # sweep 3*256*256 + 256*35 (the first delta is elementwise).  The work
+    # this data needs is that of the real pairs: a pair on the dump row
+    # has w == 0 and adds nothing (the kernel computes it all the same).
+    up = 32 * 256 + 3 * 256 + 3 * 256 * 256 + 256
+    down = 3 * 256 * 256 + 256 * 35
+    grad = len(outs) == 3
+    pairs = int((idx_ext != table.shape[0] - 1).sum())
+    flops = 2.0 * pairs * (up + (down if grad else 0))
+    n_bytes = table.numel() * 4 + p * k * 4 + p * 12 + \
+        (p * 20 + p * k * (4 + 64) if grad else p * 8)
+    b_ms, b_by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+    log(f"{name}: P={p} k={k}, {pairs} real pairs "
+        f"({pairs / (p * k):.3f}); kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s on real pairs, "
+        f"{flops * p * k / max(pairs, 1) / ms / 1e9:.1f} executed), "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "max_abs_err": err}
+
+
+def within(what, out, ref, hold=True):
+    """|out - ref| <= 2**-6 |ref| + 1e-3 scale for 99.9% of the entries and
+    <= 0.05 scale for all, per column (scale: the column's max |ref|; the
+    0.1% allows a LeakyReLU gate that flips on a kink).  Returns the max
+    abs error; fails on a breach when ``hold``."""
+    out = out.reshape(out.shape[0], -1)
+    ref = ref.reshape(ref.shape[0], -1)
+    scale = ref.abs().amax(0, keepdim=True) + 1e-30
+    d = (out - ref).abs()
+    beyond = (d > 2.0 ** -6 * ref.abs() + 1e-3 * scale).float().mean()
+    worst = float((d / scale).max())
+    err = float(d.max())
+    log(f"  {what}: max abs err {err:.3e}, max err / column scale "
+        f"{worst:.3e}, share beyond 2^-6 rel {float(beyond):.2e}")
+    if hold and (float(beyond) > 1e-3 or worst > 0.05):
+        fail(f"{what}: kernel and plain version disagree")
+    return err
+
+
+def compare_chunk(a, b):
+    """Ray-by-ray agreement of two renders of one chunk (kernels vs plain
+    versions, both bf16).
+
+    The SDF values agree to a bf16 ulp, but the sampler's beta bisection
+    makes discrete choices on them, so a few rays place their samples
+    elsewhere; and an RBF weight exp(-(45 d)^2) moves ~10% when a sample
+    moves by 1e-3, so such a ray's normal and colour move with it.  Hence:
+    ray_mask may flip on 0.2% of the rays; depth and acc agree within 2e-3
+    on 95% of the rays (median within 1e-4); and on the rays whose depth
+    and acc agree within 1e-6 (the same samples; at least half of them),
+    normal and colour agree within 1e-2 on 99% (median within 1e-3)."""
+    import numpy as np
+
+    mask = a["ray_mask"].cpu().numpy()
+    if (mask != b["ray_mask"].cpu().numpy()).mean() > 0.002:
+        fail("chunk: ray_mask differs on more than 0.2% of the rays")
+    both = mask & b["ray_mask"].cpu().numpy()
+    if not both.any():
+        fail("chunk: no ray hit the cloud")
+    err = {key: (a[key] - b[key]).abs().reshape(len(mask), -1).amax(-1)
+           .cpu().numpy()[both]
+           for key in ("depth_values", "acc", "normal_map", "rgb_values")}
+    same = (err["depth_values"] <= 1e-6) & (err["acc"] <= 1e-6)
+    stats = {"same_sample_share": float(same.mean())}
+    for key, t, t_med, sub in (("depth_values", 2e-3, 1e-4, None),
+                               ("acc", 2e-3, 1e-4, None),
+                               ("normal_map", 1e-2, 1e-3, same),
+                               ("rgb_values", 1e-2, 1e-3, same)):
+        e = err[key] if sub is None else err[key][sub]
+        share = 0.05 if sub is None else 0.01
+        stats[key] = {q: float(np.quantile(e, v)) for q, v in
+                      (("p50", 0.5), ("p95", 0.95), ("p99", 0.99),
+                       ("max", 1.0))}
+        stats[key]["share_beyond"] = float((e > t).mean())
+        if (e > t).mean() > share or np.median(e) > t_med:
+            fail(f"chunk: {key} differs: {stats[key]}")
+    if same.mean() < 0.5:
+        fail(f"chunk: only {same.mean():.2f} of the rays kept their samples")
+    return stats
+
+
+def profile_render(render_image, scene, tp, frozen, view):
+    """Rays/s of TIMED_RENDERS warm renders of ``view`` (host clock around
+    work that ends in a synchronise), then one render under
+    ``torch.profiler``: its device-busy share and the device time of each
+    of the port's kernels and of PyTorch's top ops."""
+    import torch
+    from torch.autograd import DeviceType
+
+    args = (tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"])
+    n = len(view["uv"])
+    walls = []
+    for _ in range(TIMED_RENDERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_image(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_image(*args)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    # device time is counted once, on the kernel events; a PyTorch op's
+    # self device time is the time of the kernels it launched directly
+    kernels, ops = {}, {}
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if us <= 0 or evt.is_user_annotation:
+            continue
+        into = ops if evt.device_type == DeviceType.CPU else kernels
+        into[evt.key] = into.get(evt.key, 0.0) + us
+    groups = {label: 0.0 for label, _ in KERNEL_NAMES}
+    for key, us in kernels.items():
+        label = next((lb for lb, pat in KERNEL_NAMES if pat in key), None)
+        if label is not None:
+            groups[label] += us / 1e3
+    busy_ms = sum(kernels.values()) / 1e3
+    if busy_ms <= 0:
+        fail("profile: the profiler saw no device time")
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:15]
+    return {"rays": n, "render_wall_s": walls,
+            "rays_per_s": [n / w for w in walls],
+            "profiled_wall_ms": wall_prof * 1e3,
+            "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / (wall_prof * 1e3),
+            "kernel_ms": groups,
+            "pytorch_ops_ms": {k: v / 1e3 for k, v in top_ops},
+            "pytorch_ops_total_ms": sum(ops.values()) / 1e3}
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: needs PyTorch", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port "
+              "on a GPU and has nothing to report without one",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    try:
+        from spurfies_tpu_torch.config import Config
+        from spurfies_tpu_torch.convert.from_jax import PRIOR_ASSET
+        from spurfies_tpu_torch.core.metrics import psnr
+        from spurfies_tpu_torch.data.synthetic import (
+            make_dust3r_like_scene,
+            make_synthetic_scene,
+        )
+        from spurfies_tpu_torch.model import field, renderer
+        from spurfies_tpu_torch.ops import cuda_build, pair_mlp
+        from spurfies_tpu_torch.ops import select_knn as sk
+        from spurfies_tpu_torch.ops import voxel_grid
+        from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
+        from spurfies_tpu_torch.train.trainer import make_render_fn
+    except ImportError as e:
+        print(f"chip_smoke: run it from a checkout of the repository ({e})",
+              file=sys.stderr)
+        return 2
+
+    # --- 1. device ---
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # --- 2. build ---
+    t0 = time.perf_counter()
+    secs = cuda_build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s wall "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    for src in cuda_build.SOURCES:
+        path = cuda_build.BUILD_DIR / f"{src}.log"
+        if path.exists():
+            for line in path.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  {src}: {line.strip()}")
+
+    # --- 3. scenes ---
+    cfg = Config()
+    prior_path = PRIOR_ASSET
+    t0 = time.perf_counter()
+    pts_a, cols_a, views_a = make_dust3r_like_scene()
+    pts_b, cols_b, views_b = make_synthetic_scene(
+        n_points=40000, n_views=3, img_res=(192, 256), radius=0.8,
+        cam_dist=2.4, seed=1)
+    scenes = {}
+    for tag, pts, cols, views, seed in (("dust3r_like", pts_a, cols_a,
+                                         views_a, 0),
+                                        ("dense_sphere", pts_b, cols_b,
+                                         views_b, 1)):
+        scene, tp, frozen = setup_scene(pts, cols, cfg, prior_path, seed,
+                                        dev)
+        view = {"uv": views["uv"], "pose": views["pose"][0],
+                "intrinsics": views["intrinsics"][0],
+                "rgb": views["rgb"][0], "mask": views["mask"][0]}
+        packed = 0 < scene.table.n_points <= 2 ** 15
+        scenes[tag] = (scene, tp, frozen, view, packed)
+        log(f"scene {tag}: {scene.points.shape[0]} points, qcap "
+            f"{scene.spec.qcap}, K1 variant {'packed' if packed else 'exact'}")
+    torch.cuda.synchronize()
+    log(f"scenes built in {time.perf_counter() - t0:.2f} s")
+    if scenes["dust3r_like"][4] is not True or scenes["dense_sphere"][4]:
+        fail("scene sizes do not select both K1 variants")
+
+    # --- 4. kernels against their plain versions ---
+    results = {}
+    chunk_rays = {}
+    n_occ = {}
+    for tag, (scene, tp, frozen, view, packed) in scenes.items():
+        prior = _prep_layers(frozen, torch.bfloat16)
+        prior_f32 = _prep_layers(frozen, torch.float32)
+        cam, dirs, n_occ[tag], sel = first_chunk(scene, view, cfg, dev)
+        chunk_rays[tag] = sel
+        with torch.no_grad():
+            inp = kernel_inputs(scene, tp, prior, cam, dirs, cfg)
+        k1 = "K1 select_knn packed" if packed else "K1 select_knn exact"
+        check_k1(k1 + " (probe)", *inp["probe_k1"], scene, cfg.model.k,
+                 packed, 20)
+        results[k1] = check_k1(k1 + " (shading)", *inp["shade_k1"], scene,
+                               cfg.model.k, packed, 20)
+        if tag == "dust3r_like":
+            results["K2 pair_sdf_value_agg"] = check_pair(
+                "K2 pair_sdf_value_agg", pair_mlp.pair_sdf_value_agg,
+                pair_mlp.pair_sdf_value_agg_ref, inp["k2"], prior,
+                prior_f32, cfg.model.rbf, 10)
+            results["K3 pair_sdf_aggregate"] = check_pair(
+                "K3 pair_sdf_aggregate", pair_mlp.pair_sdf_aggregate,
+                pair_mlp.pair_sdf_aggregate_ref, inp["k3"], prior,
+                prior_f32, cfg.model.rbf, 5)
+        del inp
+        torch.cuda.empty_cache()
+
+    # --- 5. main path ---
+    render_image = make_render_fn(cfg, device="cuda")
+    counters = (sk.LAUNCHES, pair_mlp.LAUNCHES)
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    outs, walls = {}, {}
+    for tag, (scene, tp, frozen, view, _) in scenes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[tag] = render_image(tp, scene, frozen, view["uv"], view["pose"],
+                                 view["intrinsics"])
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+    launches = {**sk.LAUNCHES, **pair_mlp.LAUNCHES}
+    log(f"main path launches: {launches}")
+
+    iters = cfg.model.ray_sampler.max_total_iters
+    chunks = {t: math.ceil(n_occ[t] / CHUNK) for t in scenes}
+    expect = {"select_knn_packed": (iters + 1) * chunks["dust3r_like"],
+              "select_knn_exact": (iters + 1) * chunks["dense_sphere"],
+              "pair_sdf_value_agg": iters * sum(chunks.values()),
+              "pair_sdf_aggregate": sum(chunks.values())}
+    if launches != expect:
+        fail(f"launch counts {launches} != expected {expect}")
+    for tag, out in outs.items():
+        n = len(scenes[tag][3]["uv"])
+        for key, v in out.items():
+            if v.shape[0] != n or not np.isfinite(v.astype(np.float64)).all():
+                fail(f"{tag}: output {key} not finite / wrong shape")
+        if out["ray_mask"].sum() < 0.1 * n:
+            fail(f"{tag}: almost no ray hit the cloud")
+        view = scenes[tag][3]
+        m = torch.as_tensor(view["mask"])
+        p = float(psnr(torch.as_tensor(out["rgb_values"]),
+                       torch.as_tensor(view["rgb"]), m))
+        log(f"render {tag}: {n} rays ({n_occ[tag]} occupied, "
+            f"{chunks[tag]} chunks) in {walls[tag]:.3f} s = "
+            f"{n / walls[tag]:.1f} rays/s; hit rays {int(out['ray_mask'].sum())}"
+            f"; masked PSNR vs the analytic view {p:.2f} dB (random colour "
+            "MLPs)")
+
+    # --- 6. one chunk through the plain versions, on the card ---
+    scene, tp, frozen, view, _ = scenes["dust3r_like"]
+    sel = chunk_rays["dust3r_like"].cpu().numpy()
+    inputs = {"uv": torch.as_tensor(view["uv"][sel], device=dev)[None],
+              "pose": torch.as_tensor(view["pose"], device=dev)[None],
+              "intrinsics": torch.as_tensor(view["intrinsics"],
+                                            device=dev)[None]}
+    params = {"frozen": _prep_layers(frozen, torch.bfloat16), "train": tp}
+    with torch.no_grad():
+        out_k = renderer.render_rays(params, scene, inputs, cfg.model,
+                                     train=False, iters=iters)
+        # the port has no switch: the smoke test substitutes the plain
+        # functions for the wrappers for this one comparison
+        saved = (voxel_grid.select_knn, field.pair_sdf_value_agg,
+                 field.pair_sdf_aggregate)
+        voxel_grid.select_knn = sk.select_knn_ref
+        field.pair_sdf_value_agg = pair_mlp.pair_sdf_value_agg_ref
+        field.pair_sdf_aggregate = pair_mlp.pair_sdf_aggregate_ref
+        try:
+            out_p = renderer.render_rays(params, scene, inputs, cfg.model,
+                                         train=False, iters=iters)
+        finally:
+            (voxel_grid.select_knn, field.pair_sdf_value_agg,
+             field.pair_sdf_aggregate) = saved
+    worst = compare_chunk(out_k, out_p)
+    log(f"chunk of {len(sel)} rays, kernels vs plain versions, per-ray "
+        f"max abs differences: {json.dumps(worst)}")
+
+    # --- 7. where the time goes (the dust3r_like scene of phase 6) ---
+    prof = profile_render(render_image, scene, tp, frozen, view)
+    log(f"profile: {json.dumps(prof)}")
+
+    # --- 8. report ---
+    rows = []
+    meta = {
+        "K1 select_knn packed": ("select_knn_packed",
+                                 "spurfies_tpu_torch/csrc/select_knn.cu",
+                                 "spurfies_tpu/ops/pallas_select.py:69"),
+        "K1 select_knn exact": ("select_knn_exact",
+                                "spurfies_tpu_torch/csrc/select_knn.cu",
+                                "spurfies_tpu/ops/pallas_select.py:33"),
+        "K2 pair_sdf_value_agg": ("pair_sdf_value_agg",
+                                  "spurfies_tpu_torch/csrc/pair_mlp.cu",
+                                  "spurfies_tpu/ops/pallas_mlp.py:640"),
+        "K3 pair_sdf_aggregate": ("pair_sdf_aggregate",
+                                  "spurfies_tpu_torch/csrc/pair_mlp.cu",
+                                  "spurfies_tpu/ops/pallas_mlp.py:576"),
+    }
+    for label, (key, src, rep) in meta.items():
+        r = results[label]
+        rows.append({"name": label, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[key],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
+        if launches[key] == 0:
+            fail(f"{label} was not launched on the main path")
+    log(json.dumps({"kernels": rows}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

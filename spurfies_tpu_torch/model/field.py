@@ -1,0 +1,211 @@
+"""Neural-point SDF/color field: RBF interpolation over kNN latents (port of
+the render-path parts of ``spurfies_tpu/model/field.py``).
+
+Reference ``spurfies/model/pointneus_disent.py``:
+  * RBF weights ``exp(-(45 d)^2)`` with detached distances, normalized per
+    shading point (:241-247).
+  * SDF: frozen F_geometry([geo_latent, x-p]) -> T per pair, weighted
+    average over the k neighbours (:300-313); its spatial gradient by
+    double backprop (:315-323) -- here the K3 kernel's down sweep.
+  * color: F_color([posenc(x-p), color_latent]) aggregated, then
+    R([viewenc(dir), agg_feat]) -> sigmoid (:325-346).
+  * empty-space filler SDF = 1000 (:271).
+
+The frozen prior arrives prepared once (``ops.pair_mlp._prep_layers``:
+cast + exact linear-tail fusion); its compute dtype is the prepared
+layers' dtype.  The JAX package's module switches (fused MLP, fused
+aggregation, scatter mode, fused color) have no counterpart: the SDF
+always goes through K2/K3 -- the kernel for a CUDA tensor, the plain
+version for a CPU tensor.
+"""
+
+import torch
+
+from spurfies_tpu_torch.core.embedder import positional_encoding
+from spurfies_tpu_torch.model.networks import matmul_in, mlp_apply
+from spurfies_tpu_torch.ops.pair_mlp import (
+    DUMP_POS,
+    PriorLayers,
+    pair_sdf_aggregate,
+    pair_sdf_value_agg,
+)
+from spurfies_tpu_torch.ops.voxel_grid import fine_occupancy, query_grid
+
+SDF_FILLER = 1000.0
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+                      + v[..., 2] * v[..., 2])
+
+
+def rbf_weights(x_pi: torch.Tensor, valid: torch.Tensor, rbf: float):
+    """(w ``[M, K]`` unnormalized, invalid -> 0; norm ``[M, 1]``).
+    Distances are detached (reference :242)."""
+    dist = torch.clamp(_norm3(x_pi.detach()), min=1e-12)
+    w = torch.exp(-((dist * rbf) ** 2)) * valid.to(x_pi.dtype)
+    return w, torch.sum(w, dim=-1, keepdim=True)
+
+
+def pair_table(latents: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """``[N+1, D+3]`` rows ``[latent | position]``; row N is the dump row
+    (zero latent, position DUMP_POS) that invalid pairs index."""
+    d = latents.shape[1]
+    dump = torch.cat([latents.new_zeros(1, d),
+                      latents.new_full((1, 3), DUMP_POS)], 1)
+    return torch.cat([torch.cat([latents, points.to(latents.dtype)], 1),
+                      dump], 0).contiguous()
+
+
+def _idx_ext(idx, valid, n):
+    return torch.where(valid, torch.clamp(idx, min=0), n).to(torch.int32)
+
+
+def _aggregate_sdf_value_agg(prior: PriorLayers, geo_latents, points,
+                             idx_ext, x, rbf):
+    """No-grad value + aggregation (K2): (sdf, has)."""
+    pt = pair_sdf_value_agg(pair_table(geo_latents, points), idx_ext,
+                            x.contiguous(), prior, rbf)
+    num, den = pt[:, 0], pt[:, 1]
+    has = den > 0
+    sdf = torch.where(has, num / torch.where(has, den, 1.0), SDF_FILLER)
+    return sdf, has
+
+
+def aggregate_sdf(prior: PriorLayers, geo_latents, points, idx, valid, x,
+                  rbf, need_grad: bool = True):
+    """RBF-weighted SDF at positions ``x`` ``[M, 3]`` from neighbours
+    ``idx``/``valid`` ``[M, K]``.
+
+    Returns (sdf ``[M]`` -- SDF_FILLER where no valid neighbour, has
+    ``[M]`` bool).  Only the value-only K2 path (need_grad=False) is in
+    this slice; the differentiable one needs K3's backward (K4).
+    """
+    if need_grad:
+        raise NotImplementedError(
+            "aggregate_sdf(need_grad=True): ROADMAP.md Queue 1, training "
+            "slice")
+    idx_ext = _idx_ext(idx, valid, geo_latents.shape[0])
+    return _aggregate_sdf_value_agg(prior, geo_latents, points, idx_ext, x,
+                                    rbf)
+
+
+def compact_pair_slots(valid_flat: torch.Tensor, budget: int):
+    """First ``budget`` True positions of ``valid_flat`` (fixed shape).
+
+    Returns (slot ``[budget]`` int64 positions, clipped where unused;
+    ok ``[budget]`` bool; overflowed ``[]`` bool -- True when valid
+    positions were dropped).  ``torch.cumsum`` gives the ranks; the JAX
+    package's blocked ``cumsum_1d`` works around a slow TPU scan and gives
+    the same ranks.
+    """
+    p = valid_flat.shape[0]
+    dev = valid_flat.device
+    ranks = torch.cumsum(valid_flat.to(torch.int64), 0) - 1
+    n_valid = ranks[-1] + 1
+    dest = torch.where(valid_flat & (ranks < budget), ranks, budget)
+    slot = torch.full((budget + 1,), p, dtype=torch.int64, device=dev)
+    slot[dest] = torch.arange(p, device=dev)
+    slot = slot[:budget]
+    ok = slot < p
+    return torch.clamp(slot, max=p - 1), ok, n_valid > budget
+
+
+def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
+              budget_frac: float | None = 0.25, need_grad: bool = True,
+              return_overflow: bool = False):
+    """SDF at arbitrary world points (filler 1000 in empty space).
+
+    budget_frac: a fine-occupancy lookup prunes empty-space probe points
+    BEFORE the kNN query, and only the first ``budget_frac * M`` occupied
+    points (fixed shape) run query + pair MLP.  None disables it (all M
+    run, masked).  ``r`` must match the radius of the scene's table.
+    return_overflow: also return a ``[]`` bool -- occupied probe points
+    were dropped by the budget.
+    """
+    m = x.shape[0]
+    budget = (max(int(m * budget_frac) // 128 * 128, 128)
+              if budget_frac is not None else m)
+    if budget_frac is None or m < 1024 or budget >= m:
+        idx, _ = query_grid(x, scene.table, scene.spec, k=k)
+        sdf, _ = aggregate_sdf(prior, geo_latents, scene.points, idx,
+                               idx >= 0, x, rbf, need_grad=need_grad)
+        if return_overflow:
+            return sdf, torch.zeros((), dtype=torch.bool, device=x.device)
+        return sdf
+
+    occ = fine_occupancy(x, scene.occ_fine, scene.spec)
+    sel, sel_ok, overflowed = compact_pair_slots(occ, budget)
+    x_c = x[sel]
+    idx_c, _ = query_grid(x_c, scene.table, scene.spec, k=k)
+    valid_c = (idx_c >= 0) & sel_ok[:, None]
+    sdf_c, _ = aggregate_sdf(prior, geo_latents, scene.points, idx_c,
+                             valid_c, x_c, rbf, need_grad=need_grad)
+    # unused budget slots scatter into a spare last element (a masked
+    # index would cost a device sync)
+    out = torch.full((m + 1,), SDF_FILLER, dtype=x.dtype, device=x.device)
+    out[torch.where(sel_ok, sel, m)] = torch.where(sel_ok, sdf_c, SDF_FILLER)
+    out = out[:m]
+    if return_overflow:
+        return out, overflowed
+    return out
+
+
+def sdf_and_grad(prior: PriorLayers, geo_latents, points, idx, valid, x,
+                 rbf):
+    """Aggregated SDF and its spatial gradient d(sdf)/dx (K3).
+
+    The RBF weights are constant in x (detached distances, reference
+    :242), so d(agg)/dx is the weighted sum of the per-pair input
+    gradients, which K3 computes in its down sweep.  Forward only in this
+    slice.
+    """
+    idx_ext = _idx_ext(idx, valid, geo_latents.shape[0])
+    pt, _, _ = pair_sdf_aggregate(pair_table(geo_latents, points), idx_ext,
+                                  x.contiguous(), prior, rbf)
+    num, den, gagg = pt[:, 0], pt[:, 1], pt[:, 2:5]
+    has = den > 0
+    den_s = torch.where(has, den, 1.0)
+    sdf = torch.where(has, num / den_s, SDF_FILLER)
+    return sdf, gagg / den_s[:, None]
+
+
+def aggregate_color(train_params, color_latents, points, idx, valid, x,
+                    ray_dirs, rbf, pos_multires=6, view_multires=3,
+                    compute_dtype=torch.bfloat16):
+    """View-dependent color ``[M, 3]`` in [0, 1] at shading points ``x``.
+
+    The color MLPs run in ``compute_dtype`` (bf16 by default, as in the JAX
+    package); aggregation stays f32.  F_color's last layer has no
+    activation, so it commutes with the weighted aggregation and runs once
+    per point on the aggregate (the exact linear-tail fold of
+    ``spurfies_tpu/model/field.py:745-773``).
+    """
+    safe_idx = torch.clamp(idx, min=0).long()
+    d = color_latents.shape[1]
+    g3 = torch.cat([color_latents, points.to(color_latents.dtype)],
+                   1)[safe_idx]                              # [M, K, D+3]
+    cfeat = g3[..., :d]
+    x_pi = x[:, None, :] - g3[..., d:]
+    w, norm = rbf_weights(x_pi, valid, rbf)
+
+    pos_enc = positional_encoding(x_pi, pos_multires)        # [M, K, 39]
+    field_in = torch.cat([pos_enc, cfeat], dim=-1)           # [M, K, 103]
+    f_color = train_params["F_color"]
+    h = mlp_apply(f_color[:-1], field_in, final_act="leaky_relu",
+                  compute_dtype=compute_dtype)               # [M, K, 256]
+    h = torch.where(valid[..., None], h, 0.0)
+    has = norm > 0
+    den = torch.where(has, norm, 1.0)
+    hbar = torch.sum(w[..., None] * h, dim=-2) / den         # [M, 256]
+    swn = torch.sum(w, dim=-1, keepdim=True) / den           # 1 valid, 0 not
+    w4, b4 = f_color[-1]["w"], f_color[-1]["b"]
+    if compute_dtype is not None and compute_dtype != torch.float32:
+        agg = matmul_in(hbar, w4, compute_dtype).to(compute_dtype).to(
+            hbar.dtype) + swn * b4
+    else:
+        agg = hbar @ w4 + swn * b4
+
+    dir_enc = positional_encoding(ray_dirs, view_multires)   # [M, 21]
+    return mlp_apply(train_params["R"], torch.cat([dir_enc, agg], -1),
+                     final_act="sigmoid", compute_dtype=compute_dtype)

@@ -1,0 +1,224 @@
+"""Neural-point VolSDF forward pass, eval branch (port of
+``spurfies_tpu/model/renderer.py``; reference
+``spurfies/model/pointneus_disent.py:614-908``).
+
+Dense ``[R, S]`` with masks, as in the JAX package: the reference's
+``max_shading_pts`` ragged compaction is :func:`ops.voxel_grid.compact_rays`
+over the has-neighbour mask, and colour runs on the top-W samples per ray
+by rendering weight with the mass rescale.
+
+This slice ports the eval render (``train=False``) at the model options of
+the default ``ModelConfig``.  Branches outside it raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+"""
+
+import torch
+
+from spurfies_tpu_torch.config import ModelConfig
+from spurfies_tpu_torch.core.cameras import get_camera_params
+from spurfies_tpu_torch.core.density import get_beta, laplace_density
+from spurfies_tpu_torch.core.quadrature import render_weights
+from spurfies_tpu_torch.model import field
+from spurfies_tpu_torch.model.sampler import error_bound_z_vals, linspace
+from spurfies_tpu_torch.ops.pair_mlp import PriorLayers
+from spurfies_tpu_torch.ops.voxel_grid import (
+    compact_rays,
+    fine_occupancy,
+    query_grid,
+)
+
+
+def _check_supported(cfg: ModelConfig, train: bool):
+    if train:
+        raise NotImplementedError(
+            "training renders (stratified sampling, grad_theta, ray budget, "
+            "occ_compact): ROADMAP.md Queue 1, training slice")
+    for name, on, item in (
+            ("entangled", cfg.entangled, "Legacy entangled model"),
+            ("render_budget_frac", cfg.render_budget_frac > 0,
+             "render_budget_frac / pair_budget_frac paths"),
+            ("pair_budget_frac", cfg.pair_budget_frac > 0,
+             "render_budget_frac / pair_budget_frac paths"),
+            ("color_pair_frac", cfg.color_pair_frac > 0,
+             "color_pair_frac path")):
+        if on:
+            raise NotImplementedError(
+                f"model.{name}: ROADMAP.md Queue 1 item '{item}'")
+
+
+def _take(vals: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """``vals[r, sel[r, s], ...]`` -- ``torch.gather``.  The JAX package's
+    one-hot compare-reduce (``_take_z`` / ``_take_rows``) works around the
+    TPU's slow gathers and gives the same values."""
+    if vals.ndim == 2:
+        return torch.gather(vals, 1, sel)
+    idx = sel[..., None].expand(*sel.shape, vals.shape[-1])
+    return torch.gather(vals, 1, idx)
+
+
+def render_rays(params, scene, inputs, cfg: ModelConfig, *, train: bool,
+                iters: int):
+    """Render a batch of rays.
+
+    Args:
+      params: ``{"frozen": PriorLayers, "train": ...}``; the frozen prior is
+        prepared once by ``ops.pair_mlp._prep_layers``, whose compute dtype
+        the pair MLP runs in.
+      scene: SceneState.
+      inputs: ``uv [1, R, 2]``, ``pose [1, 4, 4]``, ``intrinsics [1, 4, 4]``.
+      train: must be False in this slice.
+      iters: sampler iterations.
+
+    Returns a dict of dense ``[R, ...]`` outputs + ``ray_mask``.
+    """
+    _check_supported(cfg, train)
+    uv, pose, intrinsics = inputs["uv"], inputs["pose"], inputs["intrinsics"]
+    ray_dirs_b, cam_loc_b = get_camera_params(uv, pose, intrinsics)
+    ray_dirs = ray_dirs_b.reshape(-1, 3)
+    cam_loc = torch.broadcast_to(cam_loc_b[:, None, :],
+                                 ray_dirs_b.shape).reshape(-1, 3)
+    # depth scale: z-component of the rays in the camera frame
+    eye = torch.eye(4, dtype=pose.dtype, device=pose.device).expand(
+        pose.shape)
+    dirs_cam, _ = get_camera_params(uv, eye, intrinsics)
+    depth_scale = dirs_cam.reshape(-1, 3)[:, 2:]
+
+    out = _render_body(params["frozen"], params["train"], scene, cam_loc,
+                       ray_dirs, depth_scale, cfg, iters=iters)
+    out["ray_budget_overflow"] = torch.zeros((), dtype=torch.bool,
+                                             device=ray_dirs.device)
+    return out
+
+
+def coarse_ray_occupancy(cam_loc, ray_dirs, scene, scfg):
+    """Per ray: does any of the n_samples_eval uniform-grid samples land in
+    an occupied FINE cell?  A superset of the render's has-neighbour ray
+    mask (the eval skip-empty test)."""
+    z = linspace(scfg.near, scfg.far, scfg.n_samples_eval, cam_loc.device)
+    pts = cam_loc[:, None, :] + z[None, :, None] * ray_dirs[:, None, :]
+    occ = fine_occupancy(pts.reshape(-1, 3), scene.occ_fine, scene.spec)
+    return torch.any(occ.reshape(pts.shape[0], -1), dim=-1)
+
+
+def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
+                 depth_scale, cfg: ModelConfig, *, iters: int):
+    scfg = cfg.ray_sampler
+    S = cfg.max_shading_pts
+    K = cfg.k
+    n_rays = ray_dirs.shape[0]
+
+    beta0 = get_beta(tp["beta"], cfg.density.beta_min).detach()
+    # eval probes: the quality-gated 0.25 occupancy budget, or dense
+    pf = None if cfg.probe_budget_frac >= 1 else 0.25
+    geo = tp["feats_geometry"].detach()
+
+    def sdf_probe_fn(x, first=False):
+        return field.sdf_probe(prior, geo, scene, x, cfg.probe_k or cfg.k,
+                               cfg.r, cfg.rbf, budget_frac=pf,
+                               need_grad=False, return_overflow=True)
+
+    z_all, probe_overflow = error_bound_z_vals(
+        sdf_probe_fn, cam_loc, ray_dirs, scfg, beta0, iters, train=False)
+    z_all = z_all.detach()
+    points = cam_loc[:, None, :] + z_all[..., None] * ray_dirs[:, None, :]
+
+    # query all samples, then first-S compaction by has-neighbour
+    idx_all, _ = query_grid(points.reshape(-1, 3), scene.table, scene.spec,
+                            k=K)
+    idx_all = idx_all.reshape(n_rays, -1, K)
+    has_any = torch.any(idx_all >= 0, dim=-1)               # [R, Z]
+    sel, sel_valid = compact_rays(has_any, S)               # [R, S]
+    z_sel = torch.where(sel_valid, _take(z_all, sel), 0.0)
+    nbr_idx = _take(idx_all, sel)                           # [R, S, K]
+    nbr_valid = (nbr_idx >= 0) & sel_valid[..., None]
+
+    # deltas over the compacted grid (reference filter_points :226-232)
+    z_pad = torch.cat([z_sel, torch.zeros_like(z_sel[..., :1])], -1)
+    deltas = z_pad[..., 1:] - z_pad[..., :-1]
+    deltas = torch.clamp(torch.where(sel_valid, deltas, 0.0), min=0.0)
+
+    shading_pts = cam_loc[:, None, :] + z_sel[..., None] * ray_dirs[:, None, :]
+    flat_x = shading_pts.reshape(-1, 3)
+    flat_idx = nbr_idx.reshape(-1, K)
+    flat_valid = nbr_valid.reshape(-1, K)
+
+    sdf_flat, grad_flat = field.sdf_and_grad(
+        prior, tp["feats_geometry"], scene.points, flat_idx, flat_valid,
+        flat_x, cfg.rbf)
+    sdf = sdf_flat.reshape(n_rays, S)
+    gradients = grad_flat.reshape(n_rays, S, 3)
+
+    valid_pt = sel_valid
+    beta = get_beta(tp["beta"], cfg.density.beta_min)
+    density = torch.where(valid_pt, laplace_density(sdf, beta), 0.0)
+    weights = render_weights(deltas, density)               # [R, S]
+    acc = torch.sum(weights, -1, keepdim=True)
+
+    W = cfg.color_top_samples
+    if 0 < W < S:
+        # colour only the top-W samples per ray by rendering weight,
+        # rescaled to the total weight mass.  A stable descending sort
+        # breaks ties by the lower index, as lax.top_k does.
+        w_masked = torch.where(valid_pt, weights, -1.0)
+        w_top, top = torch.sort(w_masked, dim=-1, descending=True,
+                                stable=True)
+        w_top = torch.clamp(w_top[:, :W], min=0.0)
+        top = top[:, :W]
+        t_idx = _take(nbr_idx, top)
+        t_valid = _take(nbr_valid, top)
+        t_x = _take(shading_pts, top)
+        t_dirs = ray_dirs[:, None, :].expand(n_rays, W, 3)
+        colors_w = field.aggregate_color(
+            tp, tp["feats_color"], scene.points, t_idx.reshape(-1, K),
+            t_valid.reshape(-1, K), t_x.reshape(-1, 3),
+            t_dirs.reshape(-1, 3), cfg.rbf, cfg.pos_multires,
+            cfg.view_multires).reshape(n_rays, W, 3)
+        mass_top = torch.sum(w_top, -1, keepdim=True)
+        rgb = torch.sum(w_top[..., None] * colors_w, dim=1)
+        rgb = rgb * (acc / torch.clamp(mass_top, min=1e-10))
+    else:
+        flat_dirs = ray_dirs[:, None, :].expand(n_rays, S, 3).reshape(-1, 3)
+        colors = field.aggregate_color(
+            tp, tp["feats_color"], scene.points, flat_idx, flat_valid,
+            flat_x, flat_dirs, cfg.rbf, cfg.pos_multires,
+            cfg.view_multires).reshape(n_rays, S, 3)
+        colors = torch.where(valid_pt[..., None], colors, 0.0)
+        rgb = torch.sum(weights[..., None] * colors, dim=1)
+    depth = torch.sum(weights * z_sel, -1, keepdim=True) / (acc + 1e-8)
+
+    ray_mask = torch.any(valid_pt, dim=-1)
+
+    # pseudo-SDF points: weight-normalized rendered depth (reference :765-775)
+    w_norm = weights / (torch.sum(weights, -1, keepdim=True) + 1e-10)
+    dist_map = torch.sum(w_norm * z_sel, -1)
+    pts_rendered = cam_loc + ray_dirs * dist_map[:, None]
+
+    rm = ray_mask[:, None]
+    out = {
+        "rgb_values": torch.where(rm, rgb, 0.0),
+        "depth_values": torch.where(rm, depth, 1.0),
+        "acc": torch.where(rm, acc, 0.0),
+        "weights": torch.where(rm, weights, 0.0),
+        "depth_vals": torch.where(rm, z_sel * depth_scale, scfg.far),
+        "xyz": torch.where(valid_pt[..., None], shading_pts, 0.0),
+        "sdf": torch.where(valid_pt, sdf, field.SDF_FILLER),
+        "z_sel": z_sel,
+        "valid_pt": valid_pt,
+        "ray_mask": ray_mask,
+        "pts_rendered": pts_rendered,
+        "grad_theta": gradients,
+        "nbr_idx": nbr_idx,
+        "nbr_valid": nbr_valid,
+        "cam_loc": cam_loc,
+        "ray_dirs": ray_dirs,
+        "probe_budget_overflow": probe_overflow,
+    }
+    if cfg.white_bkgd:
+        out["rgb_values"] = out["rgb_values"] + (1.0 - acc) * torch.tensor(
+            cfg.bg_color, dtype=acc.dtype, device=acc.device)
+
+    g = gradients.detach()
+    normals = g / (field._norm3(g)[..., None] + 1e-12)
+    normals = torch.where(valid_pt[..., None], normals, 0.0)
+    out["normal_map"] = torch.sum(weights[..., None] * normals, dim=1)
+    return out

@@ -1,0 +1,176 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+that has only PyTorch and a card (``tests/conftest.py`` sets JAX up, and
+``--noconftest`` leaves it out):
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
+
+Without a card every test skips.  Inputs are made with numpy from a seed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spurfies_tpu_torch.config import Config, apply_overrides
+from spurfies_tpu_torch.convert.from_jax import load_prior_npz
+from spurfies_tpu_torch.data.synthetic import make_synthetic_scene
+from spurfies_tpu_torch.model import field
+from spurfies_tpu_torch.model.networks import init_model_params
+from spurfies_tpu_torch.model.neural_points import build_scene
+from spurfies_tpu_torch.ops import pair_mlp
+from spurfies_tpu_torch.ops import select_knn as sk
+from spurfies_tpu_torch.ops import voxel_grid as vg
+from spurfies_tpu_torch.train.trainer import make_render_fn
+
+SPEC = vg.VoxelGridSpec()
+RBF = 45.0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in f32
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_select_knn_matches_plain(cuda, packed):
+    """K1 against its plain version: ids and d2 bit-equal (the kernel does
+    the plain version's f32 operations, without FMA contraction)."""
+    rng = np.random.default_rng(5)
+    pts = torch.from_numpy(
+        rng.uniform(-0.8, 0.8, (3000, 3)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(
+        rng.uniform(-0.9, 0.9, (4096, 3)).astype(np.float32)).to(cuda)
+    qt = vg.build_query_table(pts, SPEC, r=2.0)
+    cid = vg._cell_ids(x, SPEC)
+    cid[:8] = -7                       # outside the table: no neighbours
+    cid[8:16] = SPEC.num_cells + 5
+    r2 = float(np.float32(SPEC.radius(2.0) ** 2))
+    before = dict(sk.LAUNCHES)
+    ki, kd = sk.select_knn(x, cid, qt.idx, qt.pos, r2, 8, packed)
+    ri, rd = sk.select_knn_ref(x, cid, qt.idx, qt.pos, r2, 8, packed)
+    torch.cuda.synchronize()
+    key = "select_knn_packed" if packed else "select_knn_exact"
+    assert sk.LAUNCHES[key] == before[key] + 1
+    assert torch.equal(ki, ri)
+    assert bool((ki[:16] == -1).all())
+    assert torch.equal(torch.isinf(kd), torch.isinf(rd))
+    fin = torch.isfinite(rd)
+    assert torch.equal(kd[fin], rd[fin])
+
+
+def _pair_inputs(dev, m=1000, k=8):
+    """m points (not a whole number of CUDA blocks, so the wrapper pads),
+    each with k neighbours scattered around it; 30 % of the pairs and the
+    first 5 points' pairs invalid (the dump row); two pairs each of points
+    5 and 6 index outside the table, which reads the dump row too."""
+    rng = np.random.default_rng(0)
+    n = m * k
+    lat = (0.1 * rng.normal(size=(n, 32))).astype(np.float32)
+    x = rng.uniform(-0.5, 0.5, (m, 3)).astype(np.float32)
+    perm = rng.permutation(n)
+    pts = np.empty((n, 3), np.float32)
+    pts[perm] = np.repeat(x, k, 0) + rng.normal(0, 0.03, (n, 3))
+    valid = rng.uniform(size=(m, k)) > 0.3
+    valid[:5] = False
+    idx_ext = np.where(valid, perm.reshape(m, k), n).astype(np.int32)
+    idx_ext[5, :2] = -3
+    idx_ext[6, :2] = n + 7
+    table = field.pair_table(torch.from_numpy(lat).to(dev),
+                             torch.from_numpy(pts).to(dev))
+    prior = pair_mlp._prep_layers(load_prior_npz(device=dev), torch.bfloat16)
+    return (table, torch.from_numpy(idx_ext).to(dev),
+            torch.from_numpy(x).to(dev), prior)
+
+
+def _within(out, ref, share):
+    """Per column: |out - ref| <= 2**-6 |ref| + 1e-3 of the column's max
+    |ref| on all but ``share`` of the entries, and <= 0.05 of it on all.
+    Both sides round to bf16 at the same points; only the f32 sums inside
+    each product run in another order, which can move one bf16 rounding by
+    an ulp (2**-8), and a LeakyReLU gate that flips on a kink carries it."""
+    out = out.float().reshape(out.shape[0], -1)
+    ref = ref.float().reshape(ref.shape[0], -1)
+    scale = ref.abs().amax(0, keepdim=True) + 1e-30
+    d = (out - ref).abs()
+    assert float((d > 2.0 ** -6 * ref.abs() + 1e-3 * scale).float().mean()) \
+        <= share
+    assert float((d / scale).max()) <= 0.05
+
+
+@pytest.mark.cuda
+def test_pair_sdf_value_agg_matches_plain(cuda):
+    table, idx_ext, x, prior = _pair_inputs(cuda)
+    before = pair_mlp.LAUNCHES["pair_sdf_value_agg"]
+    with torch.no_grad():
+        pt = pair_mlp.pair_sdf_value_agg(table, idx_ext, x, prior, RBF)
+        ref = pair_mlp.pair_sdf_value_agg_ref(table, idx_ext, x, prior, RBF)
+    torch.cuda.synchronize()
+    assert pair_mlp.LAUNCHES["pair_sdf_value_agg"] == before + 1
+    assert pt.shape == ref.shape == (x.shape[0], 2)
+    assert bool(torch.isfinite(pt).all())
+    assert bool((pt[:5] == 0).all())          # all-dump points: w == 0
+    _within(pt, ref, 1e-3)
+
+
+@pytest.mark.cuda
+def test_pair_sdf_aggregate_matches_plain(cuda):
+    table, idx_ext, x, prior = _pair_inputs(cuda)
+    before = pair_mlp.LAUNCHES["pair_sdf_aggregate"]
+    with torch.no_grad():
+        pt, w, r_lat = pair_mlp.pair_sdf_aggregate(table, idx_ext, x, prior,
+                                                   RBF)
+        pt_r, w_r, r_r = pair_mlp.pair_sdf_aggregate_ref(table, idx_ext, x,
+                                                         prior, RBF)
+    torch.cuda.synchronize()
+    assert pair_mlp.LAUNCHES["pair_sdf_aggregate"] == before + 1
+    assert pt.shape == (x.shape[0], 5) and w.shape == w_r.shape
+    assert r_lat.shape == r_r.shape and r_lat.dtype == torch.bfloat16
+    assert bool(torch.isfinite(pt).all())
+    # expf against torch.exp: a few ulps
+    assert float((w - w_r).abs().max()) <= 1e-6
+    _within(pt, pt_r, 1e-3)
+    _within(r_lat, r_r, 1e-3)
+
+
+@pytest.mark.cuda
+def test_render_through_kernels_matches_plain_render(cuda):
+    """A small render through ``make_render_fn`` on the card launches every
+    kernel, and agrees with the same render on the CPU (plain versions,
+    bf16 too).  The SDFs agree to a bf16 ulp, but the sampler's bisection
+    makes discrete choices on them, so a few rays move their samples:
+    ray_mask may flip on 1 % of the rays and depth may move by more than
+    2e-3 on 5 % of the rays that hit on both sides."""
+    pts, cols, views = make_synthetic_scene(n_points=1500, img_res=(24, 40))
+    cfg = apply_overrides(Config(), ["model.ray_sampler.n_samples_eval=32",
+                                     "model.ray_sampler.max_total_iters=2"])
+    outs = {}
+    before = {**sk.LAUNCHES, **pair_mlp.LAUNCHES}
+    for dev in ("cpu", cuda):
+        gen = torch.Generator().manual_seed(0)
+        scene, latents = build_scene(pts, cfg.model, cols, generator=gen,
+                                     device=dev)
+        tp = dict(init_model_params(cfg.model, gen, device=dev)["train"],
+                  **latents)
+        render = make_render_fn(cfg, device=dev)
+        outs[str(dev)] = render(tp, scene, load_prior_npz(device=dev),
+                                views["uv"], views["pose"][0],
+                                views["intrinsics"][0])
+    after = {**sk.LAUNCHES, **pair_mlp.LAUNCHES}
+    for key in ("select_knn_packed", "pair_sdf_value_agg",
+                "pair_sdf_aggregate"):
+        assert after[key] > before[key], key
+    a, b = outs["cpu"], outs["cuda"]
+    for key, v in b.items():
+        assert v.shape == a[key].shape
+        assert np.isfinite(v.astype(np.float64)).all()
+    assert (a["ray_mask"] != b["ray_mask"]).mean() <= 0.01
+    both = a["ray_mask"] & b["ray_mask"]
+    assert both.mean() > 0.2
+    err = np.abs(a["depth_values"] - b["depth_values"])[both]
+    assert (err > 2e-3).mean() <= 0.05

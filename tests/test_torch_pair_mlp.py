@@ -1,0 +1,195 @@
+"""K2 / K3 plain versions (and the field functions over them) against the
+JAX package's fused Pallas path, run as its own tests run it on the CPU
+(interpret mode, ``tests/test_pallas_mlp.py:289-303``), and against its
+plain-XLA path.  Inputs are made with numpy and handed to both packages.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spurfies_tpu.config import ModelConfig
+from spurfies_tpu.model import field as jfield
+from spurfies_tpu.model.networks import init_model_params
+from spurfies_tpu.ops import pallas_mlp as jpm
+from spurfies_tpu_torch.convert.from_jax import params_from_numpy
+from spurfies_tpu_torch.model import field as tfield
+from spurfies_tpu_torch.ops import pair_mlp as tpm
+
+M, K = 256, 8
+N = M * K
+RBF = 45.0
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params = init_model_params(jax.random.PRNGKey(1), ModelConfig())
+    rng = np.random.default_rng(0)
+    lat = (0.1 * rng.normal(size=(N, 32))).astype(np.float32)
+    # each query's neighbours scattered around it at the query radius's
+    # scale (weights far below f32's normal range would make "has a
+    # neighbour" depend on denormal flushing, which XLA's CPU does)
+    x = rng.uniform(-0.5, 0.5, (M, 3)).astype(np.float32)
+    perm = rng.permutation(N)
+    idx = perm.reshape(M, K).astype(np.int32)
+    pts = np.empty((N, 3), np.float32)
+    pts[perm] = np.repeat(x, K, 0) + rng.normal(0, 0.03, (N, 3))
+    valid = rng.uniform(size=(M, K)) > 0.3
+    valid[:5] = False                                   # empty points
+    frozen_np = jax.tree_util.tree_map(np.asarray, params["frozen"])
+    return params["frozen"], frozen_np, lat, pts, idx, valid, x
+
+
+def _jax_fused(fn, dtype=jnp.float32):
+    try:
+        jfield.set_fused_mlp("on", dtype)
+        jfield.set_fused_agg(True)
+        jfield.FUSED_AGG_R_DTYPE = jnp.float32
+        return fn()
+    finally:
+        jfield.set_fused_mlp("auto", jnp.float32)
+        jfield.set_fused_agg(False)
+        jfield.FUSED_AGG_R_DTYPE = jnp.bfloat16
+
+
+def _torch_inputs(setup, compute_dtype):
+    _, frozen_np, lat, pts, idx, valid, x = setup
+    prior = tpm._prep_layers(params_from_numpy(frozen_np, "cpu"),
+                             compute_dtype)
+    table = tfield.pair_table(torch.from_numpy(lat), torch.from_numpy(pts))
+    idx_ext = torch.from_numpy(np.where(valid, idx, N).astype(np.int32))
+    return prior, table, idx_ext, torch.from_numpy(x)
+
+
+def test_prep_layers_matches_jax(setup):
+    frozen, _, *_ = setup
+    ws_j, bs_j, n_act = jpm._prep_layers(frozen, jnp.float32)
+    prior = _torch_inputs(setup, torch.float32)[0]
+    assert prior.n_act == n_act == 4
+    for a, b in zip(prior.ws + prior.bs, list(ws_j) + list(bs_j)):
+        # the fused tail is an f32 product summed in another order
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-7)
+
+
+def test_aggregate_plain_matches_fused_interpret_f32(setup):
+    """K3 plain in f32 against the Pallas kernel in f32: same math, f32
+    sums in another order -> ~1e-5 relative."""
+    frozen, _, lat, pts, idx, valid, x = setup
+    idx_ext = np.where(valid, idx, N).astype(np.int32)
+    (num, den, gagg), (w_j, r_j, *_) = _jax_fused(lambda: jfield._agg_fwd_impl(
+        frozen, jnp.asarray(lat), jnp.asarray(pts), jnp.asarray(idx_ext),
+        jnp.asarray(x), RBF))
+    prior, table, t_idx, tx = _torch_inputs(setup, torch.float32)
+    pt, w, r_lat = tpm.pair_sdf_aggregate(table, t_idx, tx, prior, RBF)
+    for got, ref in ((pt[:, 0], num), (pt[:, 1], den), (pt[:, 2:], gagg),
+                     (w, np.asarray(w_j)[:M * K, 0]),
+                     (r_lat, np.asarray(r_j)[:M * K])):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max())
+    assert r_lat.dtype == torch.float32
+
+
+def test_value_agg_plain_matches_fused_interpret_f32(setup):
+    frozen, _, lat, pts, idx, valid, x = setup
+    idx_ext = np.where(valid, idx, N).astype(np.int32)
+    sdf_j, has_j = _jax_fused(lambda: jfield._aggregate_sdf_value_agg(
+        frozen, jnp.asarray(lat), jnp.asarray(pts), jnp.asarray(idx_ext),
+        jnp.asarray(x), RBF))
+    prior, table, t_idx, tx = _torch_inputs(setup, torch.float32)
+    pt = tpm.pair_sdf_value_agg(table, t_idx, tx, prior, RBF)
+    has = pt[:, 1] > 0
+    np.testing.assert_array_equal(has.numpy(), np.asarray(has_j))
+    sdf = torch.where(has, pt[:, 0] / torch.where(has, pt[:, 1], 1.0), 1000.0)
+    np.testing.assert_allclose(sdf.numpy(), np.asarray(sdf_j), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_plain_bf16_matches_fused_interpret_bf16(setup):
+    """In bf16 the plain version rounds where the Pallas kernel rounds, so
+    the two agree up to a bf16 rounding that the f32 sums' order moves by
+    one ulp (2**-8): 99.5% of the points within 2**-6 relative + 1e-3 of
+    the scale."""
+    frozen, _, lat, pts, idx, valid, x = setup
+    idx_ext = np.where(valid, idx, N).astype(np.int32)
+    (num, den, gagg), _ = _jax_fused(lambda: jfield._agg_fwd_impl(
+        frozen, jnp.asarray(lat), jnp.asarray(pts), jnp.asarray(idx_ext),
+        jnp.asarray(x), RBF), jnp.bfloat16)
+    prior, table, t_idx, tx = _torch_inputs(setup, torch.bfloat16)
+    pt, _, r_lat = tpm.pair_sdf_aggregate(table, t_idx, tx, prior, RBF)
+    assert r_lat.dtype == torch.bfloat16
+    for got, ref in ((pt[:, 0], num), (pt[:, 1], den), (pt[:, 2:], gagg)):
+        ref = np.asarray(ref).reshape(M, -1)
+        got = got.numpy().reshape(M, -1)
+        d = np.abs(got - ref)
+        tol = 2.0 ** -6 * np.abs(ref) + 1e-3 * np.abs(ref).max(0)
+        assert (d > tol).mean() <= 0.005
+        assert d.max() <= 0.05 * np.abs(ref).max()
+
+
+def test_field_matches_jax_plain_xla_path(setup):
+    """Against the JAX package's plain-XLA path (no fused tail, autodiff
+    gradient) with test_pallas_mlp.py's own tolerances: the split first
+    layer can flip a LeakyReLU gate on a kink row, so the gradient is held
+    by the share of entries off by more than 1e-4 rel + 1e-5 (< 2%)."""
+    frozen, frozen_np, lat, pts, idx, valid, x = setup
+    s_ref, g_ref = jfield.sdf_and_grad(frozen, jnp.asarray(lat),
+                                       jnp.asarray(pts), jnp.asarray(idx),
+                                       jnp.asarray(valid), jnp.asarray(x),
+                                       RBF)
+    v_ref, has_ref = jfield.aggregate_sdf(
+        frozen, jnp.asarray(lat), jnp.asarray(pts), jnp.asarray(idx),
+        jnp.asarray(valid), jnp.asarray(x), RBF, need_grad=False)
+    prior = tpm._prep_layers(params_from_numpy(frozen_np, "cpu"),
+                             torch.float32)
+    args = (torch.from_numpy(lat), torch.from_numpy(pts),
+            torch.from_numpy(idx), torch.from_numpy(valid),
+            torch.from_numpy(x), RBF)
+    s, g = tfield.sdf_and_grad(prior, *args)
+    v, has = tfield.aggregate_sdf(prior, *args, need_grad=False)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_array_equal(has.numpy(), np.asarray(has_ref))
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-4,
+                               atol=1e-5)
+    gerr = np.abs(g.numpy() - np.asarray(g_ref))
+    assert float((gerr > 1e-4 * np.abs(np.asarray(g_ref)) + 1e-5).mean()) \
+        < 0.02
+
+
+def test_pairs_outside_the_table_read_the_dump_row(setup):
+    """An index outside [0, N] reads the dump row (w == 0), as N does; the
+    kernels guard their table reads the same way."""
+    prior, table, idx_ext, x = _torch_inputs(setup, torch.float32)
+    bad = idx_ext.clone()
+    bad[7, :3] = -2
+    bad[8, :3] = N + 11
+    dump = idx_ext.clone()
+    dump[7, :3] = N
+    dump[8, :3] = N
+    for fn in (tpm.pair_sdf_value_agg, tpm.pair_sdf_aggregate):
+        got, ref = fn(table, bad, x, prior, RBF), fn(table, dump, x, prior,
+                                                     RBF)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert torch.equal(a, b)
+
+
+def test_aggregate_is_forward_only(setup):
+    prior, table, idx_ext, x = _torch_inputs(setup, torch.float32)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tpm.pair_sdf_aggregate(table.requires_grad_(), idx_ext, x, prior, RBF)
+    with torch.no_grad():
+        tpm.pair_sdf_aggregate(table, idx_ext, x, prior, RBF)
+
+
+def test_kernel_buffers_need_bf16(setup):
+    prior = _torch_inputs(setup, torch.float32)[0]
+    with pytest.raises(ValueError, match="bf16"):
+        prior.kernel_buffers()
+    wbuf, bbuf = _torch_inputs(setup, torch.bfloat16)[0].kernel_buffers()
+    assert wbuf.dtype == torch.bfloat16 and wbuf.numel() == 416000
+    assert bbuf.numel() == 4 * 256 + 1
