@@ -10,27 +10,48 @@ failure exits non-zero before the last line):
 
   1. device: the card's name and ``nvidia-smi`` name / power limit;
   2. build: every kernel of ``spurfies_tpu_torch/csrc`` with nvcc for
-     sm_90a, one process per source (seconds, registers, spills);
+     sm_90a, one process per source, all at once (seconds, registers,
+     spills);
   3. scenes: the DUSt3R-like cloud of ``make_dust3r_like_scene`` (the
      JAX package's bench scene, 192x256 views; ~6k points -> the packed K1
      variant) and a dense 40k-point sphere (>2**15 points -> the exact K1
      variant), both with the repo's pretrained prior
      (``spurfies_tpu_torch/assets/local_prior.npz``) and seeded latents;
-  4. kernels: each kernel against its plain PyTorch version on the card, in
-     bf16, on the inputs of the first 4096-ray chunk of each scene's render
-     (probe and shading shapes of the main path), with timings and bounds;
-  5. main path: launch counters set to 0, then ``make_render_fn`` renders
+  4. render kernels: K1-K3 against their plain PyTorch versions on the
+     card, in bf16, on the inputs of the first 4096-ray chunk of each
+     scene's render (probe and shading shapes), with timings and bounds;
+  5. render path: launch counters set to 0, then ``make_render_fn`` renders
      view 0 of both scenes in full (2 x 49,152 rays, default ModelConfig,
      render_chunk=4096, 5 sampler iterations); outputs must be finite and
      every kernel's counter must have moved by the count the chunking
      implies; prints rays/s and the masked PSNR against the analytic view;
-  6. reference: the first 4096-ray chunk rendered again with the plain
-     versions substituted for the kernels, on the card, compared ray by ray;
-  7. where the time goes: view 0 of the DUSt3R-like scene rendered warm
-     TIMED_RENDERS times (rays/s), then once under ``torch.profiler``: the
-     device-busy share, the device time of each of the port's kernels and
-     of PyTorch's own ops, as one ``profile:`` JSON line;
-  8. the ``kernels`` JSON line, then the device JSON line.
+  6. reference render: the first 4096-ray chunk rendered again with the
+     plain versions substituted for the kernels, compared ray by ray;
+  7. where the render's time goes: view 0 of the DUSt3R-like scene
+     rendered warm TIMED_RENDERS times (rays/s), then once under
+     ``torch.profiler`` (the ``profile:`` JSON line);
+  8. training kernels: a ``Trainer`` on the DUSt3R-like scene at full
+     width (1024 rays/step, default config, auto budgets) takes one step
+     whose kernel inputs are kept; every launch of it runs again against
+     its plain version: K1 (probe, shading, pseudo-SDF), K2 (probe) and K3
+     (render SDF, pseudo-SDF) by the limits of phase 4; K4 and K5 within
+     the f32 sum-order limit of ``sum_order_within`` (an f32-reordered
+     plain sum is read beside it as a control), with timings, bounds and
+     ``index_add_`` as the library yardstick;
+  9. reference step: the loss and the gradient of every trained tensor of
+     one batch, through the kernels and through the plain versions, with
+     the same batch and draws, compared by ``compare_grads``; then two
+     steps under ``torch.cuda.set_sync_debug_mode`` count the host syncs;
+ 10. training path: the DUSt3R-like scene renders view 0 (masked PSNR),
+     trains a warm-up window, then -- counters set to 0 -- TRAIN_STEPS
+     timed steps (train rays/s), and renders view 0 again; the loss must
+     stay finite, no step may be skipped, rgb_loss must fall and every
+     kernel's counter must equal steps x its per-step count; a few steps
+     on the dense sphere drive K4/K5 with N > 2**15 and the exact K1;
+ 11. where a step's time goes: PROFILE_STEPS steps under
+     ``torch.profiler`` (the ``train profile:`` JSON line);
+ 12. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the device
+     JSON line.
 """
 
 import json
@@ -46,11 +67,25 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 CHUNK = 4096
 TIMED_RENDERS = 3
+TRAIN_WARMUP = 20
+TRAIN_STEPS = 200
+TRAIN_WINDOW = 50
+DENSE_STEPS = 3
+PROFILE_STEPS = 10
+# kernel launches of one training step at the default config (fast_iters=1:
+# one sampler probe; the shading query and the pseudo-SDF probe; K3 and K4
+# for the render's SDF and for the pseudo-SDF loss; K5 for the colour
+# latents); K1 is the packed or the exact variant by the cloud's size
+PER_STEP = {"select_knn": 3, "pair_sdf_value_agg": 1, "pair_sdf_aggregate": 2,
+            "pair_sdf_aggregate_bwd": 2, "scatter_add_rows": 1}
 # device-kernel names of the port's kernels, by the kernels line's label
 KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
                 ("K1 select_knn exact", "select_exact_kernel"),
                 ("K2 pair_sdf_value_agg", "pair_mlp_kernel<false>"),
-                ("K3 pair_sdf_aggregate", "pair_mlp_kernel<true>"))
+                ("K3 pair_sdf_aggregate", "pair_mlp_kernel<true>"),
+                ("K4 pair_sdf_aggregate_bwd", "agg_bwd_kernel"),
+                ("K5 scatter_add_rows", "scatter_rows_kernel"))
+TRAINED = ("feats_geometry", "feats_color", "F_color", "R", "beta")
 
 
 def log(*a):
@@ -182,16 +217,24 @@ def kernel_inputs(scene, tp, prior, cam, dirs, cfg):
             "k3": (table, idx_ext_s, x3.contiguous())}
 
 
-def check_k1(name, x, cid, scene, k, packed, reps):
+def k1_args(x, cid, scene, k, packed):
+    """K1's arguments as ``query_grid`` passes them for ``scene``."""
     import numpy as np
+
+    qt = scene.table
+    r2 = float(np.float32(scene.spec.radius(qt.r) ** 2))
+    return (x, cid, qt.idx, qt.pos, r2, k, packed)
+
+
+def check_k1(name, args, reps):
+    """K1 against its plain version on ``args`` (:func:`k1_args`)."""
     import torch
 
     from spurfies_tpu_torch.ops import select_knn as sk
 
-    qt = scene.table
-    r2 = float(np.float32(scene.spec.radius(qt.r) ** 2))
-    ki, kd = sk.select_knn(x, cid, qt.idx, qt.pos, r2, k, packed)
-    ri, rd = sk.select_knn_ref(x, cid, qt.idx, qt.pos, r2, k, packed)
+    x, cid, qidx, qpos, r2, k, packed = args
+    ki, kd = sk.select_knn(*args)
+    ri, rd = sk.select_knn_ref(*args)
     torch.cuda.synchronize()
     # tolerance: bit-equal ids and d2 (the kernel avoids FMA contraction,
     # so it does the plain version's f32 operations)
@@ -203,24 +246,22 @@ def check_k1(name, x, cid, scene, k, packed, reps):
     err = float((kd[fin] - rd[fin]).abs().max()) if bool(fin.any()) else 0.0
     if err != 0.0:
         fail(f"{name}: d2 differs by {err}")
-    ms = cuda_ms(lambda: sk.select_knn(x, cid, qt.idx, qt.pos, r2, k, packed),
-                 reps)
-    plain_ms = cuda_ms(lambda: sk.select_knn_ref(x, cid, qt.idx, qt.pos, r2,
-                                                 k, packed), 3)
+    ms = cuda_ms(lambda: sk.select_knn(*args), reps)
+    plain_ms = cuda_ms(lambda: sk.select_knn_ref(*args), 3)
     # library yardstick: torch.topk over the [M, qcap] distance matrix
-    in_grid = (cid >= 0) & (cid < qt.idx.shape[0])
+    in_grid = (cid >= 0) & (cid < qidx.shape[0])
     c = torch.where(in_grid, cid, 0).long()
-    diff = qt.pos[c] - x[:, :, None]
+    diff = qpos[c] - x[:, :, None]
     d2m = (diff * diff).sum(1)
-    d2m = torch.where((qt.idx[c] >= 0) & in_grid[:, None] & (d2m <= r2),
+    d2m = torch.where((qidx[c] >= 0) & in_grid[:, None] & (d2m <= r2),
                       d2m, float("inf"))
     lib_ms = cuda_ms(lambda: torch.topk(d2m, k, dim=1, largest=False), reps)
     # bound: x, cid and the outputs once, the table rows of the cells that
     # are queried once; ~9 f32 ops per candidate a query really scans
     m = x.shape[0]
     cells = torch.unique(cid[in_grid])
-    q = qt.idx.shape[1]
-    scanned = (qt.idx[c] >= 0).sum(1)[in_grid].sum()
+    q = qidx.shape[1]
+    scanned = (qidx[c] >= 0).sum(1)[in_grid].sum()
     n_bytes = m * (12 + 4 + k * 8) + int(cells.numel()) * q * 16
     b_ms, b_by = bound_ms(n_bytes, 9.0 * float(scanned), PEAK_F32_FLOPS)
     log(f"{name}: M={m} qcap={q} ids+d2 bit-equal; kernel {ms:.4f} ms, "
@@ -346,33 +387,13 @@ def compare_chunk(a, b):
     return stats
 
 
-def profile_render(render_image, scene, tp, frozen, view):
-    """Rays/s of TIMED_RENDERS warm renders of ``view`` (host clock around
-    work that ends in a synchronise), then one render under
-    ``torch.profiler``: its device-busy share and the device time of each
-    of the port's kernels and of PyTorch's top ops."""
-    import torch
+def profile_summary(prof, wall_ms):
+    """Device-busy share and device time by kernel and by PyTorch op of a
+    ``torch.profiler`` run.  Device time is counted once, on the kernel
+    events; a PyTorch op's self device time is the time of the kernels it
+    launched directly."""
     from torch.autograd import DeviceType
 
-    args = (tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"])
-    n = len(view["uv"])
-    walls = []
-    for _ in range(TIMED_RENDERS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render_image(*args)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render_image(*args)
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    # device time is counted once, on the kernel events; a PyTorch op's
-    # self device time is the time of the kernels it launched directly
     kernels, ops = {}, {}
     for evt in prof.key_averages():
         us = evt.self_device_time_total
@@ -389,14 +410,340 @@ def profile_render(render_image, scene, tp, frozen, view):
     if busy_ms <= 0:
         fail("profile: the profiler saw no device time")
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:15]
-    return {"rays": n, "render_wall_s": walls,
-            "rays_per_s": [n / w for w in walls],
-            "profiled_wall_ms": wall_prof * 1e3,
+    return {"profiled_wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / (wall_prof * 1e3),
+            "device_busy_share": busy_ms / wall_ms,
             "kernel_ms": groups,
             "pytorch_ops_ms": {k: v / 1e3 for k, v in top_ops},
             "pytorch_ops_total_ms": sum(ops.values()) / 1e3}
+
+
+def profiled(fn):
+    """``fn()`` once under ``torch.profiler``, between synchronisations;
+    returns :func:`profile_summary` of it."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_summary(prof, wall_ms)
+
+
+def profile_render(render_image, scene, tp, frozen, view):
+    """Rays/s of TIMED_RENDERS warm renders of ``view`` (host clock around
+    work that ends in a synchronise), then one render under
+    ``torch.profiler``."""
+    import torch
+
+    args = (tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"])
+    n = len(view["uv"])
+    walls = []
+    for _ in range(TIMED_RENDERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_image(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return {"rays": n, "render_wall_s": walls,
+            "rays_per_s": [n / w for w in walls],
+            **profiled(lambda: render_image(*args))}
+
+
+def kernel_sites():
+    """Where the port calls each kernel's wrapper: (module, attribute,
+    plain version), K1 to K5."""
+    from spurfies_tpu_torch.model import field
+    from spurfies_tpu_torch.ops import pair_mlp, scatter_rows, voxel_grid
+    from spurfies_tpu_torch.ops import select_knn as sk
+
+    return [(voxel_grid, "select_knn", sk.select_knn_ref),
+            (field, "pair_sdf_value_agg", pair_mlp.pair_sdf_value_agg_ref),
+            (pair_mlp, "pair_sdf_aggregate", pair_mlp.pair_sdf_aggregate_ref),
+            (pair_mlp, "pair_sdf_aggregate_bwd",
+             pair_mlp.pair_sdf_aggregate_bwd_ref),
+            (field, "scatter_add_rows", scatter_rows.scatter_add_rows_ref)]
+
+
+class substituted:
+    """Put ``make(wrapper, plain)`` in place of each kernel's wrapper where
+    the port calls it (the port has no switch), and restore them on
+    exit."""
+
+    def __init__(self, make):
+        self.make = make
+
+    def __enter__(self):
+        self.sites = kernel_sites()
+        self.saved = [getattr(mod, name) for mod, name, _ in self.sites]
+        for (mod, name, ref), fn in zip(self.sites, self.saved):
+            setattr(mod, name, self.make(fn, ref))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.sites, self.saved):
+            setattr(mod, name, fn)
+        return False
+
+
+def plain_versions():
+    """The plain PyTorch versions in place of the kernels' wrappers."""
+    return substituted(lambda fn, ref: ref)
+
+
+def counters():
+    from spurfies_tpu_torch.ops import pair_mlp, scatter_rows
+    from spurfies_tpu_torch.ops import select_knn as sk
+    return (sk.LAUNCHES, pair_mlp.LAUNCHES, scatter_rows.LAUNCHES)
+
+
+def zero_counts():
+    for c in counters():
+        for key in c:
+            c[key] = 0
+
+
+def read_counts():
+    return {k: v for c in counters() for k, v in c.items()}
+
+
+def sum_order_within(what, out, ref, abs_sum, count, hold=True):
+    """|out - ref| <= 2 c 2**-24 sum|terms| on every entry: two f32 sums of
+    the same c terms in any two orders lie that close (each lies within
+    (c - 1) 2**-24 sum|terms| of the exact sum).  ``abs_sum``: the same
+    scatter of |terms|; ``count``: the terms of each output row.  Prints
+    the largest share of the limit used; fails on a breach when ``hold``.
+    Returns the max abs error."""
+    tol = 2.0 * count[:, None].float() * 2.0 ** -24 * abs_sum
+    d = (out - ref).abs()
+    used = float((d / tol.clamp(min=1e-38)).max())
+    err = float(d.max())
+    log(f"  {what}: max abs err {err:.3e}, max share of the sum-order "
+        f"limit {used:.3e}, entries beyond it {int((d > tol).sum())}")
+    if hold and bool((d > tol).any()):
+        fail(f"{what}: kernel and plain version disagree beyond f32 "
+             "reordering")
+    return err
+
+
+def capture_step(trainer):
+    """One training step; returns, by wrapper name, the arguments of each
+    kernel launch in it (references, all of the wrapper's parameters in
+    order, in launch order)."""
+    import inspect
+
+    seen = {}
+
+    def recorder(fn, ref):
+        sig = inspect.signature(fn)
+
+        def rec(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            seen.setdefault(fn.__name__, []).append(
+                tuple(bound.arguments.values()))
+            return fn(*args, **kwargs)
+        return rec
+
+    with substituted(recorder):
+        trainer.train_step(trainer.bundle, trainer.state, trainer.generator)
+    return seen
+
+
+def check_k4(name, args, reps):
+    """K4 against its plain version on one real launch's inputs."""
+    import torch
+
+    from spurfies_tpu_torch.ops import pair_mlp
+
+    num_bar, w, r_lat, idx_ext, n = args
+    p, k = idx_ext.shape
+    out = pair_mlp.pair_sdf_aggregate_bwd(*args)
+    ref = pair_mlp.pair_sdf_aggregate_bwd_ref(*args)
+    flat = idx_ext.reshape(-1).long()
+    keep = (flat >= 0) & (flat < n) & (w != 0)
+    count = torch.bincount(flat[keep], minlength=n)
+    abs_sum = pair_mlp.pair_sdf_aggregate_bwd_ref(
+        num_bar.abs(), w.abs(), r_lat.abs(), idx_ext, n)
+    # control: the plain sum over the points in another order
+    perm = torch.randperm(p, device=w.device)
+    ctrl = pair_mlp.pair_sdf_aggregate_bwd_ref(
+        num_bar[perm], w.view(p, k)[perm].reshape(-1),
+        r_lat.view(p, k, -1)[perm].reshape(p * k, -1), idx_ext[perm], n)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{name}: non-finite output")
+    err = sum_order_within(name, out, ref, abs_sum, count)
+    sum_order_within(f"{name}, control: plain summed in another order",
+                     ctrl, ref, abs_sum, count, hold=False)
+    ms = cuda_ms(lambda: pair_mlp.pair_sdf_aggregate_bwd(*args), reps)
+    plain_ms = cuda_ms(lambda: pair_mlp.pair_sdf_aggregate_bwd_ref(*args),
+                       5)
+    # library yardstick: index_add_ of the expanded cotangent's kept rows
+    # (the expansion itself is left out of the time)
+    ct = ((torch.repeat_interleave(num_bar, k) * w)[:, None]
+          * r_lat.float())[keep]
+    idx_k = flat[keep]
+    lib_ms = cuda_ms(lambda: torch.zeros((n, 32), device=w.device)
+                     .index_add_(0, idx_k, ct), reps)
+    kept = int(keep.sum())
+    dump = int((flat == n).sum())
+    # bytes: idx and w of every row, r_lat of the kept rows, num_bar, and
+    # the output written once
+    n_bytes = p * k * 8 + kept * 64 + p * 4 + n * 32 * 4
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * 32 * kept, PEAK_F32_FLOPS)
+    log(f"{name}: P={p} k={k} rows {p * k}, kept {kept} "
+        f"({kept / (p * k):.3f}), dump rows {dump} ({dump / (p * k):.3f}), "
+        f"{kept / max(int((count > 0).sum()), 1):.1f} adds per latent row "
+        f"hit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+
+
+def check_k5(name, args, reps):
+    """K5 against its plain version on one real launch's inputs."""
+    import torch
+
+    from spurfies_tpu_torch.ops import scatter_rows as sr
+
+    ct, idx, n = args
+    m, d = ct.shape
+    out = sr.scatter_add_rows(*args)
+    ref = sr.scatter_add_rows_ref(*args)
+    keep = (idx >= 0) & (idx < n)
+    count = torch.bincount(idx[keep].long(), minlength=n)
+    abs_sum = sr.scatter_add_rows_ref(ct.abs(), idx, n)
+    perm = torch.randperm(m, device=ct.device)
+    ctrl = sr.scatter_add_rows_ref(ct[perm], idx[perm], n)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{name}: non-finite output")
+    err = sum_order_within(name, out, ref, abs_sum, count)
+    sum_order_within(f"{name}, control: plain summed in another order",
+                     ctrl, ref, abs_sum, count, hold=False)
+    ms = cuda_ms(lambda: sr.scatter_add_rows(*args), reps)
+    plain_ms = cuda_ms(lambda: sr.scatter_add_rows_ref(*args), 5)
+    ct_k, idx_k = ct[keep].contiguous(), idx[keep].long()
+    lib_ms = cuda_ms(lambda: torch.zeros((n, d), device=ct.device)
+                     .index_add_(0, idx_k, ct_k), reps)
+    kept = int(keep.sum())
+    n_bytes = m * 4 + kept * d * 4 + n * d * 4
+    b_ms, b_by = bound_ms(n_bytes, float(kept * d), PEAK_F32_FLOPS)
+    log(f"{name}: M={m} d={d} row stride {ct.stride(0)}, kept {kept}, "
+        f"{kept / max(int((count > 0).sum()), 1):.1f} rows per latent row "
+        f"hit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+
+
+def loss_and_grads(trainer, batch, seed):
+    """Loss parts and the gradient of every trained tensor of one batch,
+    the draws from a generator seeded ``seed`` (no update)."""
+    import torch
+
+    from spurfies_tpu_torch.train.optim import flatten
+
+    gen = torch.Generator(device=trainer.device).manual_seed(seed)
+    tp = trainer.state.params
+    leaves = flatten({k: tp[k] for k in TRAINED})
+    loss, parts = trainer.loss_fn(tp, trainer.bundle, batch,
+                                  trainer.state.step, gen)
+    grads = torch.autograd.grad(loss, leaves)
+    names = [f"{k}[{i}]" for k in TRAINED for i in range(len(flatten(tp[k])))]
+    return ({k: float(v.detach()) for k, v in parts.items()},
+            dict(zip(names, grads)))
+
+
+def compare_grads(parts_k, grads_k, parts_p, grads_p):
+    """One batch's loss parts and gradients through the kernels against
+    the plain versions (same batch, same draws, bf16 on both sides).
+
+    The kernels' per-point sums agree with the plain ones to a bf16 ulp
+    (phase 4), but the sampler's beta bisection and the top-W colour
+    selection make discrete choices on them, so a few rays place or weigh
+    their samples elsewhere, and every loss and gradient is a sum over
+    the rays.  Limits: each loss part within 1e-3 relative (+ 1e-6), each
+    gradient within 1e-2 relative L2: room for a few of the ~830 rays to
+    move (read on the H100: 8.6e-7 and 8.2e-4, no ray moved).  Returns the
+    worst readings."""
+    import torch
+
+    worst_part = max(abs(parts_k[k] - parts_p[k]) / (abs(parts_p[k]) + 1e-6)
+                     for k in parts_p)
+    rel = {k: float(torch.linalg.vector_norm(grads_k[k] - grads_p[k])
+                    / (torch.linalg.vector_norm(grads_p[k]) + 1e-30))
+           for k in grads_p}
+    log(f"  loss parts: worst relative difference {worst_part:.3e}; "
+        f"gradients, relative L2: " + ", ".join(f"{k} {v:.2e}"
+                                                for k, v in rel.items()))
+    for k, g in grads_k.items():
+        if not bool(torch.isfinite(g).all()):
+            fail(f"gradient {k} through the kernels is not finite")
+    if worst_part > 1e-3:
+        fail(f"loss parts differ by {worst_part:.3e} relative")
+    bad = {k: v for k, v in rel.items() if v > 1e-2}
+    if bad:
+        fail(f"gradients differ beyond 1e-2 relative L2: {bad}")
+    return worst_part, max(rel.values())
+
+
+def syncs_in(fn):
+    """The host syncs that ``torch.cuda.set_sync_debug_mode("warn")``
+    reports while ``fn()`` runs (their messages)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # a sync reads "called a synchronizing CUDA operation"; the mode's own
+    # notice ("... is a prototype feature and does not yet detect all
+    # synchronizing operations") is none
+    return [str(w.message) for w in caught
+            if "synchroniz" in str(w.message).lower()
+            and "prototype" not in str(w.message)]
+
+
+def count_host_syncs(trainer, steps):
+    """Host syncs of ``steps`` training steps; returns (count, first
+    message).  A ``.item()`` read first shows that the count sees one."""
+    import torch
+
+    probe = torch.ones((), device=trainer.device)
+    if not syncs_in(lambda: probe.item()):
+        fail("the sync debug mode does not report a .item() read")
+
+    def steps_fn():
+        for _ in range(steps):
+            trainer.train_step(trainer.bundle, trainer.state,
+                               trainer.generator)
+
+    msgs = syncs_in(steps_fn)
+    return len(msgs), (msgs[0] if msgs else "")
+
+
+def masked_psnr(trainer, view):
+    import torch
+
+    from spurfies_tpu_torch.core.metrics import psnr
+
+    out = trainer.render_image(view["uv"], view["pose"], view["intrinsics"])
+    return float(psnr(torch.as_tensor(out["rgb_values"]),
+                      torch.as_tensor(view["rgb"]),
+                      torch.as_tensor(view["mask"])))
 
 
 def main():
@@ -422,12 +769,10 @@ def main():
             make_dust3r_like_scene,
             make_synthetic_scene,
         )
-        from spurfies_tpu_torch.model import field, renderer
+        from spurfies_tpu_torch.model import renderer
         from spurfies_tpu_torch.ops import cuda_build, pair_mlp
-        from spurfies_tpu_torch.ops import select_knn as sk
-        from spurfies_tpu_torch.ops import voxel_grid
         from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
-        from spurfies_tpu_torch.train.trainer import make_render_fn
+        from spurfies_tpu_torch.train.trainer import Trainer, make_render_fn
     except ImportError as e:
         print(f"chip_smoke: run it from a checkout of the repository ({e})",
               file=sys.stderr)
@@ -495,10 +840,10 @@ def main():
         with torch.no_grad():
             inp = kernel_inputs(scene, tp, prior, cam, dirs, cfg)
         k1 = "K1 select_knn packed" if packed else "K1 select_knn exact"
-        check_k1(k1 + " (probe)", *inp["probe_k1"], scene, cfg.model.k,
-                 packed, 20)
-        results[k1] = check_k1(k1 + " (shading)", *inp["shade_k1"], scene,
-                               cfg.model.k, packed, 20)
+        check_k1(k1 + " (probe)", k1_args(*inp["probe_k1"], scene,
+                                          cfg.model.k, packed), 20)
+        results[k1] = check_k1(k1 + " (shading)", k1_args(
+            *inp["shade_k1"], scene, cfg.model.k, packed), 20)
         if tag == "dust3r_like":
             results["K2 pair_sdf_value_agg"] = check_pair(
                 "K2 pair_sdf_value_agg", pair_mlp.pair_sdf_value_agg,
@@ -511,12 +856,9 @@ def main():
         del inp
         torch.cuda.empty_cache()
 
-    # --- 5. main path ---
+    # --- 5. render path ---
     render_image = make_render_fn(cfg, device="cuda")
-    counters = (sk.LAUNCHES, pair_mlp.LAUNCHES)
-    for c in counters:
-        for key in c:
-            c[key] = 0
+    zero_counts()
     outs, walls = {}, {}
     for tag, (scene, tp, frozen, view, _) in scenes.items():
         torch.cuda.synchronize()
@@ -525,17 +867,18 @@ def main():
                                  view["intrinsics"])
         torch.cuda.synchronize()
         walls[tag] = time.perf_counter() - t0
-    launches = {**sk.LAUNCHES, **pair_mlp.LAUNCHES}
-    log(f"main path launches: {launches}")
+    launches_render = read_counts()
+    log(f"render path launches: {launches_render}")
 
     iters = cfg.model.ray_sampler.max_total_iters
     chunks = {t: math.ceil(n_occ[t] / CHUNK) for t in scenes}
     expect = {"select_knn_packed": (iters + 1) * chunks["dust3r_like"],
               "select_knn_exact": (iters + 1) * chunks["dense_sphere"],
               "pair_sdf_value_agg": iters * sum(chunks.values()),
-              "pair_sdf_aggregate": sum(chunks.values())}
-    if launches != expect:
-        fail(f"launch counts {launches} != expected {expect}")
+              "pair_sdf_aggregate": sum(chunks.values()),
+              "pair_sdf_aggregate_bwd": 0, "scatter_add_rows": 0}
+    if launches_render != expect:
+        fail(f"launch counts {launches_render} != expected {expect}")
     for tag, out in outs.items():
         n = len(scenes[tag][3]["uv"])
         for key, v in out.items():
@@ -564,19 +907,9 @@ def main():
     with torch.no_grad():
         out_k = renderer.render_rays(params, scene, inputs, cfg.model,
                                      train=False, iters=iters)
-        # the port has no switch: the smoke test substitutes the plain
-        # functions for the wrappers for this one comparison
-        saved = (voxel_grid.select_knn, field.pair_sdf_value_agg,
-                 field.pair_sdf_aggregate)
-        voxel_grid.select_knn = sk.select_knn_ref
-        field.pair_sdf_value_agg = pair_mlp.pair_sdf_value_agg_ref
-        field.pair_sdf_aggregate = pair_mlp.pair_sdf_aggregate_ref
-        try:
+        with plain_versions():
             out_p = renderer.render_rays(params, scene, inputs, cfg.model,
                                          train=False, iters=iters)
-        finally:
-            (voxel_grid.select_knn, field.pair_sdf_value_agg,
-             field.pair_sdf_aggregate) = saved
     worst = compare_chunk(out_k, out_p)
     log(f"chunk of {len(sel)} rays, kernels vs plain versions, per-ray "
         f"max abs differences: {json.dumps(worst)}")
@@ -585,7 +918,139 @@ def main():
     prof = profile_render(render_image, scene, tp, frozen, view)
     log(f"profile: {json.dumps(prof)}")
 
-    # --- 8. report ---
+    del render_image, outs, out_k, out_p
+    torch.cuda.empty_cache()
+
+    # --- 8. training kernels, on one real step's inputs ---
+    _, _, prior_a, view_a, _ = scenes["dust3r_like"]
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, pts_a, cols_a, views_a, device="cuda")
+    trainer.load_frozen(prior_a)
+    torch.cuda.synchronize()
+    mc = trainer.cfg.model
+    log(f"trainer dust3r_like: {trainer.scene.points.shape[0]} points, auto "
+        f"budgets ray {mc.ray_budget_frac:.4f} probe "
+        f"{mc.probe_budget_frac:.4f}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    seen = capture_step(trainer)
+    per_step = {k: len(v) for k, v in seen.items()}
+    if per_step != PER_STEP:
+        fail(f"one step launched {per_step}, expected {PER_STEP}")
+    # K1-K3 at the step's own shapes, by the limits of phase 4: K1 in launch
+    # order (probe, shading, pseudo-SDF), K3 by size (render SDF, then the
+    # pseudo-SDF loss's 1024 points)
+    prior_f32 = _prep_layers(trainer.frozen, torch.float32)
+    for what, args in zip(("probe", "shading", "pseudo-SDF"),
+                          seen["select_knn"]):
+        check_k1(f"K1 select_knn packed (train {what})", args, 10)
+    for fn, ref, label, whats in (
+            (pair_mlp.pair_sdf_value_agg, pair_mlp.pair_sdf_value_agg_ref,
+             "K2 pair_sdf_value_agg", ("probe",)),
+            (pair_mlp.pair_sdf_aggregate, pair_mlp.pair_sdf_aggregate_ref,
+             "K3 pair_sdf_aggregate", ("render SDF", "pseudo-SDF"))):
+        calls = sorted(seen[fn.__name__], key=lambda a: -a[1].shape[0])
+        for what, args in zip(whats, calls):
+            table, idx_ext, x, layers, rbf = args
+            check_pair(f"{label} (train {what})", fn, ref,
+                       (table, idx_ext, x), layers, prior_f32, rbf, 5)
+    # the render's SDF has the most points, the pseudo-SDF loss 1024
+    k4_render, k4_pseudo = sorted(seen["pair_sdf_aggregate_bwd"],
+                                  key=lambda a: -a[0].numel())
+    results["K4 pair_sdf_aggregate_bwd"] = check_k4(
+        "K4 pair_sdf_aggregate_bwd (render SDF)", k4_render, 50)
+    check_k4("K4 pair_sdf_aggregate_bwd (pseudo-SDF)", k4_pseudo, 50)
+    del k4_render, k4_pseudo
+    results["K5 scatter_add_rows"] = check_k5(
+        "K5 scatter_add_rows (colour latents)", seen["scatter_add_rows"][0],
+        50)
+    del seen, prior_f32
+
+    # --- 9. one batch through the kernels and through the plain versions ---
+    batch = trainer.sample_batch(
+        trainer.views, torch.Generator(device=dev).manual_seed(7))
+    parts_k, grads_k = loss_and_grads(trainer, batch, seed=8)
+    with plain_versions():
+        parts_p, grads_p = loss_and_grads(trainer, batch, seed=8)
+    log("train step, kernels vs plain versions (same batch and draws):")
+    compare_grads(parts_k, grads_k, parts_p, grads_p)
+    del grads_k, grads_p
+    n_sync, first_sync = count_host_syncs(trainer, 2)
+    log(f"host syncs in 2 training steps: {n_sync}"
+        + (f" (first: {first_sync})" if n_sync else ""))
+    if n_sync:
+        fail("a training step waits on the card")
+
+    # --- 10. training path ---
+    psnr0 = masked_psnr(trainer, view_a)
+    history = []
+    trainer.run(TRAIN_WARMUP, window=TRAIN_WARMUP,
+                callback=lambda s_, m: history.append((s_, m)))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run(TRAIN_STEPS, window=TRAIN_WINDOW,
+                callback=lambda s_, m: history.append((s_, m)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_train = read_counts()
+    n_pix = trainer.cfg.train.num_pixels
+    log(f"train dust3r_like: {TRAIN_STEPS} steps x {n_pix} rays in "
+        f"{wall:.3f} s = {TRAIN_STEPS * n_pix / wall:.1f} train rays/s "
+        f"({wall / TRAIN_STEPS * 1e3:.2f} ms/step); launches "
+        f"{launches_train}")
+    for step, m in history:
+        log(f"  step {step}: " + ", ".join(
+            f"{k} {m[k]:.5g}" for k in ("loss", "rgb_loss", "eikonal_loss",
+                                        "mask_loss", "pseudo_loss", "tv_loss",
+                                        "psnr", "ray_overflow",
+                                        "probe_overflow", "notfinite")))
+    if not all(np.isfinite(m["loss"]) and m["notfinite"] == 0
+               for _, m in history):
+        fail("training: a non-finite loss or a skipped step")
+    if not history[-1][1]["rgb_loss"] < history[0][1]["rgb_loss"]:
+        fail("training: rgb_loss did not fall")
+    expect = {k: 0 for k in launches_train}
+    for key, per in PER_STEP.items():
+        expect["select_knn_packed" if key == "select_knn" else key] = \
+            per * TRAIN_STEPS
+    if launches_train != expect:
+        fail(f"train launch counts {launches_train} != expected {expect}")
+    psnr1 = masked_psnr(trainer, view_a)
+    log(f"view 0 masked PSNR vs the analytic view: {psnr0:.2f} dB before "
+        f"training, {psnr1:.2f} dB after {TRAIN_WARMUP + TRAIN_STEPS + 3} "
+        "steps")
+
+    # a few steps on the dense sphere: N > 2**15, the exact K1
+    dense = Trainer(cfg, pts_b, cols_b, views_b, device="cuda")
+    dense.load_frozen(prior_a)
+    dense_hist = []
+    zero_counts()
+    dense.run(DENSE_STEPS, window=DENSE_STEPS,
+              callback=lambda s_, m: dense_hist.append(m))
+    launches_dense = read_counts()
+    expect = {k: 0 for k in launches_dense}
+    for key, per in PER_STEP.items():
+        expect["select_knn_exact" if key == "select_knn" else key] = \
+            per * DENSE_STEPS
+    log(f"train dense_sphere: {dense.scene.points.shape[0]} points, "
+        f"{DENSE_STEPS} steps, loss {dense_hist[-1]['loss']:.5g}; launches "
+        f"{launches_dense}")
+    if launches_dense != expect or not np.isfinite(dense_hist[-1]["loss"]):
+        fail(f"dense_sphere training: launches {launches_dense} != {expect} "
+             "or a non-finite loss")
+    del dense
+    torch.cuda.empty_cache()
+
+    # --- 11. where a training step's time goes ---
+    tprof = profiled(lambda: trainer.run(PROFILE_STEPS,
+                                         window=PROFILE_STEPS))
+    tprof["steps"] = PROFILE_STEPS
+    tprof["ms_per_step"] = tprof["profiled_wall_ms"] / PROFILE_STEPS
+    log(f"train profile: {json.dumps(tprof)}")
+
+    # --- 12. report ---
+    launches = {k: launches_render[k] + launches_train[k] + launches_dense[k]
+                for k in launches_render}
     rows = []
     meta = {
         "K1 select_knn packed": ("select_knn_packed",
@@ -600,11 +1065,22 @@ def main():
         "K3 pair_sdf_aggregate": ("pair_sdf_aggregate",
                                   "spurfies_tpu_torch/csrc/pair_mlp.cu",
                                   "spurfies_tpu/ops/pallas_mlp.py:576"),
+        "K4 pair_sdf_aggregate_bwd": ("pair_sdf_aggregate_bwd",
+                                      "spurfies_tpu_torch/csrc/agg_bwd.cu",
+                                      "spurfies_tpu/ops/pallas_mlp.py:683"),
+        "K5 scatter_add_rows": ("scatter_add_rows",
+                                "spurfies_tpu_torch/csrc/scatter_rows.cu",
+                                "spurfies_tpu/ops/pallas_scatter.py:37"),
     }
+    # launches: the render path's and the training path's runs, each with
+    # the counters set to 0 just before it
     for label, (key, src, rep) in meta.items():
         r = results[label]
         rows.append({"name": label, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[key],
+                     "launches_render": launches_render[key],
+                     "launches_train": launches_train[key]
+                     + launches_dense[key],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

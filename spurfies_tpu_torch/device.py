@@ -1,4 +1,6 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and small device constants."""
+
+import functools
 
 import torch
 
@@ -17,3 +19,16 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+@functools.lru_cache(maxsize=256)
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant tensor (a number or a tuple of numbers) on
+    ``device``, made once per ``(values, dtype, device)``.
+
+    A host-to-card copy from pageable memory waits for the card, so a
+    training step that built its constants with ``torch.tensor(...,
+    device=...)`` would stall the host once per constant.  Callers must not
+    write to the tensor: it is shared.
+    """
+    return torch.tensor(values, dtype=dtype, device=torch.device(device))

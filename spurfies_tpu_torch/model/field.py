@@ -1,12 +1,13 @@
 """Neural-point SDF/color field: RBF interpolation over kNN latents (port of
-the render-path parts of ``spurfies_tpu/model/field.py``).
+``spurfies_tpu/model/field.py`` at the default model options).
 
 Reference ``spurfies/model/pointneus_disent.py``:
   * RBF weights ``exp(-(45 d)^2)`` with detached distances, normalized per
     shading point (:241-247).
   * SDF: frozen F_geometry([geo_latent, x-p]) -> T per pair, weighted
     average over the k neighbours (:300-313); its spatial gradient by
-    double backprop (:315-323) -- here the K3 kernel's down sweep.
+    double backprop (:315-323) -- here the K3 kernel's down sweep, and the
+    latent gradient of the SDF the K4 kernel.
   * color: F_color([posenc(x-p), color_latent]) aggregated, then
     R([viewenc(dir), agg_feat]) -> sigmoid (:325-346).
   * empty-space filler SDF = 1000 (:271).
@@ -15,8 +16,8 @@ The frozen prior arrives prepared once (``ops.pair_mlp._prep_layers``:
 cast + exact linear-tail fusion); its compute dtype is the prepared
 layers' dtype.  The JAX package's module switches (fused MLP, fused
 aggregation, scatter mode, fused color) have no counterpart: the SDF
-always goes through K2/K3 -- the kernel for a CUDA tensor, the plain
-version for a CPU tensor.
+always goes through K2/K3/K4 and the colour latents' gradient through K5
+-- the kernel for a CUDA tensor, the plain version for a CPU tensor.
 """
 
 import torch
@@ -24,11 +25,12 @@ import torch
 from spurfies_tpu_torch.core.embedder import positional_encoding
 from spurfies_tpu_torch.model.networks import matmul_in, mlp_apply
 from spurfies_tpu_torch.ops.pair_mlp import (
-    DUMP_POS,
+    PairSdfAggregate,
     PriorLayers,
-    pair_sdf_aggregate,
     pair_sdf_value_agg,
+    pair_table,
 )
+from spurfies_tpu_torch.ops.scatter_rows import scatter_add_rows
 from spurfies_tpu_torch.ops.voxel_grid import fine_occupancy, query_grid
 
 SDF_FILLER = 1000.0
@@ -45,16 +47,6 @@ def rbf_weights(x_pi: torch.Tensor, valid: torch.Tensor, rbf: float):
     dist = torch.clamp(_norm3(x_pi.detach()), min=1e-12)
     w = torch.exp(-((dist * rbf) ** 2)) * valid.to(x_pi.dtype)
     return w, torch.sum(w, dim=-1, keepdim=True)
-
-
-def pair_table(latents: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """``[N+1, D+3]`` rows ``[latent | position]``; row N is the dump row
-    (zero latent, position DUMP_POS) that invalid pairs index."""
-    d = latents.shape[1]
-    dump = torch.cat([latents.new_zeros(1, d),
-                      latents.new_full((1, 3), DUMP_POS)], 1)
-    return torch.cat([torch.cat([latents, points.to(latents.dtype)], 1),
-                      dump], 0).contiguous()
 
 
 def _idx_ext(idx, valid, n):
@@ -78,16 +70,19 @@ def aggregate_sdf(prior: PriorLayers, geo_latents, points, idx, valid, x,
     ``idx``/``valid`` ``[M, K]``.
 
     Returns (sdf ``[M]`` -- SDF_FILLER where no valid neighbour, has
-    ``[M]`` bool).  Only the value-only K2 path (need_grad=False) is in
-    this slice; the differentiable one needs K3's backward (K4).
+    ``[M]`` bool).  need_grad=False runs the value-only K2 (no gradient:
+    the sampler's probe); need_grad=True runs K3 through
+    :class:`PairSdfAggregate`, differentiable in the latents (K4) and x.
     """
-    if need_grad:
-        raise NotImplementedError(
-            "aggregate_sdf(need_grad=True): ROADMAP.md Queue 1, training "
-            "slice")
     idx_ext = _idx_ext(idx, valid, geo_latents.shape[0])
-    return _aggregate_sdf_value_agg(prior, geo_latents, points, idx_ext, x,
-                                    rbf)
+    if not need_grad:
+        return _aggregate_sdf_value_agg(prior, geo_latents, points, idx_ext,
+                                        x, rbf)
+    num, den, _ = PairSdfAggregate.apply(geo_latents, points, idx_ext, x,
+                                         prior, rbf)
+    has = den > 0
+    sdf = torch.where(has, num / torch.where(has, den, 1.0), SDF_FILLER)
+    return sdf, has
 
 
 def compact_pair_slots(valid_flat: torch.Tensor, budget: int):
@@ -157,17 +152,50 @@ def sdf_and_grad(prior: PriorLayers, geo_latents, points, idx, valid, x,
 
     The RBF weights are constant in x (detached distances, reference
     :242), so d(agg)/dx is the weighted sum of the per-pair input
-    gradients, which K3 computes in its down sweep.  Forward only in this
-    slice.
+    gradients, which K3 computes in its down sweep.  Both are
+    differentiable through :class:`PairSdfAggregate`: the SDF in the
+    latents (K4) and x; the gradient's latent derivative is zero almost
+    everywhere and is dropped, as in the JAX package.
     """
     idx_ext = _idx_ext(idx, valid, geo_latents.shape[0])
-    pt, _, _ = pair_sdf_aggregate(pair_table(geo_latents, points), idx_ext,
-                                  x.contiguous(), prior, rbf)
-    num, den, gagg = pt[:, 0], pt[:, 1], pt[:, 2:5]
+    num, den, gagg = PairSdfAggregate.apply(geo_latents, points, idx_ext, x,
+                                            prior, rbf)
     has = den > 0
     den_s = torch.where(has, den, 1.0)
     sdf = torch.where(has, num / den_s, SDF_FILLER)
     return sdf, gagg / den_s[:, None]
+
+
+class _GatherRows(torch.autograd.Function):
+    """``[latent | position][idx]`` whose backward scatters only the latent
+    columns of the cotangent, with K5 (``field.py:107-133`` of the JAX
+    package)."""
+
+    @staticmethod
+    def forward(ctx, latents, points, idx):
+        table = torch.cat([latents, points.to(latents.dtype)], 1)
+        ctx.save_for_backward(idx)
+        ctx.shape = latents.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, = ctx.saved_tensors
+        n, d = ctx.shape
+        ct = ct.contiguous().reshape(-1, d + 3)
+        g = scatter_add_rows(ct[:, :d], idx.reshape(-1), n)
+        return g, None, None
+
+
+def gather_pair_rows(latents, points, idx):
+    """Per-pair rows ``g [M, K, D+3] = [latent | position]`` from one
+    combined-row gather (``spurfies_tpu/model/field.py:136-159``).
+
+    idx ``[M, K]`` int32, clipped into ``[0, N)``.  Positions are static
+    scene geometry, so the backward scatters only the latent columns: K5
+    reads them from the ``[M*K, D+3]`` cotangent through its row stride.
+    """
+    return _GatherRows.apply(latents, points.detach(), idx.contiguous())
 
 
 def aggregate_color(train_params, color_latents, points, idx, valid, x,
@@ -181,10 +209,9 @@ def aggregate_color(train_params, color_latents, points, idx, valid, x,
     per point on the aggregate (the exact linear-tail fold of
     ``spurfies_tpu/model/field.py:745-773``).
     """
-    safe_idx = torch.clamp(idx, min=0).long()
+    safe_idx = torch.clamp(idx, min=0).to(torch.int32)
     d = color_latents.shape[1]
-    g3 = torch.cat([color_latents, points.to(color_latents.dtype)],
-                   1)[safe_idx]                              # [M, K, D+3]
+    g3 = gather_pair_rows(color_latents, points, safe_idx)  # [M, K, D+3]
     cfeat = g3[..., :d]
     x_pi = x[:, None, :] - g3[..., d:]
     w, norm = rbf_weights(x_pi, valid, rbf)

@@ -21,21 +21,26 @@ import torch
 
 from spurfies_tpu_torch.config import ModelConfig
 from spurfies_tpu_torch.core.embedder import encoding_dim
+from spurfies_tpu_torch.device import constant, resolve_device
 
 LEAKY_SLOPE = 0.01  # torch nn.LeakyReLU default
 
 
 def linear_init(fan_in: int, fan_out: int, generator: torch.Generator,
-                device="cpu"):
+                device="cuda"):
+    """``{"w": [fan_in, fan_out], "b": [fan_out]}`` drawn on the CPU from
+    ``generator`` (a CPU generator), then moved to ``device``."""
+    dev = resolve_device(device)
     bound = 1.0 / math.sqrt(fan_in)
     w = torch.empty(fan_in, fan_out).uniform_(-bound, bound,
                                               generator=generator)
     b = torch.empty(fan_out).uniform_(-bound, bound, generator=generator)
-    return {"w": w.to(device), "b": b.to(device)}
+    return {"w": w.to(dev), "b": b.to(dev)}
 
 
-def mlp_init(dims, generator: torch.Generator, device="cpu"):
-    return [linear_init(dims[i], dims[i + 1], generator, device)
+def mlp_init(dims, generator: torch.Generator, device="cuda"):
+    dev = resolve_device(device)
+    return [linear_init(dims[i], dims[i + 1], generator, dev)
             for i in range(len(dims) - 1)]
 
 
@@ -43,7 +48,7 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.leaky_relu(x, 0.01)``: the slope is a scalar of x's dtype
     (in bf16, 0.010009765625), as in JAX; ``F.leaky_relu`` would multiply
     by the f32 0.01 before rounding."""
-    slope = torch.tensor(LEAKY_SLOPE, dtype=x.dtype, device=x.device)
+    slope = constant(LEAKY_SLOPE, x.dtype, x.device)
     return torch.where(x >= 0, x, slope * x)
 
 
@@ -88,10 +93,11 @@ def mlp_apply(layers, x: torch.Tensor, final_act=None,
 
 
 def init_model_params(cfg: ModelConfig, generator: torch.Generator,
-                      device="cpu"):
+                      device="cuda"):
     """``{"frozen": {F_geometry, T}, "train": {F_color, R, beta}}`` with the
     dims of ``spurfies_tpu/model/networks.py:101-114``; per-scene latents
     are added by ``neural_points.build_scene``."""
+    device = resolve_device(device)
     if cfg.entangled:
         raise NotImplementedError(
             "entangled model: ROADMAP.md Queue 1 item 'Legacy entangled "

@@ -10,7 +10,12 @@ Reference ``spurfies/model/ray_sampler.py``:
 As in the JAX package the loop is unrolled with per-ray convergence masks,
 and the SDF evaluations go through a no-grad probe.  At eval no random
 number is drawn: the first grid is not stratified, every ``sample_pdf``
-round is deterministic and the extra columns are a linspace.
+round is deterministic and the extra columns are a linspace.  A training
+render draws three times: the stratified jitter, the last round's
+``sample_pdf`` and the extra columns.  Each draw can be given as a tensor
+(``draws``), so that a test can hand both packages the same numbers; a draw
+that is not given comes from the caller's ``torch.Generator``, on the
+render's device.
 """
 
 import numpy as np
@@ -18,18 +23,22 @@ import torch
 
 from spurfies_tpu_torch.config import SamplerConfig
 from spurfies_tpu_torch.core.density import laplace_density
+from spurfies_tpu_torch.device import constant, resolve_device
 
 
 def linspace(start: float, stop: float, n: int, device) -> torch.Tensor:
-    """f32 ``[n]``, each value correctly rounded from float64."""
-    return torch.from_numpy(
-        np.linspace(start, stop, n).astype(np.float32)).to(device)
+    """f32 ``[n]``, each value correctly rounded from float64 (a shared
+    constant: do not write to it)."""
+    return constant(tuple(np.linspace(start, stop, n).astype(np.float32)
+                          .tolist()), torch.float32, device)
 
 
 def uniform_z_vals(n_rays: int, near: float, far: float, n: int,
-                   stratified: bool, generator=None, device="cpu"):
-    """[R, n] z values; stratified jitter within bins when training (the
-    draw comes from ``generator``)."""
+                   stratified: bool, device, u=None, generator=None):
+    """[R, n] z values on ``device``; stratified jitter within bins when
+    training, by ``u`` ``[R, n]`` in [0, 1) (drawn from ``generator`` when
+    not given)."""
+    device = resolve_device(device)
     t = linspace(0.0, 1.0, n, device)
     z = near * (1.0 - t) + far * t
     z = z.expand(n_rays, n)
@@ -37,21 +46,24 @@ def uniform_z_vals(n_rays: int, near: float, far: float, n: int,
         mids = 0.5 * (z[..., 1:] + z[..., :-1])
         upper = torch.cat([mids, z[..., -1:]], -1)
         lower = torch.cat([z[..., :1], mids], -1)
-        u = torch.rand(z.shape, generator=generator).to(device)
+        if u is None:
+            u = torch.rand(z.shape, generator=generator, device=device)
         z = lower + (upper - lower) * u
     return z
 
 
 def sample_pdf(bins: torch.Tensor, pdf: torch.Tensor, n: int,
-               deterministic: bool, generator=None):
+               deterministic: bool, u=None, generator=None):
     """Inverse-CDF sampling (reference ray_sampler.py:505-529).
 
     bins ``[R, Z]`` non-decreasing along Z; pdf ``[R, Z-1]`` (need not be
-    normalized).  ``torch.searchsorted(cdf, u, right=True)`` brackets each
-    u; the JAX package's masked max/min reduce over an ``[R, U, Z]`` mask
-    is its TPU stand-in for the same bracket (and a ``[4096, 128, 640]``
-    temporary at eval shapes).  The top bracket is clamped to the last
-    column as there (``spurfies_tpu/model/sampler.py:82-87``).
+    normalized); u ``[R, n]``: the draw when not deterministic (from
+    ``generator`` when not given).  ``torch.searchsorted(cdf, u,
+    right=True)`` brackets each u; the JAX package's masked max/min reduce
+    over an ``[R, U, Z]`` mask is its TPU stand-in for the same bracket
+    (and a ``[4096, 128, 640]`` temporary at eval shapes).  The top bracket
+    is clamped to the last column as there
+    (``spurfies_tpu/model/sampler.py:82-87``).
     """
     r, z = bins.shape
     pdf = pdf / torch.sum(pdf, -1, keepdim=True)
@@ -59,8 +71,8 @@ def sample_pdf(bins: torch.Tensor, pdf: torch.Tensor, n: int,
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)   # [R, Z]
     if deterministic:
         u = linspace(0.0, 1.0, n, bins.device).expand(r, n).contiguous()
-    else:
-        u = torch.rand((r, n), generator=generator).to(bins.device)
+    elif u is None:
+        u = torch.rand((r, n), generator=generator, device=bins.device)
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = torch.clamp(inds - 1, min=0)
     above = torch.clamp(inds, max=z - 1)
@@ -104,7 +116,8 @@ def _error_bound(beta, sdf, z_vals, dists, d_star):
 
 
 def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
-                       beta0, iters: int, train: bool, generator=None):
+                       beta0, iters: int, train: bool, generator=None,
+                       draws=None):
     """Full error-bounded sampling.
 
     Args:
@@ -114,7 +127,12 @@ def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
       cam_loc/ray_dirs: ``[R, 3]``.
       beta0: ``[]`` current density beta (detached by the caller).
       iters: sampler iterations (eval: max_total_iters).
-      generator: the draws of a training render (unused at eval).
+      generator: the source of a training render's draws that ``draws``
+        does not give (unused at eval).
+      draws: optional training draws -- ``"u_z"`` ``[R, n_samples_eval]``
+        the stratified jitter, ``"u_pdf"`` ``[R, n_samples]`` the last
+        round's ``sample_pdf`` and ``"extra_cols"`` ``[n_samples_extra]``
+        the merged extra columns (indices into the last z grid).
 
     Returns:
       (z_vals ``[R, n_samples + n_samples_extra + 2]`` sorted,
@@ -122,6 +140,7 @@ def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
     """
     n_rays = cam_loc.shape[0]
     dev = cam_loc.device
+    draws = draws or {}
 
     def probe(z, first=False):
         pts = cam_loc[:, None, :] + z[..., None] * ray_dirs[:, None, :]
@@ -129,13 +148,12 @@ def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
         return s.reshape(z.shape).detach(), ovf
 
     z_vals = uniform_z_vals(n_rays, cfg.near, cfg.far, cfg.n_samples_eval,
-                            stratified=train, generator=generator,
-                            device=dev)
+                            train, dev, u=draws.get("u_z"),
+                            generator=generator)
     sdf, probe_overflow = probe(z_vals, first=True)
 
     dists0 = z_vals[:, 1:] - z_vals[:, :-1]
-    log_eps = torch.log(torch.tensor(cfg.eps + 1.0, dtype=torch.float32,
-                                     device=dev))
+    log_eps = torch.log(constant(cfg.eps + 1.0, torch.float32, dev))
     bound = (1.0 / (4.0 * log_eps)) * torch.sum(dists0 ** 2.0, -1)
     beta = torch.sqrt(bound)
     samples = z_vals
@@ -190,7 +208,7 @@ def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
         else:
             samples = sample_pdf(z_vals, w_pdf, cfg.n_samples,
                                  deterministic=not train,
-                                 generator=generator)
+                                 u=draws.get("u_pdf"), generator=generator)
 
     # near/far + extra merged columns (reference :537-559)
     near_col = torch.full((n_rays, 1), cfg.near, device=dev)
@@ -198,8 +216,10 @@ def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
     z_cols = z_vals.shape[-1]
     if cfg.n_samples_extra > 0:
         if train:
-            cols = torch.randperm(z_cols, generator=generator)[
-                :cfg.n_samples_extra].to(dev)
+            cols = draws.get("extra_cols")
+            if cols is None:
+                cols = torch.randperm(z_cols, generator=generator,
+                                      device=dev)[:cfg.n_samples_extra]
         else:
             cols = linspace(0, z_cols - 1, cfg.n_samples_extra,
                             dev).to(torch.int64)

@@ -1,19 +1,25 @@
-"""K2 / K3: fused gather + frozen-prior pair MLP + RBF weight + per-point
-aggregation.
+"""K2 / K3 / K4: fused gather + frozen-prior pair MLP + RBF weight +
+per-point aggregation, and its latent gradient.
 
 Port of the fused-aggregation kernels of ``spurfies_tpu/ops/pallas_mlp.py``:
   * K2 ``pair_sdf_value_agg`` (``_fused_value_agg_call``): per point
     ``(sum_k w s, sum_k w)`` -- the sampler's no-grad probe;
   * K3 ``pair_sdf_aggregate`` (``_fused_agg_call``): per point
     ``(sum_k w s, sum_k w, sum_k w ds/dx)`` plus the per-pair residuals
-    ``w`` and ``r_lat = ds/dlat`` that the training slice's latent gradient
-    consumes.
+    ``w`` and ``r_lat = ds/dlat`` that K4 consumes;
+  * K4 ``pair_sdf_aggregate_bwd`` (``_fused_agg_bwd_call``): K3's latent
+    gradient ``out[idx] += num_bar[point] * w * r_lat``.
+The autograd Function :class:`PairSdfAggregate` puts K3 forward and K4
+backward together, as the custom VJP of ``spurfies_tpu/model/field.py``'s
+``pair_sdf_aggregate`` does.
 
-The CUDA kernels are ``csrc/pair_mlp.cu``; ``*_ref`` are their plain
-PyTorch versions (CPU tensors, and the kernels' yardstick on the card).
-Both follow the TPU kernel's rounding points: operands in the compute
-dtype, f32 accumulation, bias added in f32, activations rounded after each
-LeakyReLU, the down-sweep delta rounded after each gate and each product.
+The CUDA kernels are ``csrc/pair_mlp.cu`` (K2, K3) and ``csrc/agg_bwd.cu``
+(K4); ``*_ref`` are their plain PyTorch versions (CPU tensors, and the
+kernels' yardstick on the card).  K2 and K3 follow the TPU kernel's
+rounding points: operands in the compute dtype, f32 accumulation, bias
+added in f32, activations rounded after each LeakyReLU, the down-sweep
+delta rounded after each gate and each product.  K4 sums with atomics, so
+it agrees with its plain version up to f32 reordering.
 
 Pair rows are point-major: ``idx_ext [P, k]`` indexes a table
 ``[N+1, 32+3] = [latent | position]`` whose row N is the dump row at
@@ -26,6 +32,7 @@ from dataclasses import dataclass
 
 import torch
 
+from spurfies_tpu_torch.device import constant
 from spurfies_tpu_torch.ops import cuda_build
 
 DUMP_POS = 1.0e9        # dump-row position: w = exp(-rbf^2 * ~1e18) == 0
@@ -34,7 +41,8 @@ LAT = 32
 _ROWS = 128             # pair rows per CUDA block
 _IN0, _OUT0 = 48, 40    # padded first-layer depth / last down-sweep width
 
-LAUNCHES = {"pair_sdf_value_agg": 0, "pair_sdf_aggregate": 0}
+LAUNCHES = {"pair_sdf_value_agg": 0, "pair_sdf_aggregate": 0,
+            "pair_sdf_aggregate_bwd": 0}
 
 _P = ctypes.c_void_p
 _SIG = {
@@ -45,6 +53,9 @@ _SIG = {
                                   ctypes.c_int, _P, _P, ctypes.c_float, _P,
                                   _P, _P, _P],
 }
+_SIG_BWD = {"pair_sdf_aggregate_bwd_launch": [_P, _P, _P, _P, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_int, _P,
+                                              _P]}
 
 
 @dataclass
@@ -110,6 +121,16 @@ def _prep_layers(frozen, compute_dtype=torch.bfloat16) -> PriorLayers:
     return PriorLayers(ws, bs, n_act, compute_dtype)
 
 
+def pair_table(latents: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """``[N+1, D+3]`` rows ``[latent | position]``; row N is the dump row
+    (zero latent, position DUMP_POS) that invalid pairs index."""
+    d = latents.shape[1]
+    dump = torch.cat([latents.new_zeros(1, d),
+                      latents.new_full((1, 3), DUMP_POS)], 1)
+    return torch.cat([torch.cat([latents, points.to(latents.dtype)], 1),
+                      dump], 0).contiguous()
+
+
 def _mm(a, w):
     """Product of compute-dtype operands accumulated in f32."""
     return a.to(w.dtype).float() @ w.float()
@@ -123,7 +144,7 @@ def _gather(table, idx_ext, x, rbf: float):
     g = table[torch.where((idx >= 0) & (idx < rows), idx, rows - 1)]
     xpi = torch.repeat_interleave(x, k, dim=0) - g[:, -3:]
     d2 = (xpi[:, 0] * xpi[:, 0] + xpi[:, 1] * xpi[:, 1]) + xpi[:, 2] * xpi[:, 2]
-    rbf2 = torch.tensor(float(rbf) ** 2, dtype=torch.float32, device=x.device)
+    rbf2 = constant(float(rbf) ** 2, torch.float32, x.device)
     w = torch.exp(-rbf2 * d2)
     return g, xpi, w
 
@@ -167,7 +188,7 @@ def pair_sdf_aggregate_ref(table, idx_ext, x, layers: PriorLayers,
     cd = layers.compute_dtype
     g, xpi, w = _gather(table, idx_ext, x, rbf)
     s, gates = _up_sweep(layers, g, xpi, keep_gates=True)
-    slope = torch.tensor(0.01, dtype=cd, device=x.device).float()
+    slope = constant(0.01, cd, x.device).float()
     delta = layers.ws[-1].t().expand(g.shape[0], -1)        # [T, 256]
     for i in range(layers.n_act - 1, -1, -1):
         delta = (delta.float() * torch.where(gates[i], 1.0, slope)).to(cd)
@@ -189,11 +210,6 @@ def _check_inputs(name, table, idx_ext, x):
         raise ValueError(f"{name}: idx_ext int32 [P, k] and x f32 [P, 3]")
     if _ROWS % k != 0:
         raise ValueError(f"{name}: k={k} must divide {_ROWS}")
-    for t in (table, x):
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(
-                f"{name} is forward-only in this slice (its latent gradient "
-                "is the training slice's K4); call it under torch.no_grad()")
 
 
 def _pad_points(idx_ext, x, n_dump: int):
@@ -207,9 +223,11 @@ def _pad_points(idx_ext, x, n_dump: int):
     return idx_ext.contiguous(), x.contiguous(), p + pad
 
 
+@torch.no_grad()
 def pair_sdf_value_agg(table, idx_ext, x, layers: PriorLayers, rbf: float):
-    """K2.  CPU tensors run :func:`pair_sdf_value_agg_ref`; CUDA tensors
-    launch the kernel (bf16 compute only)."""
+    """K2 (forward only: its outputs carry no gradient).  CPU tensors run
+    :func:`pair_sdf_value_agg_ref`; CUDA tensors launch the kernel (bf16
+    compute only)."""
     _check_inputs("pair_sdf_value_agg", table, idx_ext, x)
     if x.device.type == "cpu":
         return pair_sdf_value_agg_ref(table, idx_ext, x, layers, rbf)
@@ -230,11 +248,12 @@ def pair_sdf_value_agg(table, idx_ext, x, layers: PriorLayers, rbf: float):
     return out[:p]
 
 
+@torch.no_grad()
 def pair_sdf_aggregate(table, idx_ext, x, layers: PriorLayers, rbf: float):
-    """K3 (forward only in this slice: a tensor that requires grad raises).
-    CPU tensors run :func:`pair_sdf_aggregate_ref`; CUDA tensors launch the
-    kernel (bf16 compute only).  Returns ``(pt [P, 5], w [P*k],
-    r_lat [P*k, 32])``."""
+    """K3, forward only: its outputs carry no gradient (the differentiable
+    form is :class:`PairSdfAggregate`).  CPU tensors run
+    :func:`pair_sdf_aggregate_ref`; CUDA tensors launch the kernel (bf16
+    compute only).  Returns ``(pt [P, 5], w [P*k], r_lat [P*k, 32])``."""
     _check_inputs("pair_sdf_aggregate", table, idx_ext, x)
     if x.device.type == "cpu":
         return pair_sdf_aggregate_ref(table, idx_ext, x, layers, rbf)
@@ -256,3 +275,93 @@ def pair_sdf_aggregate(table, idx_ext, x, layers: PriorLayers, rbf: float):
     cuda_build.check(err, "pair_sdf_aggregate")
     LAUNCHES["pair_sdf_aggregate"] += 1
     return pt[:p], w[:p * k], r[:p * k]
+
+
+def pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n: int):
+    """Plain K4: ``[n, 32]`` f32 with ``out[idx[t]] += (num_bar[t // k] *
+    w[t]) * r_lat[t]`` over the pair rows t; a row whose index lies outside
+    ``[0, n)`` (the dump row n) or whose w is 0 adds nothing."""
+    k = idx_ext.shape[1]
+    idx = idx_ext.reshape(-1).long()
+    keep = (idx >= 0) & (idx < n) & (w != 0)
+    ct = (torch.repeat_interleave(num_bar, k) * w)[:, None] * r_lat.float()
+    out = torch.zeros((n + 1, r_lat.shape[1]), dtype=torch.float32,
+                      device=w.device)
+    out.index_add_(0, torch.where(keep, idx, n),
+                   torch.where(keep[:, None], ct, 0.0))
+    return out[:n]
+
+
+def pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n: int):
+    """K4: the latent cotangent ``[n, 32]`` of K3's per-point ``sum_k w s``.
+
+    num_bar ``[P]`` f32; w ``[P*k]`` f32 and r_lat ``[P*k, 32]`` (bf16 on
+    the card) are K3's residuals; idx_ext ``[P, k]`` int32.  CPU tensors run
+    :func:`pair_sdf_aggregate_bwd_ref`; CUDA tensors launch the kernel.
+    """
+    p, k = idx_ext.shape
+    if not (num_bar.device == w.device == r_lat.device == idx_ext.device):
+        raise ValueError("pair_sdf_aggregate_bwd: inputs on different "
+                         "devices")
+    if tuple(num_bar.shape) != (p,) or tuple(w.shape) != (p * k,) or \
+            tuple(r_lat.shape) != (p * k, LAT):
+        raise ValueError("pair_sdf_aggregate_bwd: num_bar [P], w [P*k] and "
+                         f"r_lat [P*k, {LAT}] for idx_ext [P, k]")
+    if w.device.type == "cpu":
+        return pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n)
+    if w.device.type != "cuda":
+        raise ValueError(f"pair_sdf_aggregate_bwd: unsupported device "
+                         f"{w.device}")
+    if num_bar.dtype != torch.float32 or w.dtype != torch.float32 or \
+            r_lat.dtype != torch.bfloat16 or idx_ext.dtype != torch.int32:
+        raise ValueError("pair_sdf_aggregate_bwd: num_bar and w f32, r_lat "
+                         "bf16, idx_ext int32")
+    if n <= 0 or not all(t.is_contiguous()
+                         for t in (num_bar, w, r_lat, idx_ext)):
+        raise ValueError("pair_sdf_aggregate_bwd: contiguous inputs, n > 0")
+    out = torch.zeros((n, LAT), dtype=torch.float32, device=w.device)
+    lib = cuda_build.load("agg_bwd", _SIG_BWD)
+    err = lib.pair_sdf_aggregate_bwd_launch(
+        num_bar.data_ptr(), w.data_ptr(), r_lat.data_ptr(),
+        idx_ext.data_ptr(), p * k, k, n, out.data_ptr(),
+        torch.cuda.current_stream(w.device).cuda_stream)
+    cuda_build.check(err, "pair_sdf_aggregate_bwd")
+    LAUNCHES["pair_sdf_aggregate_bwd"] += 1
+    return out
+
+
+class PairSdfAggregate(torch.autograd.Function):
+    """``(num [P], den [P], gagg [P, 3])``: the RBF-aggregated prior SDF
+    sums of K3, differentiable in the latents and in x.
+
+    The VJP of ``spurfies_tpu/model/field.py:491-511``:
+      * latents: K4 from K3's residuals w, r_lat and num's cotangent;
+      * x: ``num_bar * gagg`` (the weights are constant in x: their
+        distances are detached, reference pointneus_disent.py:242);
+      * den's and gagg's cotangents are dropped.  den has no latent
+        dependence, and gagg's latent derivative is zero almost everywhere
+        (the frozen prior is piecewise linear), so the eikonal term puts
+        exactly nothing into the latents, as in the JAX package.
+    """
+
+    @staticmethod
+    def forward(ctx, latents, points, idx_ext, x, layers: PriorLayers,
+                rbf: float):
+        pt, w, r_lat = pair_sdf_aggregate(pair_table(latents, points),
+                                          idx_ext, x.contiguous(), layers,
+                                          rbf)
+        gagg = pt[:, 2:5]
+        ctx.save_for_backward(w, r_lat, idx_ext, gagg)
+        ctx.n = latents.shape[0]
+        return pt[:, 0], pt[:, 1], gagg
+
+    @staticmethod
+    def backward(ctx, num_bar, den_bar, gagg_bar):
+        w, r_lat, idx_ext, gagg = ctx.saved_tensors
+        lat_bar = x_bar = None
+        if ctx.needs_input_grad[0]:
+            lat_bar = pair_sdf_aggregate_bwd(num_bar.contiguous(), w, r_lat,
+                                             idx_ext, ctx.n)
+        if ctx.needs_input_grad[3]:
+            x_bar = num_bar[:, None] * gagg
+        return lat_bar, None, None, x_bar, None, None

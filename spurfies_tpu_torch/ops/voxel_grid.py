@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from spurfies_tpu_torch.device import constant
 from spurfies_tpu_torch.ops.select_knn import select_knn
 
 
@@ -67,14 +68,14 @@ class QueryTable:
 
 
 def _f32(v, device):
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    return constant(v, torch.float32, device)
 
 
 def _cell_ids(points: torch.Tensor, spec: VoxelGridSpec) -> torch.Tensor:
     """Linear cell id per point (int32); out of range -> num_cells."""
     dev = points.device
     lo = _f32(spec.lo, dev)
-    dims = torch.tensor(spec.dims, dtype=torch.int32, device=dev)
+    dims = constant(spec.dims, torch.int32, dev)
     ijk = torch.floor((points - lo) / _f32(spec.cell_size, dev)).to(torch.int32)
     in_range = torch.all((ijk >= 0) & (ijk < dims), dim=-1)
     ijk = torch.minimum(torch.clamp(ijk, min=0), dims - 1)

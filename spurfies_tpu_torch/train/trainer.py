@@ -1,15 +1,45 @@
-"""Full-image eval renderer (port of ``make_render_fn`` of
-``spurfies_tpu/train/trainer.py``; reference render_step,
-``train.py:399-472``).  ``Trainer`` is the training slice's work."""
+"""Per-scene optimization loop and full-image renderer (port of
+``spurfies_tpu/train/trainer.py``; reference VolOpt, ``train.py:21-564``).
+
+  * ``make_train_step`` builds ``loss_fn``, ``sample_batch`` and
+    ``train_step``: one step samples a view and its pixels on the card,
+    renders them (``render_rays(train=True)``), adds the TV and pseudo-SDF
+    terms, takes the gradient of every trained tensor and applies the
+    guarded two-group Adam (``train.optim``).  Nothing in a step waits on
+    the card, so the host runs ahead of it.
+  * ``Trainer`` owns the scene, the parameters and the optimizer state,
+    calibrates the auto ray/probe budgets on the host, and runs windows of
+    steps, reading their metrics back once per window.
+  * ``make_render_fn`` renders a full image for evaluation.
+
+The JAX package's ``lax.scan`` window has no counterpart: the steps of a
+window are a Python loop of eagerly launched kernels.
+"""
+
+import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from spurfies_tpu_torch.config import Config
 from spurfies_tpu_torch.core.cameras import get_camera_params
+from spurfies_tpu_torch.core.metrics import psnr as psnr_fn
 from spurfies_tpu_torch.device import resolve_device
-from spurfies_tpu_torch.model.renderer import coarse_ray_occupancy, render_rays
+from spurfies_tpu_torch.model.losses import total_loss
+from spurfies_tpu_torch.model.networks import init_model_params
+from spurfies_tpu_torch.model.neural_points import build_scene
+from spurfies_tpu_torch.model.renderer import (
+    cloud_anchor_loss,
+    coarse_ray_occupancy,
+    fd_eikonal_loss,
+    pseudo_sdf_loss,
+    render_rays,
+    tv_loss,
+)
 from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
+from spurfies_tpu_torch.ops.voxel_grid import fine_spec
+from spurfies_tpu_torch.train.optim import Optimizer, OptState, flatten
 
 _KEEP = ("rgb_values", "depth_values", "normal_map", "acc", "ray_mask")
 
@@ -106,3 +136,319 @@ def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16):
                 for k in _KEEP}
 
     return render_image
+
+
+def _calibrate_ray_budget(scene, views, cfg: Config):
+    """The auto budgets from the scene's fine-bitmap occupancy over the
+    train views (host numpy; ``spurfies_tpu/train/trainer.py:38-88``).
+
+    Returns ``(ray_frac, probe_frac)``: the worst view's share of rays that
+    hit an occupied fine cell at some uniform z, plus a 4-sigma binomial
+    margin for a num_pixels batch; and the worst view's mean per-ray share
+    of occupied uniform samples over the rays the ray budget keeps, plus 4
+    standard errors of that mean.  Both capped at 1.0 (dense)."""
+    occ0 = scene.occ_fine.cpu().numpy().reshape(-1)
+    uv_all = np.asarray(views["uv"], dtype=np.float32)
+    n_px = uv_all.shape[0]
+    sub = np.random.RandomState(0).choice(n_px, size=min(8192, n_px),
+                                          replace=False)
+    uv = uv_all[sub]
+    worst_ray = 0.0
+    worst_probe = 0.0
+    ray_budget_on = 0 < cfg.model.ray_budget_frac < 1 or (
+        cfg.model.ray_budget_frac < 0)
+    for v in range(np.asarray(views["pose"]).shape[0]):
+        samp = _samples_occupied_np(occ0, scene.spec, cfg.model.ray_sampler,
+                                    uv, np.asarray(views["pose"][v]),
+                                    np.asarray(views["intrinsics"][v]))
+        ray_occ = samp.any(axis=1)
+        worst_ray = max(worst_ray, float(ray_occ.mean()))
+        per_ray = samp.mean(axis=1)
+        kept = per_ray[ray_occ] if ray_budget_on else per_ray
+        if kept.size:
+            n_kept = max(int(cfg.train.num_pixels
+                             * (float(ray_occ.mean()) if ray_budget_on
+                                else 1.0)), 1)
+            se = float(kept.std()) / np.sqrt(n_kept)
+            worst_probe = max(worst_probe, float(kept.mean()) + 4.0 * se)
+    sigma = np.sqrt(worst_ray * (1.0 - worst_ray)
+                    / max(cfg.train.num_pixels, 1))
+    return min(1.0, worst_ray + 4.0 * sigma), min(1.0, worst_probe)
+
+
+def _rays_occupied_np(occ0, spec, scfg, uv, pose, K):
+    """Per ray ``[P]`` bool: does any of the n_samples_eval uniform z
+    samples land in an occupied fine cell?  (The host twin of
+    ``model.renderer.coarse_ray_occupancy``.)"""
+    return _samples_occupied_np(occ0, spec, scfg, uv, pose, K).any(axis=1)
+
+
+def _samples_occupied_np(occ0, spec, scfg, uv, pose, K):
+    """Per (ray, uniform z sample) fine-bitmap occupancy ``[P, Z]`` bool."""
+    fs = fine_spec(spec)
+    dims = np.asarray(fs.dims)
+    lo = np.asarray(fs.lo, dtype=np.float32)
+    pose = np.asarray(pose, dtype=np.float32)
+    K = np.asarray(K, dtype=np.float32)
+    uv = np.asarray(uv, dtype=np.float32)
+    z = np.linspace(scfg.near, scfg.far, scfg.n_samples_eval,
+                    dtype=np.float32)
+    fx, fy = K[0, 0], K[1, 1]
+    cx, cy, sk = K[0, 2], K[1, 2], K[0, 1]
+    x, y = uv[:, 0], uv[:, 1]
+    # pinhole + skew lift at depth 1 (core.cameras.lift)
+    xl = (x - cx + cy * sk / fy - sk * y / fy) / fx
+    yl = (y - cy) / fy
+    d = np.stack([xl, yl, np.ones_like(xl)], -1) @ pose[:3, :3].T
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pts = pose[:3, 3] + z[None, :, None] * d[:, None, :]      # [P, Z, 3]
+    ijk = np.floor((pts - lo) / np.float32(fs.cell_size)).astype(np.int64)
+    in_r = np.all((ijk >= 0) & (ijk < dims), axis=-1)
+    ijk = np.clip(ijk, 0, dims - 1)
+    lin = (ijk[..., 0] * dims[1] + ijk[..., 1]) * dims[2] + ijk[..., 2]
+    return (occ0[lin] != 0) & in_r
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Trainable parameters (latents + nets + beta), the optimizer state
+    and the step count (an int32 tensor on the card), updated in place."""
+    params: dict
+    opt_state: OptState
+    step: torch.Tensor
+
+
+# metrics summed over a window (rare single-step events); every other
+# metric reports its window's last step (trainer.py:277-294)
+_SUM_KEYS = ("ray_overflow", "probe_overflow")
+
+
+def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda"):
+    """``(loss_fn, sample_batch, train_step)`` for ``cfg`` on ``device``
+    (``spurfies_tpu/train/trainer.py:147-275``).
+
+    * ``loss_fn(tp, bundle, batch, step, generator=None, draws=None)`` ->
+      ``(loss, parts)``.  bundle: ``{"scene", "prior", "views"}`` with the
+      prior prepared by ``ops.pair_mlp._prep_layers``.  draws: optional
+      tensors for the random numbers of the step -- the sampler's
+      (``model.sampler.error_bound_z_vals``), ``"cloud_sel"`` and
+      ``"fd_sel"``/``"fd_u"``; absent ones come from ``generator``.
+    * ``sample_batch(views, generator, v=None, pix=None)``: a view and
+      ``num_pixels`` distinct pixels, drawn on the card unless given
+      (``v`` a ``[1]`` long tensor, ``pix`` ``[num_pixels]``).
+    * ``train_step(bundle, state, generator, draws=None, batch=None)``: one
+      step in place on ``state``; returns its metrics as 0-d tensors on
+      the card.  ``batch`` defaults to ``sample_batch``'s draw.
+
+    ``loss.local_weight > 0`` with a local bundle has no port yet
+    (``Trainer`` raises).
+    """
+    mcfg, lcfg = cfg.model, cfg.loss
+    n_pix = cfg.train.num_pixels
+    fast = cfg.train.fast_iters
+    dev = resolve_device(device)
+
+    def loss_fn(tp, bundle, batch, step, generator=None, draws=None):
+        scene = bundle["scene"]
+        draws = draws or {}
+        params = {"frozen": bundle["prior"], "train": tp}
+        out = render_rays(params, scene, batch["inputs"], mcfg, train=True,
+                          iters=fast, generator=generator, draws=draws)
+        out["tv_loss"] = tv_loss(params, scene)
+        out["pseudo_pts_loss"] = pseudo_sdf_loss(params, scene, out, mcfg)
+        if lcfg.cloud_anchor_weight > 0:
+            out["cloud_anchor_loss"] = cloud_anchor_loss(
+                params, scene, mcfg, generator=generator,
+                sel=draws.get("cloud_sel"))
+        if lcfg.fd_eikonal_weight > 0:
+            out["fd_eikonal_loss"] = fd_eikonal_loss(
+                params, scene, out, mcfg, n_sub=lcfg.fd_eikonal_points,
+                generator=generator, sel=draws.get("fd_sel"),
+                u=draws.get("fd_u"))
+        loss, parts = total_loss(out, batch["gt"], lcfg, step=step)
+        parts["psnr"] = psnr_fn(out["rgb_values"],
+                                batch["gt"]["rgb"].reshape(-1, 3))
+        parts["ray_overflow"] = out["ray_budget_overflow"].to(torch.float32)
+        parts["probe_overflow"] = out["probe_budget_overflow"].to(
+            torch.float32)
+        return loss, parts
+
+    def sample_batch(views, generator, v=None, pix=None):
+        n_views = views["rgb"].shape[0]
+        total_px = views["uv"].shape[0]
+        if v is None:
+            v = torch.randint(0, n_views, (1,), generator=generator,
+                              device=dev)
+        if pix is None:
+            pix = torch.randperm(total_px, generator=generator,
+                                 device=dev)[:n_pix]
+        # a [1] index keeps the view's batch axis and never reads the
+        # index back to the host
+        return {
+            "inputs": {"uv": views["uv"][pix][None],
+                       "pose": views["pose"][v],
+                       "intrinsics": views["intrinsics"][v]},
+            "gt": {"rgb": views["rgb"][v, pix], "mask": views["mask"][v, pix]},
+            "view": v,
+        }
+
+    def train_step(bundle, state: TrainState, generator, draws=None,
+                   batch=None):
+        if batch is None:
+            batch = sample_batch(bundle["views"], generator)
+        leaves = flatten(state.params)
+        loss, parts = loss_fn(state.params, bundle, batch, state.step,
+                              generator, draws)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        optimizer.step(state.params, grads, state.opt_state)
+        state.step += 1
+        parts = {k: v.detach() for k, v in parts.items()}
+        # consecutive non-finite skips (finite_guarded_clip's counter)
+        parts["notfinite"] = state.opt_state.notfinite_count.to(
+            torch.float32)
+        return parts
+
+    return loss_fn, sample_batch, train_step
+
+
+class Trainer:
+    """Host side of training: builds the scene, parameters and optimizer, runs
+    windows of steps, renders eval images, saves and restores checkpoints
+    (``spurfies_tpu/train/trainer.py:445-658``).
+
+    Args:
+      cfg: the Config; ``ray_budget_frac``/``probe_budget_frac`` < 0 are
+        calibrated here and ``self.cfg`` carries the values.
+      point_cloud, colors: the raw cloud ``[M, 3]`` and its colours.
+      views: ``rgb [V, HW, 3]``, ``mask [V, HW, 1]``, ``uv [HW, 2]``,
+        ``pose``/``intrinsics [V, 4, 4]`` (numpy), kept on the card.
+      device: where everything runs (the card unless ``"cpu"``).
+      compute_dtype: the frozen prior's matmul dtype (bf16, the kernels'
+        dtype; f32 only on the CPU).
+    """
+
+    def __init__(self, cfg: Config, point_cloud, colors, views,
+                 local_bundle=None, device="cuda",
+                 compute_dtype=torch.bfloat16):
+        if local_bundle is not None and cfg.loss.local_weight > 0:
+            raise NotImplementedError(
+                "the local feature loss: ROADMAP.md Queue 1 item 14")
+        if cfg.train.data_parallel > 1:
+            raise NotImplementedError(
+                "train.data_parallel > 1: ROADMAP.md Queue 1 item 19")
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        seed = cfg.train.seed
+        gen = torch.Generator().manual_seed(seed)
+        self.scene, latents = build_scene(point_cloud, cfg.model, colors,
+                                          generator=gen, device=self.device)
+        if cfg.model.ray_budget_frac < 0 or cfg.model.probe_budget_frac < 0:
+            ray_frac, probe_frac = _calibrate_ray_budget(self.scene, views,
+                                                         cfg)
+            updates = {}
+            if cfg.model.ray_budget_frac < 0:
+                updates["ray_budget_frac"] = ray_frac
+            if cfg.model.probe_budget_frac < 0:
+                updates["probe_budget_frac"] = probe_frac
+            cfg = dataclasses.replace(
+                cfg, model=dataclasses.replace(cfg.model, **updates))
+        self.cfg = cfg
+        params = init_model_params(cfg.model, gen, device=self.device)
+        tp = dict(params["train"], **latents)
+        for leaf in flatten(tp):
+            leaf.requires_grad_(True)
+        self.load_frozen(params["frozen"])
+        self.views = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                      for k, v in views.items()}
+        self.optimizer = Optimizer(cfg.train)
+        self.state = TrainState(
+            tp, self.optimizer.init(tp),
+            torch.zeros((), dtype=torch.int32, device=self.device))
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed + 1)
+        self.loss_fn, self.sample_batch, self.train_step = make_train_step(
+            cfg, self.optimizer, self.device)
+        self._render = make_render_fn(cfg, self.device, compute_dtype)
+
+    @property
+    def bundle(self):
+        return {"scene": self.scene, "prior": self.prior,
+                "views": self.views}
+
+    def load_frozen(self, frozen_params):
+        """Install the frozen prior (reference train.py:124-143): a tree of
+        tensors ``{"F_geometry": [...], "T": [...]}``."""
+        self.frozen = {k: [{kk: t.to(self.device) for kk, t in layer.items()}
+                           for layer in v]
+                       for k, v in frozen_params.items()}
+        self.prior = _prep_layers(self.frozen, self.compute_dtype)
+
+    def render_image(self, uv, pose, intrinsics):
+        """A full image through ``make_render_fn`` with the current
+        trainable parameters."""
+        return self._render(self.state.params, self.scene, self.frozen, uv,
+                            pose, intrinsics)
+
+    def run(self, n_steps: int, window: int = 100, callback=None):
+        """Run ``n_steps`` in windows of ``window``; ``callback(step,
+        metrics)`` after each window with each metric's last-step value
+        (the overflow counters summed over the window).  Metrics are read
+        back once per window.  Raises when every step of a window (and at
+        least 100 in a row) was skipped as non-finite."""
+        done = 0
+        while done < n_steps:
+            w = min(window, n_steps - done)
+            acc = {}
+            for _ in range(w):
+                parts = self.train_step(self.bundle, self.state,
+                                        self.generator)
+                for k, v in parts.items():
+                    acc[k] = acc[k] + v if k in _SUM_KEYS and k in acc else v
+            done += w
+            keys = list(acc)
+            vals = torch.stack([acc[k].to(torch.float32) for k in keys]).cpu()
+            last = dict(zip(keys, vals.tolist()))
+            consec = last["notfinite"]
+            if consec >= max(w, 100):
+                raise RuntimeError(
+                    f"{int(consec)} consecutive non-finite-gradient steps at "
+                    f"step {int(self.state.step)}; aborting (every update "
+                    "in the last window was skipped)")
+            if callback is not None:
+                callback(int(self.state.step), last)
+        return self.state
+
+    # ---- checkpoints: params + frozen + step + optimizer state ----------
+    def save_checkpoint(self, path: str):
+        torch.save({"params": _detached(self.state.params),
+                    "frozen": self.frozen,
+                    "step": int(self.state.step),
+                    "opt_state": self.state.opt_state.state_dict()}, path)
+
+    def restore_checkpoint(self, path: str):
+        """Restore what :meth:`save_checkpoint` wrote.  A file without
+        optimizer state restores its parameters with a fresh optimizer and
+        a warning; a corrupt file raises."""
+        ck = torch.load(path, map_location=self.device, weights_only=True)
+        tp = ck["params"]
+        for leaf in flatten(tp):
+            leaf.requires_grad_(True)
+        if "opt_state" in ck:
+            opt_state = OptState.from_state_dict(ck["opt_state"])
+        else:
+            warnings.warn("checkpoint has no optimizer state; restoring "
+                          "parameters with a fresh optimizer", stacklevel=2)
+            opt_state = self.optimizer.init(tp)
+        self.load_frozen(ck["frozen"])
+        self.state = TrainState(tp, opt_state, torch.tensor(
+            ck["step"], dtype=torch.int32, device=self.device))
+
+
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_detached(v) for v in tree]
+    return tree.detach()

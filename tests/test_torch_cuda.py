@@ -9,6 +9,9 @@ that has only PyTorch and a card (``tests/conftest.py`` sets JAX up, and
 Without a card every test skips.  Inputs are made with numpy from a seed.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from spurfies_tpu_torch.model import field
 from spurfies_tpu_torch.model.networks import init_model_params
 from spurfies_tpu_torch.model.neural_points import build_scene
 from spurfies_tpu_torch.ops import pair_mlp
+from spurfies_tpu_torch.ops import scatter_rows as sr
 from spurfies_tpu_torch.ops import select_knn as sk
 from spurfies_tpu_torch.ops import voxel_grid as vg
 from spurfies_tpu_torch.train.trainer import make_render_fn
@@ -174,3 +178,86 @@ def test_render_through_kernels_matches_plain_render(cuda):
     assert both.mean() > 0.2
     err = np.abs(a["depth_values"] - b["depth_values"])[both]
     assert (err > 2e-3).mean() <= 0.05
+
+
+def _sum_order_close(what, out, ref, abs_sum, count):
+    """Atomic sums against index_add_: the same f32 terms summed in another
+    order, held to ``chip_smoke.sum_order_within``'s limit (2 c 2**-24
+    sum|terms| for c terms; it exits on a breach)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.sum_order_within(what, out, ref, abs_sum, count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,n,stride", [(4096, 32, 512, 32),
+                                          (2048, 64, 96, 64),
+                                          (212992, 64, 6040, 67)])
+def test_scatter_add_rows_matches_plain(cuda, m, d, n, stride):
+    """K5 against its plain version: duplicates, indices outside [0, n)
+    dropped, and a strided ct (the colour cotangent's 64 of 67 columns)."""
+    rng = np.random.default_rng(m)
+    wide = torch.from_numpy(rng.normal(size=(m, stride)).astype(np.float32))
+    ct = wide.to(cuda)[:, :d]
+    idx = rng.integers(-n // 8, n + n // 8, m).astype(np.int32)
+    idx[: m // 4] = 3                                  # heavy duplicates
+    idx = torch.from_numpy(idx).to(cuda)
+    before = sr.LAUNCHES["scatter_add_rows"]
+    out = sr.scatter_add_rows(ct, idx, n)
+    ref = sr.scatter_add_rows_ref(ct, idx, n)
+    torch.cuda.synchronize()
+    assert sr.LAUNCHES["scatter_add_rows"] == before + 1
+    assert out.shape == (n, d)
+    keep = (idx >= 0) & (idx < n)
+    count = torch.bincount(idx[keep].long(), minlength=n)
+    _sum_order_close("K5", out, ref,
+                     sr.scatter_add_rows_ref(ct.abs(), idx, n), count)
+
+
+@pytest.mark.cuda
+def test_pair_sdf_aggregate_bwd_matches_plain(cuda):
+    """K4 against its plain version on K3's own residuals: dump rows,
+    fully empty points and indices outside the table add nothing."""
+    table, idx_ext, x, prior = _pair_inputs(cuda)
+    n = table.shape[0] - 1
+    with torch.no_grad():
+        _, w, r_lat = pair_mlp.pair_sdf_aggregate(table, idx_ext, x, prior,
+                                                  RBF)
+    num_bar = torch.from_numpy(np.random.default_rng(2).normal(
+        size=x.shape[0]).astype(np.float32)).to(cuda)
+    before = pair_mlp.LAUNCHES["pair_sdf_aggregate_bwd"]
+    out = pair_mlp.pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n)
+    ref = pair_mlp.pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n)
+    torch.cuda.synchronize()
+    assert pair_mlp.LAUNCHES["pair_sdf_aggregate_bwd"] == before + 1
+    assert out.shape == (n, 32) and bool(torch.isfinite(out).all())
+    flat = idx_ext.reshape(-1).long()
+    keep = (flat >= 0) & (flat < n) & (w != 0)
+    abs_sum = pair_mlp.pair_sdf_aggregate_bwd_ref(
+        num_bar.abs(), w.abs(), r_lat.abs(), idx_ext, n)
+    _sum_order_close("K4", out, ref, abs_sum,
+                     torch.bincount(flat[keep], minlength=n))
+
+
+@pytest.mark.cuda
+def test_train_steps_through_kernels(cuda):
+    """A few Trainer steps on the card launch K1-K5, keep the loss finite
+    and skip no step."""
+    from spurfies_tpu_torch.train.trainer import Trainer
+    pts, cols, views = make_synthetic_scene(n_points=1500, img_res=(24, 40))
+    cfg = apply_overrides(Config(), ["model.ray_sampler.n_samples_eval=32",
+                                     "train.num_pixels=256"])
+    before = {**sk.LAUNCHES, **pair_mlp.LAUNCHES, **sr.LAUNCHES}
+    trainer = Trainer(cfg, pts, cols, views, device=cuda)
+    trainer.load_frozen(load_prior_npz(device=cuda))
+    metrics = []
+    trainer.run(4, window=2, callback=lambda s, m: metrics.append(m))
+    after = {**sk.LAUNCHES, **pair_mlp.LAUNCHES, **sr.LAUNCHES}
+    for key in ("select_knn_packed", "pair_sdf_value_agg",
+                "pair_sdf_aggregate", "pair_sdf_aggregate_bwd",
+                "scatter_add_rows"):
+        assert after[key] > before[key], key
+    assert all(np.isfinite(m["loss"]) and m["notfinite"] == 0
+               for m in metrics)

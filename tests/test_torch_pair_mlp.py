@@ -179,11 +179,15 @@ def test_pairs_outside_the_table_read_the_dump_row(setup):
 
 
 def test_aggregate_is_forward_only(setup):
+    """The raw K2/K3 wrappers carry no gradient, whatever their inputs
+    require; the differentiable K3 is ``PairSdfAggregate``, whose backward
+    is K4 (tests/test_torch_train_ops.py)."""
     prior, table, idx_ext, x = _torch_inputs(setup, torch.float32)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tpm.pair_sdf_aggregate(table.requires_grad_(), idx_ext, x, prior, RBF)
-    with torch.no_grad():
-        tpm.pair_sdf_aggregate(table, idx_ext, x, prior, RBF)
+    table.requires_grad_()
+    x.requires_grad_()
+    pt, w, r_lat = tpm.pair_sdf_aggregate(table, idx_ext, x, prior, RBF)
+    pv = tpm.pair_sdf_value_agg(table, idx_ext, x, prior, RBF)
+    assert not any(t.requires_grad for t in (pt, w, r_lat, pv))
 
 
 def test_kernel_buffers_need_bf16(setup):

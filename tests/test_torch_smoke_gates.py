@@ -1,9 +1,12 @@
 """The tolerance gates of ``chip_smoke.py``, on the CPU.
 
 The smoke test holds each pair-MLP kernel against its plain version with
-``within`` and a rendered chunk against the plain render with
-``compare_chunk``.  These tests show that the gates pass equal inputs and
-reject a breach, so that a limit which can never fail is caught here.
+``within``, a rendered chunk against the plain render with
+``compare_chunk``, K4/K5 against their plain versions with
+``sum_order_within`` and one training batch's loss and gradients against
+the plain versions' with ``compare_grads``.  These tests show that the
+gates pass equal inputs and reject a breach, so that a limit which can
+never fail is caught here.
 """
 
 import importlib.util
@@ -62,3 +65,52 @@ def test_compare_chunk_passes_equal_renders_and_rejects_a_shift(key, shift):
     b[key] = b[key] + shift
     with pytest.raises(SystemExit):
         smoke.compare_chunk(a, b)
+
+
+def test_sum_order_within_passes_a_reordered_sum_and_rejects_more():
+    """A sum of the same terms in another order stays inside the limit;
+    one entry moved by 1e-5 of its scale (far beyond f32 reordering of a
+    few terms) does not."""
+    rng = np.random.default_rng(4)
+    terms = torch.as_tensor(rng.standard_normal((3000, 16)).astype(
+        np.float32))
+    idx = torch.as_tensor(rng.integers(0, 50, 3000))
+    ref = torch.zeros(50, 16).index_add_(0, idx, terms)
+    perm = torch.as_tensor(rng.permutation(3000))
+    other = torch.zeros(50, 16).index_add_(0, idx[perm], terms[perm])
+    abs_sum = torch.zeros(50, 16).index_add_(0, idx, terms.abs())
+    count = torch.bincount(idx, minlength=50)
+    assert smoke.sum_order_within("reordered", other, ref, abs_sum,
+                                  count) >= 0
+    bad = other.clone()
+    bad[3, 5] += 1e-5 * float(abs_sum[3, 5])
+    with pytest.raises(SystemExit):
+        smoke.sum_order_within("moved", bad, ref, abs_sum, count)
+    assert smoke.sum_order_within("control", bad, ref, abs_sum, count,
+                                  hold=False) > 0
+
+
+def _grads(seed=0):
+    rng = np.random.default_rng(seed)
+    parts = {"loss": 0.3, "rgb_loss": 0.1, "tv_loss": 0.2}
+    grads = {f"g{i}": torch.as_tensor(rng.standard_normal((40, 8)).astype(
+        np.float32)) for i in range(3)}
+    return parts, grads
+
+
+@pytest.mark.parametrize("what", ["part", "grad", "nan"])
+def test_compare_grads_passes_equal_and_rejects_a_breach(what):
+    parts, grads = _grads()
+    assert smoke.compare_grads(parts, grads, dict(parts),
+                               {k: v.clone() for k, v in grads.items()}) \
+        == (0.0, 0.0)
+    parts_k = dict(parts)
+    grads_k = {k: v.clone() for k, v in grads.items()}
+    if what == "part":                      # 2e-3 relative on one part
+        parts_k["rgb_loss"] *= 1 + 2e-3
+    elif what == "grad":                    # 2e-2 relative L2 on one leaf
+        grads_k["g1"] = grads_k["g1"] * (1 + 2e-2)
+    else:
+        grads_k["g2"][0, 0] = float("nan")
+    with pytest.raises(SystemExit):
+        smoke.compare_grads(parts_k, grads_k, parts, grads)
