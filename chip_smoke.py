@@ -20,13 +20,20 @@ failure exits non-zero before the last line):
   4. render kernels: K1-K3 against their plain PyTorch versions on the
      card, in bf16, on the inputs of the first 4096-ray chunk of each
      scene's render (probe and shading shapes), with timings and bounds;
+     on dust3r_like also K6b / K6a on that chunk's probe and shading pair
+     rows (``model.fused_agg=false``) and K7a on its shading pairs
+     compacted as ``model.pair_budget_frac=0.625`` compacts them;
   5. render path: launch counters set to 0, then ``make_render_fn`` renders
      view 0 of both scenes in full (2 x 49,152 rays, default ModelConfig,
      render_chunk=4096, 5 sampler iterations); outputs must be finite and
      every kernel's counter must have moved by the count the chunking
      implies; prints rays/s and the masked PSNR against the analytic view;
+     then view 0 of dust3r_like again with ``model.fused_agg=false``, its
+     counters read on their own (K1 6, K6b 5 and K6a 1 per chunk, no K2/K3);
   6. reference render: the first 4096-ray chunk rendered again with the
-     plain versions substituted for the kernels, compared ray by ray;
+     plain versions substituted for the kernels, compared ray by ray; the
+     same for the chunk under ``model.fused_agg=false`` and under
+     ``model.render_budget_frac=0.9``;
   7. where the render's time goes: view 0 of the DUSt3R-like scene
      rendered warm TIMED_RENDERS times (rays/s), then once under
      ``torch.profiler`` (the ``profile:`` JSON line);
@@ -50,7 +57,17 @@ failure exits non-zero before the last line):
      on the dense sphere drive K4/K5 with N > 2**15 and the exact K1;
  11. where a step's time goes: PROFILE_STEPS steps under
      ``torch.profiler`` (the ``train profile:`` JSON line);
- 12. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the device
+ 12. two more training paths on dust3r_like, each through phases 8-11
+     (every launch of one step against its plain version, one batch's
+     loss and gradients, host syncs, OPTION_WARMUP + OPTION_STEPS steps
+     with launch counts, a profiled window; the ``train profile <tag>:``
+     JSON line): ``model.fused_agg=false`` (K6a, K6b, K5; no
+     K2/K3/K4) and ``model.pair_budget_frac=0.625
+     model.color_pair_frac=0.75`` (K7a, and K5 behind ``gather_latents``);
+ 13. pair-MLP microbenchmark (``scripts/microbench.py:88-104``): K7b and
+     K7a on MICRO_PAIRS random pairs, counters read on their own, each
+     timed and held against its plain version;
+ 14. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the device
      JSON line.
 """
 
@@ -78,13 +95,35 @@ PROFILE_STEPS = 10
 # latents); K1 is the packed or the exact variant by the cloud's size
 PER_STEP = {"select_knn": 3, "pair_sdf_value_agg": 1, "pair_sdf_aggregate": 2,
             "pair_sdf_aggregate_bwd": 2, "scatter_add_rows": 1}
+# the two option paths: fused_agg=false probes with K6b and runs K6a for the
+# render SDF and the pseudo-SDF, each scattering its latent gradient with K5
+# (as does the colour); the pair-compacted SDF runs K7a (its latents' K5),
+# the probe stays K2 and the pseudo-SDF K3/K4, and the colour's K5 is
+# gather_latents'
+OPTIONS = {
+    "unfused": (["model.fused_agg=false"],
+                {"select_knn": 3, "pair_sdf_rows_value": 1,
+                 "pair_sdf_rows_grad": 2, "scatter_add_rows": 3}),
+    "pairs": (["model.pair_budget_frac=0.625", "model.color_pair_frac=0.75"],
+              {"select_knn": 3, "pair_sdf_value_agg": 1,
+               "pair_sdf_value_and_input_grad": 1, "pair_sdf_aggregate": 1,
+               "pair_sdf_aggregate_bwd": 1, "scatter_add_rows": 2}),
+}
+OPTION_WARMUP = 20
+OPTION_STEPS = 50
+MICRO_PAIRS = 655360
 # device-kernel names of the port's kernels, by the kernels line's label
 KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
                 ("K1 select_knn exact", "select_exact_kernel"),
                 ("K2 pair_sdf_value_agg", "pair_mlp_kernel<false>"),
                 ("K3 pair_sdf_aggregate", "pair_mlp_kernel<true>"),
                 ("K4 pair_sdf_aggregate_bwd", "agg_bwd_kernel"),
-                ("K5 scatter_add_rows", "scatter_rows_kernel"))
+                ("K5 scatter_add_rows", "scatter_rows_kernel"),
+                ("K6a pair_sdf_rows_grad", "pair_rows_kernel<true, true>"),
+                ("K6b pair_sdf_rows_value", "pair_rows_kernel<false, true>"),
+                ("K7a pair_sdf_value_and_input_grad",
+                 "pair_rows_kernel<true, false>"),
+                ("K7b pair_sdf_value", "pair_rows_kernel<false, false>"))
 TRAINED = ("feats_geometry", "feats_color", "F_color", "R", "beta")
 
 
@@ -212,9 +251,22 @@ def kernel_inputs(scene, tp, prior, cam, dirs, cfg):
     x3 = (cam[:, None, :] + zs[..., None] * dirs[:, None, :]).reshape(-1, 3)
     valid = ((nbr >= 0) & cval[..., None]).reshape(-1, m.k)
     idx_ext_s = field._idx_ext(nbr.reshape(-1, m.k), valid, n)
+    # K6: the same probe and shading pairs as gathered rows; K7: the
+    # shading pairs compacted as pair_budget_frac=0.625 compacts them
+    valid_p = (idx_p >= 0) & sel_ok[:, None]
+    budget = max(int(x3.shape[0] * m.k * 0.625) // 256 * 256, 256)
+    _, pidx, x_pi, _, seg = field._compact_pairs(
+        nbr.reshape(-1, m.k), valid, scene.points, x3, m.rbf, budget)
+    ok = seg < x3.shape[0]
+    u = torch.cat([geo[pidx.long()], x_pi], -1).contiguous()
     return {"probe_k1": (xp, cidp), "k2": (table, idx_ext_p, xp.contiguous()),
             "shade_k1": (xs, cids),
-            "k3": (table, idx_ext_s, x3.contiguous())}
+            "k3": (table, idx_ext_s, x3.contiguous()),
+            "k6b": (field.pair_rows(geo, scene.points, idx_p, xp),
+                    valid_p.reshape(-1)),
+            "k6a": (field.pair_rows(geo, scene.points, nbr.reshape(-1, m.k),
+                                    x3), valid.reshape(-1)),
+            "k7": ((u,), ok)}
 
 
 def k1_args(x, cid, scene, k, packed):
@@ -326,20 +378,90 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
             "bound_by": b_by, "library_ms": None, "max_abs_err": err}
 
 
-def within(what, out, ref, hold=True):
+def check_rows(name, fn, ref, args, prior, prior_f32, reps, radius,
+               n_real=None):
+    """A per-row pair-MLP kernel (K6a/K6b on (g, x), K7a/K7b on (u,))
+    against its plain version: x_pi bit-equal (the same f32 subtraction),
+    s and r by the limits of phase 4 (the 0.05 rule on the rows whose x_pi
+    lies in the query ``radius``: no RBF weight reads the others), with
+    the f32 control beside them.  ``n_real``: the rows this data needs
+    (valid pairs; default all)."""
+    import torch
+
+    xpi = args[1] - args[0][:, 32:] if len(args) == 2 else args[0][:, 32:]
+    keep = (xpi * xpi).sum(1) <= radius * radius
+
+    with torch.no_grad():
+        outs = fn(*args, prior)
+        refs = ref(*args, prior)
+        ctrl = ref(*args, prior_f32)
+    torch.cuda.synchronize()
+    if not isinstance(outs, tuple):
+        outs, refs, ctrl = (outs,), (refs,), (ctrl,)
+    grad = len(outs) == 3 or (len(args) == 1 and len(outs) == 2)
+    labels = ("s", "r", "x_pi")[:len(outs)] if grad else ("s", "x_pi")
+    err = 0.0
+    for label, o, r, c in zip(labels, outs, refs, ctrl):
+        if not bool(torch.isfinite(o).all()):
+            fail(f"{name}: non-finite {label}")
+        if label == "x_pi":
+            if not torch.equal(o, r):
+                fail(f"{name}: x_pi differs from x - pos")
+            continue
+        err = max(err, within(f"{name} {label}", o, r, keep=keep))
+        within(f"{name} {label}, control f32 plain", c, r, hold=False,
+               keep=keep)
+    del ctrl
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fn(*args, prior), reps)
+        plain_ms = cuda_ms(lambda: ref(*args, prior), 2)
+    rows = args[0].shape[0]
+    needed = ("" if n_real is None else
+              f", {n_real} rows the data needs ({n_real / max(rows, 1):.3f})")
+    n_real = rows if n_real is None else n_real
+    up = 32 * 256 + 3 * 256 + 3 * 256 * 256 + 256
+    down = 3 * 256 * 256 + 256 * 35
+    per_row = 2.0 * (up + (down if grad else 0))
+    # bytes: every input row read once, every output written once, and the
+    # packed bf16 weights and f32 biases
+    wbuf, bbuf = prior.kernel_buffers()
+    n_bytes = sum(t.numel() * 4 for t in args) + \
+        sum(o.numel() * 4 for o in outs) + wbuf.numel() * 2 + bbuf.numel() * 4
+    b_ms, b_by = bound_ms(n_bytes, per_row * n_real, PEAK_BF16_FLOPS)
+    b_all, _ = bound_ms(n_bytes, per_row * rows, PEAK_BF16_FLOPS)
+    log(f"{name}: M={rows}{needed}; kernel {ms:.4f} ms "
+        f"({per_row * rows / ms / 1e9:.1f} TFLOP/s executed), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {b_all:.4f} ms "
+        "counting every row)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "max_abs_err": err,
+            "bound_all_rows_ms": b_all, "rows": rows, "rows_needed": n_real}
+
+
+def within(what, out, ref, hold=True, keep=None):
     """|out - ref| <= 2**-6 |ref| + 1e-3 scale for 99.9% of the entries and
     <= 0.05 scale for all, per column (scale: the column's max |ref|; the
-    0.1% allows a LeakyReLU gate that flips on a kink).  Returns the max
-    abs error; fails on a breach when ``hold``."""
+    0.1% allows a LeakyReLU gate that flips on a kink).  ``keep`` (bool per
+    row): the rows the data can use; the 0.05 rule is then held on them,
+    with their own scale, and the reading over every row is printed beside
+    it (a per-pair kernel also runs masked slots, whose gate flips no
+    output reads).  Returns the max abs error; fails on a breach when
+    ``hold``."""
     out = out.reshape(out.shape[0], -1)
     ref = ref.reshape(ref.shape[0], -1)
     scale = ref.abs().amax(0, keepdim=True) + 1e-30
     d = (out - ref).abs()
     beyond = (d > 2.0 ** -6 * ref.abs() + 1e-3 * scale).float().mean()
-    worst = float((d / scale).max())
+    worst = every = float((d / scale).max())
+    if keep is not None:
+        kept = ref[keep].abs().amax(0, keepdim=True) + 1e-30
+        worst = float((d[keep] / kept).max()) if bool(keep.any()) else 0.0
     err = float(d.max())
     log(f"  {what}: max abs err {err:.3e}, max err / column scale "
-        f"{worst:.3e}, share beyond 2^-6 rel {float(beyond):.2e}")
+        f"{worst:.3e}" + ("" if keep is None else
+                          f" on the {int(keep.sum())} rows in the query "
+                          f"radius ({every:.3e} on every row)")
+        + f", share beyond 2^-6 rel {float(beyond):.2e}")
     if hold and (float(beyond) > 1e-3 or worst > 0.05):
         fail(f"{what}: kernel and plain version disagree")
     return err
@@ -456,7 +578,8 @@ def profile_render(render_image, scene, tp, frozen, view):
 
 def kernel_sites():
     """Where the port calls each kernel's wrapper: (module, attribute,
-    plain version), K1 to K5."""
+    plain version), K1 to K7a (K7b has no caller in the port: the
+    microbenchmark calls it)."""
     from spurfies_tpu_torch.model import field
     from spurfies_tpu_torch.ops import pair_mlp, scatter_rows, voxel_grid
     from spurfies_tpu_torch.ops import select_knn as sk
@@ -466,7 +589,11 @@ def kernel_sites():
             (pair_mlp, "pair_sdf_aggregate", pair_mlp.pair_sdf_aggregate_ref),
             (pair_mlp, "pair_sdf_aggregate_bwd",
              pair_mlp.pair_sdf_aggregate_bwd_ref),
-            (field, "scatter_add_rows", scatter_rows.scatter_add_rows_ref)]
+            (field, "scatter_add_rows", scatter_rows.scatter_add_rows_ref),
+            (field, "pair_sdf_rows_value", pair_mlp.pair_sdf_rows_value_ref),
+            (pair_mlp, "pair_sdf_rows_grad", pair_mlp.pair_sdf_rows_grad_ref),
+            (pair_mlp, "pair_sdf_value_and_input_grad",
+             pair_mlp.pair_sdf_value_and_input_grad_ref)]
 
 
 class substituted:
@@ -552,6 +679,125 @@ def capture_step(trainer):
     with substituted(recorder):
         trainer.train_step(trainer.bundle, trainer.state, trainer.generator)
     return seen
+
+
+def check_step(tag, seen, prior_f32, radius):
+    """Every kernel launch of one captured step (:func:`capture_step`)
+    against its plain version: K1 bit-equal, the pair-MLP kernels by the
+    limits of phase 4, K4/K5 by ``sum_order_within``.  Returns, by wrapper
+    name, the result of its largest launch."""
+    from spurfies_tpu_torch.ops import pair_mlp
+
+    best = {}
+    for name, calls in seen.items():
+        big = 1 if name in ("pair_sdf_value_agg", "pair_sdf_aggregate") else 0
+        calls = sorted(calls, key=lambda a: -a[big].shape[0])
+        for i, args in enumerate(calls):
+            what = f"{name} ({tag}, launch {i + 1} of {len(calls)})"
+            if name == "select_knn":
+                r = check_k1(what, args, 10)
+            elif name == "pair_sdf_aggregate_bwd":
+                r = check_k4(what, args, 50)
+            elif name == "scatter_add_rows":
+                r = check_k5(what, args, 50)
+            elif big:
+                table, idx_ext, x, layers, rbf = args
+                r = check_pair(what, getattr(pair_mlp, name),
+                               getattr(pair_mlp, f"{name}_ref"),
+                               (table, idx_ext, x), layers, prior_f32, rbf,
+                               5)
+            else:                                    # K6a, K6b, K7a
+                r = check_rows(what, getattr(pair_mlp, name),
+                               getattr(pair_mlp, f"{name}_ref"),
+                               tuple(args[:-1]), args[-1], prior_f32, 5,
+                               radius)
+            if i == 0:
+                best[name] = r
+        del calls
+    return best
+
+
+def expected_counts(keys, per_step, steps, knn):
+    """Launch counts of ``steps`` steps: ``per_step`` each, K1 under the
+    variant ``knn``, every other counter 0."""
+    expect = {k: 0 for k in keys}
+    for key, per in per_step.items():
+        expect[knn if key == "select_knn" else key] = per * steps
+    return expect
+
+
+def train_path(tag, trainer, per_step, warmup, steps, window):
+    """Phases 8-10 for one ``Trainer`` on dust3r_like: one captured step
+    with every launch against its plain version, one batch's loss and
+    gradients through the kernels and through the plain versions, host
+    syncs in two steps, then ``warmup`` steps and -- counters set to 0 --
+    ``steps`` timed ones.  Fails unless the loss stays finite, no step is
+    skipped, rgb_loss falls and the counters equal steps x ``per_step``.
+    Returns (results by wrapper name, launches, history)."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
+
+    dev = trainer.device
+    mc = trainer.cfg.model
+    log(f"trainer {tag}: {trainer.scene.points.shape[0]} points, auto "
+        f"budgets ray {mc.ray_budget_frac:.4f} probe "
+        f"{mc.probe_budget_frac:.4f}")
+    seen = capture_step(trainer)
+    got = {k: len(v) for k, v in seen.items()}
+    if got != per_step:
+        fail(f"{tag}: one step launched {got}, expected {per_step}")
+    spec = trainer.scene.spec
+    best = check_step(tag, seen, _prep_layers(trainer.frozen, torch.float32),
+                      spec.radius(trainer.scene.table.r))
+    del seen
+    torch.cuda.empty_cache()
+
+    batch = trainer.sample_batch(
+        trainer.views, torch.Generator(device=dev).manual_seed(7))
+    parts_k, grads_k = loss_and_grads(trainer, batch, seed=8)
+    with plain_versions():
+        parts_p, grads_p = loss_and_grads(trainer, batch, seed=8)
+    log(f"{tag} step, kernels vs plain versions (same batch and draws):")
+    compare_grads(parts_k, grads_k, parts_p, grads_p)
+    del grads_k, grads_p
+    n_sync, first_sync = count_host_syncs(trainer, 2)
+    log(f"{tag}: host syncs in 2 training steps: {n_sync}"
+        + (f" (first: {first_sync})" if n_sync else ""))
+    if n_sync:
+        fail(f"{tag}: a training step waits on the card")
+
+    history = []
+    trainer.run(warmup, window=warmup,
+                callback=lambda s_, m: history.append((s_, m)))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run(steps, window=window,
+                callback=lambda s_, m: history.append((s_, m)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_pix = trainer.cfg.train.num_pixels
+    log(f"train {tag}: {steps} steps x {n_pix} rays in {wall:.3f} s = "
+        f"{steps * n_pix / wall:.1f} train rays/s "
+        f"({wall / steps * 1e3:.2f} ms/step); launches {launches}")
+    for step, m in history:
+        log(f"  step {step}: " + ", ".join(
+            f"{k} {m[k]:.5g}" for k in ("loss", "rgb_loss", "eikonal_loss",
+                                        "mask_loss", "pseudo_loss", "tv_loss",
+                                        "psnr", "ray_overflow",
+                                        "probe_overflow", "notfinite")))
+    if not all(np.isfinite(m["loss"]) and m["notfinite"] == 0
+               for _, m in history):
+        fail(f"{tag}: a non-finite loss or a skipped step")
+    if not history[-1][1]["rgb_loss"] < history[0][1]["rgb_loss"]:
+        fail(f"{tag}: rgb_loss did not fall")
+    expect = expected_counts(launches, per_step, steps, "select_knn_packed")
+    if launches != expect:
+        fail(f"{tag}: launch counts {launches} != expected {expect}")
+    return best, launches, history
 
 
 def check_k4(name, args, reps):
@@ -762,7 +1008,7 @@ def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from spurfies_tpu_torch.config import Config
+        from spurfies_tpu_torch.config import Config, apply_overrides
         from spurfies_tpu_torch.convert.from_jax import PRIOR_ASSET
         from spurfies_tpu_torch.core.metrics import psnr
         from spurfies_tpu_torch.data.synthetic import (
@@ -782,12 +1028,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"device: {device_name}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}")
 
     # --- 2. build ---
     t0 = time.perf_counter()
@@ -840,6 +1087,7 @@ def main():
         with torch.no_grad():
             inp = kernel_inputs(scene, tp, prior, cam, dirs, cfg)
         k1 = "K1 select_knn packed" if packed else "K1 select_knn exact"
+        radius = scene.spec.radius(scene.table.r)
         check_k1(k1 + " (probe)", k1_args(*inp["probe_k1"], scene,
                                           cfg.model.k, packed), 20)
         results[k1] = check_k1(k1 + " (shading)", k1_args(
@@ -853,6 +1101,31 @@ def main():
                 "K3 pair_sdf_aggregate", pair_mlp.pair_sdf_aggregate,
                 pair_mlp.pair_sdf_aggregate_ref, inp["k3"], prior,
                 prior_f32, cfg.model.rbf, 5)
+            for label, key, what, reps in (
+                    ("K6b pair_sdf_rows_value", "k6b", "probe", 10),
+                    ("K6a pair_sdf_rows_grad", "k6a", "shading", 5),
+                    ("K7a pair_sdf_value_and_input_grad", "k7",
+                     "shading pairs, pair_budget_frac=0.625", 5)):
+                args, needed = inp[key]
+                fn = label.split()[1]
+                results[label] = check_rows(
+                    f"{label} ({what})", getattr(pair_mlp, fn),
+                    getattr(pair_mlp, f"{fn}_ref"), args, prior,
+                    prior_f32, reps, radius, int(needed.sum()))
+            # K6a runs K3's sweeps on the same shading pairs: on every
+            # valid pair its r_lat is K3's, bit for bit
+            with torch.no_grad():
+                _, _, r_lat = pair_mlp.pair_sdf_aggregate(
+                    *inp["k3"], prior, cfg.model.rbf)
+                (g, xr), valid = inp["k6a"]
+                r6 = pair_mlp.pair_sdf_rows_grad(g, xr, prior)[1]
+                same = torch.equal(r6[valid, :32].to(torch.bfloat16),
+                                   r_lat[valid])
+            log(f"K6a r_lat vs K3 r_lat on the {int(valid.sum())} valid "
+                f"shading pairs: {'bit-equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail("K6a and K3 disagree on the same pairs")
+            del r_lat, r6
         del inp
         torch.cuda.empty_cache()
 
@@ -872,11 +1145,11 @@ def main():
 
     iters = cfg.model.ray_sampler.max_total_iters
     chunks = {t: math.ceil(n_occ[t] / CHUNK) for t in scenes}
-    expect = {"select_knn_packed": (iters + 1) * chunks["dust3r_like"],
-              "select_knn_exact": (iters + 1) * chunks["dense_sphere"],
-              "pair_sdf_value_agg": iters * sum(chunks.values()),
-              "pair_sdf_aggregate": sum(chunks.values()),
-              "pair_sdf_aggregate_bwd": 0, "scatter_add_rows": 0}
+    expect = dict({k: 0 for k in launches_render},
+                  select_knn_packed=(iters + 1) * chunks["dust3r_like"],
+                  select_knn_exact=(iters + 1) * chunks["dense_sphere"],
+                  pair_sdf_value_agg=iters * sum(chunks.values()),
+                  pair_sdf_aggregate=sum(chunks.values()))
     if launches_render != expect:
         fail(f"launch counts {launches_render} != expected {expect}")
     for tag, out in outs.items():
@@ -896,6 +1169,37 @@ def main():
             f"; masked PSNR vs the analytic view {p:.2f} dB (random colour "
             "MLPs)")
 
+    # the same view with model.fused_agg=false: K6b probes, K6a shades
+    scene, tp, frozen, view, _ = scenes["dust3r_like"]
+    cfg_unfused = apply_overrides(cfg, OPTIONS["unfused"][0])
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_u = make_render_fn(cfg_unfused, device="cuda")(
+        tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_unfused = read_counts()
+    expect = expected_counts(
+        launches_unfused, {"select_knn": iters + 1,
+                           "pair_sdf_rows_value": iters,
+                           "pair_sdf_rows_grad": 1},
+        chunks["dust3r_like"], "select_knn_packed")
+    if launches_unfused != expect:
+        fail(f"fused_agg=false launch counts {launches_unfused} != "
+             f"expected {expect}")
+    n = len(view["uv"])
+    for key, v in out_u.items():
+        if v.shape[0] != n or not np.isfinite(v.astype(np.float64)).all():
+            fail(f"fused_agg=false: output {key} not finite / wrong shape")
+    p = float(psnr(torch.as_tensor(out_u["rgb_values"]),
+                   torch.as_tensor(view["rgb"]), torch.as_tensor(view["mask"])))
+    log(f"render dust3r_like, fused_agg=false: {n} rays in {wall:.3f} s = "
+        f"{n / wall:.1f} rays/s; hit rays {int(out_u['ray_mask'].sum())} "
+        f"(fused: {int(outs['dust3r_like']['ray_mask'].sum())}); masked PSNR "
+        f"{p:.2f} dB; launches {launches_unfused}")
+    del out_u
+
     # --- 6. one chunk through the plain versions, on the card ---
     scene, tp, frozen, view, _ = scenes["dust3r_like"]
     sel = chunk_rays["dust3r_like"].cpu().numpy()
@@ -913,6 +1217,19 @@ def main():
     worst = compare_chunk(out_k, out_p)
     log(f"chunk of {len(sel)} rays, kernels vs plain versions, per-ray "
         f"max abs differences: {json.dumps(worst)}")
+    for label, ov in (("fused_agg=false", OPTIONS["unfused"][0]),
+                      ("render_budget_frac=0.9",
+                       ["model.render_budget_frac=0.9"])):
+        mcfg = apply_overrides(cfg, ov).model
+        with torch.no_grad():
+            out_k = renderer.render_rays(params, scene, inputs, mcfg,
+                                         train=False, iters=iters)
+            with plain_versions():
+                out_p = renderer.render_rays(params, scene, inputs, mcfg,
+                                             train=False, iters=iters)
+        worst = compare_chunk(out_k, out_p)
+        log(f"chunk, {label}, kernels vs plain versions: "
+            f"{json.dumps(worst)}")
 
     # --- 7. where the time goes (the dust3r_like scene of phase 6) ---
     prof = profile_render(render_image, scene, tp, frozen, view)
@@ -921,100 +1238,21 @@ def main():
     del render_image, outs, out_k, out_p
     torch.cuda.empty_cache()
 
-    # --- 8. training kernels, on one real step's inputs ---
+    # --- 8-10. training: every launch of one step against its plain
+    # version, one batch through both, host syncs, the timed path ---
     _, _, prior_a, view_a, _ = scenes["dust3r_like"]
     t0 = time.perf_counter()
     trainer = Trainer(cfg, pts_a, cols_a, views_a, device="cuda")
     trainer.load_frozen(prior_a)
     torch.cuda.synchronize()
-    mc = trainer.cfg.model
-    log(f"trainer dust3r_like: {trainer.scene.points.shape[0]} points, auto "
-        f"budgets ray {mc.ray_budget_frac:.4f} probe "
-        f"{mc.probe_budget_frac:.4f}, built in "
-        f"{time.perf_counter() - t0:.2f} s")
-    seen = capture_step(trainer)
-    per_step = {k: len(v) for k, v in seen.items()}
-    if per_step != PER_STEP:
-        fail(f"one step launched {per_step}, expected {PER_STEP}")
-    # K1-K3 at the step's own shapes, by the limits of phase 4: K1 in launch
-    # order (probe, shading, pseudo-SDF), K3 by size (render SDF, then the
-    # pseudo-SDF loss's 1024 points)
-    prior_f32 = _prep_layers(trainer.frozen, torch.float32)
-    for what, args in zip(("probe", "shading", "pseudo-SDF"),
-                          seen["select_knn"]):
-        check_k1(f"K1 select_knn packed (train {what})", args, 10)
-    for fn, ref, label, whats in (
-            (pair_mlp.pair_sdf_value_agg, pair_mlp.pair_sdf_value_agg_ref,
-             "K2 pair_sdf_value_agg", ("probe",)),
-            (pair_mlp.pair_sdf_aggregate, pair_mlp.pair_sdf_aggregate_ref,
-             "K3 pair_sdf_aggregate", ("render SDF", "pseudo-SDF"))):
-        calls = sorted(seen[fn.__name__], key=lambda a: -a[1].shape[0])
-        for what, args in zip(whats, calls):
-            table, idx_ext, x, layers, rbf = args
-            check_pair(f"{label} (train {what})", fn, ref,
-                       (table, idx_ext, x), layers, prior_f32, rbf, 5)
-    # the render's SDF has the most points, the pseudo-SDF loss 1024
-    k4_render, k4_pseudo = sorted(seen["pair_sdf_aggregate_bwd"],
-                                  key=lambda a: -a[0].numel())
-    results["K4 pair_sdf_aggregate_bwd"] = check_k4(
-        "K4 pair_sdf_aggregate_bwd (render SDF)", k4_render, 50)
-    check_k4("K4 pair_sdf_aggregate_bwd (pseudo-SDF)", k4_pseudo, 50)
-    del k4_render, k4_pseudo
-    results["K5 scatter_add_rows"] = check_k5(
-        "K5 scatter_add_rows (colour latents)", seen["scatter_add_rows"][0],
-        50)
-    del seen, prior_f32
-
-    # --- 9. one batch through the kernels and through the plain versions ---
-    batch = trainer.sample_batch(
-        trainer.views, torch.Generator(device=dev).manual_seed(7))
-    parts_k, grads_k = loss_and_grads(trainer, batch, seed=8)
-    with plain_versions():
-        parts_p, grads_p = loss_and_grads(trainer, batch, seed=8)
-    log("train step, kernels vs plain versions (same batch and draws):")
-    compare_grads(parts_k, grads_k, parts_p, grads_p)
-    del grads_k, grads_p
-    n_sync, first_sync = count_host_syncs(trainer, 2)
-    log(f"host syncs in 2 training steps: {n_sync}"
-        + (f" (first: {first_sync})" if n_sync else ""))
-    if n_sync:
-        fail("a training step waits on the card")
-
-    # --- 10. training path ---
+    log(f"trainer dust3r_like built in {time.perf_counter() - t0:.2f} s")
     psnr0 = masked_psnr(trainer, view_a)
-    history = []
-    trainer.run(TRAIN_WARMUP, window=TRAIN_WARMUP,
-                callback=lambda s_, m: history.append((s_, m)))
-    zero_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.run(TRAIN_STEPS, window=TRAIN_WINDOW,
-                callback=lambda s_, m: history.append((s_, m)))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches_train = read_counts()
-    n_pix = trainer.cfg.train.num_pixels
-    log(f"train dust3r_like: {TRAIN_STEPS} steps x {n_pix} rays in "
-        f"{wall:.3f} s = {TRAIN_STEPS * n_pix / wall:.1f} train rays/s "
-        f"({wall / TRAIN_STEPS * 1e3:.2f} ms/step); launches "
-        f"{launches_train}")
-    for step, m in history:
-        log(f"  step {step}: " + ", ".join(
-            f"{k} {m[k]:.5g}" for k in ("loss", "rgb_loss", "eikonal_loss",
-                                        "mask_loss", "pseudo_loss", "tv_loss",
-                                        "psnr", "ray_overflow",
-                                        "probe_overflow", "notfinite")))
-    if not all(np.isfinite(m["loss"]) and m["notfinite"] == 0
-               for _, m in history):
-        fail("training: a non-finite loss or a skipped step")
-    if not history[-1][1]["rgb_loss"] < history[0][1]["rgb_loss"]:
-        fail("training: rgb_loss did not fall")
-    expect = {k: 0 for k in launches_train}
-    for key, per in PER_STEP.items():
-        expect["select_knn_packed" if key == "select_knn" else key] = \
-            per * TRAIN_STEPS
-    if launches_train != expect:
-        fail(f"train launch counts {launches_train} != expected {expect}")
+    best, launches_train, _ = train_path("dust3r_like", trainer, PER_STEP,
+                                         TRAIN_WARMUP, TRAIN_STEPS,
+                                         TRAIN_WINDOW)
+    results["K4 pair_sdf_aggregate_bwd"] = best["pair_sdf_aggregate_bwd"]
+    results["K5 scatter_add_rows"] = best["scatter_add_rows"]
+    del best
     psnr1 = masked_psnr(trainer, view_a)
     log(f"view 0 masked PSNR vs the analytic view: {psnr0:.2f} dB before "
         f"training, {psnr1:.2f} dB after {TRAIN_WARMUP + TRAIN_STEPS + 3} "
@@ -1028,10 +1266,8 @@ def main():
     dense.run(DENSE_STEPS, window=DENSE_STEPS,
               callback=lambda s_, m: dense_hist.append(m))
     launches_dense = read_counts()
-    expect = {k: 0 for k in launches_dense}
-    for key, per in PER_STEP.items():
-        expect["select_knn_exact" if key == "select_knn" else key] = \
-            per * DENSE_STEPS
+    expect = expected_counts(launches_dense, PER_STEP, DENSE_STEPS,
+                             "select_knn_exact")
     log(f"train dense_sphere: {dense.scene.points.shape[0]} points, "
         f"{DENSE_STEPS} steps, loss {dense_hist[-1]['loss']:.5g}; launches "
         f"{launches_dense}")
@@ -1048,9 +1284,72 @@ def main():
     tprof["ms_per_step"] = tprof["profiled_wall_ms"] / PROFILE_STEPS
     log(f"train profile: {json.dumps(tprof)}")
 
-    # --- 12. report ---
-    launches = {k: launches_render[k] + launches_train[k] + launches_dense[k]
+    del trainer
+    torch.cuda.empty_cache()
+
+    # --- 12. the two option paths ---
+    option_best, launches_options = {}, []
+    for tag, (ov, per_step) in OPTIONS.items():
+        tr = Trainer(apply_overrides(cfg, ov), pts_a, cols_a, views_a,
+                     device="cuda")
+        tr.load_frozen(prior_a)
+        best, counts, _ = train_path(f"dust3r_like {tag}", tr, per_step,
+                                     OPTION_WARMUP, OPTION_STEPS,
+                                     OPTION_STEPS)
+        option_best.update(best)
+        launches_options.append(counts)
+        oprof = profiled(lambda: tr.run(PROFILE_STEPS, window=PROFILE_STEPS))
+        oprof["ms_per_step"] = oprof["profiled_wall_ms"] / PROFILE_STEPS
+        log(f"train profile {tag}: {json.dumps(oprof)}")
+        del tr
+        torch.cuda.empty_cache()
+
+    # --- 13. pair-MLP microbenchmark: K7b's path ---
+    rng = np.random.default_rng(0)
+    u = torch.as_tensor(np.concatenate(
+        [rng.normal(0, 0.3, (MICRO_PAIRS, 32)),
+         rng.normal(0, 0.03, (MICRO_PAIRS, 3))], -1).astype(np.float32),
+        device=dev)
+    prior = _prep_layers(prior_a, torch.bfloat16)
+    prior_f32 = _prep_layers(prior_a, torch.float32)
+    zero_counts()
+    with torch.no_grad():
+        pair_mlp.pair_sdf_value(u, prior)
+        pair_mlp.pair_sdf_value_and_input_grad(u, prior)
+    torch.cuda.synchronize()
+    launches_micro = read_counts()
+    expect = expected_counts(launches_micro, {"pair_sdf_value": 1,
+                                              "pair_sdf_value_and_input_grad":
+                                              1}, 1, None)
+    if launches_micro != expect:
+        fail(f"microbench launch counts {launches_micro} != {expect}")
+    # every random pair is held (radius inf): none is masked
+    results["K7b pair_sdf_value"] = check_rows(
+        f"K7b pair_sdf_value (microbench, {MICRO_PAIRS} pairs)",
+        pair_mlp.pair_sdf_value, pair_mlp.pair_sdf_value_ref, (u,), prior,
+        prior_f32, 20, math.inf)
+    check_rows(
+        f"K7a pair_sdf_value_and_input_grad (microbench, {MICRO_PAIRS} "
+        "pairs)", pair_mlp.pair_sdf_value_and_input_grad,
+        pair_mlp.pair_sdf_value_and_input_grad_ref, (u,), prior, prior_f32,
+        10, math.inf)
+    del u, prior_f32
+
+    # --- 14. report ---
+    render_runs = (launches_render, launches_unfused)
+    train_runs = (launches_train, launches_dense, *launches_options)
+
+    def total(runs, key):
+        return sum(c[key] for c in runs)
+
+    launches = {k: total(render_runs + train_runs, k) + launches_micro[k]
                 for k in launches_render}
+    # the training shapes' times, beside phase 4's eval-chunk times
+    train_shape = {"K6a pair_sdf_rows_grad": option_best["pair_sdf_rows_grad"],
+                   "K6b pair_sdf_rows_value":
+                   option_best["pair_sdf_rows_value"],
+                   "K7a pair_sdf_value_and_input_grad":
+                   option_best["pair_sdf_value_and_input_grad"]}
     rows = []
     meta = {
         "K1 select_knn packed": ("select_knn_packed",
@@ -1071,26 +1370,44 @@ def main():
         "K5 scatter_add_rows": ("scatter_add_rows",
                                 "spurfies_tpu_torch/csrc/scatter_rows.cu",
                                 "spurfies_tpu/ops/pallas_scatter.py:37"),
+        "K6a pair_sdf_rows_grad": ("pair_sdf_rows_grad",
+                                   "spurfies_tpu_torch/csrc/pair_mlp.cu",
+                                   "spurfies_tpu/ops/pallas_mlp.py:195"),
+        "K6b pair_sdf_rows_value": ("pair_sdf_rows_value",
+                                    "spurfies_tpu_torch/csrc/pair_mlp.cu",
+                                    "spurfies_tpu/ops/pallas_mlp.py:260"),
+        "K7a pair_sdf_value_and_input_grad": (
+            "pair_sdf_value_and_input_grad",
+            "spurfies_tpu_torch/csrc/pair_mlp.cu",
+            "spurfies_tpu/ops/pallas_mlp.py:51"),
+        "K7b pair_sdf_value": ("pair_sdf_value",
+                               "spurfies_tpu_torch/csrc/pair_mlp.cu",
+                               "spurfies_tpu/ops/pallas_mlp.py:146"),
     }
-    # launches: the render path's and the training path's runs, each with
-    # the counters set to 0 just before it
+    # launches: the render paths', the training paths' and the
+    # microbenchmark's runs, each with the counters set to 0 just before it
     for label, (key, src, rep) in meta.items():
         r = results[label]
-        rows.append({"name": label, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[key],
-                     "launches_render": launches_render[key],
-                     "launches_train": launches_train[key]
-                     + launches_dense[key],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+        row = {"name": label, "route": "cuda", "source": src,
+               "replaces": rep, "launches": launches[key],
+               "launches_render": total(render_runs, key),
+               "launches_train": total(train_runs, key),
+               "launches_microbench": launches_micro[key],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if label in train_shape:
+            t = train_shape[label]
+            row["train_shape"] = {k: t[k] for k in (
+                "rows", "ms", "plain_ms", "bound_all_rows_ms",
+                "max_abs_err")}
+        rows.append(row)
         if launches[key] == 0:
             fail(f"{label} was not launched on the main path")
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -88,8 +88,8 @@ class ModelConfig:
     #                                   no SDF bias).  Keep 0: in the JAX
     #                                   package the row gathers and
     #                                   scatter-backs cost more than the
-    #                                   MLP work they save.  The port
-    #                                   does not implement it yet.
+    #                                   MLP work they save.  The port runs
+    #                                   it through K7a.
     color_pair_frac: float = 0.0      # >0: same pair compaction for the
     #                                   trainable color MLP (the [M*K, 256]
     #                                   activation traffic is paid fwd AND
@@ -176,13 +176,15 @@ class ModelConfig:
     #                                   | "xla" (autodiff scatter). Same
     #                                   math, different accumulate order;
     #                                   bit-parity tested in the JAX
-    #                                   package.
+    #                                   package.  The port scatters with
+    #                                   K5 for both values.
     fused_agg: bool = True            # r5 fused gather+MLP+RBF+aggregate
     #                                   Pallas path (pair_sdf_aggregate):
     #                                   per-point outputs only, backward
     #                                   fuses the cotangent expansion into
     #                                   the banked latent scatter.  False
-    #                                   = r4 per-pair kernels + XLA glue.
+    #                                   = r4 per-pair kernels + XLA glue
+    #                                   (in the port: K6a/K6b + PyTorch).
     #                                   Same math (near-bitwise vs r4 path,
     #                                   tests/test_pallas_mlp.py).
     pos_multires: int = 6             # position encoding bands

@@ -1,11 +1,23 @@
 // K2 / K3 — fused gather + frozen-prior pair MLP + RBF weight + per-point
-// aggregation.
+// aggregation; K6 / K7 — the same prior per pair row, without them.
 //
 // Replaces the TPU kernels of spurfies_tpu/ops/pallas_mlp.py:
 //   * K2: _fused_value_agg_call -> _value_kernel_agg (value only; the
 //     sampler's no-grad SDF probe),
 //   * K3: _fused_agg_call -> _mlp_kernel_agg (value + input gradient by a
-//     down sweep with transposed weights; the render-path SDF and normal).
+//     down sweep with transposed weights; the render-path SDF and normal),
+//   * K6a / K6b: _fused_mlp_gx_call -> _mlp_kernel_gx and
+//     _fused_value_gx_call -> _value_kernel_gx (raw gathered rows
+//     [lat | pos] and a query per row; model.fused_agg=false),
+//   * K7a / K7b: _fused_mlp_call -> _mlp_kernel and _fused_value_call ->
+//     _value_kernel (a pre-assembled u = [lat | x_pi]; the pair-compacted
+//     SDF of model.pair_budget_frac, and the pair-MLP microbenchmark).
+// K6 and K7 share K2/K3's sweeps (mlp_sweeps) and rounding points: a block
+// owns 128 consecutive rows, reads them as one contiguous run, and writes s
+// (and r = ds/du, all 35 columns in f32, staged in shared memory so that
+// the write is one contiguous run too); the ragged last block is masked.
+// Their first layer is one 48-deep product over bf16(u), equal to the TPU
+// body's g_lat @ W_lat + x_pi @ W_pos up to f32 summation order.
 //
 // What they compute, per pair row t = (point p, neighbour j) with table row
 // g = table[idx[p, j]] = [lat (32) | pos (3)] (row N is the dump row, pos
@@ -23,7 +35,8 @@
 //
 // What bounds it on an H100: operations. About 0.41 MFLOP per pair for K2
 // and 0.82 for K3 against ~150 bytes of input and output per pair: far
-// above the card's ~295 FLOP/byte ridge. The TPU kernel's point was to keep
+// above the card's ~295 FLOP/byte ridge. K6/K7 do the same work per row
+// against 150-310 bytes (r is written in f32). The TPU kernel's point was to keep
 // the [rows, 256] activations out of HBM; here they live in shared memory
 // and the matrix products run on the tensor cores (mma.sync m16n8k16,
 // bf16 -> f32), 128 pair rows per block.
@@ -227,69 +240,29 @@ __device__ __forceinline__ void epilogue_down(float acc[2][16][4],
   }
 }
 
+// The prior's sweeps for one block of 128 rows.  On entry the first
+// layer's input [lat | x_pi | 0] is in act (row stride kI0Str), W0^T in
+// wsm and w_v in wv_s, after a barrier.  It runs the up sweep and the fused
+// 256 -> 1 tail into s_s; with kGrad it also runs the down sweep down to the
+// last product, whose [128, 40] accumulator it leaves in acc0 (warp w: rows
+// 16 w .. 16 w + 15, all five n-tiles) for the caller to round and write.
+// It ends without a barrier: other warps may still read act and wsm.
 template <bool kGrad>
-__global__ void __launch_bounds__(kThreads, 1)
-pair_mlp_kernel(const float* __restrict__ table, int n_rows,
-                const int* __restrict__ idx, const float* __restrict__ xq,
-                int k,
-                const __nv_bfloat16* __restrict__ wbuf,
-                const float* __restrict__ bbuf, float rbf2,
-                float* __restrict__ out_pt, float* __restrict__ out_w,
-                __nv_bfloat16* __restrict__ out_r) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__device__ __forceinline__ void mlp_sweeps(unsigned char* smem,
+                                           const __nv_bfloat16* __restrict__ wbuf,
+                                           const float* __restrict__ bbuf,
+                                           float acc0[5][4]) {
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
-  __nv_bfloat16* in0 = act;  // the first layer's input aliases act
   __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + kSmW);
-  float* xpi_s = reinterpret_cast<float*>(smem + kSmXpi);
-  float* w_s = reinterpret_cast<float*>(smem + kSmWr);
   float* s_s = reinterpret_cast<float*>(smem + kSmS);
-  float* rp_s = reinterpret_cast<float*>(smem + kSmRp);
-  int* idx_s = reinterpret_cast<int*>(smem + kSmIdx);
-  float* wv_s = reinterpret_cast<float*>(smem + kSmWv);
+  const float* wv_s = reinterpret_cast<const float*>(smem + kSmWv);
   uint32_t* gates = kGrad ? reinterpret_cast<uint32_t*>(smem + kSmGate)
                           : nullptr;
-
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int rg = warp & 3, cg = warp >> 2;
-  const size_t row0 = (size_t)blockIdx.x * kRows;
-  const int pts = kRows / k;
-  const size_t pt0 = (size_t)blockIdx.x * pts;
   const float slope = bf16_round(0.01f);
-
-  // --- gather: x_pi, w and the first layer's input [lat | x_pi | 0] ---
-  if (tid < kRows) {
-    const int raw = idx[row0 + tid];
-    const int id = (raw >= 0 && raw < n_rows) ? raw : n_rows - 1;
-    idx_s[tid] = id;
-    const float* gr = table + (size_t)id * kRowW;
-    const float* xp = xq + (pt0 + tid / k) * 3;
-    const float e0 = __fsub_rn(xp[0], gr[kLat]);
-    const float e1 = __fsub_rn(xp[1], gr[kLat + 1]);
-    const float e2 = __fsub_rn(xp[2], gr[kLat + 2]);
-    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)),
-                               __fmul_rn(e2, e2));
-    w_s[tid] = expf(__fmul_rn(-rbf2, d2));
-    xpi_s[tid * 3] = e0;
-    xpi_s[tid * 3 + 1] = e1;
-    xpi_s[tid * 3 + 2] = e2;
-    __nv_bfloat16* ir = in0 + tid * kI0Str + kLat;
-    ir[0] = __float2bfloat16_rn(e0);
-    ir[1] = __float2bfloat16_rn(e1);
-    ir[2] = __float2bfloat16_rn(e2);
-    for (int c = 3; c < kIn0 - kLat; ++c) ir[c] = __float2bfloat16_rn(0.f);
-  }
-  for (int c = tid; c < kHid; c += kThreads)
-    wv_s[c] = __bfloat162float(wbuf[kOffWv + c]);
-  load_rows(wsm, kW0Str, wbuf + kOffUp0, kHid, kIn0);
-  __syncthreads();
-  for (int e = tid; e < kRows * kLat; e += kThreads) {
-    const int r = e / kLat, c = e - r * kLat;
-    in0[r * kI0Str + c] =
-        __float2bfloat16_rn(__ldg(table + (size_t)idx_s[r] * kRowW + c));
-  }
-  __syncthreads();
 
   float acc[2][16][4];
 
@@ -297,7 +270,7 @@ pair_mlp_kernel(const float* __restrict__ table, int n_rows,
   // layer 0: the latent block (k = 0..31) and then the x_pi block
   // (k = 32..47), as two products into one f32 accumulator
   zero_acc(acc);
-  warp_gemm<kIn0 / 16, kI0Str, kW0Str>(in0, wsm, acc, rg, cg, g, t);
+  warp_gemm<kIn0 / 16, kI0Str, kW0Str>(act, wsm, acc, rg, cg, g, t);
   __syncthreads();
   epilogue_up(acc, act, bbuf, gates, rg, cg, g, t);
   load_rows(wsm, kWStr, wbuf + kOffUp1, kHid, kHid);
@@ -334,56 +307,124 @@ pair_mlp_kernel(const float* __restrict__ table, int n_rows,
       if (lane == 0) s_s[row] = bf16_round(__fadd_rn(part, bv));
     }
   }
+  if (!kGrad) return;
 
+  __syncthreads();
+  // --- down sweep: delta = bf16(bf16(w_v) * gate3), then through the
+  // transposed layers 3, 2, 1 and finally W0^T (256 -> 35) ---
+  const uint32_t* gate3 = gates + 3 * kRows * 8;
+  for (int e = tid; e < kRows * kHid; e += kThreads) {
+    const int r = e >> 8, c = e & (kHid - 1);
+    act[r * kAStr + c] = __float2bfloat16_rn(
+        __fmul_rn(wv_s[c], gate_of(gate3, r, c, slope)));
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int l = 3; l >= 1; --l) {
+    zero_acc(acc);
+    warp_gemm<kHid / 16, kAStr, kWStr>(act, wsm, acc, rg, cg, g, t);
+    __syncthreads();
+    epilogue_down(acc, act, gates + (l - 1) * kRows * 8, rg, cg, g, t, slope);
+    if (l > 1) {
+      load_rows(wsm, kWStr, wbuf + kOffDn1 + (l - 2) * kHid * kHid, kHid,
+                kHid);
+    } else {
+      load_rows(wsm, kWStr, wbuf + kOffDn0, kOut0, kHid);
+    }
+    __syncthreads();
+  }
+  // last product: [128, 256] x W0^T -> [128, 40]
+#pragma unroll
+  for (int ni = 0; ni < 5; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[ni][e] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < kHid / 16; ++ks) {
+    const int k0 = ks * 16 + 2 * t;
+    const __nv_bfloat16* ar = act + (warp * 16 + g) * kAStr + k0;
+    uint32_t a[4];
+    a[0] = *reinterpret_cast<const uint32_t*>(ar);
+    a[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * kAStr);
+    a[2] = *reinterpret_cast<const uint32_t*>(ar + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * kAStr + 8);
+#pragma unroll
+    for (int ni = 0; ni < 5; ++ni) {
+      const __nv_bfloat16* br = wsm + (ni * 8 + g) * kWStr + k0;
+      mma_bf16(acc0[ni], a, *reinterpret_cast<const uint32_t*>(br),
+               *reinterpret_cast<const uint32_t*>(br + 8));
+    }
+  }
+}
+
+// W0^T and w_v into shared memory (the first layer's input is the caller's).
+__device__ __forceinline__ void load_first(unsigned char* smem,
+                                           const __nv_bfloat16* wbuf) {
+  float* wv_s = reinterpret_cast<float*>(smem + kSmWv);
+  for (int c = threadIdx.x; c < kHid; c += kThreads)
+    wv_s[c] = __bfloat162float(wbuf[kOffWv + c]);
+  load_rows(reinterpret_cast<__nv_bfloat16*>(smem + kSmW), kW0Str,
+            wbuf + kOffUp0, kHid, kIn0);
+}
+
+// K2 / K3: gather by index, RBF weight, prior, per-point sums.
+template <bool kGrad>
+__global__ void __launch_bounds__(kThreads, 1)
+pair_mlp_kernel(const float* __restrict__ table, int n_rows,
+                const int* __restrict__ idx, const float* __restrict__ xq,
+                int k,
+                const __nv_bfloat16* __restrict__ wbuf,
+                const float* __restrict__ bbuf, float rbf2,
+                float* __restrict__ out_pt, float* __restrict__ out_w,
+                __nv_bfloat16* __restrict__ out_r) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
+  float* xpi_s = reinterpret_cast<float*>(smem + kSmXpi);
+  float* w_s = reinterpret_cast<float*>(smem + kSmWr);
+  float* s_s = reinterpret_cast<float*>(smem + kSmS);
+  float* rp_s = reinterpret_cast<float*>(smem + kSmRp);
+  int* idx_s = reinterpret_cast<int*>(smem + kSmIdx);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t row0 = (size_t)blockIdx.x * kRows;
+  const int pts = kRows / k;
+  const size_t pt0 = (size_t)blockIdx.x * pts;
+
+  // --- gather: x_pi, w and the first layer's input [lat | x_pi | 0] ---
+  if (tid < kRows) {
+    const int raw = idx[row0 + tid];
+    const int id = (raw >= 0 && raw < n_rows) ? raw : n_rows - 1;
+    idx_s[tid] = id;
+    const float* gr = table + (size_t)id * kRowW;
+    const float* xp = xq + (pt0 + tid / k) * 3;
+    const float e0 = __fsub_rn(xp[0], gr[kLat]);
+    const float e1 = __fsub_rn(xp[1], gr[kLat + 1]);
+    const float e2 = __fsub_rn(xp[2], gr[kLat + 2]);
+    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)),
+                               __fmul_rn(e2, e2));
+    w_s[tid] = expf(__fmul_rn(-rbf2, d2));
+    xpi_s[tid * 3] = e0;
+    xpi_s[tid * 3 + 1] = e1;
+    xpi_s[tid * 3 + 2] = e2;
+    __nv_bfloat16* ir = in0 + tid * kI0Str + kLat;
+    ir[0] = __float2bfloat16_rn(e0);
+    ir[1] = __float2bfloat16_rn(e1);
+    ir[2] = __float2bfloat16_rn(e2);
+    for (int c = 3; c < kIn0 - kLat; ++c) ir[c] = __float2bfloat16_rn(0.f);
+  }
+  load_first(smem, wbuf);
+  __syncthreads();
+  for (int e = tid; e < kRows * kLat; e += kThreads) {
+    const int r = e / kLat, c = e - r * kLat;
+    in0[r * kI0Str + c] =
+        __float2bfloat16_rn(__ldg(table + (size_t)idx_s[r] * kRowW + c));
+  }
+  __syncthreads();
+
+  float acc0[5][4];
+  mlp_sweeps<kGrad>(smem, wbuf, bbuf, acc0);
   if (kGrad) {
-    __syncthreads();
-    // --- down sweep: delta = bf16(bf16(w_v) * gate3), then through the
-    // transposed layers 3, 2, 1 and finally W0^T (256 -> 35) ---
-    const uint32_t* gate3 = gates + 3 * kRows * 8;
-    for (int e = tid; e < kRows * kHid; e += kThreads) {
-      const int r = e >> 8, c = e & (kHid - 1);
-      act[r * kAStr + c] = __float2bfloat16_rn(
-          __fmul_rn(wv_s[c], gate_of(gate3, r, c, slope)));
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int l = 3; l >= 1; --l) {
-      zero_acc(acc);
-      warp_gemm<kHid / 16, kAStr, kWStr>(act, wsm, acc, rg, cg, g, t);
-      __syncthreads();
-      epilogue_down(acc, act, gates + (l - 1) * kRows * 8, rg, cg, g, t,
-                    slope);
-      if (l > 1) {
-        load_rows(wsm, kWStr, wbuf + kOffDn1 + (l - 2) * kHid * kHid, kHid,
-                  kHid);
-      } else {
-        load_rows(wsm, kWStr, wbuf + kOffDn0, kOut0, kHid);
-      }
-      __syncthreads();
-    }
-    // last product: [128, 256] x W0^T -> [128, 40]; warp w owns rows
-    // 16w .. 16w+15 and all five n-tiles
-    float acc0[5][4];
-#pragma unroll
-    for (int ni = 0; ni < 5; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc0[ni][e] = 0.f;
-#pragma unroll 1
-    for (int ks = 0; ks < kHid / 16; ++ks) {
-      const int k0 = ks * 16 + 2 * t;
-      const __nv_bfloat16* ar = act + (warp * 16 + g) * kAStr + k0;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(ar);
-      a[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * kAStr);
-      a[2] = *reinterpret_cast<const uint32_t*>(ar + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * kAStr + 8);
-#pragma unroll
-      for (int ni = 0; ni < 5; ++ni) {
-        const __nv_bfloat16* br = wsm + (ni * 8 + g) * kWStr + k0;
-        mma_bf16(acc0[ni], a, *reinterpret_cast<const uint32_t*>(br),
-                 *reinterpret_cast<const uint32_t*>(br + 8));
-      }
-    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = warp * 16 + g + 8 * h;
@@ -455,6 +496,102 @@ int launch(const float* table, int n_rows, const int* idx, const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K6 / K7: the prior on each of m pair rows, no weight and no sum.  The
+// input `in` is [m, 35] f32: with kRowsIn (K6) raw table rows g = [lat | pos]
+// and xq [m, 3] the query of each row, so that u = [lat | x - pos] is made
+// here and x_pi = x - pos (f32) written to out_xpi [m, 3]; else (K7) u
+// itself.  out_s [m] = bf16(s) as f32; with kGrad (K6a / K7a) out_r [m, 35]
+// = r = ds/du, the bf16 delta of the down sweep, as f32.  The last block
+// is ragged: its missing rows read zeros and are not written.
+template <bool kGrad, bool kRowsIn>
+__global__ void __launch_bounds__(kThreads, 1)
+pair_rows_kernel(const float* __restrict__ in, const float* __restrict__ xq,
+                 long long m, const __nv_bfloat16* __restrict__ wbuf,
+                 const float* __restrict__ bbuf, float* __restrict__ out_s,
+                 float* __restrict__ out_r, float* __restrict__ out_xpi) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
+  float* r_s = reinterpret_cast<float*>(smem + kSmAct);  // after the sweeps
+  float* xpi_s = reinterpret_cast<float*>(smem + kSmXpi);
+  const float* s_s = reinterpret_cast<const float*>(smem + kSmS);
+
+  const int tid = threadIdx.x;
+  const long long row0 = (long long)blockIdx.x * kRows;
+  const int rows = static_cast<int>(min((long long)kRows, m - row0));
+
+  // the block's rows are one contiguous run of rows * 35 floats
+  const float* src = in + row0 * kRowW;
+  for (int e = tid; e < kRows * kRowW; e += kThreads) {
+    const int r = e / kRowW, c = e - r * kRowW;
+    float v = r < rows ? __ldg(src + e) : 0.f;
+    if (kRowsIn && c >= kLat) {
+      const float xv =
+          r < rows ? __ldg(xq + (row0 + r) * 3 + (c - kLat)) : 0.f;
+      v = __fsub_rn(xv, v);
+      xpi_s[r * 3 + (c - kLat)] = v;
+    }
+    in0[r * kI0Str + c] = __float2bfloat16_rn(v);
+  }
+  constexpr int kPad = kIn0 - kRowW;
+  for (int e = tid; e < kRows * kPad; e += kThreads) {
+    const int r = e / kPad;
+    in0[r * kI0Str + kRowW + (e - r * kPad)] = __float2bfloat16_rn(0.f);
+  }
+  load_first(smem, wbuf);
+  __syncthreads();
+
+  float acc0[5][4];
+  mlp_sweeps<kGrad>(smem, wbuf, bbuf, acc0);
+  if (kGrad) {
+    __syncthreads();  // every warp is done reading act: stage r there
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = warp * 16 + g + 8 * h;
+#pragma unroll
+      for (int ni = 0; ni < 5; ++ni) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = ni * 8 + 2 * t + j;
+          if (col < kRowW)
+            r_s[row * kRowW + col] = bf16_round(acc0[ni][2 * h + j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < rows) out_s[row0 + tid] = s_s[tid];
+  if (kGrad) {
+    for (int e = tid; e < rows * kRowW; e += kThreads)
+      out_r[row0 * kRowW + e] = r_s[e];
+  }
+  if (kRowsIn) {
+    for (int e = tid; e < rows * 3; e += kThreads)
+      out_xpi[row0 * 3 + e] = xpi_s[e];
+  }
+}
+
+template <bool kGrad, bool kRowsIn>
+int launch_rows(const float* in, const float* x, long long m,
+                const void* wbuf, const float* bbuf, float* out_s,
+                float* out_r, float* out_xpi, void* stream) {
+  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
+  const int smem = kGrad ? kSmemGrad : kSmemValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_rows_kernel<kGrad, kRowsIn>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (m + kRows - 1) / kRows;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  pair_rows_kernel<kGrad, kRowsIn><<<static_cast<unsigned>(blocks), kThreads,
+                                     smem, static_cast<cudaStream_t>(stream)>>>(
+      in, x, m, static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s, out_r,
+      out_xpi);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // table [n_rows, 35] f32 (row n_rows - 1: the dump row), idx [n_pts, k]
@@ -479,4 +616,44 @@ extern "C" int pair_sdf_aggregate_launch(const float* table, int n_rows,
                                          void* out_r, void* stream) {
   return launch<true>(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2,
                       out_pt, out_w, out_r, stream);
+}
+
+// K7b: u [m, 35] f32 -> out_s [m].
+extern "C" int pair_sdf_value_launch(const float* u, long long m,
+                                     const void* wbuf, const float* bbuf,
+                                     float* out_s, void* stream) {
+  return launch_rows<false, false>(u, nullptr, m, wbuf, bbuf, out_s, nullptr,
+                                   nullptr, stream);
+}
+
+// K7a: u [m, 35] f32 -> out_s [m], out_r [m, 35].
+extern "C" int pair_sdf_value_and_input_grad_launch(const float* u,
+                                                    long long m,
+                                                    const void* wbuf,
+                                                    const float* bbuf,
+                                                    float* out_s,
+                                                    float* out_r,
+                                                    void* stream) {
+  return launch_rows<true, false>(u, nullptr, m, wbuf, bbuf, out_s, out_r,
+                                  nullptr, stream);
+}
+
+// K6b: g [m, 35] f32, x [m, 3] f32 -> out_s [m], out_xpi [m, 3].
+extern "C" int pair_sdf_rows_value_launch(const float* g, const float* x,
+                                          long long m, const void* wbuf,
+                                          const float* bbuf, float* out_s,
+                                          float* out_xpi, void* stream) {
+  return launch_rows<false, true>(g, x, m, wbuf, bbuf, out_s, nullptr,
+                                  out_xpi, stream);
+}
+
+// K6a: g [m, 35] f32, x [m, 3] f32 -> out_s [m], out_r [m, 35],
+// out_xpi [m, 3].
+extern "C" int pair_sdf_rows_grad_launch(const float* g, const float* x,
+                                         long long m, const void* wbuf,
+                                         const float* bbuf, float* out_s,
+                                         float* out_r, float* out_xpi,
+                                         void* stream) {
+  return launch_rows<true, true>(g, x, m, wbuf, bbuf, out_s, out_r, out_xpi,
+                                 stream);
 }

@@ -14,10 +14,18 @@ Reference ``spurfies/model/pointneus_disent.py``:
 
 The frozen prior arrives prepared once (``ops.pair_mlp._prep_layers``:
 cast + exact linear-tail fusion); its compute dtype is the prepared
-layers' dtype.  The JAX package's module switches (fused MLP, fused
-aggregation, scatter mode, fused color) have no counterpart: the SDF
-always goes through K2/K3/K4 and the colour latents' gradient through K5
--- the kernel for a CUDA tensor, the plain version for a CPU tensor.
+layers' dtype.  ``model.fused_agg`` reaches the SDF functions as their
+``fused_agg`` argument, as ``set_fused_agg`` sets it in the JAX package:
+True runs K2/K3/K4 (gather, prior, weights and per-point sums in one
+kernel); False the per-pair K6b/K6a on gathered rows, with the weights and
+sums in PyTorch and the latent gradient scattered by K5.  The
+pair-compacted SDF (``sdf_and_grad_pairs``, ``model.pair_budget_frac``)
+runs K7a.  Every latent gradient scatter is K5, for both values of
+``model.scatter_mode`` (the JAX package's two modes are the same math in
+another order).  The fused-MLP and fused-colour switches have no
+counterpart: the pair MLP is always a kernel (the kernel for a CUDA
+tensor, the plain version for a CPU tensor) and the colour MLP is always
+PyTorch.
 """
 
 import torch
@@ -26,7 +34,10 @@ from spurfies_tpu_torch.core.embedder import positional_encoding
 from spurfies_tpu_torch.model.networks import matmul_in, mlp_apply
 from spurfies_tpu_torch.ops.pair_mlp import (
     PairSdfAggregate,
+    PairSdfRowsGrad,
+    PairSdfValueAndInputGrad,
     PriorLayers,
+    pair_sdf_rows_value,
     pair_sdf_value_agg,
     pair_table,
 )
@@ -64,16 +75,50 @@ def _aggregate_sdf_value_agg(prior: PriorLayers, geo_latents, points,
     return sdf, has
 
 
+def pair_rows(latents, points, idx, x):
+    """The per-pair inputs of K6: rows ``g [M*K, D+3] = [latent |
+    position]`` (``gather_pair_rows``; invalid slots read row 0 and are
+    masked by the caller) and the query of each row ``[M*K, 3]``
+    (``field.py:225-227``)."""
+    m, k = idx.shape
+    g = gather_pair_rows(latents, points, torch.clamp(idx, min=0).to(
+        torch.int32)).reshape(m * k, -1)
+    return g, x[:, None, :].expand(m, k, 3).reshape(-1, 3)
+
+
+def _aggregate_rows(s, xpi, valid, rbf):
+    """Per-pair values ``s`` and offsets ``xpi`` (``[M*K]``, ``[M*K, 3]``)
+    to (masked s ``[M, K]``, w ``[M, K]``, has ``[M]``, den ``[M]``, 1
+    where has is False)."""
+    m, k = valid.shape
+    w, norm = rbf_weights(xpi.reshape(m, k, 3), valid, rbf)
+    has = norm[..., 0] > 0
+    return (torch.where(valid, s.reshape(m, k), 0.0), w, has,
+            torch.where(has, norm[..., 0], 1.0))
+
+
 def aggregate_sdf(prior: PriorLayers, geo_latents, points, idx, valid, x,
-                  rbf, need_grad: bool = True):
+                  rbf, need_grad: bool = True, fused_agg: bool = True):
     """RBF-weighted SDF at positions ``x`` ``[M, 3]`` from neighbours
     ``idx``/``valid`` ``[M, K]``.
 
     Returns (sdf ``[M]`` -- SDF_FILLER where no valid neighbour, has
-    ``[M]`` bool).  need_grad=False runs the value-only K2 (no gradient:
-    the sampler's probe); need_grad=True runs K3 through
-    :class:`PairSdfAggregate`, differentiable in the latents (K4) and x.
+    ``[M]`` bool).  With ``fused_agg`` (``model.fused_agg``),
+    need_grad=False runs the value-only K2 (no gradient: the sampler's
+    probe) and need_grad=True runs K3 through :class:`PairSdfAggregate`,
+    differentiable in the latents (K4) and x.  Without it
+    (``field.py:223-246``), the gathered rows go through K6b, or K6a
+    through :class:`PairSdfRowsGrad`, and the weighted mean is PyTorch's;
+    the latent gradient is scattered by K5.
     """
+    if not fused_agg:
+        g, x_rows = pair_rows(geo_latents, points, idx, x)
+        if need_grad:
+            s, _, xpi = PairSdfRowsGrad.apply(g, x_rows, prior)
+        else:
+            s, xpi = pair_sdf_rows_value(g, x_rows, prior)
+        s, w, has, den = _aggregate_rows(s, xpi, valid, rbf)
+        return torch.where(has, torch.sum(w * s, -1) / den, SDF_FILLER), has
     idx_ext = _idx_ext(idx, valid, geo_latents.shape[0])
     if not need_grad:
         return _aggregate_sdf_value_agg(prior, geo_latents, points, idx_ext,
@@ -108,7 +153,7 @@ def compact_pair_slots(valid_flat: torch.Tensor, budget: int):
 
 def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
               budget_frac: float | None = 0.25, need_grad: bool = True,
-              return_overflow: bool = False):
+              return_overflow: bool = False, fused_agg: bool = True):
     """SDF at arbitrary world points (filler 1000 in empty space).
 
     budget_frac: a fine-occupancy lookup prunes empty-space probe points
@@ -116,7 +161,7 @@ def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
     points (fixed shape) run query + pair MLP.  None disables it (all M
     run, masked).  ``r`` must match the radius of the scene's table.
     return_overflow: also return a ``[]`` bool -- occupied probe points
-    were dropped by the budget.
+    were dropped by the budget.  fused_agg: as :func:`aggregate_sdf`.
     """
     m = x.shape[0]
     budget = (max(int(m * budget_frac) // 128 * 128, 128)
@@ -124,7 +169,8 @@ def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
     if budget_frac is None or m < 1024 or budget >= m:
         idx, _ = query_grid(x, scene.table, scene.spec, k=k)
         sdf, _ = aggregate_sdf(prior, geo_latents, scene.points, idx,
-                               idx >= 0, x, rbf, need_grad=need_grad)
+                               idx >= 0, x, rbf, need_grad=need_grad,
+                               fused_agg=fused_agg)
         if return_overflow:
             return sdf, torch.zeros((), dtype=torch.bool, device=x.device)
         return sdf
@@ -135,7 +181,8 @@ def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
     idx_c, _ = query_grid(x_c, scene.table, scene.spec, k=k)
     valid_c = (idx_c >= 0) & sel_ok[:, None]
     sdf_c, _ = aggregate_sdf(prior, geo_latents, scene.points, idx_c,
-                             valid_c, x_c, rbf, need_grad=need_grad)
+                             valid_c, x_c, rbf, need_grad=need_grad,
+                             fused_agg=fused_agg)
     # unused budget slots scatter into a spare last element (a masked
     # index would cost a device sync)
     out = torch.full((m + 1,), SDF_FILLER, dtype=x.dtype, device=x.device)
@@ -147,16 +194,27 @@ def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
 
 
 def sdf_and_grad(prior: PriorLayers, geo_latents, points, idx, valid, x,
-                 rbf):
-    """Aggregated SDF and its spatial gradient d(sdf)/dx (K3).
+                 rbf, fused_agg: bool = True):
+    """Aggregated SDF and its spatial gradient d(sdf)/dx.
 
     The RBF weights are constant in x (detached distances, reference
     :242), so d(agg)/dx is the weighted sum of the per-pair input
-    gradients, which K3 computes in its down sweep.  Both are
-    differentiable through :class:`PairSdfAggregate`: the SDF in the
-    latents (K4) and x; the gradient's latent derivative is zero almost
-    everywhere and is dropped, as in the JAX package.
+    gradients, which the kernels compute in their down sweep: K3 with
+    ``fused_agg`` (differentiable through :class:`PairSdfAggregate`: the
+    SDF in the latents (K4) and x), else K6a on gathered rows
+    (``field.py:406-422``: the SDF differentiable through
+    :class:`PairSdfRowsGrad` and K5).  The gradient's latent derivative is
+    zero almost everywhere and is dropped, as in the JAX package.
     """
+    if not fused_agg:
+        g, x_rows = pair_rows(geo_latents, points, idx, x)
+        s, r, xpi = PairSdfRowsGrad.apply(g, x_rows, prior)
+        s, w, has, den = _aggregate_rows(s, xpi, valid, rbf)
+        m, k = valid.shape
+        gr = torch.where(valid[..., None],
+                         r[:, geo_latents.shape[1]:].reshape(m, k, 3), 0.0)
+        sdf = torch.where(has, torch.sum(w * s, -1) / den, SDF_FILLER)
+        return sdf, torch.sum(w[..., None] * gr, -2) / den[..., None]
     idx_ext = _idx_ext(idx, valid, geo_latents.shape[0])
     num, den, gagg = PairSdfAggregate.apply(geo_latents, points, idx_ext, x,
                                             prior, rbf)
@@ -164,6 +222,31 @@ def sdf_and_grad(prior: PriorLayers, geo_latents, points, idx, valid, x,
     den_s = torch.where(has, den, 1.0)
     sdf = torch.where(has, num / den_s, SDF_FILLER)
     return sdf, gagg / den_s[:, None]
+
+
+class _GatherLatents(torch.autograd.Function):
+    """``table[idx]`` whose backward scatters the cotangent with K5
+    (``field.py:75-104`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, = ctx.saved_tensors
+        return scatter_add_rows(ct.reshape(-1, ct.shape[-1]), idx.reshape(-1),
+                                ctx.n), None
+
+
+def gather_latents(table, idx):
+    """``table[idx]`` (idx int32 ``[B]``, clipped into ``[0, N)``),
+    differentiable in ``table`` through K5.  The cotangent of a column
+    slice of a wider array (``torch.cat``'s backward) is read in place
+    through its row stride."""
+    return _GatherLatents.apply(table, idx.contiguous())
 
 
 class _GatherRows(torch.autograd.Function):
@@ -196,6 +279,82 @@ def gather_pair_rows(latents, points, idx):
     reads them from the ``[M*K, D+3]`` cotangent through its row stride.
     """
     return _GatherRows.apply(latents, points.detach(), idx.contiguous())
+
+
+def _compact_pairs(idx, valid, points, x, rbf, budget: int):
+    """The ``[M, K]`` pair grid compacted column-major (nearest neighbours
+    first) to its first ``budget`` valid pairs (``field.py:609-624``):
+    (pt ``[B]`` owning point, pidx ``[B]`` int32 neighbour id, x_pi
+    ``[B, 3]``, w ``[B]`` the RBF weight of the detached distance, 0 for an
+    unused slot, seg ``[B]`` pt, or M for an unused slot)."""
+    m, k = idx.shape
+    slot, ok, _ = compact_pair_slots(valid.t().reshape(-1), budget)
+    pt = slot % m
+    pidx = torch.clamp(idx.reshape(-1)[pt * k + slot // m], min=0)
+    x_pi = x[pt] - points[pidx]
+    dist = torch.clamp(_norm3(x_pi.detach()), min=1e-12)
+    w = torch.exp(-((dist * rbf) ** 2)) * ok.to(x.dtype)
+    return pt, pidx.to(torch.int32), x_pi, w, torch.where(ok, pt, m)
+
+
+def _seg_sum(v, seg, m: int):
+    """Per-point sums of the pair values ``v`` (``[B]`` or ``[B, c]``):
+    ``index_add`` into ``m + 1`` rows, the unused slots (seg == m) into the
+    spare last one."""
+    out = v.new_zeros((m + 1,) + tuple(v.shape[1:]))
+    return out.index_add(0, seg, v)[:m]
+
+
+def sdf_and_grad_pairs(prior: PriorLayers, geo_latents, points, idx, valid,
+                       x, rbf, pair_budget: int):
+    """Pair-compacted :func:`sdf_and_grad` (``field.py:584-646``).
+
+    The ``[M, K]`` pair grid is compacted column-major (nearest neighbours
+    first) to its first ``pair_budget`` valid pairs; K7a runs on each kept
+    pair's ``u = [latent | x_pi]`` (through :class:`PairSdfValueAndInputGrad`,
+    the latents gathered by :func:`gather_latents`, whose backward is K5),
+    and the weighted sums go back per point with ``index_add`` into a spare
+    row M (no boolean indexing, no host sync).  Overflow sheds the
+    farthest neighbours of the tail points; the weights renormalize.
+    Equal to :func:`sdf_and_grad` when nothing overflows.
+    """
+    m = idx.shape[0]
+    d = geo_latents.shape[1]
+    _, pidx, x_pi, w, seg = _compact_pairs(idx, valid, points, x, rbf,
+                                           pair_budget)
+    u = torch.cat([gather_latents(geo_latents, pidx), x_pi], -1)
+    s, r = PairSdfValueAndInputGrad.apply(u, prior)
+    num = _seg_sum(w * s, seg, m)
+    den = _seg_sum(w, seg, m)
+    gnum = _seg_sum(w[:, None] * r[:, d:], seg, m)
+    has = den > 0
+    safe_den = torch.where(has, den, 1.0)
+    return (torch.where(has, num / safe_den, SDF_FILLER),
+            gnum / safe_den[:, None])
+
+
+def aggregate_color_pairs(train_params, color_latents, points, idx, valid,
+                          x, ray_dirs, rbf, pair_budget: int, pos_multires=6,
+                          view_multires=3, compute_dtype=torch.bfloat16):
+    """Pair-compacted colour (``field.py:649-694``): the same column-major
+    compaction as :func:`sdf_and_grad_pairs`; F_color (all four layers) runs
+    on the kept pairs only, the normalized-weight aggregate goes back per
+    point with ``index_add``, then the per-point R head.  The colour
+    latents' gradient is K5 (:func:`gather_latents`).  Equal to
+    :func:`aggregate_color` (up to rounding) when nothing overflows."""
+    m = idx.shape[0]
+    pt, pidx, x_pi, w, seg = _compact_pairs(idx, valid, points, x, rbf,
+                                            pair_budget)
+    cfeat = gather_latents(color_latents, pidx)
+    den = _seg_sum(w, seg, m)
+    wn = w / torch.where(den > 0, den, 1.0)[pt]
+    pos_enc = positional_encoding(x_pi, pos_multires)        # [B, 39]
+    feat = mlp_apply(train_params["F_color"], torch.cat([pos_enc, cfeat], -1),
+                     compute_dtype=compute_dtype)            # [B, 256]
+    agg = _seg_sum(wn[:, None] * feat.to(x.dtype), seg, m)
+    dir_enc = positional_encoding(ray_dirs, view_multires)   # [M, 21]
+    return mlp_apply(train_params["R"], torch.cat([dir_enc, agg], -1),
+                     final_act="sigmoid", compute_dtype=compute_dtype)
 
 
 def aggregate_color(train_params, color_latents, points, idx, valid, x,

@@ -7,13 +7,16 @@ Dense ``[R, S]`` with masks, as in the JAX package: the reference's
 over the has-neighbour mask, and colour runs on the top-W samples per ray
 by rendering weight with the mass rescale.
 
-Both branches are ported at the model options of the default
-``ModelConfig``: the eval render (``train=False``) and the training render
-(``train=True``: stratified sampling, the ray budget, the probe budget's
-first/rest split, a differentiable ``grad_theta``).  Options outside them
-raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
-them.  Nothing here waits on the card: masks become spare-slot scatters,
-never boolean indexing.
+Both branches are ported: the eval render (``train=False``) and the
+training render (``train=True``: stratified sampling, the ray budget, the
+probe budget's first/rest split, a differentiable ``grad_theta``), with
+``model.fused_agg`` passed to every SDF call, the point budget
+(``render_budget_frac``), the pair-compacted SDF (``pair_budget_frac``)
+and the pair-compacted colour (``color_pair_frac``).  ``entangled`` and
+the training ``occ_compact`` raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.  Nothing here waits on the card:
+masks become spare-slot scatters and compactions sorts or cumsums, never
+boolean indexing.
 """
 
 import torch
@@ -36,12 +39,6 @@ from spurfies_tpu_torch.ops.voxel_grid import (
 def _check_supported(cfg: ModelConfig, train: bool):
     for name, on, item in (
             ("entangled", cfg.entangled, "15 (legacy entangled model)"),
-            ("render_budget_frac", cfg.render_budget_frac > 0,
-             "10 (render_budget_frac / pair_budget_frac paths)"),
-            ("pair_budget_frac", cfg.pair_budget_frac > 0,
-             "10 (render_budget_frac / pair_budget_frac paths)"),
-            ("color_pair_frac", cfg.color_pair_frac > 0,
-             "11 (color_pair_frac path)"),
             ("occ_compact", cfg.occ_compact and train
              and not 0 < cfg.ray_budget_frac < 1,
              "9 (occ_compact, left open by the training slice)")):
@@ -185,7 +182,8 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
         return field.sdf_probe(prior, geo, scene, x, cfg.probe_k or cfg.k,
                                cfg.r, cfg.rbf,
                                budget_frac=pf_first if first else pf_rest,
-                               need_grad=False, return_overflow=True)
+                               need_grad=False, return_overflow=True,
+                               fused_agg=cfg.fused_agg)
 
     z_all, probe_overflow = error_bound_z_vals(
         sdf_probe_fn, cam_loc, ray_dirs, scfg, beta0, iters, train=train,
@@ -213,9 +211,42 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
     flat_idx = nbr_idx.reshape(-1, K)
     flat_valid = nbr_valid.reshape(-1, K)
 
-    sdf_flat, grad_flat = field.sdf_and_grad(
-        prior, tp["feats_geometry"], scene.points, flat_idx, flat_valid,
-        flat_x, cfg.rbf)
+    geo_t = tp["feats_geometry"]
+    if cfg.render_budget_frac > 0:
+        # the first `budget` valid shading points of the flat [R*S] grid
+        # (a sort, renderer.py:302-329); dropped points render as empty
+        # space
+        m = flat_x.shape[0]
+        budget = max(int(m * cfg.render_budget_frac) // 128 * 128, 128)
+        ar = torch.arange(m, device=flat_x.device)
+        order = torch.sort(torch.where(sel_valid.reshape(-1), ar, m)).values
+        order = order[:budget]
+        bsel_ok = order < m
+        bsel = torch.clamp(order, max=m - 1)
+        s_c, g_c = field.sdf_and_grad(
+            prior, geo_t, scene.points, flat_idx[bsel],
+            flat_valid[bsel] & bsel_ok[:, None], flat_x[bsel], cfg.rbf,
+            fused_agg=cfg.fused_agg)
+        to = (torch.where(bsel_ok, bsel, m),)
+        sdf_flat = torch.full((m + 1,), field.SDF_FILLER, device=ar.device)
+        sdf_flat = torch.index_put(sdf_flat, to, torch.where(
+            bsel_ok, s_c, field.SDF_FILLER))[:m]
+        grad_flat = torch.index_put(
+            torch.zeros((m + 1, 3), device=ar.device), to,
+            torch.where(bsel_ok[:, None], g_c, 0.0))[:m]
+        covered = torch.index_put(torch.zeros(
+            (m + 1,), dtype=torch.bool, device=ar.device), to, bsel_ok)[:m]
+        sel_valid = sel_valid & covered.reshape(n_rays, S)
+    elif cfg.pair_budget_frac > 0:
+        budget = max(int(n_rays * S * K * cfg.pair_budget_frac) // 256 * 256,
+                     256)
+        sdf_flat, grad_flat = field.sdf_and_grad_pairs(
+            prior, geo_t, scene.points, flat_idx, flat_valid, flat_x,
+            cfg.rbf, budget)
+    else:
+        sdf_flat, grad_flat = field.sdf_and_grad(
+            prior, geo_t, scene.points, flat_idx, flat_valid, flat_x,
+            cfg.rbf, fused_agg=cfg.fused_agg)
     sdf = sdf_flat.reshape(n_rays, S)
     gradients = grad_flat.reshape(n_rays, S, 3)
 
@@ -239,20 +270,17 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
         t_valid = _take(nbr_valid, top)
         t_x = _take(shading_pts, top)
         t_dirs = ray_dirs[:, None, :].expand(n_rays, W, 3)
-        colors_w = field.aggregate_color(
-            tp, tp["feats_color"], scene.points, t_idx.reshape(-1, K),
-            t_valid.reshape(-1, K), t_x.reshape(-1, 3),
-            t_dirs.reshape(-1, 3), cfg.rbf, cfg.pos_multires,
-            cfg.view_multires).reshape(n_rays, W, 3)
+        colors_w = _color_maybe_pairs(
+            tp, scene, t_idx.reshape(-1, K), t_valid.reshape(-1, K),
+            t_x.reshape(-1, 3), t_dirs.reshape(-1, 3),
+            cfg).reshape(n_rays, W, 3)
         mass_top = torch.sum(w_top, -1, keepdim=True)
         rgb = torch.sum(w_top[..., None] * colors_w, dim=1)
         rgb = rgb * (acc / torch.clamp(mass_top, min=1e-10))
     else:
         flat_dirs = ray_dirs[:, None, :].expand(n_rays, S, 3).reshape(-1, 3)
-        colors = field.aggregate_color(
-            tp, tp["feats_color"], scene.points, flat_idx, flat_valid,
-            flat_x, flat_dirs, cfg.rbf, cfg.pos_multires,
-            cfg.view_multires).reshape(n_rays, S, 3)
+        colors = _color_maybe_pairs(tp, scene, flat_idx, flat_valid, flat_x,
+                                    flat_dirs, cfg).reshape(n_rays, S, 3)
         colors = torch.where(valid_pt[..., None], colors, 0.0)
         rgb = torch.sum(weights[..., None] * colors, dim=1)
     depth = torch.sum(weights * z_sel, -1, keepdim=True) / (acc + 1e-8)
@@ -296,6 +324,20 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
     return out
 
 
+def _color_maybe_pairs(tp, scene, idx, valid, x, dirs, cfg: ModelConfig):
+    """Dense or pair-compacted colour (``model.color_pair_frac``;
+    ``renderer.py:426-438``)."""
+    if cfg.color_pair_frac > 0:
+        m, k = idx.shape
+        budget = max(int(m * k * cfg.color_pair_frac) // 256 * 256, 256)
+        return field.aggregate_color_pairs(
+            tp, tp["feats_color"], scene.points, idx, valid, x, dirs,
+            cfg.rbf, budget, cfg.pos_multires, cfg.view_multires)
+    return field.aggregate_color(tp, tp["feats_color"], scene.points, idx,
+                                 valid, x, dirs, cfg.rbf, cfg.pos_multires,
+                                 cfg.view_multires)
+
+
 def pseudo_sdf_loss(params, scene, out, cfg: ModelConfig):
     """L1-to-zero of the SDF at the rendered depth points (reference
     :765-780), a masked mean over the rays whose point has neighbours.
@@ -303,7 +345,7 @@ def pseudo_sdf_loss(params, scene, out, cfg: ModelConfig):
     occupied.  Differentiable in the latents (K4) and in the points."""
     sdf = field.sdf_probe(params["frozen"], params["train"]["feats_geometry"],
                           scene, out["pts_rendered"], cfg.k, cfg.r, cfg.rbf,
-                          budget_frac=None)
+                          budget_frac=None, fused_agg=cfg.fused_agg)
     valid = (sdf < field.SDF_FILLER / 2) & out["ray_mask"]
     abs_sdf = torch.where(valid, torch.abs(sdf), 0.0)
     return torch.sum(abs_sdf) / torch.clamp(torch.sum(valid), min=1)
@@ -337,9 +379,11 @@ def fd_eikonal_loss(params, scene, out, cfg: ModelConfig, n_sub: int = 0,
     geo = params["train"]["feats_geometry"]
     eps = FD_EIKONAL_EPS
     sp, _ = field.aggregate_sdf(params["frozen"], geo, scene.points, idx,
-                                nbr_valid, x + eps * u, cfg.rbf)
+                                nbr_valid, x + eps * u, cfg.rbf,
+                                fused_agg=cfg.fused_agg)
     sm, _ = field.aggregate_sdf(params["frozen"], geo, scene.points, idx,
-                                nbr_valid, x - eps * u, cfg.rbf)
+                                nbr_valid, x - eps * u, cfg.rbf,
+                                fused_agg=cfg.fused_agg)
     fd = (sp - sm) / (2.0 * eps)
     ok = valid & (torch.abs(sp) < field.SDF_FILLER / 2) & (
         torch.abs(sm) < field.SDF_FILLER / 2)
@@ -357,7 +401,7 @@ def cloud_anchor_loss(params, scene, cfg: ModelConfig, n_points: int = 2048,
                             generator=generator, device=scene.points.device)
     sdf = field.sdf_probe(params["frozen"], params["train"]["feats_geometry"],
                           scene, scene.points[sel], cfg.k, cfg.r, cfg.rbf,
-                          budget_frac=None)
+                          budget_frac=None, fused_agg=cfg.fused_agg)
     valid = sdf < field.SDF_FILLER / 2
     return torch.sum(torch.where(valid, torch.abs(sdf), 0.0)) / torch.clamp(
         torch.sum(valid), min=1)

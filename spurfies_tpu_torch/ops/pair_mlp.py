@@ -1,5 +1,6 @@
 """K2 / K3 / K4: fused gather + frozen-prior pair MLP + RBF weight +
-per-point aggregation, and its latent gradient.
+per-point aggregation, and its latent gradient; K6 / K7: the same prior
+per pair row, without weight or aggregation.
 
 Port of the fused-aggregation kernels of ``spurfies_tpu/ops/pallas_mlp.py``:
   * K2 ``pair_sdf_value_agg`` (``_fused_value_agg_call``): per point
@@ -9,17 +10,29 @@ Port of the fused-aggregation kernels of ``spurfies_tpu/ops/pallas_mlp.py``:
     ``w`` and ``r_lat = ds/dlat`` that K4 consumes;
   * K4 ``pair_sdf_aggregate_bwd`` (``_fused_agg_bwd_call``): K3's latent
     gradient ``out[idx] += num_bar[point] * w * r_lat``.
+  * K6a ``pair_sdf_rows_grad`` (``_fused_mlp_gx_call``) and K6b
+    ``pair_sdf_rows_value`` (``_fused_value_gx_call``): from raw gathered
+    rows ``g = [latent | position]`` and a query ``x`` per row, per row
+    ``s``, ``x_pi = x - position`` and (K6a) ``r = ds/du`` with
+    ``u = [latent | x_pi]`` -- the ``model.fused_agg=false`` path;
+  * K7a ``pair_sdf_value_and_input_grad`` (``_fused_mlp_call``) and K7b
+    ``pair_sdf_value`` (``_fused_value_call``): ``s`` and (K7a) ``r`` from
+    a pre-assembled ``u`` -- the pair-compacted SDF.
 The autograd Function :class:`PairSdfAggregate` puts K3 forward and K4
 backward together, as the custom VJP of ``spurfies_tpu/model/field.py``'s
-``pair_sdf_aggregate`` does.
+``pair_sdf_aggregate`` does; :class:`PairSdfRowsGrad` (K6a) and
+:class:`PairSdfValueAndInputGrad` (K7a) are the custom VJPs of
+``spurfies_tpu/ops/pallas_mlp.py:458-533``, whose backwards are
+elementwise (no kernel, as in the JAX package).
 
-The CUDA kernels are ``csrc/pair_mlp.cu`` (K2, K3) and ``csrc/agg_bwd.cu``
-(K4); ``*_ref`` are their plain PyTorch versions (CPU tensors, and the
-kernels' yardstick on the card).  K2 and K3 follow the TPU kernel's
-rounding points: operands in the compute dtype, f32 accumulation, bias
-added in f32, activations rounded after each LeakyReLU, the down-sweep
-delta rounded after each gate and each product.  K4 sums with atomics, so
-it agrees with its plain version up to f32 reordering.
+The CUDA kernels are ``csrc/pair_mlp.cu`` (K2, K3, K6, K7) and
+``csrc/agg_bwd.cu`` (K4); ``*_ref`` are their plain PyTorch versions (CPU
+tensors, and the kernels' yardstick on the card).  The pair-MLP kernels
+follow the TPU kernels' rounding points: operands in the compute dtype,
+f32 accumulation, bias added in f32, activations rounded after each
+LeakyReLU, ``s`` rounded to the compute dtype, the down-sweep delta
+rounded after each gate and each product (``r`` is that delta).  K4 sums
+with atomics, so it agrees with its plain version up to f32 reordering.
 
 Pair rows are point-major: ``idx_ext [P, k]`` indexes a table
 ``[N+1, 32+3] = [latent | position]`` whose row N is the dump row at
@@ -42,9 +55,12 @@ _ROWS = 128             # pair rows per CUDA block
 _IN0, _OUT0 = 48, 40    # padded first-layer depth / last down-sweep width
 
 LAUNCHES = {"pair_sdf_value_agg": 0, "pair_sdf_aggregate": 0,
-            "pair_sdf_aggregate_bwd": 0}
+            "pair_sdf_aggregate_bwd": 0, "pair_sdf_rows_grad": 0,
+            "pair_sdf_rows_value": 0, "pair_sdf_value_and_input_grad": 0,
+            "pair_sdf_value": 0}
 
 _P = ctypes.c_void_p
+_LL = ctypes.c_longlong
 _SIG = {
     "pair_sdf_value_agg_launch": [_P, ctypes.c_int, _P, _P, ctypes.c_int,
                                   ctypes.c_int, _P, _P, ctypes.c_float, _P,
@@ -52,6 +68,11 @@ _SIG = {
     "pair_sdf_aggregate_launch": [_P, ctypes.c_int, _P, _P, ctypes.c_int,
                                   ctypes.c_int, _P, _P, ctypes.c_float, _P,
                                   _P, _P, _P],
+    # K6 / K7: inputs, m, wbuf, bbuf, outputs, stream
+    "pair_sdf_value_launch": [_P, _LL, _P, _P, _P, _P],
+    "pair_sdf_value_and_input_grad_launch": [_P, _LL, _P, _P, _P, _P, _P],
+    "pair_sdf_rows_value_launch": [_P, _P, _LL, _P, _P, _P, _P, _P],
+    "pair_sdf_rows_grad_launch": [_P, _P, _LL, _P, _P, _P, _P, _P, _P],
 }
 _SIG_BWD = {"pair_sdf_aggregate_bwd_launch": [_P, _P, _P, _P, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int, _P,
@@ -149,13 +170,19 @@ def _gather(table, idx_ext, x, rbf: float):
     return g, xpi, w
 
 
-def _up_sweep(layers: PriorLayers, g, xpi, keep_gates: bool):
-    """s [T] (rounded to the compute dtype) and the gates of layers
-    0..n_act-1 (bool, a > 0)."""
-    cd = layers.compute_dtype
-    d = g.shape[1] - 3
+def _first_split(layers: PriorLayers, lat, xpi):
+    """The first layer's pre-activation as the TPU kernels that take rows
+    form it: ``lat @ W_lat + x_pi @ W_pos + b0``, each operand rounded."""
+    d = lat.shape[1]
     w0 = layers.ws[0]
-    a = (_mm(g[:, :d], w0[:d]) + _mm(xpi, w0[d:])) + layers.bs[0]
+    return (_mm(lat, w0[:d]) + _mm(xpi, w0[d:])) + layers.bs[0]
+
+
+def _up_sweep(layers: PriorLayers, a, keep_gates: bool):
+    """s [T] (rounded to the compute dtype) and the gates of layers
+    0..n_act-1 (bool, a > 0), from the first layer's pre-activation ``a``
+    (bias added)."""
+    cd = layers.compute_dtype
     gates = []
     x = None
     for i in range(len(layers.ws)):
@@ -170,12 +197,25 @@ def _up_sweep(layers: PriorLayers, g, xpi, keep_gates: bool):
     return x[:, 0].float(), gates
 
 
+def _down_sweep(layers: PriorLayers, gates, t: int, device):
+    """r = ds/du [T, 35] f32: the delta of the down sweep, rounded to the
+    compute dtype after each gate and each product."""
+    cd = layers.compute_dtype
+    slope = constant(0.01, cd, device).float()
+    delta = layers.ws[-1].t().expand(t, -1)                 # [T, 256]
+    for i in range(layers.n_act - 1, -1, -1):
+        delta = (delta.float() * torch.where(gates[i], 1.0, slope)).to(cd)
+        delta = _mm(delta, layers.ws[i].t()).to(cd)
+    return delta.float()
+
+
 def pair_sdf_value_agg_ref(table, idx_ext, x, layers: PriorLayers,
                            rbf: float):
     """Plain K2: ``pt [P, 2] = (sum_k w s, sum_k w)``."""
     p, k = idx_ext.shape
     g, xpi, w = _gather(table, idx_ext, x, rbf)
-    s, _ = _up_sweep(layers, g, xpi, keep_gates=False)
+    s, _ = _up_sweep(layers, _first_split(layers, g[:, :-3], xpi),
+                     keep_gates=False)
     cols = torch.stack([w * s, w], dim=1)
     return cols.view(p, k, 2).sum(dim=1)
 
@@ -187,14 +227,10 @@ def pair_sdf_aggregate_ref(table, idx_ext, x, layers: PriorLayers,
     p, k = idx_ext.shape
     cd = layers.compute_dtype
     g, xpi, w = _gather(table, idx_ext, x, rbf)
-    s, gates = _up_sweep(layers, g, xpi, keep_gates=True)
-    slope = constant(0.01, cd, x.device).float()
-    delta = layers.ws[-1].t().expand(g.shape[0], -1)        # [T, 256]
-    for i in range(layers.n_act - 1, -1, -1):
-        delta = (delta.float() * torch.where(gates[i], 1.0, slope)).to(cd)
-        delta = _mm(delta, layers.ws[i].t()).to(cd)
-    r = delta.float()                                       # [T, d+3]
     d = g.shape[1] - 3
+    s, gates = _up_sweep(layers, _first_split(layers, g[:, :d], xpi),
+                         keep_gates=True)
+    r = _down_sweep(layers, gates, g.shape[0], x.device)    # [T, d+3]
     cols = torch.cat([(w * s)[:, None], w[:, None], w[:, None] * r[:, d:]], 1)
     return cols.view(p, k, 5).sum(dim=1), w, r[:, :d].to(cd)
 
@@ -365,3 +401,153 @@ class PairSdfAggregate(torch.autograd.Function):
         if ctx.needs_input_grad[3]:
             x_bar = num_bar[:, None] * gagg
         return lat_bar, None, None, x_bar, None, None
+
+
+# ------------------------------------------------ K6 / K7: per pair row ----
+
+def pair_sdf_value_ref(u, layers: PriorLayers):
+    """Plain K7b: ``s [M]`` from ``u [M, 35]``."""
+    s, _ = _up_sweep(layers, _mm(u, layers.ws[0]) + layers.bs[0],
+                     keep_gates=False)
+    return s
+
+
+def pair_sdf_value_and_input_grad_ref(u, layers: PriorLayers):
+    """Plain K7a: ``(s [M], r [M, 35])``."""
+    s, gates = _up_sweep(layers, _mm(u, layers.ws[0]) + layers.bs[0],
+                         keep_gates=True)
+    return s, _down_sweep(layers, gates, u.shape[0], u.device)
+
+
+def pair_sdf_rows_value_ref(g, x, layers: PriorLayers):
+    """Plain K6b: ``(s [M], x_pi [M, 3])`` with ``x_pi = x - g[:, 32:]``."""
+    xpi = x - g[:, LAT:]
+    s, _ = _up_sweep(layers, _first_split(layers, g[:, :LAT], xpi),
+                     keep_gates=False)
+    return s, xpi
+
+
+def pair_sdf_rows_grad_ref(g, x, layers: PriorLayers):
+    """Plain K6a: ``(s [M], r [M, 35], x_pi [M, 3])``."""
+    xpi = x - g[:, LAT:]
+    s, gates = _up_sweep(layers, _first_split(layers, g[:, :LAT], xpi),
+                         keep_gates=True)
+    return s, _down_sweep(layers, gates, g.shape[0], g.device), xpi
+
+
+def _check_rows(name, *ins):
+    """Inputs of the per-row kernels: f32, contiguous, ``[M, 35]`` then
+    (K6) ``[M, 3]``, on one device."""
+    m = ins[0].shape[0]
+    for t, cols in zip(ins, (LAT + 3, 3)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (m, cols):
+            raise ValueError(f"{name}: f32 [M, {LAT + 3}] rows and f32 "
+                             f"[M, 3] queries, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+        if t.device != ins[0].device:
+            raise ValueError(f"{name}: inputs on different devices")
+    dev = ins[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda" and not all(t.is_contiguous() for t in ins):
+        raise ValueError(f"{name}: contiguous inputs")
+    return dev.type == "cpu"
+
+
+def _launch_rows(name, ins, layers: PriorLayers, out_cols):
+    """Run the C entry ``{name}_launch`` on ``ins`` into new f32 outputs of
+    ``[M, c]`` for each c of ``out_cols`` (0: ``[M]``)."""
+    m = ins[0].shape[0]
+    dev = ins[0].device
+    outs = [torch.empty((m, c) if c else (m,), dtype=torch.float32,
+                        device=dev) for c in out_cols]
+    if m == 0:
+        return outs
+    wbuf, bbuf = layers.kernel_buffers()
+    lib = cuda_build.load("pair_mlp", _SIG)
+    err = getattr(lib, f"{name}_launch")(
+        *(t.data_ptr() for t in ins), m, wbuf.data_ptr(), bbuf.data_ptr(),
+        *(t.data_ptr() for t in outs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, name)
+    LAUNCHES[name] += 1
+    return outs
+
+
+@torch.no_grad()
+def pair_sdf_value(u, layers: PriorLayers):
+    """K7b: ``s [M]`` from ``u [M, 35]`` (no gradient).  CPU tensors run
+    :func:`pair_sdf_value_ref`; CUDA tensors launch the kernel (bf16)."""
+    if _check_rows("pair_sdf_value", u):
+        return pair_sdf_value_ref(u, layers)
+    return _launch_rows("pair_sdf_value", (u,), layers, (0,))[0]
+
+
+@torch.no_grad()
+def pair_sdf_value_and_input_grad(u, layers: PriorLayers):
+    """K7a, forward only (the differentiable form is
+    :class:`PairSdfValueAndInputGrad`): ``(s [M], r [M, 35])``."""
+    if _check_rows("pair_sdf_value_and_input_grad", u):
+        return pair_sdf_value_and_input_grad_ref(u, layers)
+    return tuple(_launch_rows("pair_sdf_value_and_input_grad", (u,), layers,
+                              (0, LAT + 3)))
+
+
+@torch.no_grad()
+def pair_sdf_rows_value(g, x, layers: PriorLayers):
+    """K6b: ``(s [M], x_pi [M, 3])`` from rows ``g [M, 35]`` and queries
+    ``x [M, 3]`` (no gradient: the sampler's probe)."""
+    if _check_rows("pair_sdf_rows_value", g, x):
+        return pair_sdf_rows_value_ref(g, x, layers)
+    return tuple(_launch_rows("pair_sdf_rows_value", (g, x), layers,
+                              (0, 3)))
+
+
+@torch.no_grad()
+def pair_sdf_rows_grad(g, x, layers: PriorLayers):
+    """K6a, forward only (the differentiable form is
+    :class:`PairSdfRowsGrad`): ``(s [M], r [M, 35], x_pi [M, 3])``."""
+    if _check_rows("pair_sdf_rows_grad", g, x):
+        return pair_sdf_rows_grad_ref(g, x, layers)
+    return tuple(_launch_rows("pair_sdf_rows_grad", (g, x), layers,
+                              (0, LAT + 3, 3)))
+
+
+class PairSdfRowsGrad(torch.autograd.Function):
+    """K6a, differentiable in ``g`` and ``x``: ``_gx_vjp_bwd``
+    (``spurfies_tpu/ops/pallas_mlp.py:522-530``).  With ``u = [g_lat | x -
+    g_pos]`` and ``sr = s_bar r``: ``g_bar = [sr_lat | -sr_pos - x_pi_bar]``,
+    ``x_bar = sr_pos + x_pi_bar``.  ``r`` carries no gradient: its
+    derivative is zero almost everywhere (the prior is piecewise linear)."""
+
+    @staticmethod
+    def forward(ctx, g, x, layers: PriorLayers):
+        s, r, xpi = pair_sdf_rows_grad(g, x, layers)
+        ctx.save_for_backward(r)
+        ctx.mark_non_differentiable(r)
+        return s, r, xpi
+
+    @staticmethod
+    def backward(ctx, s_bar, _r_bar, xpi_bar):
+        r, = ctx.saved_tensors
+        sr = s_bar[:, None] * r
+        g_bar = torch.cat([sr[:, :LAT], -sr[:, LAT:] - xpi_bar], 1)
+        return g_bar, sr[:, LAT:] + xpi_bar, None
+
+
+class PairSdfValueAndInputGrad(torch.autograd.Function):
+    """K7a, differentiable in ``u``: ``u_bar = s_bar r``
+    (``spurfies_tpu/ops/pallas_mlp.py:473-478``); ``r`` carries no
+    gradient, as in :class:`PairSdfRowsGrad`."""
+
+    @staticmethod
+    def forward(ctx, u, layers: PriorLayers):
+        s, r = pair_sdf_value_and_input_grad(u, layers)
+        ctx.save_for_backward(r)
+        ctx.mark_non_differentiable(r)
+        return s, r
+
+    @staticmethod
+    def backward(ctx, s_bar, _r_bar):
+        r, = ctx.saved_tensors
+        return s_bar[:, None] * r, None

@@ -180,6 +180,45 @@ def test_render_through_kernels_matches_plain_render(cuda):
     assert (err > 2e-3).mean() <= 0.05
 
 
+_ROWS = ("pair_sdf_rows_grad", "pair_sdf_rows_value",
+         "pair_sdf_value_and_input_grad", "pair_sdf_value")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1000, 1], ids=["ragged", "one-row"])
+@pytest.mark.parametrize("kernel", _ROWS)
+def test_pair_rows_kernels_match_plain(cuda, kernel, m):
+    """K6a / K6b / K7a / K7b against their plain versions, for a row count
+    that is not a whole number of 128-row blocks and for one row: x_pi
+    bit-equal (the same f32 subtraction), s and r by ``_within``."""
+    rng = np.random.default_rng(m)
+    lat = rng.normal(0, 0.3, (m, 32))
+    xpi = rng.normal(0, 0.03, (m, 3))
+    x = rng.uniform(-0.5, 0.5, (m, 3))
+    g = np.concatenate([lat, x - xpi], 1)
+    u = np.concatenate([lat, xpi], 1)
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda)
+            for a in ((g, x) if "rows" in kernel else (u,))]
+    prior = pair_mlp._prep_layers(load_prior_npz(device=cuda), torch.bfloat16)
+    fn = getattr(pair_mlp, kernel)
+    ref = getattr(pair_mlp, kernel + "_ref")
+    before = pair_mlp.LAUNCHES[kernel]
+    with torch.no_grad():
+        outs, refs = fn(*args, prior), ref(*args, prior)
+    torch.cuda.synchronize()
+    assert pair_mlp.LAUNCHES[kernel] == before + 1
+    if not isinstance(outs, tuple):
+        outs, refs = (outs,), (refs,)
+    assert len(outs) == len(refs)
+    for i, (a, b) in enumerate(zip(outs, refs)):
+        assert a.shape == b.shape and a.shape[0] == m
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        if "rows" in kernel and i == len(outs) - 1:       # x_pi
+            assert torch.equal(a, b)
+        else:
+            _within(a, b, 1e-3)
+
+
 def _sum_order_close(what, out, ref, abs_sum, count):
     """Atomic sums against index_add_: the same f32 terms summed in another
     order, held to ``chip_smoke.sum_order_within``'s limit (2 c 2**-24
@@ -259,5 +298,36 @@ def test_train_steps_through_kernels(cuda):
                 "pair_sdf_aggregate", "pair_sdf_aggregate_bwd",
                 "scatter_add_rows"):
         assert after[key] > before[key], key
+    assert all(np.isfinite(m["loss"]) and m["notfinite"] == 0
+               for m in metrics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides,keys", [
+    (["model.fused_agg=false"],
+     ("pair_sdf_rows_value", "pair_sdf_rows_grad", "scatter_add_rows")),
+    (["model.pair_budget_frac=0.625", "model.color_pair_frac=0.75"],
+     ("pair_sdf_value_and_input_grad", "pair_sdf_aggregate_bwd",
+      "scatter_add_rows"))], ids=["unfused", "pairs"])
+def test_train_steps_under_options_through_kernels(cuda, overrides, keys):
+    """A few Trainer steps under ``model.fused_agg=false`` (K6a/K6b, no
+    K2/K3/K4) and under the pair-compacted SDF and colour (K7a) launch
+    their kernels, keep the loss finite and skip no step."""
+    from spurfies_tpu_torch.train.trainer import Trainer
+    pts, cols, views = make_synthetic_scene(n_points=1500, img_res=(24, 40))
+    cfg = apply_overrides(Config(), ["model.ray_sampler.n_samples_eval=32",
+                                     "train.num_pixels=256"] + overrides)
+    before = {**pair_mlp.LAUNCHES, **sr.LAUNCHES}
+    trainer = Trainer(cfg, pts, cols, views, device=cuda)
+    trainer.load_frozen(load_prior_npz(device=cuda))
+    metrics = []
+    trainer.run(4, window=2, callback=lambda s, m: metrics.append(m))
+    after = {**pair_mlp.LAUNCHES, **sr.LAUNCHES}
+    for key in keys:
+        assert after[key] > before[key], key
+    if "model.fused_agg=false" in overrides:
+        for key in ("pair_sdf_value_agg", "pair_sdf_aggregate",
+                    "pair_sdf_aggregate_bwd"):
+            assert after[key] == before[key], key
     assert all(np.isfinite(m["loss"]) and m["notfinite"] == 0
                for m in metrics)

@@ -2,7 +2,12 @@
 JAX package's fused Pallas path, run as its own tests run it on the CPU
 (interpret mode, ``tests/test_pallas_mlp.py:289-303``), and against its
 plain-XLA path.  Inputs are made with numpy and handed to both packages.
+
+:func:`jax_field_state` is the one way the port's tests set the JAX field
+module's switches; the other test files import it from here.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -42,16 +47,32 @@ def setup():
     return params["frozen"], frozen_np, lat, pts, idx, valid, x
 
 
-def _jax_fused(fn, dtype=jnp.float32):
+_FIELD_SWITCHES = ("FUSED_MLP_MODE", "FUSED_MLP_DTYPE", "FUSED_AGG",
+                   "FUSED_AGG_R_DTYPE")
+
+
+@contextlib.contextmanager
+def jax_field_state(fused_agg=True, dtype=jnp.float32):
+    """The JAX field module's Pallas path in interpret mode
+    (``set_fused_mlp("on", dtype)``), ``set_fused_agg(fused_agg)`` (what
+    the JAX ``Trainer`` sets from ``model.fused_agg``) and f32 residuals;
+    on exit the four switches get back the values they had on entry, so
+    no later test on the same worker runs under this one's setting."""
+    saved = [getattr(jfield, n) for n in _FIELD_SWITCHES]
     try:
         jfield.set_fused_mlp("on", dtype)
-        jfield.set_fused_agg(True)
+        jfield.set_fused_agg(fused_agg)
         jfield.FUSED_AGG_R_DTYPE = jnp.float32
-        return fn()
+        yield
     finally:
-        jfield.set_fused_mlp("auto", jnp.float32)
-        jfield.set_fused_agg(False)
-        jfield.FUSED_AGG_R_DTYPE = jnp.bfloat16
+        for name, value in zip(_FIELD_SWITCHES, saved):
+            setattr(jfield, name, value)
+
+
+def jax_fused(fn, fused_agg=True, dtype=jnp.float32):
+    """``fn()`` under :func:`jax_field_state`."""
+    with jax_field_state(fused_agg, dtype):
+        return fn()
 
 
 def _torch_inputs(setup, compute_dtype):
@@ -79,7 +100,7 @@ def test_aggregate_plain_matches_fused_interpret_f32(setup):
     sums in another order -> ~1e-5 relative."""
     frozen, _, lat, pts, idx, valid, x = setup
     idx_ext = np.where(valid, idx, N).astype(np.int32)
-    (num, den, gagg), (w_j, r_j, *_) = _jax_fused(lambda: jfield._agg_fwd_impl(
+    (num, den, gagg), (w_j, r_j, *_) = jax_fused(lambda: jfield._agg_fwd_impl(
         frozen, jnp.asarray(lat), jnp.asarray(pts), jnp.asarray(idx_ext),
         jnp.asarray(x), RBF))
     prior, table, t_idx, tx = _torch_inputs(setup, torch.float32)
@@ -96,7 +117,7 @@ def test_aggregate_plain_matches_fused_interpret_f32(setup):
 def test_value_agg_plain_matches_fused_interpret_f32(setup):
     frozen, _, lat, pts, idx, valid, x = setup
     idx_ext = np.where(valid, idx, N).astype(np.int32)
-    sdf_j, has_j = _jax_fused(lambda: jfield._aggregate_sdf_value_agg(
+    sdf_j, has_j = jax_fused(lambda: jfield._aggregate_sdf_value_agg(
         frozen, jnp.asarray(lat), jnp.asarray(pts), jnp.asarray(idx_ext),
         jnp.asarray(x), RBF))
     prior, table, t_idx, tx = _torch_inputs(setup, torch.float32)
@@ -115,9 +136,9 @@ def test_plain_bf16_matches_fused_interpret_bf16(setup):
     the scale."""
     frozen, _, lat, pts, idx, valid, x = setup
     idx_ext = np.where(valid, idx, N).astype(np.int32)
-    (num, den, gagg), _ = _jax_fused(lambda: jfield._agg_fwd_impl(
+    (num, den, gagg), _ = jax_fused(lambda: jfield._agg_fwd_impl(
         frozen, jnp.asarray(lat), jnp.asarray(pts), jnp.asarray(idx_ext),
-        jnp.asarray(x), RBF), jnp.bfloat16)
+        jnp.asarray(x), RBF), dtype=jnp.bfloat16)
     prior, table, t_idx, tx = _torch_inputs(setup, torch.bfloat16)
     pt, _, r_lat = tpm.pair_sdf_aggregate(table, t_idx, tx, prior, RBF)
     assert r_lat.dtype == torch.bfloat16

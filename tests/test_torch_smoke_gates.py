@@ -44,6 +44,25 @@ def test_within_passes_one_ulp_and_rejects_a_rounding_change():
                         hold=False) > 0
 
 
+def test_within_holds_the_max_on_the_kept_rows():
+    """With ``keep``, a masked row's large error reads beside the limit and
+    passes; the same error on a kept row breaches; the share rule counts
+    every row either way."""
+    ref = _ref(cols=3)
+    keep = torch.ones(ref.shape[0], dtype=torch.bool)
+    keep[11] = False
+    bad = ref.clone()
+    bad[11, 1] += 0.1 * float(ref[:, 1].abs().max())
+    assert smoke.within("masked row", bad, ref, keep=keep) > 0
+    keep[11] = True
+    with pytest.raises(SystemExit):
+        smoke.within("kept row", bad, ref, keep=keep)
+    keep[:] = False
+    keep[:100] = True
+    with pytest.raises(SystemExit):            # the share counts every row
+        smoke.within("share", ref * (1 + 2.0 ** -5), ref, keep=keep)
+
+
 def _chunk(seed=0, n=2048):
     rng = np.random.default_rng(seed)
     return {"ray_mask": torch.as_tensor(rng.random(n) < 0.7),

@@ -22,10 +22,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_pair_mlp import jax_fused
 from test_torch_render import scene_to_numpy
 
 from spurfies_tpu.config import Config, apply_overrides
-from spurfies_tpu.model import field as jfield
 from spurfies_tpu.model import losses as jlosses
 from spurfies_tpu.model import renderer as jren
 from spurfies_tpu.model.neural_points import build_scene
@@ -102,18 +102,6 @@ def _t_params(tp):
     return t
 
 
-def _jax_fused(fn):
-    try:
-        jfield.set_fused_mlp("on", jnp.float32)
-        jfield.set_fused_agg(True)
-        jfield.FUSED_AGG_R_DTYPE = jnp.float32
-        return fn()
-    finally:
-        jfield.set_fused_mlp("auto", jnp.float32)
-        jfield.set_fused_agg(False)
-        jfield.FUSED_AGG_R_DTYPE = jnp.bfloat16
-
-
 def body_rays(n_rays, mcfg):
     """The rays the render body draws for: the ray budget's width when it
     is active (renderer.py:78-80)."""
@@ -154,8 +142,8 @@ def _jax_loss(world, cfg, inputs, gt, key):
         total, parts = jlosses.total_loss(out, gt, cfg.loss)
         return total, (parts, out)
 
-    return _jax_fused(lambda: jax.jit(jax.value_and_grad(
-        loss, has_aux=True))(world["tp"]))
+    return jax_fused(lambda: jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(world["tp"]), cfg.model.fused_agg)
 
 
 def _port_loss(world, tcfg, inputs, gt, draws):
@@ -195,12 +183,22 @@ def _rel_err(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
+BUDGET = ["model.ray_budget_frac=0.6", "model.probe_budget_frac=0.5"]
+
+
 @pytest.mark.parametrize("case,overrides", [
-    ("budget", ["model.ray_budget_frac=0.6", "model.probe_budget_frac=0.5"]),
-    ("dense", ["model.ray_budget_frac=0", "model.probe_budget_frac=1"])])
+    ("budget", BUDGET),
+    ("dense", ["model.ray_budget_frac=0", "model.probe_budget_frac=1"]),
+    ("unfused", BUDGET + ["model.fused_agg=false"]),
+    ("pairs", BUDGET + ["model.pair_budget_frac=0.625",
+                        "model.color_pair_frac=0.75"]),
+    ("render_budget", BUDGET + ["model.render_budget_frac=0.9"])])
 def test_train_render_loss_and_grads_match_jax(world, case, overrides):
     """The training render with the JAX draws injected: its outputs, its
-    loss parts and the gradient of every trained tensor.
+    loss parts and the gradient of every trained tensor, at the default
+    model options and under ``model.fused_agg=false`` (the per-pair K6
+    path), ``pair_budget_frac``/``color_pair_frac`` (the pair-compacted
+    SDF through K7a and colour) and ``render_budget_frac``.
 
     Geometry is f32 on both sides and differs only in rounding (the pair
     sums' order), so depth, acc and the rendered points agree to 1e-4 on
@@ -211,7 +209,9 @@ def test_train_render_loss_and_grads_match_jax(world, case, overrides):
     rgb agrees to 1e-2 (tests/test_torch_render.py's limit; measured: 3e-3)
     and the colour gradients (feats_color, F_color, R) to 4e-2 relative L2
     (measured: at most 1.8e-2).  The losses, means over the rays: 1e-3
-    relative (measured: 1.3e-4)."""
+    relative (measured: 1.3e-4).  The option cases read the same (largest
+    over the leaves: geometry and beta 1.04e-3, colour 1.7e-2 to 2.4e-2;
+    loss parts 1.0e-4)."""
     cfg, tcfg = _configs(overrides)
     key = jax.random.PRNGKey(11)
     j_in, j_gt, t_in, t_gt = _batch(world, 256, seed=5)
@@ -253,6 +253,22 @@ def jax_batch_draws(key, views, n_pix):
 
 
 def test_one_train_step_matches_jax(world):
+    """One ``train_step`` at the default model options; see
+    :func:`_one_step_matches_jax`."""
+    _one_step_matches_jax(world, [])
+
+
+@pytest.mark.parametrize("case,overrides", [
+    ("unfused", ["model.fused_agg=false"]),
+    ("pairs", ["model.pair_budget_frac=0.625", "model.color_pair_frac=0.75"])])
+def test_one_train_step_matches_jax_under_options(world, case, overrides):
+    """One ``train_step`` under ``model.fused_agg=false`` and under the
+    pair-compacted SDF and colour, by :func:`_one_step_matches_jax`'s
+    limits."""
+    _one_step_matches_jax(world, overrides)
+
+
+def _one_step_matches_jax(world, overrides):
     """One ``train_step`` with the JAX draws injected: the loss parts, and
     the parameters after the guarded Adam.  Adam's first update is nearly
     -lr sign(g), so an entry whose gradient lies within the colour path's
@@ -263,8 +279,7 @@ def test_one_train_step_matches_jax(world):
     gradients differ by up to 2 %, are held by the direction of their
     update: cosine >= 0.95 (measured: 0.983 at the least).  The step
     count and notfinite agree exactly."""
-    cfg, tcfg = _configs(["model.ray_budget_frac=0.6",
-                          "model.probe_budget_frac=0.5"])
+    cfg, tcfg = _configs(BUDGET + overrides)
     views = world["views"]
     tx = build_optimizer(cfg.train)
     _, j_step = jtrainer.make_train_step(cfg, tx)
@@ -273,7 +288,8 @@ def test_one_train_step_matches_jax(world):
     state = jtrainer.TrainState(world["tp"], tx.init(world["tp"]),
                                 jnp.asarray(0, jnp.int32))
     key = jax.random.PRNGKey(21)
-    j_state, pj = _jax_fused(lambda: jax.jit(j_step)(bundle, state, key))
+    j_state, pj = jax_fused(lambda: jax.jit(j_step)(bundle, state, key),
+                            cfg.model.fused_agg)
 
     opt = Optimizer(tcfg.train)
     _, sample_batch, t_step = ttrainer.make_train_step(tcfg, opt, "cpu")
@@ -318,9 +334,10 @@ def train_out(world):
     the fd-eikonal term reuses."""
     cfg, _ = _configs([])
     j_in = _batch(world, 256, seed=9)[0]
-    out = _jax_fused(lambda: jax.jit(lambda tp: jren.render_rays(
+    out = jax_fused(lambda: jax.jit(lambda tp: jren.render_rays(
         {"frozen": world["frozen"], "train": tp}, world["scene"], j_in,
-        jax.random.PRNGKey(3), cfg.model, train=True, iters=1))(world["tp"]))
+        jax.random.PRNGKey(3), cfg.model, train=True, iters=1))(world["tp"]),
+        cfg.model.fused_agg)
     return {k: np.asarray(out[k]) for k in ("valid_pt", "xyz", "nbr_idx",
                                             "nbr_valid")}
 
@@ -365,8 +382,8 @@ def test_loss_terms_match_jax(world, train_out, term):
         tp = dict(world["tp"], feats_geometry=geo)
         return jfn({"frozen": world["frozen"], "train": tp})
 
-    vj, gj = _jax_fused(lambda: jax.value_and_grad(jloss)(
-        world["tp"]["feats_geometry"]))
+    vj, gj = jax_fused(lambda: jax.value_and_grad(jloss)(
+        world["tp"]["feats_geometry"]), cfg.model.fused_agg)
     geo = torch.from_numpy(np.array(world["tp"]["feats_geometry"]))
     geo.requires_grad_(True)
     vt = tfn({"frozen": world["prior"], "train": {"feats_geometry": geo}})

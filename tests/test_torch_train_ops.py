@@ -12,6 +12,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from test_torch_pair_mlp import jax_field_state
 
 from spurfies_tpu.config import LossConfig, ModelConfig, TrainConfig
 from spurfies_tpu.model import field as jfield
@@ -150,15 +151,8 @@ def agg_setup():
 
 
 def _jax_fused_sdf(frozen, lat, pts, idx, valid, x):
-    try:
-        jfield.set_fused_mlp("on", jnp.float32)
-        jfield.set_fused_agg(True)
-        jfield.FUSED_AGG_R_DTYPE = jnp.float32
+    with jax_field_state():
         return jfield.sdf_and_grad(frozen, lat, pts, idx, valid, x, RBF)
-    finally:
-        jfield.set_fused_mlp("auto", jnp.float32)
-        jfield.set_fused_agg(False)
-        jfield.FUSED_AGG_R_DTYPE = jnp.bfloat16
 
 
 def _torch_sdf(agg_setup, lat_t, x_t):
