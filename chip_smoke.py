@@ -67,10 +67,23 @@ failure exits non-zero before the last line):
  13. pair-MLP microbenchmark (``scripts/microbench.py:88-104``): K7b and
      K7a on MICRO_PAIRS random pairs, counters read on their own, each
      timed and held against its plain version;
- 14. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the device
-     JSON line.
+ 14. the fused colour (``field.FUSED_COLOR``, set and restored around each
+     use), in three places: after phase 5, view 0 of dust3r_like rendered
+     in full with its launch counts (K8a once per chunk); after phase 6,
+     the first chunk against the plain versions (``compare_chunk``), K8a
+     held against its plain version on that chunk's colour inputs, and the
+     colour path timed through ``aggregate_color`` fused and dense
+     (FUSED_COLOR off) at the same shapes, forward and forward+backward;
+     after phase 13, the training path of phase 12 with FUSED_COLOR on (K8a
+     and K8b once a step; K8b's dlat by phase 4's limits, its dW/db by
+     ``compare_grads``' 1e-2 relative L2), OPTION_WARMUP + OPTION_STEPS
+     steps, and the colour path timed at one step's shapes;
+ 15. the ``kernels`` JSON line, the ``redesign_order`` line (the kernels
+     ranked by launches x (ms - bound_ms) in this run), the ``nvidia-smi``
+     line, then the device JSON line.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -111,6 +124,9 @@ OPTIONS = {
 }
 OPTION_WARMUP = 20
 OPTION_STEPS = 50
+# the fused colour path's training step: the default's launches, with the
+# colour stack through K8a forward and K8b backward (its latents' K5 stays)
+FUSED_COLOR_STEP = dict(PER_STEP, fused_color_fwd=1, fused_color_bwd=1)
 MICRO_PAIRS = 655360
 # device-kernel names of the port's kernels, by the kernels line's label
 KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
@@ -123,7 +139,17 @@ KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
                 ("K6b pair_sdf_rows_value", "pair_rows_kernel<false, true>"),
                 ("K7a pair_sdf_value_and_input_grad",
                  "pair_rows_kernel<true, false>"),
-                ("K7b pair_sdf_value", "pair_rows_kernel<false, false>"))
+                ("K7b pair_sdf_value", "pair_rows_kernel<false, false>"),
+                ("K8a fused_color_fwd", "color_kernel<false>"),
+                ("K8b fused_color_bwd", "color_kernel<true>"))
+# MACs of the colour stack: F_color per pair, R per point; the backward's
+# dW products repeat the forward's, its delta products skip what no output
+# reads (F0's posenc rows, R0's dir_enc rows)
+F_MACS = 103 * 256 + 3 * 256 * 256
+R_MACS = 277 * 256 + 256 * 256 + 256 * 3
+F_BWD_MACS = F_MACS + 3 * 256 * 256 + 64 * 256
+R_BWD_MACS = R_MACS + 256 * 3 + 2 * 256 * 256
+COLOR_PARAMS = F_MACS + 4 * 256 + R_MACS + 2 * 256 + 3      # 361,731 f32
 TRAINED = ("feats_geometry", "feats_color", "F_color", "R", "beta")
 
 
@@ -578,13 +604,20 @@ def profile_render(render_image, scene, tp, frozen, view):
 
 def kernel_sites():
     """Where the port calls each kernel's wrapper: (module, attribute,
-    plain version), K1 to K7a (K7b has no caller in the port: the
-    microbenchmark calls it)."""
+    plain version), K1 to K7a and K8a/K8b (K7b has no caller in the port:
+    the microbenchmark calls it)."""
     from spurfies_tpu_torch.model import field
-    from spurfies_tpu_torch.ops import pair_mlp, scatter_rows, voxel_grid
+    from spurfies_tpu_torch.ops import (
+        fused_color,
+        pair_mlp,
+        scatter_rows,
+        voxel_grid,
+    )
     from spurfies_tpu_torch.ops import select_knn as sk
 
-    return [(voxel_grid, "select_knn", sk.select_knn_ref),
+    return [(fused_color, "fused_color_fwd", fused_color.fused_color_fwd_ref),
+            (fused_color, "fused_color_bwd", fused_color.fused_color_bwd_ref),
+            (voxel_grid, "select_knn", sk.select_knn_ref),
             (field, "pair_sdf_value_agg", pair_mlp.pair_sdf_value_agg_ref),
             (pair_mlp, "pair_sdf_aggregate", pair_mlp.pair_sdf_aggregate_ref),
             (pair_mlp, "pair_sdf_aggregate_bwd",
@@ -598,14 +631,15 @@ def kernel_sites():
 
 class substituted:
     """Put ``make(wrapper, plain)`` in place of each kernel's wrapper where
-    the port calls it (the port has no switch), and restore them on
-    exit."""
+    the port calls it (the port has no switch), or at ``sites`` (the same
+    triples), and restore them on exit."""
 
-    def __init__(self, make):
+    def __init__(self, make, sites=None):
         self.make = make
+        self.given = sites
 
     def __enter__(self):
-        self.sites = kernel_sites()
+        self.sites = self.given or kernel_sites()
         self.saved = [getattr(mod, name) for mod, name, _ in self.sites]
         for (mod, name, ref), fn in zip(self.sites, self.saved):
             setattr(mod, name, self.make(fn, ref))
@@ -622,10 +656,24 @@ def plain_versions():
     return substituted(lambda fn, ref: ref)
 
 
+@contextlib.contextmanager
+def fused_color_set(on):
+    """``field.FUSED_COLOR = on``, and put back as it was on exit."""
+    from spurfies_tpu_torch.model import field
+
+    saved = field.FUSED_COLOR
+    field.FUSED_COLOR = on
+    try:
+        yield
+    finally:
+        field.FUSED_COLOR = saved
+
+
 def counters():
-    from spurfies_tpu_torch.ops import pair_mlp, scatter_rows
+    from spurfies_tpu_torch.ops import fused_color, pair_mlp, scatter_rows
     from spurfies_tpu_torch.ops import select_knn as sk
-    return (sk.LAUNCHES, pair_mlp.LAUNCHES, scatter_rows.LAUNCHES)
+    return (sk.LAUNCHES, pair_mlp.LAUNCHES, scatter_rows.LAUNCHES,
+            fused_color.LAUNCHES)
 
 
 def zero_counts():
@@ -657,10 +705,17 @@ def sum_order_within(what, out, ref, abs_sum, count, hold=True):
     return err
 
 
-def capture_step(trainer):
+def capture_step(trainer, sites=None):
     """One training step; returns, by wrapper name, the arguments of each
     kernel launch in it (references, all of the wrapper's parameters in
-    order, in launch order)."""
+    order, in launch order), or of each call at ``sites``."""
+    return capture(lambda: trainer.train_step(trainer.bundle, trainer.state,
+                                              trainer.generator), sites)
+
+
+def capture(fn, sites=None):
+    """``fn()``; returns, by function name, the arguments of each call of
+    the kernels' wrappers (or of the functions at ``sites``) in it."""
     import inspect
 
     seen = {}
@@ -676,16 +731,17 @@ def capture_step(trainer):
             return fn(*args, **kwargs)
         return rec
 
-    with substituted(recorder):
-        trainer.train_step(trainer.bundle, trainer.state, trainer.generator)
+    with substituted(recorder, sites):
+        fn()
     return seen
 
 
 def check_step(tag, seen, prior_f32, radius):
     """Every kernel launch of one captured step (:func:`capture_step`)
-    against its plain version: K1 bit-equal, the pair-MLP kernels by the
-    limits of phase 4, K4/K5 by ``sum_order_within``.  Returns, by wrapper
-    name, the result of its largest launch."""
+    against its plain version: K1 bit-equal, the pair-MLP kernels and K8a
+    by the limits of phase 4, K4/K5 by ``sum_order_within``, K8b's dlat by
+    phase 4's and its dW/db by 1e-2 relative L2.  Returns, by wrapper name,
+    the result of its largest launch."""
     from spurfies_tpu_torch.ops import pair_mlp
 
     best = {}
@@ -694,7 +750,11 @@ def check_step(tag, seen, prior_f32, radius):
         calls = sorted(calls, key=lambda a: -a[big].shape[0])
         for i, args in enumerate(calls):
             what = f"{name} ({tag}, launch {i + 1} of {len(calls)})"
-            if name == "select_knn":
+            if name == "fused_color_fwd":
+                r = check_k8a(what, args, 10)
+            elif name == "fused_color_bwd":
+                r = check_k8b(what, args, 5)
+            elif name == "select_knn":
                 r = check_k1(what, args, 10)
             elif name == "pair_sdf_aggregate_bwd":
                 r = check_k4(what, args, 50)
@@ -888,6 +948,173 @@ def check_k5(name, args, reps):
             "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
 
 
+def rel_l2_within(what, out, ref, limit, hold=True):
+    """||out - ref|| / ||ref|| <= ``limit``; prints the reading, fails on a
+    breach when ``hold``.  Returns the max abs error."""
+    import torch
+
+    rel = float(torch.linalg.vector_norm(out - ref)
+                / max(float(torch.linalg.vector_norm(ref)), 1e-30))
+    err = float((out - ref).abs().max())
+    log(f"  {what}: relative L2 {rel:.3e} (limit {limit:g}), max abs err "
+        f"{err:.3e}")
+    if hold and not rel <= limit:
+        fail(f"{what}: kernel and plain version disagree")
+    return err
+
+
+def k8_work(wn, p, bwd):
+    """(flops of the real pairs, flops of every row, bytes) of K8a or K8b
+    on ``p`` points: F_color's work on the pairs with wn != 0 (an invalid
+    pair adds nothing: its weight, and so its delta, is 0) and R's on
+    every point; each input read once, each output written once, the f32
+    weights read once."""
+    real = int((wn != 0).sum())
+    f, r = (F_MACS + F_BWD_MACS, R_MACS + R_BWD_MACS) if bwd else (F_MACS,
+                                                                   R_MACS)
+    n_bytes = 8 * p * (12 + 256 + 4) + p * 84 + 4 * COLOR_PARAMS
+    n_bytes += (p * 12 + 8 * p * 256 + 4 * COLOR_PARAMS) if bwd else p * 12
+    return (2.0 * (real * f + p * r), 2.0 * (8 * p * f + p * r), n_bytes,
+            real)
+
+
+def check_k8a(name, args, reps):
+    """K8a against its plain version on one launch's inputs: rgb by the
+    limits of phase 4, with the f32 plain control beside them."""
+    import torch
+
+    from spurfies_tpu_torch.ops import fused_color as fc
+
+    x_pi, lat, wn, dir_enc, f_color, r, dt = args
+    with torch.no_grad():
+        out = fc.fused_color_fwd(*args)
+        ref = fc.fused_color_fwd_ref(*args)
+        ctrl = fc.fused_color_fwd_ref(*args[:-1], torch.float32)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            fail(f"{name}: non-finite rgb")
+        err = within(f"{name} rgb", out, ref)
+        within(f"{name} rgb, control f32 plain", ctrl, ref, hold=False)
+        del ctrl
+        ms = cuda_ms(lambda: fc.fused_color_fwd(*args), reps)
+        plain_ms = cuda_ms(lambda: fc.fused_color_fwd_ref(*args), 3)
+    p = dir_enc.shape[0]
+    flops, flops_all, n_bytes, real = k8_work(wn, p, False)
+    b_ms, b_by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+    b_all, _ = bound_ms(n_bytes, flops_all, PEAK_BF16_FLOPS)
+    log(f"{name}: P={p}, {real} real pairs of {8 * p} "
+        f"({real / max(8 * p, 1):.3f}); kernel {ms:.4f} ms "
+        f"({flops_all / ms / 1e9:.1f} TFLOP/s executed), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {b_all:.4f} ms "
+        "counting every pair)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "max_abs_err": err,
+            "bound_all_rows_ms": b_all, "rows": 8 * p, "rows_needed": real}
+
+
+def check_k8b(name, args, reps):
+    """K8b against its plain version on one launch's inputs: dlat by the
+    limits of phase 4, each dW/db within ``compare_grads``' 1e-2 relative
+    L2 (the dW/db sums run in another order: atomics), the f32 plain
+    control read beside each; and no latent gradient on a pair of weight
+    0."""
+    import torch
+
+    from spurfies_tpu_torch.ops import fused_color as fc
+
+    x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt = args
+    with torch.no_grad():
+        dlat, dws, dbs = fc.fused_color_bwd(*args)
+        ref = fc.fused_color_bwd_ref(*args)
+        ctrl = fc.fused_color_bwd_ref(*args[:-1], torch.float32)
+        torch.cuda.synchronize()
+        outs = [dlat] + dws + dbs
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            fail(f"{name}: non-finite output")
+        if bool((dlat[wn == 0] != 0).any()):
+            fail(f"{name}: a pair of weight 0 got a latent gradient")
+        err = within(f"{name} dlat", dlat, ref[0])
+        within(f"{name} dlat, control f32 plain", ctrl[0], ref[0],
+               hold=False)
+        names = ("F0", "F1", "F2", "F3", "R0", "R1", "R2")
+        labels = [f"dW {n}" for n in names] + [f"db {n}" for n in names]
+        for label, o, rf, c in zip(labels, outs[1:], ref[1] + ref[2],
+                                   ctrl[1] + ctrl[2]):
+            err = max(err, rel_l2_within(f"{name} {label}", o, rf, 1e-2))
+            rel_l2_within(f"{name} {label}, control f32 plain", c, rf, 1e-2,
+                          hold=False)
+        del ref, ctrl, outs, dlat, dws, dbs
+        ms = cuda_ms(lambda: fc.fused_color_bwd(*args), reps)
+        plain_ms = cuda_ms(lambda: fc.fused_color_bwd_ref(*args), 3)
+    p = dir_enc.shape[0]
+    flops, flops_all, n_bytes, real = k8_work(wn, p, True)
+    b_ms, b_by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+    b_all, _ = bound_ms(n_bytes, flops_all, PEAK_BF16_FLOPS)
+    adds = -(-p // 16) * COLOR_PARAMS
+    log(f"{name}: P={p}, {real} real pairs of {8 * p}; kernel {ms:.4f} ms "
+        f"({flops_all / ms / 1e9:.1f} TFLOP/s executed; {adds} dW/db atomic "
+        f"adds), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{b_all:.4f} ms counting every pair)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "max_abs_err": err,
+            "bound_all_rows_ms": b_all, "rows": 8 * p, "rows_needed": real,
+            "atomic_adds": adds}
+
+
+def colour_paths(args, reps):
+    """``field.aggregate_color`` on one call's captured arguments, fused
+    (K8a, K8b) and dense (FUSED_COLOR off, the PyTorch colour MLPs) at the
+    same shapes: ms of the forward and of forward + backward (the gradient
+    of every colour leaf for a random cotangent)."""
+    import torch
+
+    from spurfies_tpu_torch.model import field
+
+    tp = args[0]
+    leaves = [tp["feats_color"].detach().requires_grad_(True)]
+    nets = {}
+    for n in ("F_color", "R"):
+        nets[n] = [{k: layer[k].detach().requires_grad_(True)
+                    for k in ("w", "b")} for layer in tp[n]]
+        leaves += [layer[k] for layer in nets[n] for k in ("w", "b")]
+    tp2 = dict(nets, feats_color=leaves[0])
+    call = (tp2, leaves[0]) + tuple(args[2:])
+    c = torch.randn((args[5].shape[0], 3), device=args[5].device)
+
+    def fwd():
+        with torch.no_grad():
+            field.aggregate_color(*call)
+
+    def fwd_bwd():
+        rgb = field.aggregate_color(*call)
+        torch.autograd.grad((rgb * c).sum(), leaves)
+
+    out = {}
+    for mode, on in (("fused", True), ("dense", False)):
+        with fused_color_set(on):
+            out[f"{mode}_fwd_ms"] = cuda_ms(fwd, reps)
+            out[f"{mode}_fwd_bwd_ms"] = cuda_ms(fwd_bwd, reps)
+    log(f"  colour path through aggregate_color, M={args[5].shape[0]} "
+        f"points: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def redesign_order(rows):
+    """The kernels line's rows ranked by the time this run spent above
+    their bounds: launches x (ms - bound_ms), the render and microbenchmark
+    launches at the row's own shape and the training launches at its
+    ``train_shape`` where it has one (else the row's shape is the training
+    one).  Returns [(label, excess ms)], largest first."""
+    order = []
+    for row in rows:
+        t = row.get("train_shape", row)
+        excess = ((row["launches_render"] + row["launches_microbench"])
+                  * (row["ms"] - row["bound_ms"])
+                  + row["launches_train"] * (t["ms"] - t["bound_ms"]))
+        order.append((row["name"], excess))
+    return sorted(order, key=lambda kv: -kv[1])
+
+
 def loss_and_grads(trainer, batch, seed):
     """Loss parts and the gradient of every trained tensor of one batch,
     the draws from a generator seeded ``seed`` (no update)."""
@@ -1015,7 +1242,7 @@ def main():
             make_dust3r_like_scene,
             make_synthetic_scene,
         )
-        from spurfies_tpu_torch.model import renderer
+        from spurfies_tpu_torch.model import field, renderer
         from spurfies_tpu_torch.ops import cuda_build, pair_mlp
         from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
         from spurfies_tpu_torch.train.trainer import Trainer, make_render_fn
@@ -1200,6 +1427,36 @@ def main():
         f"{p:.2f} dB; launches {launches_unfused}")
     del out_u
 
+    # the same view with field.FUSED_COLOR: K8a colours each chunk
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fused_color_set(True):
+        out_c = make_render_fn(cfg, device="cuda")(
+            tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_colour_render = read_counts()
+    expect = expected_counts(
+        launches_colour_render, {"select_knn": iters + 1,
+                                 "pair_sdf_value_agg": iters,
+                                 "pair_sdf_aggregate": 1,
+                                 "fused_color_fwd": 1},
+        chunks["dust3r_like"], "select_knn_packed")
+    if launches_colour_render != expect:
+        fail(f"FUSED_COLOR render launch counts {launches_colour_render} != "
+             f"expected {expect}")
+    for key, v in out_c.items():
+        if v.shape[0] != n or not np.isfinite(v.astype(np.float64)).all():
+            fail(f"FUSED_COLOR render: output {key} not finite / wrong shape")
+    p = float(psnr(torch.as_tensor(out_c["rgb_values"]),
+                   torch.as_tensor(view["rgb"]), torch.as_tensor(view["mask"])))
+    log(f"render dust3r_like, FUSED_COLOR: {n} rays in {wall:.3f} s = "
+        f"{n / wall:.1f} rays/s; hit rays {int(out_c['ray_mask'].sum())}; "
+        f"masked PSNR {p:.2f} dB (random colour MLPs); launches "
+        f"{launches_colour_render}")
+    del out_c
+
     # --- 6. one chunk through the plain versions, on the card ---
     scene, tp, frozen, view, _ = scenes["dust3r_like"]
     sel = chunk_rays["dust3r_like"].cpu().numpy()
@@ -1230,6 +1487,25 @@ def main():
         worst = compare_chunk(out_k, out_p)
         log(f"chunk, {label}, kernels vs plain versions: "
             f"{json.dumps(worst)}")
+    # FUSED_COLOR: the chunk through K8a, recording its colour inputs
+    chunk = {}
+    with fused_color_set(True), torch.no_grad():
+        seen = capture(lambda: chunk.update(out=renderer.render_rays(
+            params, scene, inputs, cfg.model, train=False, iters=iters)),
+            kernel_sites() + [(field, "aggregate_color", None)])
+        with plain_versions():
+            out_p = renderer.render_rays(params, scene, inputs, cfg.model,
+                                         train=False, iters=iters)
+    out_k = chunk.pop("out")
+    worst = compare_chunk(out_k, out_p)
+    log(f"chunk, FUSED_COLOR, kernels vs plain versions: {json.dumps(worst)}")
+    if len(seen.get("fused_color_fwd", ())) != 1:
+        fail("FUSED_COLOR chunk: K8a was not launched once")
+    results["K8a fused_color_fwd"] = check_k8a(
+        "K8a fused_color_fwd (first chunk's colour)",
+        seen["fused_color_fwd"][0], 5)
+    colour_render = colour_paths(seen["aggregate_color"][0], 3)
+    del seen
 
     # --- 7. where the time goes (the dust3r_like scene of phase 6) ---
     prof = profile_render(render_image, scene, tp, frozen, view)
@@ -1252,6 +1528,8 @@ def main():
                                          TRAIN_WINDOW)
     results["K4 pair_sdf_aggregate_bwd"] = best["pair_sdf_aggregate_bwd"]
     results["K5 scatter_add_rows"] = best["scatter_add_rows"]
+    default_best = {k: best[k] for k in ("select_knn", "pair_sdf_value_agg",
+                                         "pair_sdf_aggregate")}
     del best
     psnr1 = masked_psnr(trainer, view_a)
     log(f"view 0 masked PSNR vs the analytic view: {psnr0:.2f} dB before "
@@ -1335,9 +1613,27 @@ def main():
         10, math.inf)
     del u, prior_f32
 
-    # --- 14. report ---
-    render_runs = (launches_render, launches_unfused)
-    train_runs = (launches_train, launches_dense, *launches_options)
+    # --- 14. the fused colour's training path, FUSED_COLOR set around it
+    # (its render parts ran after phases 5 and 6) ---
+    with fused_color_set(True):
+        tr = Trainer(cfg, pts_a, cols_a, views_a, device="cuda")
+        tr.load_frozen(prior_a)
+        colour_best, launches_colour_train, _ = train_path(
+            "dust3r_like fused_color", tr, FUSED_COLOR_STEP, OPTION_WARMUP,
+            OPTION_STEPS, OPTION_STEPS)
+        cprof = profiled(lambda: tr.run(PROFILE_STEPS, window=PROFILE_STEPS))
+        cprof["ms_per_step"] = cprof["profiled_wall_ms"] / PROFILE_STEPS
+        log(f"train profile fused_color: {json.dumps(cprof)}")
+        seen = capture_step(tr, [(field, "aggregate_color", None)])
+        colour_train = colour_paths(seen["aggregate_color"][0], 10)
+        del seen, tr
+    torch.cuda.empty_cache()
+
+    # --- 15. report ---
+    render_runs = (launches_render, launches_unfused, launches_colour_render)
+    train_runs = (launches_train, launches_dense, *launches_options,
+                  launches_colour_train)
+    results["K8b fused_color_bwd"] = colour_best["fused_color_bwd"]
 
     def total(runs, key):
         return sum(c[key] for c in runs)
@@ -1345,11 +1641,18 @@ def main():
     launches = {k: total(render_runs + train_runs, k) + launches_micro[k]
                 for k in launches_render}
     # the training shapes' times, beside phase 4's eval-chunk times
-    train_shape = {"K6a pair_sdf_rows_grad": option_best["pair_sdf_rows_grad"],
+    train_shape = {"K1 select_knn packed": default_best["select_knn"],
+                   "K2 pair_sdf_value_agg": default_best["pair_sdf_value_agg"],
+                   "K3 pair_sdf_aggregate": default_best["pair_sdf_aggregate"],
+                   "K6a pair_sdf_rows_grad": option_best["pair_sdf_rows_grad"],
                    "K6b pair_sdf_rows_value":
                    option_best["pair_sdf_rows_value"],
                    "K7a pair_sdf_value_and_input_grad":
-                   option_best["pair_sdf_value_and_input_grad"]}
+                   option_best["pair_sdf_value_and_input_grad"],
+                   "K8a fused_color_fwd": colour_best["fused_color_fwd"]}
+    # the colour path through aggregate_color, fused and dense (FUSED_COLOR
+    # off: PyTorch's products, not a library call of the same function)
+    colour_path = {"render_chunk": colour_render, "train": colour_train}
     rows = []
     meta = {
         "K1 select_knn packed": ("select_knn_packed",
@@ -1383,6 +1686,12 @@ def main():
         "K7b pair_sdf_value": ("pair_sdf_value",
                                "spurfies_tpu_torch/csrc/pair_mlp.cu",
                                "spurfies_tpu/ops/pallas_mlp.py:146"),
+        "K8a fused_color_fwd": ("fused_color_fwd",
+                                "spurfies_tpu_torch/csrc/color_mlp.cu",
+                                "spurfies_tpu/ops/pallas_color.py:92"),
+        "K8b fused_color_bwd": ("fused_color_bwd",
+                                "spurfies_tpu_torch/csrc/color_mlp.cu",
+                                "spurfies_tpu/ops/pallas_color.py:108"),
     }
     # launches: the render paths', the training paths' and the
     # microbenchmark's runs, each with the counters set to 0 just before it
@@ -1399,12 +1708,17 @@ def main():
         if label in train_shape:
             t = train_shape[label]
             row["train_shape"] = {k: t[k] for k in (
-                "rows", "ms", "plain_ms", "bound_all_rows_ms",
-                "max_abs_err")}
+                "rows", "ms", "plain_ms", "bound_ms", "bound_all_rows_ms",
+                "max_abs_err") if k in t}
+        if label.startswith("K8"):
+            row["colour_path_ms"] = colour_path
+        if "atomic_adds" in r:
+            row["atomic_adds"] = r["atomic_adds"]
         rows.append(row)
         if launches[key] == 0:
             fail(f"{label} was not launched on the main path")
     log(json.dumps({"kernels": rows}))
+    log(json.dumps({"redesign_order": redesign_order(rows)}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

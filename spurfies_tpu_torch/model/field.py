@@ -22,16 +22,19 @@ sums in PyTorch and the latent gradient scattered by K5.  The
 pair-compacted SDF (``sdf_and_grad_pairs``, ``model.pair_budget_frac``)
 runs K7a.  Every latent gradient scatter is K5, for both values of
 ``model.scatter_mode`` (the JAX package's two modes are the same math in
-another order).  The fused-MLP and fused-colour switches have no
-counterpart: the pair MLP is always a kernel (the kernel for a CUDA
-tensor, the plain version for a CPU tensor) and the colour MLP is always
-PyTorch.
+another order).  The fused-MLP switch has no counterpart: the pair MLP is
+always a kernel (the kernel for a CUDA tensor, the plain version for a CPU
+tensor).  The fused-colour switch is the module flag :data:`FUSED_COLOR`
+(off, as in the JAX package): on, :func:`aggregate_color` runs K8a/K8b
+(``ops.fused_color``) in the prior's compute dtype; off, the colour MLPs
+are PyTorch products.
 """
 
 import torch
 
 from spurfies_tpu_torch.core.embedder import positional_encoding
 from spurfies_tpu_torch.model.networks import matmul_in, mlp_apply
+from spurfies_tpu_torch.ops.fused_color import fused_color
 from spurfies_tpu_torch.ops.pair_mlp import (
     PairSdfAggregate,
     PairSdfRowsGrad,
@@ -45,6 +48,7 @@ from spurfies_tpu_torch.ops.scatter_rows import scatter_add_rows
 from spurfies_tpu_torch.ops.voxel_grid import fine_occupancy, query_grid
 
 SDF_FILLER = 1000.0
+FUSED_COLOR = False     # K8a/K8b in aggregate_color (field.py:163)
 
 
 def _norm3(v: torch.Tensor) -> torch.Tensor:
@@ -359,7 +363,7 @@ def aggregate_color_pairs(train_params, color_latents, points, idx, valid,
 
 def aggregate_color(train_params, color_latents, points, idx, valid, x,
                     ray_dirs, rbf, pos_multires=6, view_multires=3,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, fused_dtype=torch.bfloat16):
     """View-dependent color ``[M, 3]`` in [0, 1] at shading points ``x``.
 
     The color MLPs run in ``compute_dtype`` (bf16 by default, as in the JAX
@@ -367,6 +371,14 @@ def aggregate_color(train_params, color_latents, points, idx, valid, x,
     activation, so it commutes with the weighted aggregation and runs once
     per point on the aggregate (the exact linear-tail fold of
     ``spurfies_tpu/model/field.py:745-773``).
+
+    With :data:`FUSED_COLOR`, k == 8 and ``pos_multires == 6``
+    (``field.py:725-743``), the stack runs instead through
+    :func:`ops.fused_color.fused_color` (K8a, backward K8b) in
+    ``fused_dtype``, the JAX package's ``FUSED_MLP_DTYPE``: the renderer
+    passes the prior's compute dtype.  It has no linear-tail fold and its
+    own rounding points.  The kernel masks its ragged last block, so no
+    point is padded.
     """
     safe_idx = torch.clamp(idx, min=0).to(torch.int32)
     d = color_latents.shape[1]
@@ -374,6 +386,14 @@ def aggregate_color(train_params, color_latents, points, idx, valid, x,
     cfeat = g3[..., :d]
     x_pi = x[:, None, :] - g3[..., d:]
     w, norm = rbf_weights(x_pi, valid, rbf)
+
+    if FUSED_COLOR and idx.shape[1] == 8 and pos_multires == 6:
+        wn = w / torch.where(norm > 0, norm, 1.0)            # 0 where empty
+        return fused_color(train_params["F_color"], train_params["R"],
+                           x_pi.reshape(-1, 3),
+                           cfeat.reshape(-1, d).contiguous(), wn.reshape(-1),
+                           positional_encoding(ray_dirs, view_multires)
+                           .contiguous(), fused_dtype)
 
     pos_enc = positional_encoding(x_pi, pos_multires)        # [M, K, 39]
     field_in = torch.cat([pos_enc, cfeat], dim=-1)           # [M, K, 103]

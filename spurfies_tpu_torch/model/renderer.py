@@ -272,15 +272,16 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
         t_dirs = ray_dirs[:, None, :].expand(n_rays, W, 3)
         colors_w = _color_maybe_pairs(
             tp, scene, t_idx.reshape(-1, K), t_valid.reshape(-1, K),
-            t_x.reshape(-1, 3), t_dirs.reshape(-1, 3),
-            cfg).reshape(n_rays, W, 3)
+            t_x.reshape(-1, 3), t_dirs.reshape(-1, 3), cfg,
+            prior.compute_dtype).reshape(n_rays, W, 3)
         mass_top = torch.sum(w_top, -1, keepdim=True)
         rgb = torch.sum(w_top[..., None] * colors_w, dim=1)
         rgb = rgb * (acc / torch.clamp(mass_top, min=1e-10))
     else:
         flat_dirs = ray_dirs[:, None, :].expand(n_rays, S, 3).reshape(-1, 3)
         colors = _color_maybe_pairs(tp, scene, flat_idx, flat_valid, flat_x,
-                                    flat_dirs, cfg).reshape(n_rays, S, 3)
+                                    flat_dirs, cfg, prior.compute_dtype
+                                    ).reshape(n_rays, S, 3)
         colors = torch.where(valid_pt[..., None], colors, 0.0)
         rgb = torch.sum(weights[..., None] * colors, dim=1)
     depth = torch.sum(weights * z_sel, -1, keepdim=True) / (acc + 1e-8)
@@ -324,9 +325,11 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
     return out
 
 
-def _color_maybe_pairs(tp, scene, idx, valid, x, dirs, cfg: ModelConfig):
+def _color_maybe_pairs(tp, scene, idx, valid, x, dirs, cfg: ModelConfig,
+                       fused_dtype):
     """Dense or pair-compacted colour (``model.color_pair_frac``;
-    ``renderer.py:426-438``)."""
+    ``renderer.py:426-438``).  ``fused_dtype``: the prior's compute dtype,
+    which the fused colour kernels run in (``field.FUSED_COLOR``)."""
     if cfg.color_pair_frac > 0:
         m, k = idx.shape
         budget = max(int(m * k * cfg.color_pair_frac) // 256 * 256, 256)
@@ -335,7 +338,7 @@ def _color_maybe_pairs(tp, scene, idx, valid, x, dirs, cfg: ModelConfig):
             cfg.rbf, budget, cfg.pos_multires, cfg.view_multires)
     return field.aggregate_color(tp, tp["feats_color"], scene.points, idx,
                                  valid, x, dirs, cfg.rbf, cfg.pos_multires,
-                                 cfg.view_multires)
+                                 cfg.view_multires, fused_dtype=fused_dtype)
 
 
 def pseudo_sdf_loss(params, scene, out, cfg: ModelConfig):

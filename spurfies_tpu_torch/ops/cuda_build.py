@@ -19,7 +19,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("select_knn", "pair_mlp", "agg_bwd", "scatter_rows")
+SOURCES = ("select_knn", "pair_mlp", "agg_bwd", "scatter_rows", "color_mlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

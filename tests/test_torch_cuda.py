@@ -331,3 +331,99 @@ def test_train_steps_under_options_through_kernels(cuda, overrides, keys):
             assert after[key] == before[key], key
     assert all(np.isfinite(m["loss"]) and m["notfinite"] == 0
                for m in metrics)
+
+
+def _colour_inputs(dev, p):
+    """K8's inputs for p points: 30 % of the pair slots invalid (wn = 0,
+    x_pi of a far row-0 neighbour) and point 0 without any valid
+    neighbour; the colour nets of ModelConfig's defaults, seeded."""
+    from spurfies_tpu_torch.core.embedder import positional_encoding
+
+    rng = np.random.default_rng(p)
+    valid = rng.uniform(size=(p, 8)) > 0.3
+    valid[0] = False
+    x_pi = rng.normal(0, 0.03, (p, 8, 3))
+    x_pi[~valid] = rng.uniform(-1, 1, (int((~valid).sum()), 3))
+    w = rng.uniform(0.05, 1.0, (p, 8)) * valid
+    den = w.sum(1, keepdims=True)
+    dirs = rng.normal(size=(p, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    arr = [x_pi.reshape(-1, 3), rng.normal(0, 0.3, (p * 8, 64)),
+           (w / np.where(den > 0, den, 1.0)).reshape(-1), dirs,
+           rng.normal(size=(p, 3))]
+    x_pi, lat, wn, dirs, rgb_bar = [
+        torch.from_numpy(a.astype(np.float32)).to(dev) for a in arr]
+    nets = init_model_params(Config().model, torch.Generator().manual_seed(3),
+                             device=dev)["train"]
+    ins = (x_pi, lat, wn, positional_encoding(dirs, 3).contiguous())
+    return ins, nets["F_color"], nets["R"], rgb_bar
+
+
+def _rel_l2(a, b):
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1000, 1], ids=["ragged", "one-point"])
+def test_fused_color_kernels_match_plain(cuda, p):
+    """K8a and K8b against their plain versions in bf16, for a point count
+    that is not a whole number of 16-point blocks and for one point (which
+    has no valid neighbour).  rgb by ``_within``; dlat and every dW/db
+    within 4e-2 relative L2: each delta is rounded to bf16 before each
+    product, so a rounding that the f32 sums' order moves by one ulp can
+    flip a gate and change its row's delta from there down, and at a few
+    thousand pairs such rows dominate (the plain version with f64 sums
+    reads 1.5e-2 against itself on the CPU, tests/test_torch_fused_color.py;
+    chip_smoke.py holds a training step's 212,992 pairs to 1e-2).
+    A point without a valid neighbour gets no latent gradient."""
+    from spurfies_tpu_torch.ops import fused_color as fc
+
+    ins, f_color, r, rgb_bar = _colour_inputs(cuda, p)
+    before = dict(fc.LAUNCHES)
+    rgb = fc.fused_color_fwd(*ins, f_color, r, torch.bfloat16)
+    rgb_r = fc.fused_color_fwd_ref(*ins, f_color, r, torch.bfloat16)
+    dlat, dws, dbs = fc.fused_color_bwd(*ins, f_color, r, rgb_bar,
+                                        torch.bfloat16)
+    ref = fc.fused_color_bwd_ref(*ins, f_color, r, rgb_bar, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["fused_color_fwd"] == before["fused_color_fwd"] + 1
+    assert fc.LAUNCHES["fused_color_bwd"] == before["fused_color_bwd"] + 1
+    assert rgb.shape == (p, 3) and bool(torch.isfinite(rgb).all())
+    _within(rgb, rgb_r, 1e-3)
+    assert dlat.shape == (8 * p, 64) and bool(torch.isfinite(dlat).all())
+    assert float(dlat[:8].abs().max()) == 0.0
+    assert _rel_l2(dlat, ref[0]) < 4e-2
+    for i, (a, b) in enumerate(zip(dws + dbs, ref[1] + ref[2])):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), i
+        assert _rel_l2(a, b) < 4e-2, i
+    with pytest.raises(ValueError, match="bf16"):
+        fc.fused_color_fwd(*ins, f_color, r, torch.float32)
+
+
+@pytest.mark.cuda
+def test_train_steps_under_fused_color_through_kernels(cuda):
+    """A few Trainer steps with ``field.FUSED_COLOR`` on launch K8a and
+    K8b once a step each (and the colour latents' K5), keep the loss
+    finite and skip no step."""
+    from spurfies_tpu_torch.ops import fused_color as fc
+    from spurfies_tpu_torch.train.trainer import Trainer
+    pts, cols, views = make_synthetic_scene(n_points=1500, img_res=(24, 40))
+    cfg = apply_overrides(Config(), ["model.ray_sampler.n_samples_eval=32",
+                                     "train.num_pixels=256"])
+    trainer = Trainer(cfg, pts, cols, views, device=cuda)
+    trainer.load_frozen(load_prior_npz(device=cuda))
+    before = {**fc.LAUNCHES, **sr.LAUNCHES}
+    metrics = []
+    saved = field.FUSED_COLOR
+    try:
+        field.FUSED_COLOR = True
+        trainer.run(4, window=2, callback=lambda s, m: metrics.append(m))
+    finally:
+        field.FUSED_COLOR = saved
+    after = {**fc.LAUNCHES, **sr.LAUNCHES}
+    assert after["fused_color_fwd"] == before["fused_color_fwd"] + 4
+    assert after["fused_color_bwd"] == before["fused_color_bwd"] + 4
+    assert after["scatter_add_rows"] == before["scatter_add_rows"] + 4
+    assert all(np.isfinite(m["loss"]) and m["notfinite"] == 0
+               for m in metrics)

@@ -48,30 +48,32 @@ def setup():
 
 
 _FIELD_SWITCHES = ("FUSED_MLP_MODE", "FUSED_MLP_DTYPE", "FUSED_AGG",
-                   "FUSED_AGG_R_DTYPE")
+                   "FUSED_AGG_R_DTYPE", "FUSED_COLOR")
 
 
 @contextlib.contextmanager
-def jax_field_state(fused_agg=True, dtype=jnp.float32):
+def jax_field_state(fused_agg=True, dtype=jnp.float32, fused_color=False):
     """The JAX field module's Pallas path in interpret mode
     (``set_fused_mlp("on", dtype)``), ``set_fused_agg(fused_agg)`` (what
-    the JAX ``Trainer`` sets from ``model.fused_agg``) and f32 residuals;
-    on exit the four switches get back the values they had on entry, so
-    no later test on the same worker runs under this one's setting."""
+    the JAX ``Trainer`` sets from ``model.fused_agg``), f32 residuals and
+    ``FUSED_COLOR = fused_color``; on exit the five switches get back the
+    values they had on entry, so no later test on the same worker runs
+    under this one's setting."""
     saved = [getattr(jfield, n) for n in _FIELD_SWITCHES]
     try:
         jfield.set_fused_mlp("on", dtype)
         jfield.set_fused_agg(fused_agg)
         jfield.FUSED_AGG_R_DTYPE = jnp.float32
+        jfield.FUSED_COLOR = fused_color
         yield
     finally:
         for name, value in zip(_FIELD_SWITCHES, saved):
             setattr(jfield, name, value)
 
 
-def jax_fused(fn, fused_agg=True, dtype=jnp.float32):
+def jax_fused(fn, fused_agg=True, dtype=jnp.float32, fused_color=False):
     """``fn()`` under :func:`jax_field_state`."""
-    with jax_field_state(fused_agg, dtype):
+    with jax_field_state(fused_agg, dtype, fused_color):
         return fn()
 
 

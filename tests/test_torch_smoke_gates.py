@@ -133,3 +133,14 @@ def test_compare_grads_passes_equal_and_rejects_a_breach(what):
         grads_k["g2"][0, 0] = float("nan")
     with pytest.raises(SystemExit):
         smoke.compare_grads(parts_k, grads_k, parts, grads)
+
+
+def test_rel_l2_within_passes_inside_and_rejects_beyond():
+    """K8b's dW/db gate: a 0.5 % relative change passes the 1e-2 limit, a
+    2 % one breaches it; a control reading is printed and never held."""
+    ref = _ref(cols=8)
+    assert smoke.rel_l2_within("inside", ref * 1.005, ref, 1e-2) > 0
+    with pytest.raises(SystemExit):
+        smoke.rel_l2_within("beyond", ref * 1.02, ref, 1e-2)
+    assert smoke.rel_l2_within("control", ref * 1.02, ref, 1e-2,
+                               hold=False) > 0

@@ -13,6 +13,7 @@ gets ``n_points=0``, so that its K1 takes the exact variant, which is what
 the JAX package's CPU path (``lax.top_k``) computes.
 """
 
+import contextlib
 import importlib.util
 import warnings
 from pathlib import Path
@@ -40,6 +41,7 @@ from spurfies_tpu_torch.convert.from_jax import (
     scene_from_numpy,
 )
 from spurfies_tpu_torch.data.synthetic import make_synthetic_scene
+from spurfies_tpu_torch.model import field as tfield
 from spurfies_tpu_torch.model import losses as tlosses
 from spurfies_tpu_torch.model import renderer as tren
 from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
@@ -129,7 +131,19 @@ def jax_render_draws(key, n_rays, mcfg, iters=1):
             "extra_cols": torch.from_numpy(np.array(cols)).long()}
 
 
-def _jax_loss(world, cfg, inputs, gt, key):
+@contextlib.contextmanager
+def port_fused_color(on):
+    """The port's ``field.FUSED_COLOR`` set to ``on``, and put back as it
+    was on exit."""
+    saved = tfield.FUSED_COLOR
+    try:
+        tfield.FUSED_COLOR = on
+        yield
+    finally:
+        tfield.FUSED_COLOR = saved
+
+
+def _jax_loss(world, cfg, inputs, gt, key, fused_color=False):
     scene, frozen = world["scene"], world["frozen"]
 
     def loss(tp):
@@ -143,7 +157,8 @@ def _jax_loss(world, cfg, inputs, gt, key):
         return total, (parts, out)
 
     return jax_fused(lambda: jax.jit(jax.value_and_grad(
-        loss, has_aux=True))(world["tp"]), cfg.model.fused_agg)
+        loss, has_aux=True))(world["tp"]), cfg.model.fused_agg,
+        fused_color=fused_color)
 
 
 def _port_loss(world, tcfg, inputs, gt, draws):
@@ -192,13 +207,16 @@ BUDGET = ["model.ray_budget_frac=0.6", "model.probe_budget_frac=0.5"]
     ("unfused", BUDGET + ["model.fused_agg=false"]),
     ("pairs", BUDGET + ["model.pair_budget_frac=0.625",
                         "model.color_pair_frac=0.75"]),
-    ("render_budget", BUDGET + ["model.render_budget_frac=0.9"])])
+    ("render_budget", BUDGET + ["model.render_budget_frac=0.9"]),
+    ("fused_color", BUDGET)])
 def test_train_render_loss_and_grads_match_jax(world, case, overrides):
     """The training render with the JAX draws injected: its outputs, its
     loss parts and the gradient of every trained tensor, at the default
     model options and under ``model.fused_agg=false`` (the per-pair K6
     path), ``pair_budget_frac``/``color_pair_frac`` (the pair-compacted
-    SDF through K7a and colour) and ``render_budget_frac``.
+    SDF through K7a and colour) and ``render_budget_frac``, and
+    with ``field.FUSED_COLOR`` on both sides (``fused_color``: K8a/K8b, the
+    JAX kernels in interpret mode).
 
     Geometry is f32 on both sides and differs only in rounding (the pair
     sums' order), so depth, acc and the rendered points agree to 1e-4 on
@@ -211,13 +229,18 @@ def test_train_render_loss_and_grads_match_jax(world, case, overrides):
     (measured: at most 1.8e-2).  The losses, means over the rays: 1e-3
     relative (measured: 1.3e-4).  The option cases read the same (largest
     over the leaves: geometry and beta 1.04e-3, colour 1.7e-2 to 2.4e-2;
-    loss parts 1.0e-4)."""
+    loss parts 1.0e-4).  Under ``fused_color`` the colour runs in the
+    prior's dtype, f32 on both sides, and reads well inside the same
+    limits (measured: rgb 1.7e-6 on 98 % of the rays, colour gradients
+    4.3e-3, geometry and beta 1.0e-3, loss parts 2.5e-5)."""
+    fused = case == "fused_color"
     cfg, tcfg = _configs(overrides)
     key = jax.random.PRNGKey(11)
     j_in, j_gt, t_in, t_gt = _batch(world, 256, seed=5)
-    (lj, (pj, oj)), gj = _jax_loss(world, cfg, j_in, j_gt, key)
+    (lj, (pj, oj)), gj = _jax_loss(world, cfg, j_in, j_gt, key, fused)
     draws = jax_render_draws(key, 256, tcfg.model)
-    lt, pt, ot, gt = _port_loss(world, tcfg, t_in, t_gt, draws)
+    with port_fused_color(fused):
+        lt, pt, ot, gt = _port_loss(world, tcfg, t_in, t_gt, draws)
 
     mask = np.asarray(oj["ray_mask"])
     assert (ot["ray_mask"].numpy() != mask).mean() <= 0.01
@@ -260,15 +283,17 @@ def test_one_train_step_matches_jax(world):
 
 @pytest.mark.parametrize("case,overrides", [
     ("unfused", ["model.fused_agg=false"]),
-    ("pairs", ["model.pair_budget_frac=0.625", "model.color_pair_frac=0.75"])])
+    ("pairs", ["model.pair_budget_frac=0.625", "model.color_pair_frac=0.75"]),
+    ("fused_color", [])])
 def test_one_train_step_matches_jax_under_options(world, case, overrides):
-    """One ``train_step`` under ``model.fused_agg=false`` and under the
-    pair-compacted SDF and colour, by :func:`_one_step_matches_jax`'s
+    """One ``train_step`` under ``model.fused_agg=false``, under the
+    pair-compacted SDF and colour, and with ``field.FUSED_COLOR`` on both
+    sides (K8a/K8b, f32 as the prior), by :func:`_one_step_matches_jax`'s
     limits."""
-    _one_step_matches_jax(world, overrides)
+    _one_step_matches_jax(world, overrides, case == "fused_color")
 
 
-def _one_step_matches_jax(world, overrides):
+def _one_step_matches_jax(world, overrides, fused_color=False):
     """One ``train_step`` with the JAX draws injected: the loss parts, and
     the parameters after the guarded Adam.  Adam's first update is nearly
     -lr sign(g), so an entry whose gradient lies within the colour path's
@@ -289,7 +314,7 @@ def _one_step_matches_jax(world, overrides):
                                 jnp.asarray(0, jnp.int32))
     key = jax.random.PRNGKey(21)
     j_state, pj = jax_fused(lambda: jax.jit(j_step)(bundle, state, key),
-                            cfg.model.fused_agg)
+                            cfg.model.fused_agg, fused_color=fused_color)
 
     opt = Optimizer(tcfg.train)
     _, sample_batch, t_step = ttrainer.make_train_step(tcfg, opt, "cpu")
@@ -301,9 +326,10 @@ def _one_step_matches_jax(world, overrides):
                                   torch.zeros((), dtype=torch.int32))
     draws = jax_render_draws(jax.random.fold_in(key, 1),
                              cfg.train.num_pixels, tcfg.model)
-    pt = t_step({"scene": world["t_scene"], "prior": world["prior"],
-                 "views": t_views}, t_state, None, draws=draws,
-                batch=sample_batch(t_views, None, v=v, pix=pix))
+    with port_fused_color(fused_color):
+        pt = t_step({"scene": world["t_scene"], "prior": world["prior"],
+                     "views": t_views}, t_state, None, draws=draws,
+                    batch=sample_batch(t_views, None, v=v, pix=pix))
     for name in ("loss", "rgb_loss", "eikonal_loss", "mask_loss",
                  "pseudo_loss", "tv_loss"):
         np.testing.assert_allclose(float(pt[name]), float(pj[name]),
