@@ -87,6 +87,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -131,8 +132,8 @@ MICRO_PAIRS = 655360
 # device-kernel names of the port's kernels, by the kernels line's label
 KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
                 ("K1 select_knn exact", "select_exact_kernel"),
-                ("K2 pair_sdf_value_agg", "pair_mlp_kernel<false>"),
-                ("K3 pair_sdf_aggregate", "pair_mlp_kernel<true>"),
+                ("K2 pair_sdf_value_agg", "pair_mlp_kernel"),
+                ("K3 pair_sdf_aggregate", "sdf_agg_kernel"),
                 ("K4 pair_sdf_aggregate_bwd", "agg_bwd_kernel"),
                 ("K5 scatter_add_rows", "scatter_rows_kernel"),
                 ("K6a pair_sdf_rows_grad", "pair_rows_kernel<true, true>"),
@@ -370,16 +371,25 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
     err = within(f"{name} per-point sums", pt, pt_r)
     within(f"{name} per-point sums, control f32 plain", ctrl[0], pt_r,
            hold=False)
+    table, idx_ext, x = args
+    p, k = idx_ext.shape
+    # real pairs: an index in [0, N); the rest read the dump row
+    real = ((idx_ext >= 0) & (idx_ext < table.shape[0] - 1)).reshape(-1)
     if len(outs) == 3:
         w_err = float((outs[1] - refs[1]).abs().max())
         if w_err > 1e-6:               # expf against torch.exp, ulps
             fail(f"{name}: w differs by {w_err}")
-        within(f"{name} r_lat", outs[2].float(), refs[2].float())
-        within(f"{name} r_lat, control f32 plain", ctrl[2].float(),
-               refs[2].float(), hold=False)
+        # K3 computes no dump pair: w and r_lat exactly 0 there (the plain
+        # version has the prior's gradient at the dump position in r_lat,
+        # which no consumer reads: K4 drops w == 0 rows)
+        if bool((outs[1][~real] != 0).any()) or \
+                bool((outs[2][~real] != 0).any()):
+            fail(f"{name}: w or r_lat not exactly 0 on a dump pair")
+        within(f"{name} r_lat (real pairs)", outs[2][real].float(),
+               refs[2][real].float())
+        within(f"{name} r_lat, control f32 plain", ctrl[2][real].float(),
+               refs[2][real].float(), hold=False)
     del ctrl
-    table, idx_ext, x = args
-    p, k = idx_ext.shape
     with torch.no_grad():
         ms = cuda_ms(lambda: fn(*args, prior, rbf), reps)
         plain_ms = cuda_ms(lambda: ref(*args, prior, rbf), 2)
@@ -390,7 +400,7 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
     up = 32 * 256 + 3 * 256 + 3 * 256 * 256 + 256
     down = 3 * 256 * 256 + 256 * 35
     grad = len(outs) == 3
-    pairs = int((idx_ext != table.shape[0] - 1).sum())
+    pairs = int(real.sum())
     flops = 2.0 * pairs * (up + (down if grad else 0))
     n_bytes = table.numel() * 4 + p * k * 4 + p * 12 + \
         (p * 20 + p * k * (4 + 64) if grad else p * 8)
@@ -402,6 +412,51 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
         f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "max_abs_err": err}
+
+
+def k3_dump_cost(name, args, prior, rbf, reps):
+    """K3 on one P twice: with its real pairs, and with every pair made a
+    dump pair.  A dump pair costs no product work, so the second run must
+    give zeros everywhere and take under a tenth of the first's time."""
+    import torch
+
+    from spurfies_tpu_torch.ops import pair_mlp
+
+    table, idx_ext, x = args
+    dump = torch.full_like(idx_ext, table.shape[0] - 1)
+    with torch.no_grad():
+        outs = pair_mlp.pair_sdf_aggregate(table, dump, x, prior, rbf)
+        torch.cuda.synchronize()
+        if any(bool((o != 0).any()) for o in outs):
+            fail(f"{name}: an all-dump input gave a nonzero output")
+        ms_real = cuda_ms(
+            lambda: pair_mlp.pair_sdf_aggregate(*args, prior, rbf), reps)
+        ms_dump = cuda_ms(
+            lambda: pair_mlp.pair_sdf_aggregate(table, dump, x, prior, rbf),
+            reps)
+    log(f"{name}: P={idx_ext.shape[0]}, every pair a dump pair "
+        f"{ms_dump:.4f} ms, its real pairs {ms_real:.4f} ms "
+        f"(ratio {ms_dump / ms_real:.4f}, must be < 0.1)")
+    if ms_dump >= 0.1 * ms_real:
+        fail(f"{name}: dump pairs still cost product work")
+
+
+def sass_opcodes(lib, kernel, opcodes):
+    """``{opcode: count}`` in the SASS of the kernel whose name contains
+    ``kernel`` in the library ``lib`` (``cuobjdump -sass``); None where the
+    toolkit has no cuobjdump."""
+    from spurfies_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    text = "".join(sec for sec in out.split("Function : ")[1:]
+                   if kernel in sec.split("\n", 1)[0])
+    if not text:
+        fail(f"no kernel named *{kernel}* in {lib}")
+    return {op: len(re.findall(rf"\b{op}\.", text)) for op in opcodes}
 
 
 def check_rows(name, fn, ref, args, prior, prior_f32, reps, radius,
@@ -1274,6 +1329,12 @@ def main():
             for line in path.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
+    ops = sass_opcodes(cuda_build.lib_path("pair_mlp"), "sdf_agg_kernel",
+                       ("HGMMA", "HMMA"))
+    log("build: K3 SASS (sdf_agg_kernel): " + (
+        "cuobjdump not found" if ops is None else
+        f"HGMMA {'present' if ops['HGMMA'] else 'absent'} "
+        f"({ops['HGMMA']} HGMMA, {ops['HMMA']} HMMA instructions)"))
 
     # --- 3. scenes ---
     cfg = Config()
@@ -1328,6 +1389,8 @@ def main():
                 "K3 pair_sdf_aggregate", pair_mlp.pair_sdf_aggregate,
                 pair_mlp.pair_sdf_aggregate_ref, inp["k3"], prior,
                 prior_f32, cfg.model.rbf, 5)
+            k3_dump_cost("K3 pair_sdf_aggregate (dump pairs)", inp["k3"],
+                         prior, cfg.model.rbf, 5)
             for label, key, what, reps in (
                     ("K6b pair_sdf_rows_value", "k6b", "probe", 10),
                     ("K6a pair_sdf_rows_grad", "k6a", "shading", 5),

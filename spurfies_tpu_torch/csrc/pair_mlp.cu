@@ -366,53 +366,59 @@ __device__ __forceinline__ void load_first(unsigned char* smem,
             wbuf + kOffUp0, kHid, kIn0);
 }
 
-// K2 / K3: gather by index, RBF weight, prior, per-point sums.
-template <bool kGrad>
-__global__ void __launch_bounds__(kThreads, 1)
-pair_mlp_kernel(const float* __restrict__ table, int n_rows,
-                const int* __restrict__ idx, const float* __restrict__ xq,
-                int k,
-                const __nv_bfloat16* __restrict__ wbuf,
-                const float* __restrict__ bbuf, float rbf2,
-                float* __restrict__ out_pt, float* __restrict__ out_w,
-                __nv_bfloat16* __restrict__ out_r) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The gather of one pair row into the first layer's input (row `r` of act,
+// stride kI0Str): x_pi = x - pos and [bf16(x_pi) | 0] in columns 32..47,
+// w = exp(-rbf^2 |x_pi|^2) and x_pi in f32 into w_s / xpi_s.  Returns the
+// table row that was read (an index outside [0, n_rows) reads the dump
+// row n_rows - 1).
+__device__ __forceinline__ int gather_row(unsigned char* smem, int r,
+                                          const float* __restrict__ table,
+                                          int n_rows, int raw,
+                                          const float* xp, float rbf2) {
   __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
   float* xpi_s = reinterpret_cast<float*>(smem + kSmXpi);
   float* w_s = reinterpret_cast<float*>(smem + kSmWr);
-  float* s_s = reinterpret_cast<float*>(smem + kSmS);
-  float* rp_s = reinterpret_cast<float*>(smem + kSmRp);
+  const int id = (raw >= 0 && raw < n_rows) ? raw : n_rows - 1;
+  const float* gr = table + (size_t)id * kRowW;
+  const float e0 = __fsub_rn(xp[0], gr[kLat]);
+  const float e1 = __fsub_rn(xp[1], gr[kLat + 1]);
+  const float e2 = __fsub_rn(xp[2], gr[kLat + 2]);
+  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)),
+                             __fmul_rn(e2, e2));
+  w_s[r] = expf(__fmul_rn(-rbf2, d2));
+  xpi_s[r * 3] = e0;
+  xpi_s[r * 3 + 1] = e1;
+  xpi_s[r * 3 + 2] = e2;
+  __nv_bfloat16* ir = in0 + r * kI0Str + kLat;
+  ir[0] = __float2bfloat16_rn(e0);
+  ir[1] = __float2bfloat16_rn(e1);
+  ir[2] = __float2bfloat16_rn(e2);
+  for (int c = 3; c < kIn0 - kLat; ++c) ir[c] = __float2bfloat16_rn(0.f);
+  return id;
+}
+
+// K2: gather by index, RBF weight, prior value, per-point (sum w s, sum w).
+// A block owns 128 pair rows (128 / k whole points), dump rows included.
+__global__ void __launch_bounds__(kThreads, 1)
+pair_mlp_kernel(const float* __restrict__ table, int n_rows,
+                const int* __restrict__ idx, const float* __restrict__ xq,
+                int k, const __nv_bfloat16* __restrict__ wbuf,
+                const float* __restrict__ bbuf, float rbf2,
+                float* __restrict__ out_pt) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
+  const float* w_s = reinterpret_cast<const float*>(smem + kSmWr);
+  const float* s_s = reinterpret_cast<const float*>(smem + kSmS);
   int* idx_s = reinterpret_cast<int*>(smem + kSmIdx);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const size_t row0 = (size_t)blockIdx.x * kRows;
   const int pts = kRows / k;
   const size_t pt0 = (size_t)blockIdx.x * pts;
 
-  // --- gather: x_pi, w and the first layer's input [lat | x_pi | 0] ---
-  if (tid < kRows) {
-    const int raw = idx[row0 + tid];
-    const int id = (raw >= 0 && raw < n_rows) ? raw : n_rows - 1;
-    idx_s[tid] = id;
-    const float* gr = table + (size_t)id * kRowW;
-    const float* xp = xq + (pt0 + tid / k) * 3;
-    const float e0 = __fsub_rn(xp[0], gr[kLat]);
-    const float e1 = __fsub_rn(xp[1], gr[kLat + 1]);
-    const float e2 = __fsub_rn(xp[2], gr[kLat + 2]);
-    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)),
-                               __fmul_rn(e2, e2));
-    w_s[tid] = expf(__fmul_rn(-rbf2, d2));
-    xpi_s[tid * 3] = e0;
-    xpi_s[tid * 3 + 1] = e1;
-    xpi_s[tid * 3 + 2] = e2;
-    __nv_bfloat16* ir = in0 + tid * kI0Str + kLat;
-    ir[0] = __float2bfloat16_rn(e0);
-    ir[1] = __float2bfloat16_rn(e1);
-    ir[2] = __float2bfloat16_rn(e2);
-    for (int c = 3; c < kIn0 - kLat; ++c) ir[c] = __float2bfloat16_rn(0.f);
-  }
+  if (tid < kRows)
+    idx_s[tid] = gather_row(smem, tid, table, n_rows, idx[row0 + tid],
+                            xq + (pt0 + tid / k) * 3, rbf2);
   load_first(smem, wbuf);
   __syncthreads();
   for (int e = tid; e < kRows * kLat; e += kThreads) {
@@ -423,11 +429,184 @@ pair_mlp_kernel(const float* __restrict__ table, int n_rows,
   __syncthreads();
 
   float acc0[5][4];
-  mlp_sweeps<kGrad>(smem, wbuf, bbuf, acc0);
-  if (kGrad) {
+  mlp_sweeps<false>(smem, wbuf, bbuf, acc0);
+  __syncthreads();
+
+  if (tid < pts) {
+    float num = 0.f, den = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const int r = tid * k + j;
+      const float w = w_s[r];
+      num = __fadd_rn(num, __fmul_rn(w, s_s[r]));
+      den = __fadd_rn(den, w);
+    }
+    float* o = out_pt + (pt0 + tid) * 2;
+    o[0] = num;
+    o[1] = den;
+  }
+}
+
+int launch_value_agg(const float* table, int n_rows, const int* idx,
+                     const float* x, int n_pts, int k, const void* wbuf,
+                     const float* bbuf, float rbf2, float* out_pt,
+                     void* stream) {
+  if (k <= 0 || kRows % k != 0 || n_rows <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int pts = kRows / k;
+  if (n_pts % pts != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pts == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pair_mlp_kernel<<<n_pts / pts, kThreads, kSmemValue,
+                    static_cast<cudaStream_t>(stream)>>>(
+      table, n_rows, idx, x, k, static_cast<const __nv_bfloat16*>(wbuf), bbuf,
+      rbf2, out_pt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K3: only the real pair rows are computed ----------------------------
+//
+// A pair row is real when its index lies in [0, N), N = n_rows - 1; every
+// other row (the dump row N, an index out of range) has w == 0 exactly, so
+// its terms add +-0 to the per-point sums and K4 never reads its r_lat.
+// Design: a persistent grid, one block per SM.  Block b owns the points
+// [b P / G, (b + 1) P / G) and walks them in order, packing the real rows
+// of whole points into tiles of up to 128 rows (fill_tile, one warp: each
+// lane counts one point's real rows, a warp scan places them).  So a
+// point's rows stay in one tile, in j order, and its sums are the fixed
+// j = 0..k-1 order with the +-0 terms left out: bit-identical to adding
+// them.  The same warp writes what no product computes: w = 0 and r_lat = 0
+// on dump rows, pt = 0 on a point with no real row.  No host sync and no
+// extra launch: the work list is made on the card, inside the kernel.
+// Chosen over a device-side compaction pass, which would be a second
+// kernel and a [P*k] index array in HBM.
+
+// The block's next tile of real rows: up to kRows pair indices p * k + j
+// into `pair` (point-major, j ascending), taken from whole points of
+// [cursor, end), which advances.  One whole warp calls it; every lane
+// returns the tile's row count (0: the range is done).  Requires k <= 32.
+__device__ int fill_tile(const int* __restrict__ idx, int n_real, int k,
+                         long long& cursor, long long end, int* pair,
+                         float* __restrict__ out_pt, float* __restrict__ out_w,
+                         __nv_bfloat16* __restrict__ out_r) {
+  const int lane = threadIdx.x & 31;
+  int rows = 0;
+  while (cursor < end) {
+    const long long p = cursor + lane;
+    uint32_t bits = 0u;
+    int c = 0;
+    if (p < end) {
+      const int* ip = idx + p * k;
+      for (int j = 0; j < k; ++j) {
+        const int id = __ldg(ip + j);
+        if (id >= 0 && id < n_real) {
+          bits |= 1u << j;
+          ++c;
+        }
+      }
+    }
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    // lanes 0 .. nfit-1 fit: incl grows with the lane
+    const bool fit = p < end && rows + incl <= kRows;
+    const int nfit = __popc(__ballot_sync(0xffffffffu, fit));
+    if (fit) {
+      int r = rows + incl - c;
+      for (int j = 0; j < k; ++j) {
+        const long long t = p * k + j;
+        if ((bits >> j) & 1u) {
+          pair[r++] = static_cast<int>(t);
+        } else {
+          out_w[t] = 0.f;
+          uint4* o = reinterpret_cast<uint4*>(out_r + t * kLat);
+#pragma unroll
+          for (int q = 0; q < kLat / 8; ++q) o[q] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      if (c == 0) {
+#pragma unroll
+        for (int q = 0; q < 5; ++q) out_pt[p * 5 + q] = 0.f;
+      }
+    }
+    if (nfit == 0) break;                    // the tile is full
+    rows += __shfl_sync(0xffffffffu, incl, nfit - 1);
+    cursor += nfit;
+    if (nfit < 32 && cursor < end) break;    // the next point does not fit
+  }
+  return rows;
+}
+
+// K3: gather by index, RBF weight, prior value and input gradient, per-point
+// sums (sum w s, sum w, sum w r_pos), residuals w and r_lat per pair.
+__global__ void __launch_bounds__(kThreads, 1)
+sdf_agg_kernel(const float* __restrict__ table, int n_rows,
+               const int* __restrict__ idx, const float* __restrict__ xq,
+               int n_pts, int k, const __nv_bfloat16* __restrict__ wbuf,
+               const float* __restrict__ bbuf, float rbf2,
+               float* __restrict__ out_pt, float* __restrict__ out_w,
+               __nv_bfloat16* __restrict__ out_r) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
+  const float* w_s = reinterpret_cast<const float*>(smem + kSmWr);
+  const float* s_s = reinterpret_cast<const float*>(smem + kSmS);
+  float* rp_s = reinterpret_cast<float*>(smem + kSmRp);
+  int* idx_s = reinterpret_cast<int*>(smem + kSmIdx);
+  int* pair_s = reinterpret_cast<int*>(smem + kSmemGrad);
+  int* nrows_s = pair_s + kRows;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long per = ((long long)n_pts + gridDim.x - 1) / gridDim.x;
+  long long cursor = (long long)blockIdx.x * per;
+  const long long end = min((long long)n_pts, cursor + per);
+
+  for (;;) {
+    __syncthreads();  // the last tile's sums are done with the shared arrays
+    if (warp == 0) {
+      const int rows = fill_tile(idx, n_rows - 1, k, cursor, end, pair_s,
+                                 out_pt, out_w, out_r);
+      if (lane == 0) *nrows_s = rows;
+    }
+    __syncthreads();
+    const int rows = *nrows_s;
+    if (rows == 0) break;
+
+    // --- gather the tile's rows; the rows past `rows` are zeros ---
+    if (tid < kRows) {
+      if (tid < rows) {
+        const int q = pair_s[tid];
+        idx_s[tid] = gather_row(smem, tid, table, n_rows, idx[q],
+                                xq + (size_t)(q / k) * 3, rbf2);
+      } else {
+        __nv_bfloat16* ir = in0 + tid * kI0Str + kLat;
+        for (int c = 0; c < kIn0 - kLat; ++c) ir[c] = __float2bfloat16_rn(0.f);
+        idx_s[tid] = -1;
+      }
+    }
+    load_first(smem, wbuf);
+    __syncthreads();
+    for (int e = tid; e < kRows * kLat; e += kThreads) {
+      const int r = e / kLat, c = e - r * kLat;
+      const int id = idx_s[r];
+      in0[r * kI0Str + c] = __float2bfloat16_rn(
+          id < 0 ? 0.f : __ldg(table + (size_t)id * kRowW + c));
+    }
+    __syncthreads();
+
+    float acc0[5][4];
+    mlp_sweeps<true>(smem, wbuf, bbuf, acc0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = warp * 16 + g + 8 * h;
+      if (row >= rows) continue;
+      const size_t q = static_cast<size_t>(pair_s[row]);
 #pragma unroll
       for (int ni = 0; ni < 5; ++ni) {
 #pragma unroll
@@ -435,64 +614,67 @@ pair_mlp_kernel(const float* __restrict__ table, int n_rows,
           const int col = ni * 8 + 2 * t + j;
           const float r = bf16_round(acc0[ni][2 * h + j]);
           if (col < kLat) {
-            out_r[(row0 + row) * kLat + col] = __float2bfloat16_rn(r);
+            out_r[q * kLat + col] = __float2bfloat16_rn(r);
           } else if (col < kRowW) {
             rp_s[row * 3 + (col - kLat)] = r;
           }
         }
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // --- per-pair residual w and per-point sums, in a fixed order ---
-  if (kGrad && tid < kRows) out_w[row0 + tid] = w_s[tid];
-  if (tid < pts) {
-    float num = 0.f, den = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const int r = tid * k + j;
-      const float w = w_s[r];
-      num = __fadd_rn(num, __fmul_rn(w, s_s[r]));
-      den = __fadd_rn(den, w);
-      if (kGrad) {
-        g0 = __fadd_rn(g0, __fmul_rn(w, rp_s[r * 3]));
-        g1 = __fadd_rn(g1, __fmul_rn(w, rp_s[r * 3 + 1]));
-        g2 = __fadd_rn(g2, __fmul_rn(w, rp_s[r * 3 + 2]));
+    // --- residual w and the per-point sums over the point's real rows, in
+    // j order, by the thread of its first row ---
+    if (tid < rows) {
+      const int q = pair_s[tid];
+      out_w[q] = w_s[tid];
+      const int p = q / k;
+      if (tid == 0 || pair_s[tid - 1] / k != p) {
+        float num = 0.f, den = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f;
+        for (int r = tid; r < rows && pair_s[r] / k == p; ++r) {
+          const float w = w_s[r];
+          num = __fadd_rn(num, __fmul_rn(w, s_s[r]));
+          den = __fadd_rn(den, w);
+          g0 = __fadd_rn(g0, __fmul_rn(w, rp_s[r * 3]));
+          g1 = __fadd_rn(g1, __fmul_rn(w, rp_s[r * 3 + 1]));
+          g2 = __fadd_rn(g2, __fmul_rn(w, rp_s[r * 3 + 2]));
+        }
+        float* o = out_pt + (size_t)p * 5;
+        o[0] = num;
+        o[1] = den;
+        o[2] = g0;
+        o[3] = g1;
+        o[4] = g2;
       }
-    }
-    if (kGrad) {
-      float* o = out_pt + (pt0 + tid) * 5;
-      o[0] = num;
-      o[1] = den;
-      o[2] = g0;
-      o[3] = g1;
-      o[4] = g2;
-    } else {
-      float* o = out_pt + (pt0 + tid) * 2;
-      o[0] = num;
-      o[1] = den;
     }
   }
 }
 
-template <bool kGrad>
-int launch(const float* table, int n_rows, const int* idx, const float* x,
-           int n_pts, int k, const void* wbuf, const float* bbuf, float rbf2,
-           float* out_pt, float* out_w, void* out_r, void* stream) {
-  if (k <= 0 || kRows % k != 0 || n_rows <= 0)
+constexpr int kSmemAgg = kSmemGrad + (kRows + 1) * 4;
+static_assert(kSmemAgg <= 232448, "shared memory");
+
+int launch_agg(const float* table, int n_rows, const int* idx,
+               const float* x, int n_pts, int k, const void* wbuf,
+               const float* bbuf, float rbf2, float* out_pt, float* out_w,
+               void* out_r, void* stream) {
+  if (k <= 0 || k > 32 || n_rows <= 1 || n_pts < 0 ||
+      (long long)n_pts * k > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int pts = kRows / k;
-  if (n_pts % pts != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_pts == 0) return 0;
-  const int smem = kGrad ? kSmemGrad : kSmemValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_mlp_kernel<kGrad>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sdf_agg_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemAgg);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_mlp_kernel<kGrad><<<n_pts / pts, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      table, n_rows, idx, x, k, static_cast<const __nv_bfloat16*>(wbuf), bbuf,
-      rbf2, out_pt, out_w, static_cast<__nv_bfloat16*>(out_r));
+  sdf_agg_kernel<<<sms < n_pts ? sms : n_pts, kThreads, kSmemAgg,
+                   static_cast<cudaStream_t>(stream)>>>(
+      table, n_rows, idx, x, n_pts, k,
+      static_cast<const __nv_bfloat16*>(wbuf), bbuf, rbf2, out_pt, out_w,
+      static_cast<__nv_bfloat16*>(out_r));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -602,8 +784,8 @@ extern "C" int pair_sdf_value_agg_launch(const float* table, int n_rows,
                                          int n_pts, int k, const void* wbuf,
                                          const float* bbuf, float rbf2,
                                          float* out_pt, void* stream) {
-  return launch<false>(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2,
-                       out_pt, nullptr, nullptr, stream);
+  return launch_value_agg(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2,
+                          out_pt, stream);
 }
 
 // K3: out_pt [n_pts, 5] = (sum w s, sum w, sum w r_pos), out_w [n_pts*k],
@@ -614,8 +796,8 @@ extern "C" int pair_sdf_aggregate_launch(const float* table, int n_rows,
                                          const float* bbuf, float rbf2,
                                          float* out_pt, float* out_w,
                                          void* out_r, void* stream) {
-  return launch<true>(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2,
-                      out_pt, out_w, out_r, stream);
+  return launch_agg(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2, out_pt,
+                    out_w, out_r, stream);
 }
 
 // K7b: u [m, 35] f32 -> out_s [m].

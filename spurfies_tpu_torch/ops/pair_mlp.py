@@ -220,11 +220,9 @@ def pair_sdf_value_agg_ref(table, idx_ext, x, layers: PriorLayers,
     return cols.view(p, k, 2).sum(dim=1)
 
 
-def pair_sdf_aggregate_ref(table, idx_ext, x, layers: PriorLayers,
-                           rbf: float):
-    """Plain K3: ``(pt [P, 5] = (sum w s, sum w, sum w ds/dx), w [P*k],
-    r_lat [P*k, 32])``, r_lat in the compute dtype."""
-    p, k = idx_ext.shape
+def aggregate_terms(table, idx_ext, x, layers: PriorLayers, rbf: float):
+    """Plain K3's per-pair terms: ``(cols [P*k, 5] = (w s, w, w ds/dx),
+    w [P*k], r_lat [P*k, 32])``, r_lat in the compute dtype."""
     cd = layers.compute_dtype
     g, xpi, w = _gather(table, idx_ext, x, rbf)
     d = g.shape[1] - 3
@@ -232,7 +230,16 @@ def pair_sdf_aggregate_ref(table, idx_ext, x, layers: PriorLayers,
                          keep_gates=True)
     r = _down_sweep(layers, gates, g.shape[0], x.device)    # [T, d+3]
     cols = torch.cat([(w * s)[:, None], w[:, None], w[:, None] * r[:, d:]], 1)
-    return cols.view(p, k, 5).sum(dim=1), w, r[:, :d].to(cd)
+    return cols, w, r[:, :d].to(cd)
+
+
+def pair_sdf_aggregate_ref(table, idx_ext, x, layers: PriorLayers,
+                           rbf: float):
+    """Plain K3: ``(pt [P, 5] = (sum w s, sum w, sum w ds/dx), w [P*k],
+    r_lat [P*k, 32])``, r_lat in the compute dtype."""
+    p, k = idx_ext.shape
+    cols, w, r_lat = aggregate_terms(table, idx_ext, x, layers, rbf)
+    return cols.view(p, k, 5).sum(dim=1), w, r_lat
 
 
 def _check_inputs(name, table, idx_ext, x):
@@ -289,28 +296,35 @@ def pair_sdf_aggregate(table, idx_ext, x, layers: PriorLayers, rbf: float):
     """K3, forward only: its outputs carry no gradient (the differentiable
     form is :class:`PairSdfAggregate`).  CPU tensors run
     :func:`pair_sdf_aggregate_ref`; CUDA tensors launch the kernel (bf16
-    compute only).  Returns ``(pt [P, 5], w [P*k], r_lat [P*k, 32])``."""
+    compute only).  Returns ``(pt [P, 5], w [P*k], r_lat [P*k, 32])``.
+
+    The kernel computes only the real pairs (index in ``[0, N)``); a dump
+    pair gets ``w = 0``, as here, and ``r_lat = 0`` where the plain version
+    has the prior's gradient at the dump position.  No consumer reads it:
+    K4 drops the rows whose w is 0.  Each point's sums skip the dump pairs'
+    terms, which are +-0, so they are what adding them in j order gives."""
     _check_inputs("pair_sdf_aggregate", table, idx_ext, x)
     if x.device.type == "cpu":
         return pair_sdf_aggregate_ref(table, idx_ext, x, layers, rbf)
     if x.device.type != "cuda":
         raise ValueError(f"pair_sdf_aggregate: unsupported device {x.device}")
     p, k = idx_ext.shape
+    if k > 32:
+        raise ValueError(f"pair_sdf_aggregate: k={k} must be at most 32")
     wbuf, bbuf = layers.kernel_buffers()
-    idx_p, x_p, pp = _pad_points(idx_ext, x, table.shape[0] - 1)
-    table = table.contiguous()
-    pt = torch.empty((pp, 5), dtype=torch.float32, device=x.device)
-    w = torch.empty((pp * k,), dtype=torch.float32, device=x.device)
-    r = torch.empty((pp * k, LAT), dtype=torch.bfloat16, device=x.device)
+    idx_ext, x, table = (t.contiguous() for t in (idx_ext, x, table))
+    pt = torch.empty((p, 5), dtype=torch.float32, device=x.device)
+    w = torch.empty((p * k,), dtype=torch.float32, device=x.device)
+    r = torch.empty((p * k, LAT), dtype=torch.bfloat16, device=x.device)
     lib = cuda_build.load("pair_mlp", _SIG)
     err = lib.pair_sdf_aggregate_launch(
-        table.data_ptr(), table.shape[0], idx_p.data_ptr(), x_p.data_ptr(),
-        pp, k, wbuf.data_ptr(), bbuf.data_ptr(), float(rbf) ** 2,
+        table.data_ptr(), table.shape[0], idx_ext.data_ptr(), x.data_ptr(),
+        p, k, wbuf.data_ptr(), bbuf.data_ptr(), float(rbf) ** 2,
         pt.data_ptr(), w.data_ptr(), r.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "pair_sdf_aggregate")
     LAUNCHES["pair_sdf_aggregate"] += 1
-    return pt[:p], w[:p * k], r[:p * k]
+    return pt, w, r
 
 
 def pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n: int):

@@ -69,7 +69,7 @@ def test_select_knn_matches_plain(cuda, packed):
 
 
 def _pair_inputs(dev, m=1000, k=8):
-    """m points (not a whole number of CUDA blocks, so the wrapper pads),
+    """m points (not a whole number of K2's CUDA blocks, so its wrapper pads),
     each with k neighbours scattered around it; 30 % of the pairs and the
     first 5 points' pairs invalid (the dump row); two pairs each of points
     5 and 6 index outside the table, which reads the dump row too."""
@@ -139,7 +139,58 @@ def test_pair_sdf_aggregate_matches_plain(cuda):
     # expf against torch.exp: a few ulps
     assert float((w - w_r).abs().max()) <= 1e-6
     _within(pt, pt_r, 1e-3)
-    _within(r_lat, r_r, 1e-3)
+    real = ((idx_ext >= 0) & (idx_ext < table.shape[0] - 1)).reshape(-1)
+    _within(r_lat[real], r_r[real], 1e-3)
+    assert bool((w[~real] == 0).all()) and bool((r_lat[~real] == 0).all())
+
+
+def _mixed_pairs(dev, m, k=8):
+    """m points with 0..k real pairs each (cycling, so every count occurs
+    and a run of all-dump points spans a tile), the rest the dump row N or
+    an index outside [0, N]; neighbours scattered around their point."""
+    rng = np.random.default_rng(m)
+    n = m * k
+    lat = (0.1 * rng.normal(size=(n, 32))).astype(np.float32)
+    x = rng.uniform(-0.5, 0.5, (m, 3)).astype(np.float32)
+    perm = rng.permutation(n)
+    pts = np.empty((n, 3), np.float32)
+    pts[perm] = np.repeat(x, k, 0) + rng.normal(0, 0.03, (n, 3))
+    count = np.arange(m) % (k + 1)
+    count[100:300] = 0
+    slot = rng.permuted(np.tile(np.arange(k), (m, 1)), axis=1)
+    valid = slot < count[:, None]
+    junk = rng.choice(np.array([n, -1, -5, n + 1, n + 99], np.int32), (m, k))
+    idx_ext = np.where(valid, perm.reshape(m, k), junk).astype(np.int32)
+    table = field.pair_table(torch.from_numpy(lat).to(dev),
+                             torch.from_numpy(pts).to(dev))
+    prior = pair_mlp._prep_layers(load_prior_npz(device=dev), torch.bfloat16)
+    return (table, torch.from_numpy(idx_ext).to(dev),
+            torch.from_numpy(x).to(dev), prior)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2999, 5, 1])
+def test_pair_sdf_aggregate_skips_dump_pairs(cuda, m):
+    """K3 on points with 0..8 real pairs, indices outside the table and a P
+    that fills no whole tile: pt and the real pairs' r_lat by ``_within``,
+    w within 1e-6, and w == 0 and r_lat == 0 exactly on every dump pair
+    (the kernel computes none of them)."""
+    table, idx_ext, x, prior = _mixed_pairs(cuda, m)
+    with torch.no_grad():
+        pt, w, r_lat = pair_mlp.pair_sdf_aggregate(table, idx_ext, x, prior,
+                                                   RBF)
+        pt_r, w_r, r_r = pair_mlp.pair_sdf_aggregate_ref(table, idx_ext, x,
+                                                         prior, RBF)
+    torch.cuda.synchronize()
+    real = ((idx_ext >= 0) & (idx_ext < table.shape[0] - 1)).reshape(-1)
+    assert pt.shape == pt_r.shape and bool(torch.isfinite(pt).all())
+    assert float((w - w_r).abs().max()) <= 1e-6
+    assert bool((w[~real] == 0).all()) and bool((r_lat[~real] == 0).all())
+    empty = ~real.view(m, -1).any(1)
+    assert bool((pt[empty] == 0).all())
+    _within(pt, pt_r, 1e-3)
+    if bool(real.any()):
+        _within(r_lat[real], r_r[real], 1e-3)
 
 
 @pytest.mark.cuda

@@ -220,3 +220,43 @@ def test_kernel_buffers_need_bf16(setup):
     wbuf, bbuf = _torch_inputs(setup, torch.bfloat16)[0].kernel_buffers()
     assert wbuf.dtype == torch.bfloat16 and wbuf.numel() == 416000
     assert bbuf.numel() == 4 * 256 + 1
+
+
+def test_dump_pairs_add_nothing_to_the_aggregate(setup):
+    """The premise that lets K3's kernel skip the dump pairs (index outside
+    [0, N)): in the plain K3 their terms are +-0 (w == 0 exactly), so the
+    per-point sums without them equal pt bit for bit, both in torch's own
+    order and in the kernel's (j = 0..k-1 from +0); and K4 does not read
+    their r_lat, whatever it holds."""
+    prior, table, idx_ext, x = _torch_inputs(setup, torch.bfloat16)
+    idx_ext = idx_ext.clone()
+    idx_ext[7, :3] = -2
+    idx_ext[8, 5:] = N + 11
+    real = ((idx_ext >= 0) & (idx_ext < N)).reshape(-1)
+    assert 0 < int(real.sum()) < M * K
+    cols, w, r_lat = tpm.aggregate_terms(table, idx_ext, x, prior, RBF)
+    pt, w_ref, r_ref = tpm.pair_sdf_aggregate_ref(table, idx_ext, x, prior,
+                                                  RBF)
+    assert torch.equal(w, w_ref) and torch.equal(r_lat, r_ref)
+    assert bool((w[~real] == 0).all()) and bool((cols[~real] == 0).all())
+    kept = torch.where(real[:, None], cols, 0.0)
+    assert torch.equal(kept.view(M, K, 5).sum(1), pt)
+    seq_all = torch.zeros(M, 5)
+    seq_real = torch.zeros(M, 5)
+    c3, r3 = cols.view(M, K, 5), real.view(M, K, 1)
+    for j in range(K):
+        seq_all = seq_all + c3[:, j]
+        seq_real = torch.where(r3[:, j], seq_real + c3[:, j], seq_real)
+    assert torch.equal(seq_all, seq_real)
+    assert torch.equal(seq_real.view(torch.int32),
+                       seq_all.view(torch.int32))
+    # K4 drops the dump pairs: arbitrary finite r_lat there changes nothing
+    num_bar = torch.from_numpy(
+        np.random.default_rng(3).normal(size=M).astype(np.float32))
+    noise = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1e3, (M * K, 32)).astype(np.float32)).to(r_lat.dtype)
+    r_junk = torch.where(real[:, None], r_lat, noise)
+    assert not torch.equal(r_junk, r_lat)
+    assert torch.equal(
+        tpm.pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, N),
+        tpm.pair_sdf_aggregate_bwd_ref(num_bar, w, r_junk, idx_ext, N))
