@@ -396,7 +396,8 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
     # MACs per pair: up 32*256 + 3*256 + 3*256*256 + 256; K3 adds the down
     # sweep 3*256*256 + 256*35 (the first delta is elementwise).  The work
     # this data needs is that of the real pairs: a pair on the dump row
-    # has w == 0 and adds nothing (the kernel computes it all the same).
+    # has w == 0 and adds nothing (K2 computes it all the same; K3 does
+    # not).
     up = 32 * 256 + 3 * 256 + 3 * 256 * 256 + 256
     down = 3 * 256 * 256 + 256 * 35
     grad = len(outs) == 3
@@ -408,7 +409,8 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
     log(f"{name}: P={p} k={k}, {pairs} real pairs "
         f"({pairs / (p * k):.3f}); kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s on real pairs, "
-        f"{flops * p * k / max(pairs, 1) / ms / 1e9:.1f} executed), "
+        f"{flops * p * k / max(pairs, 1) / ms / 1e9:.1f} counting every "
+        "pair), "
         f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "max_abs_err": err}
@@ -1329,9 +1331,11 @@ def main():
             for line in path.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
-    ops = sass_opcodes(cuda_build.lib_path("pair_mlp"), "sdf_agg_kernel",
+    wg = "true" if pair_mlp.K3_WGMMA else "false"
+    ops = sass_opcodes(cuda_build.lib_path("sdf_agg"),
+                       f"sdf_agg_kernelILb{int(pair_mlp.K3_WGMMA)}E",
                        ("HGMMA", "HMMA"))
-    log("build: K3 SASS (sdf_agg_kernel): " + (
+    log(f"build: K3 SASS (sdf_agg_kernel<{wg}>, the one K3 launches): " + (
         "cuobjdump not found" if ops is None else
         f"HGMMA {'present' if ops['HGMMA'] else 'absent'} "
         f"({ops['HGMMA']} HGMMA, {ops['HMMA']} HMMA instructions)"))
@@ -1728,7 +1732,7 @@ def main():
                                   "spurfies_tpu_torch/csrc/pair_mlp.cu",
                                   "spurfies_tpu/ops/pallas_mlp.py:640"),
         "K3 pair_sdf_aggregate": ("pair_sdf_aggregate",
-                                  "spurfies_tpu_torch/csrc/pair_mlp.cu",
+                                  "spurfies_tpu_torch/csrc/sdf_agg.cu",
                                   "spurfies_tpu/ops/pallas_mlp.py:576"),
         "K4 pair_sdf_aggregate_bwd": ("pair_sdf_aggregate_bwd",
                                       "spurfies_tpu_torch/csrc/agg_bwd.cu",

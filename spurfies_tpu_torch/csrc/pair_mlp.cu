@@ -1,18 +1,17 @@
-// K2 / K3 — fused gather + frozen-prior pair MLP + RBF weight + per-point
-// aggregation; K6 / K7 — the same prior per pair row, without them.
+// K2 — fused gather + frozen-prior pair MLP + RBF weight + per-point
+// aggregation; K6 / K7 — the same prior per pair row, without them.  (K3,
+// the aggregate with the input gradient, is csrc/sdf_agg.cu.)
 //
 // Replaces the TPU kernels of spurfies_tpu/ops/pallas_mlp.py:
 //   * K2: _fused_value_agg_call -> _value_kernel_agg (value only; the
 //     sampler's no-grad SDF probe),
-//   * K3: _fused_agg_call -> _mlp_kernel_agg (value + input gradient by a
-//     down sweep with transposed weights; the render-path SDF and normal),
 //   * K6a / K6b: _fused_mlp_gx_call -> _mlp_kernel_gx and
 //     _fused_value_gx_call -> _value_kernel_gx (raw gathered rows
 //     [lat | pos] and a query per row; model.fused_agg=false),
 //   * K7a / K7b: _fused_mlp_call -> _mlp_kernel and _fused_value_call ->
 //     _value_kernel (a pre-assembled u = [lat | x_pi]; the pair-compacted
 //     SDF of model.pair_budget_frac, and the pair-MLP microbenchmark).
-// K6 and K7 share K2/K3's sweeps (mlp_sweeps) and rounding points: a block
+// K6 and K7 share K2's sweeps (mlp_sweeps) and rounding points: a block
 // owns 128 consecutive rows, reads them as one contiguous run, and writes s
 // (and r = ds/du, all 35 columns in f32, staged in shared memory so that
 // the write is one contiguous run too); the ragged last block is masked.
@@ -25,16 +24,14 @@
 //   x_pi = x[p] - pos;  w = exp(-rbf^2 |x_pi|^2)
 //   a0 = lat @ W_lat + x_pi @ W_pos + b0; then 3 x (LeakyReLU(0.01), 256x256)
 //   s  = LeakyReLU(a3) @ w_v + b_v   (F_geometry[4] and T pre-fused, f32)
-//   K3 only: r = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)
-//   per point: K2 (sum w s, sum w); K3 (sum w s, sum w, sum w r_pos)
-//   K3 residuals per pair: w (f32) and r_lat (bf16), for the latent
-//   gradient of the training slice.
+//   K6a / K7a: r = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)
+//   K2 per point: (sum w s, sum w)
 // Rounding follows _mlp_kernel_agg: bf16 operands, f32 accumulation, bias
 // added in f32, activations rounded to bf16 after each LeakyReLU, the
 // down-sweep delta rounded to bf16 after each product and after each gate.
 //
 // What bounds it on an H100: operations. About 0.41 MFLOP per pair for K2
-// and 0.82 for K3 against ~150 bytes of input and output per pair: far
+// against ~150 bytes of input and output per pair: far
 // above the card's ~295 FLOP/byte ridge. K6/K7 do the same work per row
 // against 150-310 bytes (r is written in f32). The TPU kernel's point was to keep
 // the [rows, 256] activations out of HBM; here they live in shared memory
@@ -53,8 +50,8 @@
 //     128 (w >> 2) .. +128 of each layer (2 x 16 mma tiles held in
 //     registers), so a layer's output overwrites its input in place after a
 //     barrier;
-//   * K3 keeps the four layers' gates as bitmasks (4 x 4 KB) for the down
-//     sweep;
+//   * K6a / K7a keep the four layers' gates as bitmasks (4 x 4 KB) for the
+//     down sweep;
 //   * the 8 rows of a point are summed by one thread in a fixed order.
 // The TPU kernel's iota band matrices (per-point sums and broadcasts as
 // 0/1 matmuls) were a device for its vector unit and are gone.
@@ -466,218 +463,6 @@ int launch_value_agg(const float* table, int n_rows, const int* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- K3: only the real pair rows are computed ----------------------------
-//
-// A pair row is real when its index lies in [0, N), N = n_rows - 1; every
-// other row (the dump row N, an index out of range) has w == 0 exactly, so
-// its terms add +-0 to the per-point sums and K4 never reads its r_lat.
-// Design: a persistent grid, one block per SM.  Block b owns the points
-// [b P / G, (b + 1) P / G) and walks them in order, packing the real rows
-// of whole points into tiles of up to 128 rows (fill_tile, one warp: each
-// lane counts one point's real rows, a warp scan places them).  So a
-// point's rows stay in one tile, in j order, and its sums are the fixed
-// j = 0..k-1 order with the +-0 terms left out: bit-identical to adding
-// them.  The same warp writes what no product computes: w = 0 and r_lat = 0
-// on dump rows, pt = 0 on a point with no real row.  No host sync and no
-// extra launch: the work list is made on the card, inside the kernel.
-// Chosen over a device-side compaction pass, which would be a second
-// kernel and a [P*k] index array in HBM.
-
-// The block's next tile of real rows: up to kRows pair indices p * k + j
-// into `pair` (point-major, j ascending), taken from whole points of
-// [cursor, end), which advances.  One whole warp calls it; every lane
-// returns the tile's row count (0: the range is done).  Requires k <= 32.
-__device__ int fill_tile(const int* __restrict__ idx, int n_real, int k,
-                         long long& cursor, long long end, int* pair,
-                         float* __restrict__ out_pt, float* __restrict__ out_w,
-                         __nv_bfloat16* __restrict__ out_r) {
-  const int lane = threadIdx.x & 31;
-  int rows = 0;
-  while (cursor < end) {
-    const long long p = cursor + lane;
-    uint32_t bits = 0u;
-    int c = 0;
-    if (p < end) {
-      const int* ip = idx + p * k;
-      for (int j = 0; j < k; ++j) {
-        const int id = __ldg(ip + j);
-        if (id >= 0 && id < n_real) {
-          bits |= 1u << j;
-          ++c;
-        }
-      }
-    }
-    int incl = c;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += v;
-    }
-    // lanes 0 .. nfit-1 fit: incl grows with the lane
-    const bool fit = p < end && rows + incl <= kRows;
-    const int nfit = __popc(__ballot_sync(0xffffffffu, fit));
-    if (fit) {
-      int r = rows + incl - c;
-      for (int j = 0; j < k; ++j) {
-        const long long t = p * k + j;
-        if ((bits >> j) & 1u) {
-          pair[r++] = static_cast<int>(t);
-        } else {
-          out_w[t] = 0.f;
-          uint4* o = reinterpret_cast<uint4*>(out_r + t * kLat);
-#pragma unroll
-          for (int q = 0; q < kLat / 8; ++q) o[q] = make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-      if (c == 0) {
-#pragma unroll
-        for (int q = 0; q < 5; ++q) out_pt[p * 5 + q] = 0.f;
-      }
-    }
-    if (nfit == 0) break;                    // the tile is full
-    rows += __shfl_sync(0xffffffffu, incl, nfit - 1);
-    cursor += nfit;
-    if (nfit < 32 && cursor < end) break;    // the next point does not fit
-  }
-  return rows;
-}
-
-// K3: gather by index, RBF weight, prior value and input gradient, per-point
-// sums (sum w s, sum w, sum w r_pos), residuals w and r_lat per pair.
-__global__ void __launch_bounds__(kThreads, 1)
-sdf_agg_kernel(const float* __restrict__ table, int n_rows,
-               const int* __restrict__ idx, const float* __restrict__ xq,
-               int n_pts, int k, const __nv_bfloat16* __restrict__ wbuf,
-               const float* __restrict__ bbuf, float rbf2,
-               float* __restrict__ out_pt, float* __restrict__ out_w,
-               __nv_bfloat16* __restrict__ out_r) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
-  const float* w_s = reinterpret_cast<const float*>(smem + kSmWr);
-  const float* s_s = reinterpret_cast<const float*>(smem + kSmS);
-  float* rp_s = reinterpret_cast<float*>(smem + kSmRp);
-  int* idx_s = reinterpret_cast<int*>(smem + kSmIdx);
-  int* pair_s = reinterpret_cast<int*>(smem + kSmemGrad);
-  int* nrows_s = pair_s + kRows;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long per = ((long long)n_pts + gridDim.x - 1) / gridDim.x;
-  long long cursor = (long long)blockIdx.x * per;
-  const long long end = min((long long)n_pts, cursor + per);
-
-  for (;;) {
-    __syncthreads();  // the last tile's sums are done with the shared arrays
-    if (warp == 0) {
-      const int rows = fill_tile(idx, n_rows - 1, k, cursor, end, pair_s,
-                                 out_pt, out_w, out_r);
-      if (lane == 0) *nrows_s = rows;
-    }
-    __syncthreads();
-    const int rows = *nrows_s;
-    if (rows == 0) break;
-
-    // --- gather the tile's rows; the rows past `rows` are zeros ---
-    if (tid < kRows) {
-      if (tid < rows) {
-        const int q = pair_s[tid];
-        idx_s[tid] = gather_row(smem, tid, table, n_rows, idx[q],
-                                xq + (size_t)(q / k) * 3, rbf2);
-      } else {
-        __nv_bfloat16* ir = in0 + tid * kI0Str + kLat;
-        for (int c = 0; c < kIn0 - kLat; ++c) ir[c] = __float2bfloat16_rn(0.f);
-        idx_s[tid] = -1;
-      }
-    }
-    load_first(smem, wbuf);
-    __syncthreads();
-    for (int e = tid; e < kRows * kLat; e += kThreads) {
-      const int r = e / kLat, c = e - r * kLat;
-      const int id = idx_s[r];
-      in0[r * kI0Str + c] = __float2bfloat16_rn(
-          id < 0 ? 0.f : __ldg(table + (size_t)id * kRowW + c));
-    }
-    __syncthreads();
-
-    float acc0[5][4];
-    mlp_sweeps<true>(smem, wbuf, bbuf, acc0);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = warp * 16 + g + 8 * h;
-      if (row >= rows) continue;
-      const size_t q = static_cast<size_t>(pair_s[row]);
-#pragma unroll
-      for (int ni = 0; ni < 5; ++ni) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = ni * 8 + 2 * t + j;
-          const float r = bf16_round(acc0[ni][2 * h + j]);
-          if (col < kLat) {
-            out_r[q * kLat + col] = __float2bfloat16_rn(r);
-          } else if (col < kRowW) {
-            rp_s[row * 3 + (col - kLat)] = r;
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // --- residual w and the per-point sums over the point's real rows, in
-    // j order, by the thread of its first row ---
-    if (tid < rows) {
-      const int q = pair_s[tid];
-      out_w[q] = w_s[tid];
-      const int p = q / k;
-      if (tid == 0 || pair_s[tid - 1] / k != p) {
-        float num = 0.f, den = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f;
-        for (int r = tid; r < rows && pair_s[r] / k == p; ++r) {
-          const float w = w_s[r];
-          num = __fadd_rn(num, __fmul_rn(w, s_s[r]));
-          den = __fadd_rn(den, w);
-          g0 = __fadd_rn(g0, __fmul_rn(w, rp_s[r * 3]));
-          g1 = __fadd_rn(g1, __fmul_rn(w, rp_s[r * 3 + 1]));
-          g2 = __fadd_rn(g2, __fmul_rn(w, rp_s[r * 3 + 2]));
-        }
-        float* o = out_pt + (size_t)p * 5;
-        o[0] = num;
-        o[1] = den;
-        o[2] = g0;
-        o[3] = g1;
-        o[4] = g2;
-      }
-    }
-  }
-}
-
-constexpr int kSmemAgg = kSmemGrad + (kRows + 1) * 4;
-static_assert(kSmemAgg <= 232448, "shared memory");
-
-int launch_agg(const float* table, int n_rows, const int* idx,
-               const float* x, int n_pts, int k, const void* wbuf,
-               const float* bbuf, float rbf2, float* out_pt, float* out_w,
-               void* out_r, void* stream) {
-  if (k <= 0 || k > 32 || n_rows <= 1 || n_pts < 0 ||
-      (long long)n_pts * k > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pts == 0) return 0;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sdf_agg_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemAgg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sdf_agg_kernel<<<sms < n_pts ? sms : n_pts, kThreads, kSmemAgg,
-                   static_cast<cudaStream_t>(stream)>>>(
-      table, n_rows, idx, x, n_pts, k,
-      static_cast<const __nv_bfloat16*>(wbuf), bbuf, rbf2, out_pt, out_w,
-      static_cast<__nv_bfloat16*>(out_r));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K6 / K7: the prior on each of m pair rows, no weight and no sum.  The
 // input `in` is [m, 35] f32: with kRowsIn (K6) raw table rows g = [lat | pos]
 // and xq [m, 3] the query of each row, so that u = [lat | x - pos] is made
@@ -786,18 +571,6 @@ extern "C" int pair_sdf_value_agg_launch(const float* table, int n_rows,
                                          float* out_pt, void* stream) {
   return launch_value_agg(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2,
                           out_pt, stream);
-}
-
-// K3: out_pt [n_pts, 5] = (sum w s, sum w, sum w r_pos), out_w [n_pts*k],
-// out_r [n_pts*k, 32] bf16.
-extern "C" int pair_sdf_aggregate_launch(const float* table, int n_rows,
-                                         const int* idx, const float* x,
-                                         int n_pts, int k, const void* wbuf,
-                                         const float* bbuf, float rbf2,
-                                         float* out_pt, float* out_w,
-                                         void* out_r, void* stream) {
-  return launch_agg(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2, out_pt,
-                    out_w, out_r, stream);
 }
 
 // K7b: u [m, 35] f32 -> out_s [m].

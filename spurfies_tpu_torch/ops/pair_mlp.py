@@ -25,8 +25,8 @@ backward together, as the custom VJP of ``spurfies_tpu/model/field.py``'s
 ``spurfies_tpu/ops/pallas_mlp.py:458-533``, whose backwards are
 elementwise (no kernel, as in the JAX package).
 
-The CUDA kernels are ``csrc/pair_mlp.cu`` (K2, K3, K6, K7) and
-``csrc/agg_bwd.cu`` (K4); ``*_ref`` are their plain PyTorch versions (CPU
+The CUDA kernels are ``csrc/pair_mlp.cu`` (K2, K6, K7), ``csrc/sdf_agg.cu``
+(K3) and ``csrc/agg_bwd.cu`` (K4); ``*_ref`` are their plain PyTorch versions (CPU
 tensors, and the kernels' yardstick on the card).  The pair-MLP kernels
 follow the TPU kernels' rounding points: operands in the compute dtype,
 f32 accumulation, bias added in f32, activations rounded after each
@@ -65,15 +65,17 @@ _SIG = {
     "pair_sdf_value_agg_launch": [_P, ctypes.c_int, _P, _P, ctypes.c_int,
                                   ctypes.c_int, _P, _P, ctypes.c_float, _P,
                                   _P],
-    "pair_sdf_aggregate_launch": [_P, ctypes.c_int, _P, _P, ctypes.c_int,
-                                  ctypes.c_int, _P, _P, ctypes.c_float, _P,
-                                  _P, _P, _P],
     # K6 / K7: inputs, m, wbuf, bbuf, outputs, stream
     "pair_sdf_value_launch": [_P, _LL, _P, _P, _P, _P],
     "pair_sdf_value_and_input_grad_launch": [_P, _LL, _P, _P, _P, _P, _P],
     "pair_sdf_rows_value_launch": [_P, _P, _LL, _P, _P, _P, _P, _P],
     "pair_sdf_rows_grad_launch": [_P, _P, _LL, _P, _P, _P, _P, _P, _P],
 }
+_SIG_K3 = {"pair_sdf_aggregate_launch": [_P, ctypes.c_int, _P, _P, ctypes.c_int,
+                                        ctypes.c_int, _P, _P, ctypes.c_float,
+                                        _P, _P, _P, ctypes.c_int, _P]}
+# K3's products: wgmma (else mma.sync, from the same shared-memory tiles)
+K3_WGMMA = False
 _SIG_BWD = {"pair_sdf_aggregate_bwd_launch": [_P, _P, _P, _P, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int, _P,
                                               _P]}
@@ -92,6 +94,7 @@ class PriorLayers:
     n_act: int
     compute_dtype: torch.dtype
     _packed: tuple = None
+    _packed_k3: torch.Tensor = None
 
     def kernel_buffers(self):
         """(bf16 weights, f32 biases) in the layout of csrc/pair_mlp.cu."""
@@ -117,6 +120,41 @@ class PriorLayers:
             bbuf = torch.cat([b.reshape(-1).float() for b in self.bs])
             self._packed = (wbuf, bbuf.contiguous())
         return self._packed
+
+    def k3_buffer(self):
+        """K3's bf16 weights (``csrc/sdf_agg.cu``), packed once in the byte
+        layout of its shared-memory stages, so that each of the 26 chunks is
+        one contiguous bulk copy: chunk 0 is W0^T ``[256, 64]`` (k >= 35
+        zero); chunks 1-12 W_l^T for l = 1, 2, 3 and chunks 13-24 W_l for
+        l = 3, 2, 1, each layer as four ``[256, 64]`` column blocks; then
+        W0 ``[40, 256]`` (rows >= 35 zero) as four ``[40, 64]`` blocks, and
+        w_v ``[256]``.  Every block is :func:`swizzle128`'d.  K3's biases
+        are :meth:`kernel_buffers`' f32 buffer."""
+        if self._packed_k3 is None:
+            self.kernel_buffers()                   # dtype and shape checks
+            w0 = self.ws[0]
+            up0 = w0.new_zeros(HID, 64)
+            up0[:, :LAT + 3] = w0.t()
+            dn0 = w0.new_zeros(_OUT0, HID)
+            dn0[:LAT + 3] = w0
+            parts = [swizzle128(up0)]
+            parts += [swizzle128(w.t()) for w in self.ws[1:4]]
+            parts += [swizzle128(w) for w in self.ws[3:0:-1]]
+            parts += [swizzle128(dn0), self.ws[4].reshape(-1)]
+            self._packed_k3 = torch.cat(parts).contiguous()
+        return self._packed_k3
+
+
+def swizzle128(bt: torch.Tensor) -> torch.Tensor:
+    """A K-major ``[rows, K]`` operand (K a multiple of 64) as the flat
+    shared-memory image that ``csrc/sdf_agg.cu`` multiplies: K / 64 blocks
+    of ``[rows, 64]``, each row 128 bytes whose 16-byte chunk c is stored at
+    chunk ``c ^ (row % 8)`` (the 128-byte swizzle of ``wgmma``)."""
+    rows, k = bt.shape
+    blocks = bt.reshape(rows, k // 64, 8, 8).permute(1, 0, 2, 3)
+    r = torch.arange(rows, device=bt.device)[:, None]
+    src = torch.arange(8, device=bt.device)[None, :] ^ (r % 8)
+    return blocks[:, r, src].reshape(-1)
 
 
 def _prep_layers(frozen, compute_dtype=torch.bfloat16) -> PriorLayers:
@@ -311,16 +349,17 @@ def pair_sdf_aggregate(table, idx_ext, x, layers: PriorLayers, rbf: float):
     p, k = idx_ext.shape
     if k > 32:
         raise ValueError(f"pair_sdf_aggregate: k={k} must be at most 32")
-    wbuf, bbuf = layers.kernel_buffers()
+    bbuf = layers.kernel_buffers()[1]
+    wbuf = layers.k3_buffer()
     idx_ext, x, table = (t.contiguous() for t in (idx_ext, x, table))
     pt = torch.empty((p, 5), dtype=torch.float32, device=x.device)
     w = torch.empty((p * k,), dtype=torch.float32, device=x.device)
     r = torch.empty((p * k, LAT), dtype=torch.bfloat16, device=x.device)
-    lib = cuda_build.load("pair_mlp", _SIG)
+    lib = cuda_build.load("sdf_agg", _SIG_K3)
     err = lib.pair_sdf_aggregate_launch(
         table.data_ptr(), table.shape[0], idx_ext.data_ptr(), x.data_ptr(),
         p, k, wbuf.data_ptr(), bbuf.data_ptr(), float(rbf) ** 2,
-        pt.data_ptr(), w.data_ptr(), r.data_ptr(),
+        pt.data_ptr(), w.data_ptr(), r.data_ptr(), int(K3_WGMMA),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "pair_sdf_aggregate")
     LAUNCHES["pair_sdf_aggregate"] += 1

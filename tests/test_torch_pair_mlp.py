@@ -260,3 +260,39 @@ def test_dump_pairs_add_nothing_to_the_aggregate(setup):
     assert torch.equal(
         tpm.pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, N),
         tpm.pair_sdf_aggregate_bwd_ref(num_bar, w, r_junk, idx_ext, N))
+
+
+def _unswizzle(buf, rows, k):
+    """``[rows, k]`` read back from blocks laid out as ``swz()`` of
+    ``csrc/sdf_agg.cu`` addresses them: element (r, c) at
+    ``(c // 64) rows 64 + 64 r + ((c % 64) // 8 ^ r % 8) 8 + c % 8``."""
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(k)[None, :]
+    off = (c // 64) * rows * 64 + r * 64 + \
+        (((c % 64) // 8) ^ (r % 8)) * 8 + c % 8
+    return buf[off]
+
+
+def test_k3_buffer_unpacks_to_the_prior_layers(setup):
+    """K3's weight buffer holds every layer of ``PriorLayers.ws`` exactly,
+    in the chunk order the kernel streams them."""
+    with pytest.raises(ValueError, match="bf16"):
+        _torch_inputs(setup, torch.float32)[0].k3_buffer()
+    prior = _torch_inputs(setup, torch.bfloat16)[0]
+    buf = prior.k3_buffer()
+    ch = 256 * 64
+    assert buf.dtype == torch.bfloat16
+    assert buf.numel() == 25 * ch + 40 * 256 + 256
+    assert prior.k3_buffer() is buf                  # packed once
+    ws = prior.ws
+    up0 = _unswizzle(buf[:ch], 256, 64)
+    assert torch.equal(up0[:, :35], ws[0].t()) and bool((up0[:, 35:] == 0).all())
+    for n, l in enumerate((1, 2, 3)):
+        got = _unswizzle(buf[(1 + 4 * n) * ch:(5 + 4 * n) * ch], 256, 256)
+        assert torch.equal(got, ws[l].t())
+    for n, l in enumerate((3, 2, 1)):
+        got = _unswizzle(buf[(13 + 4 * n) * ch:(17 + 4 * n) * ch], 256, 256)
+        assert torch.equal(got, ws[l])
+    dn0 = _unswizzle(buf[25 * ch:25 * ch + 40 * 256], 40, 256)
+    assert torch.equal(dn0[:35], ws[0]) and bool((dn0[35:] == 0).all())
+    assert torch.equal(buf[25 * ch + 40 * 256:], ws[4].reshape(-1))
