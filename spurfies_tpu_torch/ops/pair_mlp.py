@@ -75,7 +75,7 @@ _SIG_K3 = {"pair_sdf_aggregate_launch": [_P, ctypes.c_int, _P, _P, ctypes.c_int,
                                         ctypes.c_int, _P, _P, ctypes.c_float,
                                         _P, _P, _P, ctypes.c_int, _P]}
 # K3's products: wgmma (else mma.sync, from the same shared-memory tiles)
-K3_WGMMA = False
+K3_WGMMA = True
 _SIG_BWD = {"pair_sdf_aggregate_bwd_launch": [_P, _P, _P, _P, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int, _P,
                                               _P]}
