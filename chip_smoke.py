@@ -1331,11 +1331,9 @@ def main():
             for line in path.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
-    wg = "true" if pair_mlp.K3_WGMMA else "false"
-    ops = sass_opcodes(cuda_build.lib_path("sdf_agg"),
-                       f"sdf_agg_kernelILb{int(pair_mlp.K3_WGMMA)}E",
+    ops = sass_opcodes(cuda_build.lib_path("sdf_agg"), "sdf_agg_kernel",
                        ("HGMMA", "HMMA"))
-    log(f"build: K3 SASS (sdf_agg_kernel<{wg}>, the one K3 launches): " + (
+    log("build: K3 SASS (sdf_agg_kernel): " + (
         "cuobjdump not found" if ops is None else
         f"HGMMA {'present' if ops['HGMMA'] else 'absent'} "
         f"({ops['HGMMA']} HGMMA, {ops['HMMA']} HMMA instructions)"))

@@ -31,8 +31,8 @@
 // down-sweep delta rounded to bf16 after each product and after each gate.
 //
 // What bounds it on an H100: operations. About 0.41 MFLOP per pair for K2
-// against ~150 bytes of input and output per pair: far
-// above the card's ~295 FLOP/byte ridge. K6/K7 do the same work per row
+// against ~150 bytes of input and output per pair: far above the card's
+// ~295 FLOP/byte ridge. K6/K7 do the same work per row
 // against 150-310 bytes (r is written in f32). The TPU kernel's point was to keep
 // the [rows, 256] activations out of HBM; here they live in shared memory
 // and the matrix products run on the tensor cores (mma.sync m16n8k16,
@@ -363,37 +363,6 @@ __device__ __forceinline__ void load_first(unsigned char* smem,
             wbuf + kOffUp0, kHid, kIn0);
 }
 
-// The gather of one pair row into the first layer's input (row `r` of act,
-// stride kI0Str): x_pi = x - pos and [bf16(x_pi) | 0] in columns 32..47,
-// w = exp(-rbf^2 |x_pi|^2) and x_pi in f32 into w_s / xpi_s.  Returns the
-// table row that was read (an index outside [0, n_rows) reads the dump
-// row n_rows - 1).
-__device__ __forceinline__ int gather_row(unsigned char* smem, int r,
-                                          const float* __restrict__ table,
-                                          int n_rows, int raw,
-                                          const float* xp, float rbf2) {
-  __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
-  float* xpi_s = reinterpret_cast<float*>(smem + kSmXpi);
-  float* w_s = reinterpret_cast<float*>(smem + kSmWr);
-  const int id = (raw >= 0 && raw < n_rows) ? raw : n_rows - 1;
-  const float* gr = table + (size_t)id * kRowW;
-  const float e0 = __fsub_rn(xp[0], gr[kLat]);
-  const float e1 = __fsub_rn(xp[1], gr[kLat + 1]);
-  const float e2 = __fsub_rn(xp[2], gr[kLat + 2]);
-  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)),
-                             __fmul_rn(e2, e2));
-  w_s[r] = expf(__fmul_rn(-rbf2, d2));
-  xpi_s[r * 3] = e0;
-  xpi_s[r * 3 + 1] = e1;
-  xpi_s[r * 3 + 2] = e2;
-  __nv_bfloat16* ir = in0 + r * kI0Str + kLat;
-  ir[0] = __float2bfloat16_rn(e0);
-  ir[1] = __float2bfloat16_rn(e1);
-  ir[2] = __float2bfloat16_rn(e2);
-  for (int c = 3; c < kIn0 - kLat; ++c) ir[c] = __float2bfloat16_rn(0.f);
-  return id;
-}
-
 // K2: gather by index, RBF weight, prior value, per-point (sum w s, sum w).
 // A block owns 128 pair rows (128 / k whole points), dump rows included.
 __global__ void __launch_bounds__(kThreads, 1)
@@ -404,7 +373,8 @@ pair_mlp_kernel(const float* __restrict__ table, int n_rows,
                 float* __restrict__ out_pt) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
-  const float* w_s = reinterpret_cast<const float*>(smem + kSmWr);
+  float* xpi_s = reinterpret_cast<float*>(smem + kSmXpi);
+  float* w_s = reinterpret_cast<float*>(smem + kSmWr);
   const float* s_s = reinterpret_cast<const float*>(smem + kSmS);
   int* idx_s = reinterpret_cast<int*>(smem + kSmIdx);
 
@@ -413,9 +383,28 @@ pair_mlp_kernel(const float* __restrict__ table, int n_rows,
   const int pts = kRows / k;
   const size_t pt0 = (size_t)blockIdx.x * pts;
 
-  if (tid < kRows)
-    idx_s[tid] = gather_row(smem, tid, table, n_rows, idx[row0 + tid],
-                            xq + (pt0 + tid / k) * 3, rbf2);
+  // --- gather: x_pi, w and the first layer's input [lat | x_pi | 0] ---
+  if (tid < kRows) {
+    const int raw = idx[row0 + tid];
+    const int id = (raw >= 0 && raw < n_rows) ? raw : n_rows - 1;
+    idx_s[tid] = id;
+    const float* gr = table + (size_t)id * kRowW;
+    const float* xp = xq + (pt0 + tid / k) * 3;
+    const float e0 = __fsub_rn(xp[0], gr[kLat]);
+    const float e1 = __fsub_rn(xp[1], gr[kLat + 1]);
+    const float e2 = __fsub_rn(xp[2], gr[kLat + 2]);
+    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)),
+                               __fmul_rn(e2, e2));
+    w_s[tid] = expf(__fmul_rn(-rbf2, d2));
+    xpi_s[tid * 3] = e0;
+    xpi_s[tid * 3 + 1] = e1;
+    xpi_s[tid * 3 + 2] = e2;
+    __nv_bfloat16* ir = in0 + tid * kI0Str + kLat;
+    ir[0] = __float2bfloat16_rn(e0);
+    ir[1] = __float2bfloat16_rn(e1);
+    ir[2] = __float2bfloat16_rn(e2);
+    for (int c = 3; c < kIn0 - kLat; ++c) ir[c] = __float2bfloat16_rn(0.f);
+  }
   load_first(smem, wbuf);
   __syncthreads();
   for (int e = tid; e < kRows * kLat; e += kThreads) {

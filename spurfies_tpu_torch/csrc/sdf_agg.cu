@@ -19,10 +19,10 @@
 // [bf16(lat) | bf16(x_pi) | 0], equal to the TPU body's
 // g_lat @ W_lat + x_pi @ W_pos up to f32 summation order.
 //
-// What bounds it on an H100: operations.  1.64 MFLOP per real pair (up
-// 0.41, down 0.41 MMACs) against ~110 bytes of input and output per pair:
-// far above the card's ~295 FLOP/byte ridge.  What a block reads most is
-// the weights: 820 KB per tile of 128 rows, from L2.
+// What bounds it on an H100: operations.  0.82 MFLOP per real pair (up
+// and down sweep 0.21 MMACs each) against ~110 bytes of input and output
+// per pair: far above the card's ~295 FLOP/byte ridge.  What a block reads
+// most is the weights: 820 KB per tile of 128 rows, from L2.
 //
 // Design:
 //   * Dump pairs are not computed.  A pair is real when its index lies in
@@ -54,17 +54,15 @@
 //     k-columns, 128-byte swizzled, which is what the wgmma descriptors
 //     read.  It reads the same 820 KB per tile from L2 as before; a larger
 //     tile or a cluster multicast would cut that, later.
-//   * Products: kWgmma -- wgmma.mma_async m64n256k16 (and m64n40k16 for
-//     the last, 256 -> 40 product) with A (the activations) and B (the
-//     weights) read from shared memory by descriptor and the f32
-//     accumulators in registers; otherwise mma.sync m16n8k16 per warp with
-//     ldmatrix fragments from the same tiles.  Either way warp w of a
-//     warpgroup holds rows 16 w .. 16 w + 15 and all 256 columns in the
-//     same accumulator layout, so the epilogues are shared: bias,
+//   * Products: wgmma.mma_async m64n256k16, and m64n40k16 for the last,
+//     256 -> 40 product (N = 40 is a legal wgmma width, so it stays on
+//     wgmma too), with A (the activations) and B (the weights) read from
+//     shared memory by descriptor and the f32 accumulators in registers.
+//     Warp w of a warpgroup holds rows 16 w .. 16 w + 15 and all 256
+//     columns.  The epilogues read the accumulators in place: bias,
 //     LeakyReLU, bf16 rounding and the gate bits (kept in registers, 16
 //     words a thread) for the up sweep, bf16(bf16(acc) * gate) for the
-//     down sweep, and the fused 256 -> 1 tail in f32 from registers.  The
-//     last product runs on wgmma too: N = 40 is a legal wgmma width.
+//     down sweep, and the fused 256 -> 1 tail in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -273,128 +271,54 @@ __device__ __forceinline__ void wgmma_40(float (&d)[20], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// --- mma.sync m16n8k16 with ldmatrix fragments (the kWgmma == false
-// products) ---
-__device__ __forceinline__ void mma_bf16(float& c0, float& c1, float& c2,
-                                         float& c3, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c0), "+f"(c1), "+f"(c2), "+f"(c3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-// One warp's share of a k16 step: its 16 rows of A (the warpgroup's
-// activations at `act`, columns kc..kc+15) times NT 8-column tiles of B
-// (`rows` x 64-column blocks at `b`, columns bc..bc+15).
-template <int NT>
-__device__ __forceinline__ void warp_k16(float (&acc)[NT * 4], uint32_t act,
-                                         int kc, uint32_t b, int bc,
-                                         int rows, int w4, int lane) {
-  const int m = lane >> 3;
-  uint32_t a[4];
-  ldsm_x4(act + swz(w4 * 16 + (m & 1) * 8 + (lane & 7), kc + (m >> 1) * 8,
-                    kWgRows),
-          a);
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    uint32_t bb[2];
-    ldsm_x2(b + swz(8 * i + (lane & 7), bc + (m & 1) * 8, rows), bb);
-    mma_bf16(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3], a,
-             bb[0], bb[1]);
-  }
-}
-
 // One layer's product acc = A [64, 64 NKB] . B over NKB weight chunks of the
 // ring (KSTEPS k16 steps of each), releasing each stage when read.
-template <bool kWg, int NKB, int KSTEPS>
+template <int NKB, int KSTEPS>
 __device__ __forceinline__ void layer(float (&acc)[128], uint32_t act,
                                       uint32_t ring, uint64_t* full,
-                                      uint64_t* empty, int& it, int w4,
-                                      int lane) {
-  if constexpr (kWg) {
-    wg_fence();
-    int prev = 0;
+                                      uint64_t* empty, int& it, int lane) {
+  wg_fence();
+  int prev = 0;
 #pragma unroll 1
-    for (int kb = 0; kb < NKB; ++kb) {
-      const int stage = it & (kStages - 1);
-      mbar_wait(full + stage, (it / kStages) & 1);
-      const uint32_t a = act + kb * kKbBytes;
-      const uint32_t b = ring + stage * kStageBytes;
+  for (int kb = 0; kb < NKB; ++kb) {
+    const int stage = it & (kStages - 1);
+    mbar_wait(full + stage, (it / kStages) & 1);
+    const uint32_t a = act + kb * kKbBytes;
+    const uint32_t b = ring + stage * kStageBytes;
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks)
-        wgmma_256(acc, wg_desc(a + ks * 32), wg_desc(b + ks * 32),
-                  (kb | ks) != 0);
-      wg_commit();
-      if (kb > 0) {
-        wg_wait<1>();
-        if (lane == 0) mbar_arrive(empty + prev);
-      }
-      prev = stage;
-      ++it;
+    for (int ks = 0; ks < KSTEPS; ++ks)
+      wgmma_256(acc, wg_desc(a + ks * 32), wg_desc(b + ks * 32),
+                (kb | ks) != 0);
+    wg_commit();
+    if (kb > 0) {
+      wg_wait<1>();
+      if (lane == 0) mbar_arrive(empty + prev);
     }
-    wg_wait<0>();
-    if (lane == 0) mbar_arrive(empty + prev);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 128; ++e) acc[e] = 0.f;
-#pragma unroll 1
-    for (int kb = 0; kb < NKB; ++kb) {
-      const int stage = it & (kStages - 1);
-      mbar_wait(full + stage, (it / kStages) & 1);
-      const uint32_t b = ring + stage * kStageBytes;
-#pragma unroll 1
-      for (int ks = 0; ks < KSTEPS; ++ks)
-        warp_k16<32>(acc, act, kb * 64 + ks * 16, b, ks * 16, kHid, w4, lane);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + stage);
-      ++it;
-    }
+    prev = stage;
+    ++it;
   }
+  wg_wait<0>();
+  if (lane == 0) mbar_arrive(empty + prev);
 }
 
 // The last product [64, 256] . W0^T -> [64, 40], from one chunk holding
 // W0 as four [40][64] blocks.
-template <bool kWg>
 __device__ __forceinline__ void last_product(float (&acc)[20], uint32_t act,
                                              uint32_t ring, uint64_t* full,
                                              uint64_t* empty, int& it,
-                                             int w4, int lane) {
+                                             int lane) {
   const int stage = it & (kStages - 1);
   mbar_wait(full + stage, (it / kStages) & 1);
   const uint32_t b = ring + stage * kStageBytes;
-  if constexpr (kWg) {
-    wg_fence();
+  wg_fence();
 #pragma unroll
-    for (int kb = 0; kb < 4; ++kb)
+  for (int kb = 0; kb < 4; ++kb)
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        wgmma_40(acc, wg_desc(act + kb * kKbBytes + ks * 32),
-                 wg_desc(b + kb * kOut0 * 128 + ks * 32), (kb | ks) != 0);
-    wg_commit();
-    wg_wait<0>();
-  } else {
-#pragma unroll
-    for (int e = 0; e < 20; ++e) acc[e] = 0.f;
-#pragma unroll 1
-    for (int kc = 0; kc < kHid; kc += 16)
-      warp_k16<5>(acc, act, kc, b, kc, kOut0, w4, lane);
-    __syncwarp();
-  }
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_40(acc, wg_desc(act + kb * kKbBytes + ks * 32),
+               wg_desc(b + kb * kOut0 * 128 + ks * 32), (kb | ks) != 0);
+  wg_commit();
+  wg_wait<0>();
   if (lane == 0) mbar_arrive(empty + stage);
   ++it;
 }
@@ -551,7 +475,6 @@ __device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
 
 // K3.  wbuf: PriorLayers.k3_buffer (kChunks chunks, then w_v); bbuf: f32
 // b0..b3 [4][256], then b_v.
-template <bool kWgmma>
 __global__ void __launch_bounds__(kThreads, 1)
 sdf_agg_kernel(const float* __restrict__ table, int n_rows,
                const int* __restrict__ idx, const float* __restrict__ xq,
@@ -704,16 +627,15 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
         uint32_t gates[4][4];
         float part[2] = {0.f, 0.f};
         // --- up sweep ---
-        layer<kWgmma, 1, 3>(acc, act_a, ring_a, full_w, empty_w, it, w4, lane);
-        if (kWgmma) bar_sync(1 + wg, 128);
+        layer<1, 3>(acc, act_a, ring_a, full_w, empty_w, it, lane);
+        bar_sync(1 + wg, 128);  // the warpgroup's reads of act are done
         epi_up<false>(acc, gates[0], act, bias_s, wv_s, part, w4, g, t4);
         fence_async_smem();
         bar_sync(1 + wg, 128);
 #pragma unroll
         for (int l = 1; l < 4; ++l) {
-          layer<kWgmma, 4, 4>(acc, act_a, ring_a, full_w, empty_w, it, w4,
-                              lane);
-          if (kWgmma) bar_sync(1 + wg, 128);
+          layer<4, 4>(acc, act_a, ring_a, full_w, empty_w, it, lane);
+          bar_sync(1 + wg, 128);
           if (l < 3) {
             epi_up<false>(acc, gates[l], act, bias_s + l * kHid, wv_s, part, w4,
                           g, t4);
@@ -743,16 +665,14 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
         bar_sync(1 + wg, 128);
 #pragma unroll
         for (int l = 3; l >= 1; --l) {
-          layer<kWgmma, 4, 4>(acc, act_a, ring_a, full_w, empty_w, it, w4,
-                              lane);
-          if (kWgmma) bar_sync(1 + wg, 128);
+          layer<4, 4>(acc, act_a, ring_a, full_w, empty_w, it, lane);
+          bar_sync(1 + wg, 128);
           epi_down(acc, gates[l - 1], act, slope, w4, g, t4);
           fence_async_smem();
           bar_sync(1 + wg, 128);
         }
         float acc0[20];
-        last_product<kWgmma>(acc0, act_a, ring_a, full_w, empty_w, it, w4,
-                             lane);
+        last_product(acc0, act_a, ring_a, full_w, empty_w, it, lane);
         // r = bf16 delta: r_lat to HBM, r_pos for the sums
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -814,7 +734,6 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
   }
 }
 
-template <bool kWgmma>
 int launch(const float* table, int n_rows, const int* idx, const float* x,
            int n_pts, int k, const void* wbuf, const float* bbuf, float rbf2,
            float* out_pt, float* out_w, void* out_r, void* stream) {
@@ -827,12 +746,12 @@ int launch(const float* table, int n_rows, const int* idx, const float* x,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sdf_agg_kernel<kWgmma>,
+    err = cudaFuncSetAttribute(sdf_agg_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sdf_agg_kernel<kWgmma><<<sms < n_pts ? sms : n_pts, kThreads, kSmem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  sdf_agg_kernel<<<sms < n_pts ? sms : n_pts, kThreads, kSmem,
+                   static_cast<cudaStream_t>(stream)>>>(
       table, n_rows, idx, x, n_pts, k,
       static_cast<const __nv_bfloat16*>(wbuf), bbuf, rbf2, out_pt, out_w,
       static_cast<__nv_bfloat16*>(out_r));
@@ -844,17 +763,13 @@ int launch(const float* table, int n_rows, const int* idx, const float* x,
 // table [n_rows, 35] f32 (row n_rows - 1: the dump row), idx [n_pts, k]
 // i32, x [n_pts, 3] f32, wbuf: PriorLayers.k3_buffer (bf16), bbuf: f32
 // b0..b3, b_v.  out_pt [n_pts, 5] = (sum w s, sum w, sum w r_pos),
-// out_w [n_pts*k], out_r [n_pts*k, 32] bf16.  wgmma: products on wgmma
-// (else mma.sync).
+// out_w [n_pts*k], out_r [n_pts*k, 32] bf16.
 extern "C" int pair_sdf_aggregate_launch(const float* table, int n_rows,
                                          const int* idx, const float* x,
                                          int n_pts, int k, const void* wbuf,
                                          const float* bbuf, float rbf2,
                                          float* out_pt, float* out_w,
-                                         void* out_r, int wgmma,
-                                         void* stream) {
-  return wgmma ? launch<true>(table, n_rows, idx, x, n_pts, k, wbuf, bbuf,
-                              rbf2, out_pt, out_w, out_r, stream)
-               : launch<false>(table, n_rows, idx, x, n_pts, k, wbuf, bbuf,
-                               rbf2, out_pt, out_w, out_r, stream);
+                                         void* out_r, void* stream) {
+  return launch(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2, out_pt,
+                out_w, out_r, stream);
 }

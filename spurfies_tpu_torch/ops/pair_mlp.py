@@ -26,8 +26,8 @@ backward together, as the custom VJP of ``spurfies_tpu/model/field.py``'s
 elementwise (no kernel, as in the JAX package).
 
 The CUDA kernels are ``csrc/pair_mlp.cu`` (K2, K6, K7), ``csrc/sdf_agg.cu``
-(K3) and ``csrc/agg_bwd.cu`` (K4); ``*_ref`` are their plain PyTorch versions (CPU
-tensors, and the kernels' yardstick on the card).  The pair-MLP kernels
+(K3) and ``csrc/agg_bwd.cu`` (K4); ``*_ref`` are their plain PyTorch
+versions (CPU tensors, and the kernels' yardstick on the card).  The pair-MLP kernels
 follow the TPU kernels' rounding points: operands in the compute dtype,
 f32 accumulation, bias added in f32, activations rounded after each
 LeakyReLU, ``s`` rounded to the compute dtype, the down-sweep delta
@@ -73,9 +73,7 @@ _SIG = {
 }
 _SIG_K3 = {"pair_sdf_aggregate_launch": [_P, ctypes.c_int, _P, _P, ctypes.c_int,
                                         ctypes.c_int, _P, _P, ctypes.c_float,
-                                        _P, _P, _P, ctypes.c_int, _P]}
-# K3's products: wgmma (else mma.sync, from the same shared-memory tiles)
-K3_WGMMA = True
+                                        _P, _P, _P, _P]}
 _SIG_BWD = {"pair_sdf_aggregate_bwd_launch": [_P, _P, _P, _P, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int, _P,
                                               _P]}
@@ -128,7 +126,7 @@ class PriorLayers:
         zero); chunks 1-12 W_l^T for l = 1, 2, 3 and chunks 13-24 W_l for
         l = 3, 2, 1, each layer as four ``[256, 64]`` column blocks; then
         W0 ``[40, 256]`` (rows >= 35 zero) as four ``[40, 64]`` blocks, and
-        w_v ``[256]``.  Every block is :func:`swizzle128`'d.  K3's biases
+        w_v ``[256]``.  Every block is :func:`_swizzle128`'d.  K3's biases
         are :meth:`kernel_buffers`' f32 buffer."""
         if self._packed_k3 is None:
             self.kernel_buffers()                   # dtype and shape checks
@@ -137,15 +135,15 @@ class PriorLayers:
             up0[:, :LAT + 3] = w0.t()
             dn0 = w0.new_zeros(_OUT0, HID)
             dn0[:LAT + 3] = w0
-            parts = [swizzle128(up0)]
-            parts += [swizzle128(w.t()) for w in self.ws[1:4]]
-            parts += [swizzle128(w) for w in self.ws[3:0:-1]]
-            parts += [swizzle128(dn0), self.ws[4].reshape(-1)]
+            parts = [_swizzle128(up0)]
+            parts += [_swizzle128(w.t()) for w in self.ws[1:4]]
+            parts += [_swizzle128(w) for w in self.ws[3:0:-1]]
+            parts += [_swizzle128(dn0), self.ws[4].reshape(-1)]
             self._packed_k3 = torch.cat(parts).contiguous()
         return self._packed_k3
 
 
-def swizzle128(bt: torch.Tensor) -> torch.Tensor:
+def _swizzle128(bt: torch.Tensor) -> torch.Tensor:
     """A K-major ``[rows, K]`` operand (K a multiple of 64) as the flat
     shared-memory image that ``csrc/sdf_agg.cu`` multiplies: K / 64 blocks
     of ``[rows, 64]``, each row 128 bytes whose 16-byte chunk c is stored at
@@ -359,7 +357,7 @@ def pair_sdf_aggregate(table, idx_ext, x, layers: PriorLayers, rbf: float):
     err = lib.pair_sdf_aggregate_launch(
         table.data_ptr(), table.shape[0], idx_ext.data_ptr(), x.data_ptr(),
         p, k, wbuf.data_ptr(), bbuf.data_ptr(), float(rbf) ** 2,
-        pt.data_ptr(), w.data_ptr(), r.data_ptr(), int(K3_WGMMA),
+        pt.data_ptr(), w.data_ptr(), r.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "pair_sdf_aggregate")
     LAUNCHES["pair_sdf_aggregate"] += 1
