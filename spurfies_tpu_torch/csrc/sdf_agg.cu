@@ -42,8 +42,9 @@
 //   * Warp roles: warps 0-3 and 4-7 are two consumer warpgroups, each
 //     owning 64 rows of the tile; warp 8 is the producer (warps 9-11 only
 //     hand their registers over: setmaxnreg gives the producer warpgroup
-//     40 a thread and the consumers 232, room for the 128 accumulators
-//     and the 16 gate words without spilling).  The producer
+//     40 a thread and the consumers 232; ptxas still reports 168, 65,536
+//     over 384 threads, so the 128 accumulators leave little room and the
+//     gate bits are kept in shared memory).  The producer
 //     fills the next tile's row list (a two-slot ring of tile descriptors)
 //     and streams the 26 weight chunks of every tile into a four-stage
 //     ring of 32 KB shared-memory stages: one cp.async.bulk per chunk,
@@ -60,9 +61,10 @@
 //     shared memory by descriptor and the f32 accumulators in registers.
 //     Warp w of a warpgroup holds rows 16 w .. 16 w + 15 and all 256
 //     columns.  The epilogues read the accumulators in place: bias,
-//     LeakyReLU, bf16 rounding and the gate bits (kept in registers, 16
-//     words a thread) for the up sweep, bf16(bf16(acc) * gate) for the
-//     down sweep, and the fused 256 -> 1 tail in f32.
+//     LeakyReLU, bf16 rounding and the gate bits (to shared memory, read
+//     back by the thread that wrote them) for the up sweep,
+//     bf16(bf16(acc) * gate) for the down sweep, and the fused 256 -> 1
+//     tail in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +92,10 @@ constexpr int kKbBytes = kWgRows * 128;              // a 64-column block
 // Shared memory (bytes from a 1024-aligned base).
 constexpr int kSmRing = 0;
 constexpr int kSmAct = kSmRing + kStages * kStageBytes;
-constexpr int kSmBias = kSmAct + 2 * kActBytes;      // f32 [4][256]
+constexpr int kLayerGates = kWgRows * 8;             // u32 words a layer
+constexpr int kGateWords = 4 * kLayerGates;          // a warpgroup's gates
+constexpr int kSmGate = kSmAct + 2 * kActBytes;      // u32 [2][4][64][8]
+constexpr int kSmBias = kSmGate + 2 * kGateWords * 4;  // f32 [4][256]
 constexpr int kSmWv = kSmBias + 4 * kHid * 4;        // f32 [256]
 constexpr int kSmW = kSmWv + kHid * 4;               // f32 [128]
 constexpr int kSmS = kSmW + kRows * 4;               // f32 [128]
@@ -326,19 +331,33 @@ __device__ __forceinline__ void last_product(float (&acc)[20], uint32_t act,
 // --- epilogues; element e = 4 i + 2 h + j of a thread's accumulator is
 // (row 16 w4 + g + 8 h, column 8 i + 2 t + j) of its warpgroup's tile ---
 
+// A layer's gate bits (a > 0) live in shared memory, [64 rows][8 words]
+// per warpgroup: the thread that owns (row, column 8 i + 2 t + j) keeps
+// them in word 2 t + i / 16 of the row, bit 2 (i % 16) + j, and is the one
+// that reads them back in the down sweep.  (In registers they would be 16
+// words a thread beside the 128 accumulators, and the epilogues spill.)
+__device__ __forceinline__ int gate_word(int w4, int g, int t, int e) {
+  return (w4 * 16 + g + 8 * (e >> 1)) * 8 + 2 * t + (e & 1);
+}
+
+// Word e = 2 h + i / 16 of the thread's gates: its row 16 w4 + g + 8 h.
+__device__ __forceinline__ void load_gates(const uint32_t* gates,
+                                           uint32_t (&gate)[4], int w4,
+                                           int g, int t) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) gate[e] = gates[gate_word(w4, g, t, e)];
+}
+
 // Up sweep: a = acc + b (f32), x = bf16(max(a, 0.01 a)) written over the
-// activations, the bits (a > 0) into `gate` (word 2 h + i / 16, bit
-// 2 (i % 16) + j).  kTail (the last layer): x is not stored, only
-// part[h] += x . w_v over the thread's columns.
+// activations, the bits (a > 0) into `gates`.  kTail (the last layer): x
+// is not stored, only part[h] += x . w_v over the thread's columns.
 template <bool kTail>
 __device__ __forceinline__ void epi_up(const float (&acc)[128],
-                                       uint32_t (&gate)[4],
-                                       unsigned char* act,
+                                       uint32_t* gates, unsigned char* act,
                                        const float* bias, const float* wv,
                                        float (&part)[2], int w4, int g,
                                        int t) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) gate[e] = 0u;
+  uint32_t gate[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int col = 8 * i + 2 * t;
@@ -361,6 +380,8 @@ __device__ __forceinline__ void epi_up(const float (&acc)[128],
       }
     }
   }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) gates[gate_word(w4, g, t, e)] = gate[e];
 }
 
 __device__ __forceinline__ float gate_at(const uint32_t (&gate)[4], int i,
@@ -371,9 +392,11 @@ __device__ __forceinline__ float gate_at(const uint32_t (&gate)[4], int i,
 // Down sweep: delta = bf16(bf16(acc) * gate) with the gate of the layer
 // below, written over the activations.
 __device__ __forceinline__ void epi_down(const float (&acc)[128],
-                                         const uint32_t (&gate)[4],
+                                         const uint32_t* gates,
                                          unsigned char* act, float slope,
                                          int w4, int g, int t) {
+  uint32_t gate[4];
+  load_gates(gates, gate, w4, g, t);
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
 #pragma unroll
@@ -390,10 +413,12 @@ __device__ __forceinline__ void epi_down(const float (&acc)[128],
 }
 
 // The down sweep's first delta bf16(w_v * gate3), written as activations.
-__device__ __forceinline__ void delta_init(const uint32_t (&gate)[4],
+__device__ __forceinline__ void delta_init(const uint32_t* gates,
                                            unsigned char* act,
                                            const float* wv, float slope,
                                            int w4, int g, int t) {
+  uint32_t gate[4];
+  load_gates(gates, gate, w4, g, t);
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int col = 8 * i + 2 * t;
@@ -564,6 +589,8 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
     const int g = lane >> 2, t4 = lane & 3;
     const int ti = tid & 127;
     unsigned char* act = sm + kSmAct + wg * kActBytes;
+    uint32_t* gates =
+        reinterpret_cast<uint32_t*>(sm + kSmGate) + wg * kGateWords;
     const uint32_t act_a = sbase + kSmAct + wg * kActBytes;
     const uint32_t ring_a = sbase + kSmRing;
     const float slope = bf16_round(0.01f);
@@ -624,28 +651,26 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
 
       if (wg * kWgRows < rows) {
         float acc[128];
-        uint32_t gates[4][4];
         float part[2] = {0.f, 0.f};
         // --- up sweep ---
         layer<1, 3>(acc, act_a, ring_a, full_w, empty_w, it, lane);
         bar_sync(1 + wg, 128);  // the warpgroup's reads of act are done
-        epi_up<false>(acc, gates[0], act, bias_s, wv_s, part, w4, g, t4);
+        epi_up<false>(acc, gates, act, bias_s, wv_s, part, w4, g, t4);
         fence_async_smem();
         bar_sync(1 + wg, 128);
-#pragma unroll
+#pragma unroll 1
         for (int l = 1; l < 4; ++l) {
           layer<4, 4>(acc, act_a, ring_a, full_w, empty_w, it, lane);
           bar_sync(1 + wg, 128);
+          uint32_t* gl = gates + l * kLayerGates;
           if (l < 3) {
-            epi_up<false>(acc, gates[l], act, bias_s + l * kHid, wv_s, part, w4,
-                          g, t4);
-          } else {
-            epi_up<true>(acc, gates[l], act, bias_s + l * kHid, wv_s, part, w4,
-                         g, t4);
-          }
-          if (l < 3) {
+            epi_up<false>(acc, gl, act, bias_s + l * kHid, wv_s, part, w4, g,
+                          t4);
             fence_async_smem();
             bar_sync(1 + wg, 128);
+          } else {
+            epi_up<true>(acc, gl, act, bias_s + l * kHid, wv_s, part, w4, g,
+                         t4);
           }
         }
         // fused tail 256 -> 1: s = bf16(x4 . w_v + b_v); the four threads of
@@ -660,14 +685,14 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
                 bf16_round(__fadd_rn(s, bv));
         }
         // --- down sweep ---
-        delta_init(gates[3], act, wv_s, slope, w4, g, t4);
+        delta_init(gates + 3 * kLayerGates, act, wv_s, slope, w4, g, t4);
         fence_async_smem();
         bar_sync(1 + wg, 128);
-#pragma unroll
+#pragma unroll 1
         for (int l = 3; l >= 1; --l) {
           layer<4, 4>(acc, act_a, ring_a, full_w, empty_w, it, lane);
           bar_sync(1 + wg, 128);
-          epi_down(acc, gates[l - 1], act, slope, w4, g, t4);
+          epi_down(acc, gates + (l - 1) * kLayerGates, act, slope, w4, g, t4);
           fence_async_smem();
           bar_sync(1 + wg, 128);
         }
