@@ -11,7 +11,7 @@ failure exits non-zero before the last line):
   1. device: the card's name and ``nvidia-smi`` name / power limit;
   2. build: every kernel of ``spurfies_tpu_torch/csrc`` with nvcc for
      sm_90a, one process per source, all at once (seconds, registers,
-     spills);
+     spills, and whether K3's SASS holds HGMMA);
   3. scenes: the DUSt3R-like cloud of ``make_dust3r_like_scene`` (the
      JAX package's bench scene, 192x256 views; ~6k points -> the packed K1
      variant) and a dense 40k-point sphere (>2**15 points -> the exact K1
@@ -20,6 +20,8 @@ failure exits non-zero before the last line):
   4. render kernels: K1-K3 against their plain PyTorch versions on the
      card, in bf16, on the inputs of the first 4096-ray chunk of each
      scene's render (probe and shading shapes), with timings and bounds;
+     K3's w and r_lat exactly 0 on dump pairs, and K3 timed again with
+     every pair made a dump pair (under a tenth of the real run's time);
      on dust3r_like also K6b / K6a on that chunk's probe and shading pair
      rows (``model.fused_agg=false``) and K7a on its shading pairs
      compacted as ``model.pair_budget_frac=0.625`` compacts them;
