@@ -19,9 +19,11 @@ variants' outputs are wrong by design; only their times mean anything.
   products_only  neither weight copies nor epilogues
   regs_56_224    setmaxnreg 56 / 224 in place of 40 / 232
 
-It prints each variant's ptxas register and spill report, then two rounds
-of times (ms, CUDA events over 10 launches after one warm-up), then the
-``nvidia-smi`` name and power limit.
+The edits reach K2's and K6a's kernels in the same source too; only K3's
+(``sdf_agg_kernel``) is reported and timed.  It prints each variant's
+ptxas register and spill report of K3, then two rounds of times (ms, CUDA
+events over 10 launches after one warm-up), then the ``nvidia-smi`` name
+and power limit.
 """
 
 import ctypes
@@ -33,12 +35,14 @@ VARIANTS = {
     "base": [],
     "no_products": [("wgmma_256(acc,", "if (0) wgmma_256(acc,"),
                     ("wgmma_40(acc,", "if (0) wgmma_40(acc,")],
-    "no_loads": [("          bulk_load(sm + kSmRing",
-                  "          mbar_arrive(full_w + stage);\n"
-                  "          if (0) bulk_load(sm + kSmRing")],
-    "no_epilogues": [("epi_up<false>(acc,", "if (0) epi_up<false>(acc,"),
-                     ("epi_up<true>(acc,", "if (0) epi_up<true>(acc,"),
-                     ("delta_init(gates", "if (0) delta_init(gates"),
+    "no_loads": [("  bulk_load(sm + kSmRing",
+                  "  mbar_arrive(full_w + stage);\n"
+                  "  if (0) bulk_load(sm + kSmRing")],
+    "no_epilogues": [("epi_up<false, kGrad>(acc,",
+                      "if (0) epi_up<false, kGrad>(acc,"),
+                     ("epi_up<true, kGrad>(acc,",
+                      "if (0) epi_up<true, kGrad>(acc,"),
+                     ("delta_init(c.gates", "if (0) delta_init(c.gates"),
                      ("epi_down(acc,", "if (0) epi_down(acc,")],
     "regs_56_224": [("u32 40;", "u32 56;"), ("u32 232;", "u32 224;")],
 }
@@ -74,9 +78,10 @@ def main():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"chip_k3_parts: nvcc {name} failed:\n{log}")
-        report = [ln.strip() for ln in log.splitlines()
-                  if "spill" in ln or "Used" in ln]
-        print(f"{name}: " + " | ".join(report), flush=True)
+        report = [lines for entry, lines in
+                  cuda_build.ptxas_report(log).items()
+                  if "sdf_agg_kernel" in entry]
+        print(f"{name}: " + " | ".join(sum(report, [])), flush=True)
 
     dev = torch.device("cuda")
     table, idx, x, prior = _mixed_pairs(dev, 327680)
@@ -85,7 +90,7 @@ def main():
     pt = torch.empty((p, 5), device=dev)
     w = torch.empty(p * k, device=dev)
     r = torch.empty((p * k, 32), dtype=torch.bfloat16, device=dev)
-    sig = pair_mlp._SIG_K3["pair_sdf_aggregate_launch"]
+    sig = pair_mlp._SIG_SDF_AGG["pair_sdf_aggregate_launch"]
     for rnd in range(2):
         for name in VARIANTS:
             fn = ctypes.CDLL(str(out / f"lib{name}.so")).pair_sdf_aggregate_launch

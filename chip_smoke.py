@@ -10,8 +10,9 @@ failure exits non-zero before the last line):
 
   1. device: the card's name and ``nvidia-smi`` name / power limit;
   2. build: every kernel of ``spurfies_tpu_torch/csrc`` with nvcc for
-     sm_90a, one process per source, all at once (seconds, registers,
-     spills, and whether K3's SASS holds HGMMA);
+     sm_90a, one process per source, all at once (seconds, and each entry
+     function's registers and spills); the HGMMA and HMMA counts of the
+     SASS of the wgmma pipeline's three kernels (K3, K2, K6a);
   3. scenes: the DUSt3R-like cloud of ``make_dust3r_like_scene`` (the
      JAX package's bench scene, 192x256 views; ~6k points -> the packed K1
      variant) and a dense 40k-point sphere (>2**15 points -> the exact K1
@@ -20,11 +21,15 @@ failure exits non-zero before the last line):
   4. render kernels: K1-K3 against their plain PyTorch versions on the
      card, in bf16, on the inputs of the first 4096-ray chunk of each
      scene's render (probe and shading shapes), with timings and bounds;
-     K3's w and r_lat exactly 0 on dump pairs, and K3 timed again with
-     every pair made a dump pair (under a tenth of the real run's time);
-     on dust3r_like also K6b / K6a on that chunk's probe and shading pair
-     rows (``model.fused_agg=false``) and K7a on its shading pairs
-     compacted as ``model.pair_budget_frac=0.625`` compacts them;
+     K2's and K3's pt exactly 0 on points with no real pair, K3's w and
+     r_lat exactly 0 on dump pairs, and each timed again with every pair
+     made a dump pair (K3: under a tenth of the real run's time; K2: under
+     a tenth of what its pairs would take if each cost a real one); K2's pt
+     bit-equal to K3's pt[:, :2] on the probe input; on dust3r_like also
+     K6b / K6a on that chunk's probe and shading pair rows
+     (``model.fused_agg=false``, K6a's r_lat bit-equal to K3's on the
+     valid pairs) and K7a on its shading pairs compacted as
+     ``model.pair_budget_frac=0.625`` compacts them;
   5. render path: launch counters set to 0, then ``make_render_fn`` renders
      view 0 of both scenes in full (2 x 49,152 rays, default ModelConfig,
      render_chunk=4096, 5 sampler iterations); outputs must be finite and
@@ -134,11 +139,11 @@ MICRO_PAIRS = 655360
 # device-kernel names of the port's kernels, by the kernels line's label
 KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
                 ("K1 select_knn exact", "select_exact_kernel"),
-                ("K2 pair_sdf_value_agg", "pair_mlp_kernel"),
+                ("K2 pair_sdf_value_agg", "value_agg_kernel"),
                 ("K3 pair_sdf_aggregate", "sdf_agg_kernel"),
                 ("K4 pair_sdf_aggregate_bwd", "agg_bwd_kernel"),
                 ("K5 scatter_add_rows", "scatter_rows_kernel"),
-                ("K6a pair_sdf_rows_grad", "pair_rows_kernel<true, true>"),
+                ("K6a pair_sdf_rows_grad", "rows_grad_kernel"),
                 ("K6b pair_sdf_rows_value", "pair_rows_kernel<false, true>"),
                 ("K7a pair_sdf_value_and_input_grad",
                  "pair_rows_kernel<true, false>"),
@@ -377,6 +382,10 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
     p, k = idx_ext.shape
     # real pairs: an index in [0, N); the rest read the dump row
     real = ((idx_ext >= 0) & (idx_ext < table.shape[0] - 1)).reshape(-1)
+    # K2 and K3 compute no dump pair: a point with none real gets pt = 0
+    empty = ~real.view(p, k).any(1)
+    if bool((pt[empty] != 0).any()):
+        fail(f"{name}: pt not exactly 0 on a point with no real pair")
     if len(outs) == 3:
         w_err = float((outs[1] - refs[1]).abs().max())
         if w_err > 1e-6:               # expf against torch.exp, ulps
@@ -398,8 +407,7 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
     # MACs per pair: up 32*256 + 3*256 + 3*256*256 + 256; K3 adds the down
     # sweep 3*256*256 + 256*35 (the first delta is elementwise).  The work
     # this data needs is that of the real pairs: a pair on the dump row
-    # has w == 0 and adds nothing (K2 computes it all the same; K3 does
-    # not).
+    # has w == 0 and adds nothing (neither kernel computes it).
     up = 32 * 256 + 3 * 256 + 3 * 256 * 256 + 256
     down = 3 * 256 * 256 + 256 * 35
     grad = len(outs) == 3
@@ -418,31 +426,30 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
             "bound_by": b_by, "library_ms": None, "max_abs_err": err}
 
 
-def k3_dump_cost(name, args, prior, rbf, reps):
-    """K3 on one P twice: with its real pairs, and with every pair made a
-    dump pair.  A dump pair costs no product work, so the second run must
-    give zeros everywhere and take under a tenth of the first's time."""
+def dump_cost(name, fn, args, prior, rbf, reps, limit):
+    """K3 or K2 (``fn``) on one P twice: with its real pairs, and with
+    every pair made a dump pair.  A dump pair costs no product work, so the
+    second run must give zeros everywhere and take under ``limit`` of the
+    first's time."""
     import torch
-
-    from spurfies_tpu_torch.ops import pair_mlp
 
     table, idx_ext, x = args
     dump = torch.full_like(idx_ext, table.shape[0] - 1)
     with torch.no_grad():
-        outs = pair_mlp.pair_sdf_aggregate(table, dump, x, prior, rbf)
+        outs = fn(table, dump, x, prior, rbf)
         torch.cuda.synchronize()
+        if not isinstance(outs, tuple):
+            outs = (outs,)
         if any(bool((o != 0).any()) for o in outs):
             fail(f"{name}: an all-dump input gave a nonzero output")
-        ms_real = cuda_ms(
-            lambda: pair_mlp.pair_sdf_aggregate(*args, prior, rbf), reps)
-        ms_dump = cuda_ms(
-            lambda: pair_mlp.pair_sdf_aggregate(table, dump, x, prior, rbf),
-            reps)
+        ms_real = cuda_ms(lambda: fn(*args, prior, rbf), reps)
+        ms_dump = cuda_ms(lambda: fn(table, dump, x, prior, rbf), reps)
     log(f"{name}: P={idx_ext.shape[0]}, every pair a dump pair "
         f"{ms_dump:.4f} ms, its real pairs {ms_real:.4f} ms "
-        f"(ratio {ms_dump / ms_real:.4f}, must be < 0.1)")
-    if ms_dump >= 0.1 * ms_real:
+        f"(ratio {ms_dump / ms_real:.4f}, must be < {limit:.4g})")
+    if ms_dump >= limit * ms_real:
         fail(f"{name}: dump pairs still cost product work")
+    return ms_dump
 
 
 def sass_opcodes(lib, kernel, opcodes):
@@ -1330,15 +1337,22 @@ def main():
     for src in cuda_build.SOURCES:
         path = cuda_build.BUILD_DIR / f"{src}.log"
         if path.exists():
-            for line in path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {src}: {line.strip()}")
-    ops = sass_opcodes(cuda_build.lib_path("sdf_agg"), "sdf_agg_kernel",
-                       ("HGMMA", "HMMA"))
-    log("build: K3 SASS (sdf_agg_kernel): " + (
-        "cuobjdump not found" if ops is None else
-        f"HGMMA {'present' if ops['HGMMA'] else 'absent'} "
-        f"({ops['HGMMA']} HGMMA, {ops['HMMA']} HMMA instructions)"))
+            text = path.read_text()
+            report = cuda_build.ptxas_report(text) or {"": [
+                ln.strip() for ln in text.splitlines()
+                if "registers" in ln or "spill" in ln]}
+            for entry, lines in report.items():
+                log(f"  {src} {entry}: " + " | ".join(lines))
+    for label, kernel in (("K3", "sdf_agg_kernel"), ("K2", "value_agg_kernel"),
+                          ("K6a", "rows_grad_kernel")):
+        ops = sass_opcodes(cuda_build.lib_path("sdf_agg"), kernel,
+                           ("HGMMA", "HMMA"))
+        log(f"build: {label} SASS ({kernel}): " + (
+            "cuobjdump not found" if ops is None else
+            f"HGMMA {'present' if ops['HGMMA'] else 'absent'} "
+            f"({ops['HGMMA']} HGMMA, {ops['HMMA']} HMMA instructions)"))
+        if ops is not None and not ops["HGMMA"]:
+            fail(f"build: {label}'s products are not on wgmma")
 
     # --- 3. scenes ---
     cfg = Config()
@@ -1393,8 +1407,30 @@ def main():
                 "K3 pair_sdf_aggregate", pair_mlp.pair_sdf_aggregate,
                 pair_mlp.pair_sdf_aggregate_ref, inp["k3"], prior,
                 prior_f32, cfg.model.rbf, 5)
-            k3_dump_cost("K3 pair_sdf_aggregate (dump pairs)", inp["k3"],
-                         prior, cfg.model.rbf, 5)
+            dump_cost("K3 pair_sdf_aggregate (dump pairs)",
+                      pair_mlp.pair_sdf_aggregate, inp["k3"], prior,
+                      cfg.model.rbf, 5, 0.1)
+            # K2's limit: a tenth of what its P k pairs would take if each
+            # cost what a real one does (73 % of its pairs are dump pairs)
+            table2, idx2, _ = inp["k2"]
+            n_real = int(((idx2 >= 0) & (idx2 < table2.shape[0] - 1)).sum())
+            results["K2 pair_sdf_value_agg"]["dump_ms"] = dump_cost(
+                "K2 pair_sdf_value_agg (dump pairs)",
+                pair_mlp.pair_sdf_value_agg, inp["k2"], prior,
+                cfg.model.rbf, 10, 0.1 * idx2.numel() / max(n_real, 1))
+            # K2 is K3 without the down sweep: the same tiles, the same
+            # up-sweep instructions and sums, so its pt is K3's pt[:, :2]
+            with torch.no_grad():
+                pt2 = pair_mlp.pair_sdf_value_agg(*inp["k2"], prior,
+                                                  cfg.model.rbf)
+                pt3 = pair_mlp.pair_sdf_aggregate(*inp["k2"], prior,
+                                                  cfg.model.rbf)[0]
+                same = torch.equal(pt2, pt3[:, :2])
+            log(f"K2 pt vs K3 pt[:, :2] on the {pt2.shape[0]} probe points: "
+                f"{'bit-equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail("K2 and K3 disagree on the same points")
+            del pt2, pt3
             for label, key, what, reps in (
                     ("K6b pair_sdf_rows_value", "k6b", "probe", 10),
                     ("K6a pair_sdf_rows_grad", "k6a", "shading", 5),
@@ -1729,7 +1765,7 @@ def main():
                                 "spurfies_tpu_torch/csrc/select_knn.cu",
                                 "spurfies_tpu/ops/pallas_select.py:33"),
         "K2 pair_sdf_value_agg": ("pair_sdf_value_agg",
-                                  "spurfies_tpu_torch/csrc/pair_mlp.cu",
+                                  "spurfies_tpu_torch/csrc/sdf_agg.cu",
                                   "spurfies_tpu/ops/pallas_mlp.py:640"),
         "K3 pair_sdf_aggregate": ("pair_sdf_aggregate",
                                   "spurfies_tpu_torch/csrc/sdf_agg.cu",
@@ -1741,7 +1777,7 @@ def main():
                                 "spurfies_tpu_torch/csrc/scatter_rows.cu",
                                 "spurfies_tpu/ops/pallas_scatter.py:37"),
         "K6a pair_sdf_rows_grad": ("pair_sdf_rows_grad",
-                                   "spurfies_tpu_torch/csrc/pair_mlp.cu",
+                                   "spurfies_tpu_torch/csrc/sdf_agg.cu",
                                    "spurfies_tpu/ops/pallas_mlp.py:195"),
         "K6b pair_sdf_rows_value": ("pair_sdf_rows_value",
                                     "spurfies_tpu_torch/csrc/pair_mlp.cu",
@@ -1779,8 +1815,9 @@ def main():
                 "max_abs_err") if k in t}
         if label.startswith("K8"):
             row["colour_path_ms"] = colour_path
-        if "atomic_adds" in r:
-            row["atomic_adds"] = r["atomic_adds"]
+        for extra in ("atomic_adds", "dump_ms"):
+            if extra in r:
+                row[extra] = r[extra]
         rows.append(row)
         if launches[key] == 0:
             fail(f"{label} was not launched on the main path")

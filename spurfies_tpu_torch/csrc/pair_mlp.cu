@@ -1,46 +1,36 @@
-// K2 — fused gather + frozen-prior pair MLP + RBF weight + per-point
-// aggregation; K6 / K7 — the same prior per pair row, without them.  (K3,
-// the aggregate with the input gradient, is csrc/sdf_agg.cu.)
+// K6b, K7a and K7b -- the frozen prior per pair row.  (K2, K3 and K6a,
+// the same prior on Hopper's wgmma pipeline, are csrc/sdf_agg.cu.)
 //
 // Replaces the TPU kernels of spurfies_tpu/ops/pallas_mlp.py:
-//   * K2: _fused_value_agg_call -> _value_kernel_agg (value only; the
-//     sampler's no-grad SDF probe),
-//   * K6a / K6b: _fused_mlp_gx_call -> _mlp_kernel_gx and
-//     _fused_value_gx_call -> _value_kernel_gx (raw gathered rows
-//     [lat | pos] and a query per row; model.fused_agg=false),
+//   * K6b: _fused_value_gx_call -> _value_kernel_gx (raw gathered rows
+//     [lat | pos] and a query per row; the model.fused_agg=false probe),
 //   * K7a / K7b: _fused_mlp_call -> _mlp_kernel and _fused_value_call ->
 //     _value_kernel (a pre-assembled u = [lat | x_pi]; the pair-compacted
 //     SDF of model.pair_budget_frac, and the pair-MLP microbenchmark).
-// K6 and K7 share K2's sweeps (mlp_sweeps) and rounding points: a block
-// owns 128 consecutive rows, reads them as one contiguous run, and writes s
-// (and r = ds/du, all 35 columns in f32, staged in shared memory so that
-// the write is one contiguous run too); the ragged last block is masked.
-// Their first layer is one 48-deep product over bf16(u), equal to the TPU
-// body's g_lat @ W_lat + x_pi @ W_pos up to f32 summation order.
+// They share one set of sweeps (mlp_sweeps) and K3's rounding points: a
+// block owns 128 consecutive rows, reads them as one contiguous run, and
+// writes s (and r = ds/du, all 35 columns in f32, staged in shared memory
+// so that the write is one contiguous run too); the ragged last block is
+// masked.  Their first layer is one 48-deep product over bf16(u), equal to
+// the TPU body's g_lat @ W_lat + x_pi @ W_pos up to f32 summation order.
 //
-// What they compute, per pair row t = (point p, neighbour j) with table row
-// g = table[idx[p, j]] = [lat (32) | pos (3)] (row N is the dump row, pos
-// 1e9, so w == 0; an index outside [0, N] reads the dump row too):
-//   x_pi = x[p] - pos;  w = exp(-rbf^2 |x_pi|^2)
+// What they compute, per row with u = [lat (32) | x_pi (3)] (K6b: from
+// g = [lat | pos] and the row's query x, x_pi = x - pos):
 //   a0 = lat @ W_lat + x_pi @ W_pos + b0; then 3 x (LeakyReLU(0.01), 256x256)
 //   s  = LeakyReLU(a3) @ w_v + b_v   (F_geometry[4] and T pre-fused, f32)
-//   K6a / K7a: r = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)
-//   K2 per point: (sum w s, sum w)
+//   K7a: r = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)
 // Rounding follows _mlp_kernel_agg: bf16 operands, f32 accumulation, bias
 // added in f32, activations rounded to bf16 after each LeakyReLU, the
 // down-sweep delta rounded to bf16 after each product and after each gate.
 //
-// What bounds it on an H100: operations. About 0.41 MFLOP per pair for K2
-// against ~150 bytes of input and output per pair: far above the card's
-// ~295 FLOP/byte ridge. K6/K7 do the same work per row
-// against 150-310 bytes (r is written in f32). The TPU kernel's point was to keep
-// the [rows, 256] activations out of HBM; here they live in shared memory
-// and the matrix products run on the tensor cores (mma.sync m16n8k16,
-// bf16 -> f32), 128 pair rows per block.
+// What bounds them on an H100: operations.  About 0.41 MFLOP per row
+// (K7a 0.82) against 150-310 bytes of input and output per row (r is
+// written in f32): far above the card's ~295 FLOP/byte ridge.  The TPU
+// kernel's point was to keep the [rows, 256] activations out of HBM; here
+// they live in shared memory and the matrix products run on the tensor
+// cores (mma.sync m16n8k16, bf16 -> f32), 128 rows per block.
 //
-// Design (simple first; wgmma, TMA and a persistent grid are later work):
-//   * a block owns 128 pair rows (128 / k whole points), gathers its rows
-//     from the table by index itself -- no [P*k, 35] array in HBM;
+// Design (simple first; sdf_agg.cu's wgmma pipeline is their next design):
 //   * activations: [128, 256] bf16 in shared memory (67.6 KB with padding);
 //     one layer's weights [256, 256] bf16 at a time (135 KB with padding),
 //     stored n-major so that both the up sweep (W^T) and the down sweep (W)
@@ -50,11 +40,8 @@
 //     128 (w >> 2) .. +128 of each layer (2 x 16 mma tiles held in
 //     registers), so a layer's output overwrites its input in place after a
 //     barrier;
-//   * K6a / K7a keep the four layers' gates as bitmasks (4 x 4 KB) for the
-//     down sweep;
-//   * the 8 rows of a point are summed by one thread in a fixed order.
-// The TPU kernel's iota band matrices (per-point sums and broadcasts as
-// 0/1 matmuls) were a device for its vector unit and are gone.
+//   * K7a keeps the four layers' gates as bitmasks (4 x 4 KB) for the down
+//     sweep.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,11 +74,8 @@ constexpr int kOffWv = kOffDn0 + kOut0 * kHid;      // w_v [256]
 constexpr int kSmAct = 0;
 constexpr int kSmW = kSmAct + kRows * kAStr * 2;
 constexpr int kSmXpi = kSmW + kHid * kWStr * 2;          // f32 [128][3]
-constexpr int kSmWr = kSmXpi + kRows * 3 * 4;            // f32 [128]
-constexpr int kSmS = kSmWr + kRows * 4;                  // f32 [128]
-constexpr int kSmRp = kSmS + kRows * 4;                  // f32 [128][3]
-constexpr int kSmIdx = kSmRp + kRows * 3 * 4;            // i32 [128]
-constexpr int kSmWv = kSmIdx + kRows * 4;                // f32 [256]
+constexpr int kSmS = kSmXpi + kRows * 3 * 4;             // f32 [128]
+constexpr int kSmWv = kSmS + kRows * 4;                  // f32 [256]
 constexpr int kSmGate = kSmWv + kHid * 4;                // u32 [4][128][8]
 constexpr int kSmemValue = kSmGate;
 constexpr int kSmemGrad = kSmGate + 4 * kRows * 8 * 4;
@@ -363,100 +347,11 @@ __device__ __forceinline__ void load_first(unsigned char* smem,
             wbuf + kOffUp0, kHid, kIn0);
 }
 
-// K2: gather by index, RBF weight, prior value, per-point (sum w s, sum w).
-// A block owns 128 pair rows (128 / k whole points), dump rows included.
-__global__ void __launch_bounds__(kThreads, 1)
-pair_mlp_kernel(const float* __restrict__ table, int n_rows,
-                const int* __restrict__ idx, const float* __restrict__ xq,
-                int k, const __nv_bfloat16* __restrict__ wbuf,
-                const float* __restrict__ bbuf, float rbf2,
-                float* __restrict__ out_pt) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
-  float* xpi_s = reinterpret_cast<float*>(smem + kSmXpi);
-  float* w_s = reinterpret_cast<float*>(smem + kSmWr);
-  const float* s_s = reinterpret_cast<const float*>(smem + kSmS);
-  int* idx_s = reinterpret_cast<int*>(smem + kSmIdx);
-
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)blockIdx.x * kRows;
-  const int pts = kRows / k;
-  const size_t pt0 = (size_t)blockIdx.x * pts;
-
-  // --- gather: x_pi, w and the first layer's input [lat | x_pi | 0] ---
-  if (tid < kRows) {
-    const int raw = idx[row0 + tid];
-    const int id = (raw >= 0 && raw < n_rows) ? raw : n_rows - 1;
-    idx_s[tid] = id;
-    const float* gr = table + (size_t)id * kRowW;
-    const float* xp = xq + (pt0 + tid / k) * 3;
-    const float e0 = __fsub_rn(xp[0], gr[kLat]);
-    const float e1 = __fsub_rn(xp[1], gr[kLat + 1]);
-    const float e2 = __fsub_rn(xp[2], gr[kLat + 2]);
-    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)),
-                               __fmul_rn(e2, e2));
-    w_s[tid] = expf(__fmul_rn(-rbf2, d2));
-    xpi_s[tid * 3] = e0;
-    xpi_s[tid * 3 + 1] = e1;
-    xpi_s[tid * 3 + 2] = e2;
-    __nv_bfloat16* ir = in0 + tid * kI0Str + kLat;
-    ir[0] = __float2bfloat16_rn(e0);
-    ir[1] = __float2bfloat16_rn(e1);
-    ir[2] = __float2bfloat16_rn(e2);
-    for (int c = 3; c < kIn0 - kLat; ++c) ir[c] = __float2bfloat16_rn(0.f);
-  }
-  load_first(smem, wbuf);
-  __syncthreads();
-  for (int e = tid; e < kRows * kLat; e += kThreads) {
-    const int r = e / kLat, c = e - r * kLat;
-    in0[r * kI0Str + c] =
-        __float2bfloat16_rn(__ldg(table + (size_t)idx_s[r] * kRowW + c));
-  }
-  __syncthreads();
-
-  float acc0[5][4];
-  mlp_sweeps<false>(smem, wbuf, bbuf, acc0);
-  __syncthreads();
-
-  if (tid < pts) {
-    float num = 0.f, den = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const int r = tid * k + j;
-      const float w = w_s[r];
-      num = __fadd_rn(num, __fmul_rn(w, s_s[r]));
-      den = __fadd_rn(den, w);
-    }
-    float* o = out_pt + (pt0 + tid) * 2;
-    o[0] = num;
-    o[1] = den;
-  }
-}
-
-int launch_value_agg(const float* table, int n_rows, const int* idx,
-                     const float* x, int n_pts, int k, const void* wbuf,
-                     const float* bbuf, float rbf2, float* out_pt,
-                     void* stream) {
-  if (k <= 0 || kRows % k != 0 || n_rows <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int pts = kRows / k;
-  if (n_pts % pts != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pts == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemValue);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pair_mlp_kernel<<<n_pts / pts, kThreads, kSmemValue,
-                    static_cast<cudaStream_t>(stream)>>>(
-      table, n_rows, idx, x, k, static_cast<const __nv_bfloat16*>(wbuf), bbuf,
-      rbf2, out_pt);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K6 / K7: the prior on each of m pair rows, no weight and no sum.  The
-// input `in` is [m, 35] f32: with kRowsIn (K6) raw table rows g = [lat | pos]
-// and xq [m, 3] the query of each row, so that u = [lat | x - pos] is made
-// here and x_pi = x - pos (f32) written to out_xpi [m, 3]; else (K7) u
-// itself.  out_s [m] = bf16(s) as f32; with kGrad (K6a / K7a) out_r [m, 35]
+// K6b / K7: the prior on each of m pair rows, no weight and no sum.  The
+// input `in` is [m, 35] f32: with kRowsIn (K6b) raw table rows g = [lat |
+// pos] and xq [m, 3] the query of each row, so that u = [lat | x - pos] is
+// made here and x_pi = x - pos (f32) written to out_xpi [m, 3]; else (K7) u
+// itself.  out_s [m] = bf16(s) as f32; with kGrad (K7a) out_r [m, 35]
 // = r = ds/du, the bf16 delta of the down sweep, as f32.  The last block
 // is ragged: its missing rows read zeros and are not written.
 template <bool kGrad, bool kRowsIn>
@@ -550,18 +445,6 @@ int launch_rows(const float* in, const float* x, long long m,
 
 }  // namespace
 
-// table [n_rows, 35] f32 (row n_rows - 1: the dump row), idx [n_pts, k]
-// i32, x [n_pts, 3] f32, wbuf / bbuf: the packed weights of
-// ops/pair_mlp.py. K2: out_pt [n_pts, 2] = (sum w s, sum w).
-extern "C" int pair_sdf_value_agg_launch(const float* table, int n_rows,
-                                         const int* idx, const float* x,
-                                         int n_pts, int k, const void* wbuf,
-                                         const float* bbuf, float rbf2,
-                                         float* out_pt, void* stream) {
-  return launch_value_agg(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2,
-                          out_pt, stream);
-}
-
 // K7b: u [m, 35] f32 -> out_s [m].
 extern "C" int pair_sdf_value_launch(const float* u, long long m,
                                      const void* wbuf, const float* bbuf,
@@ -589,15 +472,4 @@ extern "C" int pair_sdf_rows_value_launch(const float* g, const float* x,
                                           float* out_xpi, void* stream) {
   return launch_rows<false, true>(g, x, m, wbuf, bbuf, out_s, nullptr,
                                   out_xpi, stream);
-}
-
-// K6a: g [m, 35] f32, x [m, 3] f32 -> out_s [m], out_r [m, 35],
-// out_xpi [m, 3].
-extern "C" int pair_sdf_rows_grad_launch(const float* g, const float* x,
-                                         long long m, const void* wbuf,
-                                         const float* bbuf, float* out_s,
-                                         float* out_r, float* out_xpi,
-                                         void* stream) {
-  return launch_rows<true, true>(g, x, m, wbuf, bbuf, out_s, out_r, out_xpi,
-                                 stream);
 }

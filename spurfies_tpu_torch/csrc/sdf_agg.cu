@@ -1,17 +1,29 @@
-// K3 -- fused gather + frozen-prior pair MLP (value and input gradient) +
-// RBF weight + per-point aggregation, redesigned for Hopper (sm_90a).
+// K3, K2 and K6a -- the frozen prior's pair MLP on Hopper (sm_90a), on one
+// pipeline: a persistent grid, a producer warp that streams the weights
+// into a shared-memory ring by cp.async.bulk, and two consumer warpgroups
+// that run the products on wgmma.
 //
-// Replaces the TPU kernel _fused_agg_call -> _mlp_kernel_agg of
-// spurfies_tpu/ops/pallas_mlp.py (call :727, body :576): the render path's
-// SDF and normal, and the training step's render SDF and pseudo-SDF.
+// Replaces the TPU kernels of spurfies_tpu/ops/pallas_mlp.py:
+//   * K3 (sdf_agg_kernel): _fused_agg_call -> _mlp_kernel_agg (call :747,
+//     body :576): the render path's SDF and normal, and the training step's
+//     render SDF and pseudo-SDF;
+//   * K2 (value_agg_kernel): _fused_value_agg_call -> _value_kernel_agg
+//     (call :787, body :640): the sampler's no-grad SDF probe, K3 without
+//     the down sweep;
+//   * K6a (rows_grad_kernel): _fused_mlp_gx_call -> _mlp_kernel_gx (call
+//     :322, body :195): model.fused_agg=false, K3's sweeps on rows given
+//     one by one, with per-row outputs.
 //
-// What it computes, per pair row t = (point p, neighbour j) with table row
-// g = table[idx[p, j]] = [lat (32) | pos (3)]:
+// What they compute, per pair row t = (point p, neighbour j) with table row
+// g = table[idx[p, j]] = [lat (32) | pos (3)] (K6a: g and the query x given
+// per row):
 //   x_pi = x[p] - pos;  w = exp(-rbf^2 |x_pi|^2)
 //   a0 = [lat | x_pi] @ W0 + b0; then 3 x (LeakyReLU(0.01), 256x256)
 //   s  = LeakyReLU(a3) @ w_v + b_v   (F_geometry[4] and T pre-fused, f32)
-//   r  = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)
-//   per point (sum w s, sum w, sum w r_pos); per pair w (f32), r_lat (bf16)
+//   r  = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)   (K3, K6a)
+//   K3: per point (sum w s, sum w, sum w r_pos); per pair w (f32), r_lat
+//   (bf16).  K2: per point (sum w s, sum w).  K6a: per row s, r [35] and
+//   x_pi, all f32.
 // Rounding follows _mlp_kernel_agg: bf16 operands, f32 accumulation, bias
 // added in f32, activations rounded to bf16 after each LeakyReLU, the
 // down-sweep delta rounded to bf16 after each product and after each gate.
@@ -19,37 +31,51 @@
 // [bf16(lat) | bf16(x_pi) | 0], equal to the TPU body's
 // g_lat @ W_lat + x_pi @ W_pos up to f32 summation order.
 //
-// What bounds it on an H100: operations.  0.82 MFLOP per real pair (up
-// and down sweep 0.21 MMACs each) against ~110 bytes of input and output
-// per pair: far above the card's ~295 FLOP/byte ridge.  What a block reads
-// most is the weights: 820 KB per tile of 128 rows, from L2.
+// What bounds them on an H100: operations.  0.82 MFLOP per real pair or
+// row for K3 and K6a (up and down sweep 0.21 MMACs each), 0.41 for K2,
+// against ~110 (K3), ~50 (K2) and ~310 (K6a) bytes of input and output:
+// far above the card's ~295 FLOP/byte ridge.  What a block reads most is
+// the weights: 820 KB per tile of 128 rows (K2: the up sweep's 410 KB),
+// from L2.
 //
 // Design:
-//   * Dump pairs are not computed.  A pair is real when its index lies in
-//     [0, N), N = n_rows - 1; every other pair (the dump row N, an index out
-//     of range) has w == 0 exactly, adds +-0 to its point's sums, and K4
-//     never reads its r_lat.  It gets w = 0 and r_lat = 0.
-//   * Persistent grid, one block per SM.  Block b owns the points
-//     [b P / G, (b + 1) P / G) and walks them in order, packing the real
-//     rows of whole points into tiles of up to 128 rows (fill_tile: each
-//     lane of one warp counts one point's real rows, a warp scan places
-//     them).  A point's rows stay in one tile, in j order, so its sums are
-//     taken in the fixed order j = 0..k-1 with the +-0 terms left out,
-//     bit-identical to adding them.  The work list is made on the card,
+//   * K3 and K2 compute no dump pair.  A pair is real when its index lies
+//     in [0, N), N = n_rows - 1; every other pair (the dump row N, an index
+//     out of range) has w == 0 exactly, adds +-0 to its point's sums, and
+//     K4 never reads its r_lat.  K3 gives it w = 0 and r_lat = 0.
+//   * Persistent grid, one block per SM.  K3 and K2: block b owns the
+//     points [b P / G, (b + 1) P / G) and walks them in order, packing the
+//     real rows of whole points into tiles of up to 128 rows (fill_tile:
+//     each lane of one warp counts one point's real rows, a warp scan
+//     places them).  A point's rows stay in one tile, in j order, so its
+//     sums are taken in the fixed order j = 0..k-1 with the +-0 terms left
+//     out, bit-identical to adding them.  The work list is made on the card,
 //     inside the kernel: no host sync and no extra launch.  (A device-side
 //     compaction pass was the alternative: a second kernel and a [P*k]
 //     index array in HBM.)
+//   * K2 is K3 without the down sweep, one template (agg_body<kGrad>): the
+//     same tiles, the same up-sweep instructions and tail (sweeps<kGrad>),
+//     no gate bits and no per-pair outputs, and only the up sweep's 13
+//     weight chunks streamed; so its (sum w s, sum w) are K3's pt[:, :2]
+//     bit for bit.
+//   * K6a computes every row it is given (invalid slots arrive as gathered
+//     row 0 and the caller masks them, as the TPU kernel has them).  Its
+//     tiles are 128 contiguous rows, block b taking tiles b, b + G, ...;
+//     each warpgroup reads its 64 rows itself (the ragged last tile reads
+//     zeros and writes nothing past m).  Once a warpgroup's last product
+//     has completed, its r is staged over its own activations, so that it
+//     writes its rows' r as one contiguous run.
 //   * Warp roles: warps 0-3 and 4-7 are two consumer warpgroups, each
 //     owning 64 rows of the tile; warp 8 is the producer (warps 9-11 only
 //     hand their registers over: setmaxnreg gives the producer warpgroup
 //     40 a thread and the consumers 232; ptxas still reports 168, 65,536
 //     over 384 threads, so the 128 accumulators leave little room and the
-//     gate bits are kept in shared memory).  The producer
+//     gate bits are kept in shared memory).  The producer (K3, K2)
 //     fills the next tile's row list (a two-slot ring of tile descriptors)
-//     and streams the 26 weight chunks of every tile into a four-stage
-//     ring of 32 KB shared-memory stages: one cp.async.bulk per chunk,
-//     completed on the stage's mbarrier, so the next chunk (or the next
-//     layer's first one) loads while the current one is multiplied.
+//     and streams the weight chunks of every tile (26; K2 13) into a
+//     four-stage ring of 32 KB shared-memory stages: one cp.async.bulk per
+//     chunk, completed on the stage's mbarrier, so the next chunk (or the
+//     next layer's first one) loads while the current one is multiplied.
 //   * The weights are packed once (PriorLayers.k3_buffer) in exactly the
 //     byte layout of the stages: each layer as K-major [n][k] blocks of 64
 //     k-columns, 128-byte swizzled, which is what the wgmma descriptors
@@ -84,6 +110,7 @@ constexpr int kOut0 = 40;        // last product's width: 35 padded to 8s
 constexpr int kStages = 4;
 constexpr int kStageBytes = kHid * 64 * 2;           // [256][64] bf16
 constexpr int kChunks = 26;  // up0, up1-3 x 4, down 3-1 x 4, down0
+constexpr int kUpChunks = 13;                        // up0, up1-3 x 4
 constexpr int kDn0Bytes = kOut0 * kHid * 2;          // [40][256] bf16
 constexpr int kWvOff = ((kChunks - 1) * kStageBytes + kDn0Bytes) / 2;
 constexpr int kActBytes = kWgRows * kHid * 2;        // one warpgroup's
@@ -349,9 +376,10 @@ __device__ __forceinline__ void load_gates(const uint32_t* gates,
 }
 
 // Up sweep: a = acc + b (f32), x = bf16(max(a, 0.01 a)) written over the
-// activations, the bits (a > 0) into `gates`.  kTail (the last layer): x
-// is not stored, only part[h] += x . w_v over the thread's columns.
-template <bool kTail>
+// activations, with kGates the bits (a > 0) into `gates`.  kTail (the last
+// layer): x is not stored, only part[h] += x . w_v over the thread's
+// columns.
+template <bool kTail, bool kGates>
 __device__ __forceinline__ void epi_up(const float (&acc)[128],
                                        uint32_t* gates, unsigned char* act,
                                        const float* bias, const float* wv,
@@ -367,8 +395,9 @@ __device__ __forceinline__ void epi_up(const float (&acc)[128],
       const int row = w4 * 16 + g + 8 * h;
       const float v0 = __fadd_rn(acc[4 * i + 2 * h], b0);
       const float v1 = __fadd_rn(acc[4 * i + 2 * h + 1], b1);
-      gate[2 * h + (i >> 4)] |= ((v0 > 0.f ? 1u : 0u) | (v1 > 0.f ? 2u : 0u))
-                                << (2 * (i & 15));
+      if (kGates)
+        gate[2 * h + (i >> 4)] |=
+            ((v0 > 0.f ? 1u : 0u) | (v1 > 0.f ? 2u : 0u)) << (2 * (i & 15));
       const uint32_t x = pack_bf16(fmaxf(v0, __fmul_rn(0.01f, v0)),
                                    fmaxf(v1, __fmul_rn(0.01f, v1)));
       if (!kTail) {
@@ -380,8 +409,10 @@ __device__ __forceinline__ void epi_up(const float (&acc)[128],
       }
     }
   }
+  if (kGates) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) gates[gate_word(w4, g, t, e)] = gate[e];
+    for (int e = 0; e < 4; ++e) gates[gate_word(w4, g, t, e)] = gate[e];
+  }
 }
 
 __device__ __forceinline__ float gate_at(const uint32_t (&gate)[4], int i,
@@ -434,14 +465,17 @@ __device__ __forceinline__ void delta_init(const uint32_t* gates,
 
 // The block's next tile of real rows: up to kRows pair indices p * k + j
 // into `pair` (point-major, j ascending), taken from whole points of
-// [cursor, end), which advances.  It writes what no product computes:
-// w = 0 and r_lat = 0 on dump pairs, pt = 0 on a point with no real pair.
+// [cursor, end), which advances.  It writes what no product computes: pt
+// = 0 on a point with no real pair (kGrad, K3: 5 columns, else 2), and
+// with kGrad w = 0 and r_lat = 0 on dump pairs.
 // One whole warp calls it; every lane returns the tile's row count (0: the
 // range is done).  Requires k <= 32.
+template <bool kGrad>
 __device__ int fill_tile(const int* __restrict__ idx, int n_real, int k,
                          long long& cursor, long long end, int* pair,
                          float* __restrict__ out_pt, float* __restrict__ out_w,
                          __nv_bfloat16* __restrict__ out_r) {
+  constexpr int kPtW = kGrad ? 5 : 2;
   const int lane = threadIdx.x & 31;
   int rows = 0;
   while (cursor < end) {
@@ -473,7 +507,7 @@ __device__ int fill_tile(const int* __restrict__ idx, int n_real, int k,
         const long long q = p * k + j;
         if ((bits >> j) & 1u) {
           pair[r++] = static_cast<int>(q);
-        } else {
+        } else if (kGrad) {
           out_w[q] = 0.f;
           uint4* o = reinterpret_cast<uint4*>(out_r + q * kLat);
 #pragma unroll
@@ -482,7 +516,7 @@ __device__ int fill_tile(const int* __restrict__ idx, int n_real, int k,
       }
       if (c == 0) {
 #pragma unroll
-        for (int e = 0; e < 5; ++e) out_pt[p * 5 + e] = 0.f;
+        for (int e = 0; e < kPtW; ++e) out_pt[p * kPtW + e] = 0.f;
       }
     }
     if (nfit == 0) break;                    // the tile is full
@@ -498,33 +532,25 @@ __device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
                     pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
-// K3.  wbuf: PriorLayers.k3_buffer (kChunks chunks, then w_v); bbuf: f32
-// b0..b3 [4][256], then b_v.
-__global__ void __launch_bounds__(kThreads, 1)
-sdf_agg_kernel(const float* __restrict__ table, int n_rows,
-               const int* __restrict__ idx, const float* __restrict__ xq,
-               int n_pts, int k, const __nv_bfloat16* __restrict__ wbuf,
-               const float* __restrict__ bbuf, float rbf2,
-               float* __restrict__ out_pt, float* __restrict__ out_w,
-               __nv_bfloat16* __restrict__ out_r) {
+// The block's dynamic shared memory, from a 1024-aligned base.
+__device__ __forceinline__ unsigned char* block_smem() {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
-  const uint32_t sbase = smem_u32(sm);
+  return smem_raw + (((raw + 1023u) & ~1023u) - raw);
+}
+
+// Biases and w_v into shared memory, and the barriers: full_w[4],
+// empty_w[4] (the weight ring), dfull[2], dempty[2] (the tile lists).
+__device__ __forceinline__ void block_setup(unsigned char* sm,
+                                            const __nv_bfloat16* wbuf,
+                                            const float* bbuf) {
   float* bias_s = reinterpret_cast<float*>(sm + kSmBias);
   float* wv_s = reinterpret_cast<float*>(sm + kSmWv);
-  float* w_s = reinterpret_cast<float*>(sm + kSmW);
-  float* s_s = reinterpret_cast<float*>(sm + kSmS);
-  float* rp_s = reinterpret_cast<float*>(sm + kSmRp);
-  int* pair_s = reinterpret_cast<int*>(sm + kSmPair);
-  int* nrows_s = reinterpret_cast<int*>(sm + kSmNrows);
   uint64_t* full_w = reinterpret_cast<uint64_t*>(sm + kSmBar);
   uint64_t* empty_w = full_w + kStages;
   uint64_t* dfull = empty_w + kStages;
   uint64_t* dempty = dfull + 2;
-
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
   for (int e = tid; e < 4 * kHid; e += kThreads) bias_s[e] = bbuf[e];
   for (int e = tid; e < kHid; e += kThreads)
     wv_s[e] = __bfloat162float(wbuf[kWvOff + e]);
@@ -540,7 +566,137 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
 
+// The producer's lane 0: weight chunk c into the ring's stage for the
+// stream's chunk number `it`, once the consumers have released that stage.
+__device__ __forceinline__ void issue_chunk(unsigned char* sm,
+                                            const char* wsrc, int c, int it) {
+  uint64_t* full_w = reinterpret_cast<uint64_t*>(sm + kSmBar);
+  uint64_t* empty_w = full_w + kStages;
+  const int stage = it & (kStages - 1);
+  mbar_wait(empty_w + stage, ((it / kStages) & 1) ^ 1);
+  bulk_load(sm + kSmRing + stage * kStageBytes,
+            wsrc + (size_t)c * kStageBytes,
+            c == kChunks - 1 ? kDn0Bytes : kStageBytes, full_w + stage);
+}
+
+// A consumer warpgroup's share of the block's shared memory, and the
+// thread's place in it: warp w4 of the warpgroup, lane = 4 g + t4.
+struct Wg {
+  unsigned char* act;  // the warpgroup's [64][256] bf16 activations
+  uint32_t act_a;      // their shared-memory address
+  uint32_t ring_a;     // the weight ring's
+  uint64_t* full;      // the ring's barriers
+  uint64_t* empty;
+  uint32_t* gates;     // the warpgroup's gate bits [4][64][8]
+  const float* bias;   // f32 b0..b3 [4][256]
+  const float* wv;     // f32 w_v [256]
+  int wg, lane, w4, g, t4;
+};
+
+__device__ __forceinline__ Wg consumer(unsigned char* sm, int wg) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const uint32_t sbase = smem_u32(sm);
+  uint64_t* full_w = reinterpret_cast<uint64_t*>(sm + kSmBar);
+  return Wg{sm + kSmAct + wg * kActBytes,
+            sbase + kSmAct + wg * kActBytes,
+            sbase + kSmRing,
+            full_w,
+            full_w + kStages,
+            reinterpret_cast<uint32_t*>(sm + kSmGate) + wg * kGateWords,
+            reinterpret_cast<const float*>(sm + kSmBias),
+            reinterpret_cast<const float*>(sm + kSmWv),
+            wg,
+            lane,
+            (tid >> 5) & 3,
+            lane >> 2,
+            lane & 3};
+}
+
+// The prior on the warpgroup's 64 rows, whose first layer's input
+// [bf16(lat) | bf16(x_pi) | 0] is in its activations (fenced, after a
+// barrier of the warpgroup): the up sweep and the fused tail 256 -> 1,
+// s = bf16(x4 . w_v + b_v), into s_out[row]; with kGrad also the gate bits
+// and the down sweep, down to the last product's accumulators acc0
+// (element 4 i + 2 h + j: row 16 w4 + g + 8 h, column 8 i + 2 t4 + j).
+// `it` counts the weight chunks taken from the ring.
+template <bool kGrad>
+__device__ __forceinline__ void sweeps(const Wg& c, float* s_out, float bv,
+                                       float slope, int& it,
+                                       float (&acc0)[20]) {
+  const int w4 = c.w4, g = c.g, t4 = c.t4;
+  float acc[128];
+  float part[2] = {0.f, 0.f};
+  // --- up sweep ---
+  layer<1, 3>(acc, c.act_a, c.ring_a, c.full, c.empty, it, c.lane);
+  bar_sync(1 + c.wg, 128);  // the warpgroup's reads of act are done
+  epi_up<false, kGrad>(acc, c.gates, c.act, c.bias, c.wv, part, w4, g, t4);
+  fence_async_smem();
+  bar_sync(1 + c.wg, 128);
+#pragma unroll 1
+  for (int l = 1; l < 4; ++l) {
+    layer<4, 4>(acc, c.act_a, c.ring_a, c.full, c.empty, it, c.lane);
+    bar_sync(1 + c.wg, 128);
+    uint32_t* gl = c.gates + l * kLayerGates;
+    if (l < 3) {
+      epi_up<false, kGrad>(acc, gl, c.act, c.bias + l * kHid, c.wv, part, w4,
+                           g, t4);
+      fence_async_smem();
+      bar_sync(1 + c.wg, 128);
+    } else {
+      epi_up<true, kGrad>(acc, gl, c.act, c.bias + l * kHid, c.wv, part, w4,
+                          g, t4);
+    }
+  }
+  // fused tail 256 -> 1: the four threads of a row hold its 256 columns
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = part[h];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (t4 == 0) s_out[w4 * 16 + g + 8 * h] = bf16_round(__fadd_rn(s, bv));
+  }
+  if (!kGrad) return;
+  // --- down sweep ---
+  delta_init(c.gates + 3 * kLayerGates, c.act, c.wv, slope, w4, g, t4);
+  fence_async_smem();
+  bar_sync(1 + c.wg, 128);
+#pragma unroll 1
+  for (int l = 3; l >= 1; --l) {
+    layer<4, 4>(acc, c.act_a, c.ring_a, c.full, c.empty, it, c.lane);
+    bar_sync(1 + c.wg, 128);
+    epi_down(acc, c.gates + (l - 1) * kLayerGates, c.act, slope, w4, g, t4);
+    fence_async_smem();
+    bar_sync(1 + c.wg, 128);
+  }
+  last_product(acc0, c.act_a, c.ring_a, c.full, c.empty, it, c.lane);
+}
+
+// K3 (kGrad) and K2.  wbuf: PriorLayers.k3_buffer (kChunks chunks, then
+// w_v); bbuf: f32 b0..b3 [4][256], then b_v.  out_pt [n_pts, 5] (K2: 2);
+// K3 only: out_w, out_r.
+template <bool kGrad>
+__device__ __forceinline__ void agg_body(
+    const float* __restrict__ table, int n_rows, const int* __restrict__ idx,
+    const float* __restrict__ xq, int n_pts, int k,
+    const __nv_bfloat16* __restrict__ wbuf, const float* __restrict__ bbuf,
+    float rbf2, float* __restrict__ out_pt, float* __restrict__ out_w,
+    __nv_bfloat16* __restrict__ out_r) {
+  constexpr int kPtW = kGrad ? 5 : 2;
+  constexpr int kTileChunks = kGrad ? kChunks : kUpChunks;
+  unsigned char* sm = block_smem();
+  block_setup(sm, wbuf, bbuf);
+  float* w_s = reinterpret_cast<float*>(sm + kSmW);
+  float* s_s = reinterpret_cast<float*>(sm + kSmS);
+  float* rp_s = reinterpret_cast<float*>(sm + kSmRp);
+  int* pair_s = reinterpret_cast<int*>(sm + kSmPair);
+  int* nrows_s = reinterpret_cast<int*>(sm + kSmNrows);
+  uint64_t* dfull = reinterpret_cast<uint64_t*>(sm + kSmBar) + 2 * kStages;
+  uint64_t* dempty = dfull + 2;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const long long per = ((long long)n_pts + gridDim.x - 1) / gridDim.x;
   const long long begin = (long long)blockIdx.x * per;
   const long long end = min((long long)n_pts, begin + per);
@@ -556,8 +712,9 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
     auto publish = [&](int t) {
       const int slot = t & 1;
       mbar_wait(dempty + slot, ((t >> 1) & 1) ^ 1);
-      const int rows = fill_tile(idx, n_rows - 1, k, cursor, end,
-                                 pair_s + slot * kRows, out_pt, out_w, out_r);
+      const int rows = fill_tile<kGrad>(idx, n_rows - 1, k, cursor, end,
+                                        pair_s + slot * kRows, out_pt, out_w,
+                                        out_r);
       if (lane == 0) nrows_s[slot] = rows;
       mbar_arrive(dfull + slot);
       return rows;
@@ -566,15 +723,8 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
     int rows = publish(0);
     for (int t = 0; rows > 0; ++t) {
       int next = 0;
-      for (int c = 0; c < kChunks; ++c) {
-        if (lane == 0) {
-          const int stage = it & (kStages - 1);
-          mbar_wait(empty_w + stage, ((it / kStages) & 1) ^ 1);
-          bulk_load(sm + kSmRing + stage * kStageBytes,
-                    wsrc + (size_t)c * kStageBytes,
-                    c == kChunks - 1 ? kDn0Bytes : kStageBytes,
-                    full_w + stage);
-        }
+      for (int c = 0; c < kTileChunks; ++c) {
+        if (lane == 0) issue_chunk(sm, wsrc, c, it);
         ++it;
         // the next tile's list, once this one's first stages are taken
         __syncwarp();
@@ -585,14 +735,10 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     // --- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 ---
-    const int wg = role, w4 = warp & 3;
-    const int g = lane >> 2, t4 = lane & 3;
+    const int wg = role;
+    const Wg cw = consumer(sm, wg);
     const int ti = tid & 127;
-    unsigned char* act = sm + kSmAct + wg * kActBytes;
-    uint32_t* gates =
-        reinterpret_cast<uint32_t*>(sm + kSmGate) + wg * kGateWords;
-    const uint32_t act_a = sbase + kSmAct + wg * kActBytes;
-    const uint32_t ring_a = sbase + kSmRing;
+    unsigned char* act = cw.act;
     const float slope = bf16_round(0.01f);
     const float bv = __ldg(bbuf + 4 * kHid);
     int it = 0;
@@ -632,7 +778,7 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
                 __fmul_rn(e2, e2));
             const float w = expf(__fmul_rn(-rbf2, d2));
             w_s[rg] = w;
-            out_w[q] = w;
+            if (kGrad) out_w[q] = w;
             *reinterpret_cast<uint4*>(act + swz(rl, kLat, kWgRows)) =
                 make_uint4(pack_bf16(e0, e1), pack_bf16(e2, 0.f), 0u, 0u);
             *reinterpret_cast<uint4*>(act + swz(rl, kLat + 8, kWgRows)) =
@@ -650,82 +796,38 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
       bar_sync(1 + wg, 128);
 
       if (wg * kWgRows < rows) {
-        float acc[128];
-        float part[2] = {0.f, 0.f};
-        // --- up sweep ---
-        layer<1, 3>(acc, act_a, ring_a, full_w, empty_w, it, lane);
-        bar_sync(1 + wg, 128);  // the warpgroup's reads of act are done
-        epi_up<false>(acc, gates, act, bias_s, wv_s, part, w4, g, t4);
-        fence_async_smem();
-        bar_sync(1 + wg, 128);
-#pragma unroll 1
-        for (int l = 1; l < 4; ++l) {
-          layer<4, 4>(acc, act_a, ring_a, full_w, empty_w, it, lane);
-          bar_sync(1 + wg, 128);
-          uint32_t* gl = gates + l * kLayerGates;
-          if (l < 3) {
-            epi_up<false>(acc, gl, act, bias_s + l * kHid, wv_s, part, w4, g,
-                          t4);
-            fence_async_smem();
-            bar_sync(1 + wg, 128);
-          } else {
-            epi_up<true>(acc, gl, act, bias_s + l * kHid, wv_s, part, w4, g,
-                         t4);
-          }
-        }
-        // fused tail 256 -> 1: s = bf16(x4 . w_v + b_v); the four threads of
-        // a row hold its 256 columns
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float s = part[h];
-          s += __shfl_xor_sync(0xffffffffu, s, 1);
-          s += __shfl_xor_sync(0xffffffffu, s, 2);
-          if (t4 == 0)
-            s_s[wg * kWgRows + w4 * 16 + g + 8 * h] =
-                bf16_round(__fadd_rn(s, bv));
-        }
-        // --- down sweep ---
-        delta_init(gates + 3 * kLayerGates, act, wv_s, slope, w4, g, t4);
-        fence_async_smem();
-        bar_sync(1 + wg, 128);
-#pragma unroll 1
-        for (int l = 3; l >= 1; --l) {
-          layer<4, 4>(acc, act_a, ring_a, full_w, empty_w, it, lane);
-          bar_sync(1 + wg, 128);
-          epi_down(acc, gates + (l - 1) * kLayerGates, act, slope, w4, g, t4);
-          fence_async_smem();
-          bar_sync(1 + wg, 128);
-        }
         float acc0[20];
-        last_product(acc0, act_a, ring_a, full_w, empty_w, it, lane);
-        // r = bf16 delta: r_lat to HBM, r_pos for the sums
+        sweeps<kGrad>(cw, s_s + wg * kWgRows, bv, slope, it, acc0);
+        if (kGrad) {
+          // r = bf16 delta: r_lat to HBM, r_pos for the sums
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int rg = wg * kWgRows + w4 * 16 + g + 8 * h;
-          if (rg >= rows) continue;
-          const size_t q = static_cast<size_t>(pairs[rg]);
+          for (int h = 0; h < 2; ++h) {
+            const int rg = wg * kWgRows + cw.w4 * 16 + cw.g + 8 * h;
+            if (rg >= rows) continue;
+            const size_t q = static_cast<size_t>(pairs[rg]);
 #pragma unroll
-          for (int i = 0; i < 5; ++i) {
-            const int col = 8 * i + 2 * t4;
-            const float r0 = bf16_round(acc0[4 * i + 2 * h]);
-            const float r1 = bf16_round(acc0[4 * i + 2 * h + 1]);
-            if (col < kLat) {
-              *reinterpret_cast<uint32_t*>(out_r + q * kLat + col) =
-                  pack_bf16(r0, r1);
-            } else if (col < kRowW) {
-              rp_s[rg * 3 + col - kLat] = r0;
-              if (col + 1 < kRowW) rp_s[rg * 3 + col + 1 - kLat] = r1;
+            for (int i = 0; i < 5; ++i) {
+              const int col = 8 * i + 2 * cw.t4;
+              const float r0 = bf16_round(acc0[4 * i + 2 * h]);
+              const float r1 = bf16_round(acc0[4 * i + 2 * h + 1]);
+              if (col < kLat) {
+                *reinterpret_cast<uint32_t*>(out_r + q * kLat + col) =
+                    pack_bf16(r0, r1);
+              } else if (col < kRowW) {
+                rp_s[rg * 3 + col - kLat] = r0;
+                if (col + 1 < kRowW) rp_s[rg * 3 + col + 1 - kLat] = r1;
+              }
             }
           }
         }
       } else {
         // no rows: release every stage of this tile's weight stream
 #pragma unroll 1
-        for (int c = 0; c < kChunks; ++c) {
+        for (int c = 0; c < kTileChunks; ++c) {
           const int stage = it & (kStages - 1);
-          mbar_wait(full_w + stage, (it / kStages) & 1);
+          mbar_wait(cw.full + stage, (it / kStages) & 1);
           __syncwarp();
-          if (lane == 0) mbar_arrive(empty_w + stage);
+          if (lane == 0) mbar_arrive(cw.empty + stage);
           ++it;
         }
       }
@@ -741,16 +843,20 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
             const float w = w_s[r];
             num = __fadd_rn(num, __fmul_rn(w, s_s[r]));
             den = __fadd_rn(den, w);
-            g0 = __fadd_rn(g0, __fmul_rn(w, rp_s[r * 3]));
-            g1 = __fadd_rn(g1, __fmul_rn(w, rp_s[r * 3 + 1]));
-            g2 = __fadd_rn(g2, __fmul_rn(w, rp_s[r * 3 + 2]));
+            if (kGrad) {
+              g0 = __fadd_rn(g0, __fmul_rn(w, rp_s[r * 3]));
+              g1 = __fadd_rn(g1, __fmul_rn(w, rp_s[r * 3 + 1]));
+              g2 = __fadd_rn(g2, __fmul_rn(w, rp_s[r * 3 + 2]));
+            }
           }
-          float* o = out_pt + (size_t)p * 5;
+          float* o = out_pt + (size_t)p * kPtW;
           o[0] = num;
           o[1] = den;
-          o[2] = g0;
-          o[3] = g1;
-          o[4] = g2;
+          if (kGrad) {
+            o[2] = g0;
+            o[3] = g1;
+            o[4] = g2;
+          }
         }
       }
       mbar_arrive(dempty + slot);
@@ -759,24 +865,168 @@ sdf_agg_kernel(const float* __restrict__ table, int n_rows,
   }
 }
 
-int launch(const float* table, int n_rows, const int* idx, const float* x,
-           int n_pts, int k, const void* wbuf, const float* bbuf, float rbf2,
-           float* out_pt, float* out_w, void* out_r, void* stream) {
-  if (k <= 0 || k > 32 || n_rows <= 1 || n_pts < 0 ||
-      (long long)n_pts * k > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pts == 0) return 0;
+__global__ void __launch_bounds__(kThreads, 1)
+sdf_agg_kernel(const float* __restrict__ table, int n_rows,
+               const int* __restrict__ idx, const float* __restrict__ xq,
+               int n_pts, int k, const __nv_bfloat16* __restrict__ wbuf,
+               const float* __restrict__ bbuf, float rbf2,
+               float* __restrict__ out_pt, float* __restrict__ out_w,
+               __nv_bfloat16* __restrict__ out_r) {
+  agg_body<true>(table, n_rows, idx, xq, n_pts, k, wbuf, bbuf, rbf2, out_pt,
+                 out_w, out_r);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+value_agg_kernel(const float* __restrict__ table, int n_rows,
+                 const int* __restrict__ idx, const float* __restrict__ xq,
+                 int n_pts, int k, const __nv_bfloat16* __restrict__ wbuf,
+                 const float* __restrict__ bbuf, float rbf2,
+                 float* __restrict__ out_pt, float* __restrict__ out_w,
+                 __nv_bfloat16* __restrict__ out_r) {
+  agg_body<false>(table, n_rows, idx, xq, n_pts, k, wbuf, bbuf, rbf2, out_pt,
+                  out_w, out_r);
+}
+
+// K6a.  g [m, 35] f32 rows [lat | pos], xq [m, 3] the query of each row;
+// out_s [m] = bf16(s) as f32, out_r [m, 35] = r = ds/du, the bf16 delta of
+// the down sweep, as f32, out_xpi [m, 3] = x - pos in f32.
+__global__ void __launch_bounds__(kThreads, 1)
+rows_grad_kernel(const float* __restrict__ g_in, const float* __restrict__ xq,
+                 long long m, const __nv_bfloat16* __restrict__ wbuf,
+                 const float* __restrict__ bbuf, float* __restrict__ out_s,
+                 float* __restrict__ out_r, float* __restrict__ out_xpi) {
+  unsigned char* sm = block_smem();
+  block_setup(sm, wbuf, bbuf);
+  float* s_s = reinterpret_cast<float*>(sm + kSmS);
+  const long long n_tiles = (m + kRows - 1) / kRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (role == kConsumers / 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != kConsumers / 32) return;
+    // --- producer: all 26 weight chunks of each of the block's tiles ---
+    const char* wsrc = reinterpret_cast<const char*>(wbuf);
+    int it = 0;
+    for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      for (int c = 0; c < kChunks; ++c) {
+        if (lane == 0) issue_chunk(sm, wsrc, c, it);
+        ++it;
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    // --- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of a tile
+    const int wg = role;
+    const Wg cw = consumer(sm, wg);
+    const int ti = tid & 127;
+    unsigned char* act = cw.act;
+    float* r_s = reinterpret_cast<float*>(act);  // [64][35], after the sweeps
+    const float slope = bf16_round(0.01f);
+    const float bv = __ldg(bbuf + 4 * kHid);
+    int it = 0;
+    for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const long long row0 = t * kRows + wg * kWgRows;
+      const int n = static_cast<int>(min((long long)kWgRows, m - row0));
+
+      // --- [lat | x_pi | 0] (48 columns), two threads a row; x_pi to
+      // HBM; rows past m are zeros ---
+      {
+        const int rl = ti & 63, half = ti >> 6;
+        if (rl < n) {
+          const float* gr = g_in + (row0 + rl) * kRowW;
+          float v[8];
+#pragma unroll
+          for (int c8 = 0; c8 < 2; ++c8) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              v[e] = __ldg(gr + half * 16 + c8 * 8 + e);
+            *reinterpret_cast<uint4*>(act + swz(rl, half * 16 + c8 * 8,
+                                                kWgRows)) = pack8(v);
+          }
+          if (half == 0) {
+            const float* xp = xq + (row0 + rl) * 3;
+            const float e0 = __fsub_rn(__ldg(xp), __ldg(gr + kLat));
+            const float e1 = __fsub_rn(__ldg(xp + 1), __ldg(gr + kLat + 1));
+            const float e2 = __fsub_rn(__ldg(xp + 2), __ldg(gr + kLat + 2));
+            float* xo = out_xpi + (row0 + rl) * 3;
+            xo[0] = e0;
+            xo[1] = e1;
+            xo[2] = e2;
+            *reinterpret_cast<uint4*>(act + swz(rl, kLat, kWgRows)) =
+                make_uint4(pack_bf16(e0, e1), pack_bf16(e2, 0.f), 0u, 0u);
+            *reinterpret_cast<uint4*>(act + swz(rl, kLat + 8, kWgRows)) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+        } else {
+          const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(act + swz(rl, half * 16, kWgRows)) = z;
+          *reinterpret_cast<uint4*>(act + swz(rl, half * 16 + 8, kWgRows)) = z;
+          *reinterpret_cast<uint4*>(act + swz(rl, kLat + half * 8, kWgRows)) =
+              z;
+        }
+      }
+      fence_async_smem();
+      bar_sync(1 + wg, 128);
+
+      float acc0[20];
+      sweeps<true>(cw, s_s + wg * kWgRows, bv, slope, it, acc0);
+      bar_sync(1 + wg, 128);  // every product of the warpgroup has read act
+      // r = the bf16 delta of columns 0..34, staged over the activations
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = cw.w4 * 16 + cw.g + 8 * h;
+#pragma unroll
+        for (int i = 0; i < 5; ++i) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = 8 * i + 2 * cw.t4 + j;
+            if (col < kRowW)
+              r_s[row * kRowW + col] = bf16_round(acc0[4 * i + 2 * h + j]);
+          }
+        }
+      }
+      bar_sync(1 + wg, 128);
+      // the warpgroup's n rows: s, and r as one contiguous run
+      if (ti < n) out_s[row0 + ti] = s_s[wg * kWgRows + ti];
+      float* ro = out_r + row0 * kRowW;
+      for (int e = ti; e < n * kRowW; e += 128) ro[e] = r_s[e];
+      bar_sync(1 + wg, 128);  // r_s is read before the next tile's gather
+    }
+  }
+}
+
+// One block per SM, at most one per unit of work (`units` > 0); the
+// kernel's shared memory allowed.
+cudaError_t grid_for(const void* kernel, long long units, int* grid) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sdf_agg_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmem);
+  *grid = static_cast<int>(sms < units ? sms : units);
+  return err;
+}
+
+template <bool kGrad>
+int launch_agg(const float* table, int n_rows, const int* idx,
+               const float* x, int n_pts, int k, const void* wbuf,
+               const float* bbuf, float rbf2, float* out_pt, float* out_w,
+               void* out_r, void* stream) {
+  if (k <= 0 || k > 32 || n_rows <= 1 || n_pts < 0 ||
+      (long long)n_pts * k > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pts == 0) return 0;
+  const auto kernel = kGrad ? sdf_agg_kernel : value_agg_kernel;
+  int grid = 0;
+  const cudaError_t err =
+      grid_for(reinterpret_cast<const void*>(kernel), n_pts, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sdf_agg_kernel<<<sms < n_pts ? sms : n_pts, kThreads, kSmem,
-                   static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       table, n_rows, idx, x, n_pts, k,
       static_cast<const __nv_bfloat16*>(wbuf), bbuf, rbf2, out_pt, out_w,
       static_cast<__nv_bfloat16*>(out_r));
@@ -787,7 +1037,7 @@ int launch(const float* table, int n_rows, const int* idx, const float* x,
 
 // table [n_rows, 35] f32 (row n_rows - 1: the dump row), idx [n_pts, k]
 // i32, x [n_pts, 3] f32, wbuf: PriorLayers.k3_buffer (bf16), bbuf: f32
-// b0..b3, b_v.  out_pt [n_pts, 5] = (sum w s, sum w, sum w r_pos),
+// b0..b3, b_v.  K3: out_pt [n_pts, 5] = (sum w s, sum w, sum w r_pos),
 // out_w [n_pts*k], out_r [n_pts*k, 32] bf16.
 extern "C" int pair_sdf_aggregate_launch(const float* table, int n_rows,
                                          const int* idx, const float* x,
@@ -795,6 +1045,37 @@ extern "C" int pair_sdf_aggregate_launch(const float* table, int n_rows,
                                          const float* bbuf, float rbf2,
                                          float* out_pt, float* out_w,
                                          void* out_r, void* stream) {
-  return launch(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2, out_pt,
-                out_w, out_r, stream);
+  return launch_agg<true>(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2,
+                          out_pt, out_w, out_r, stream);
+}
+
+// K2, the same inputs: out_pt [n_pts, 2] = (sum w s, sum w).
+extern "C" int pair_sdf_value_agg_launch(const float* table, int n_rows,
+                                         const int* idx, const float* x,
+                                         int n_pts, int k, const void* wbuf,
+                                         const float* bbuf, float rbf2,
+                                         float* out_pt, void* stream) {
+  return launch_agg<false>(table, n_rows, idx, x, n_pts, k, wbuf, bbuf, rbf2,
+                           out_pt, nullptr, nullptr, stream);
+}
+
+// K6a: g [m, 35] f32, x [m, 3] f32, wbuf / bbuf as above -> out_s [m],
+// out_r [m, 35], out_xpi [m, 3].
+extern "C" int pair_sdf_rows_grad_launch(const float* g, const float* x,
+                                         long long m, const void* wbuf,
+                                         const float* bbuf, float* out_s,
+                                         float* out_r, float* out_xpi,
+                                         void* stream) {
+  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
+  int grid = 0;
+  const cudaError_t err = grid_for(
+      reinterpret_cast<const void*>(rows_grad_kernel), (m + kRows - 1) / kRows,
+      &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rows_grad_kernel<<<grid, kThreads, kSmem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      g, x, m, static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s, out_r,
+      out_xpi);
+  return static_cast<int>(cudaGetLastError());
 }

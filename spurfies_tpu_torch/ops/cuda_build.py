@@ -11,6 +11,7 @@ all at once.  Nothing here runs at import time.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -78,6 +79,20 @@ def build(names=SOURCES) -> dict:
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
+
+
+def ptxas_report(log: str) -> dict:
+    """``{entry function: [its register and spill lines]}`` from the
+    ``-Xptxas -v`` output of one build (``build/<name>.log``)."""
+    report, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            report[entry] = []
+        elif entry is not None and ("spill" in line or "Used" in line):
+            report[entry].append(line.strip())
+    return report
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

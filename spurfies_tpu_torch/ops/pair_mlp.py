@@ -25,9 +25,10 @@ backward together, as the custom VJP of ``spurfies_tpu/model/field.py``'s
 ``spurfies_tpu/ops/pallas_mlp.py:458-533``, whose backwards are
 elementwise (no kernel, as in the JAX package).
 
-The CUDA kernels are ``csrc/pair_mlp.cu`` (K2, K6, K7), ``csrc/sdf_agg.cu``
-(K3) and ``csrc/agg_bwd.cu`` (K4); ``*_ref`` are their plain PyTorch
-versions (CPU tensors, and the kernels' yardstick on the card).  The pair-MLP kernels
+The CUDA kernels are ``csrc/sdf_agg.cu`` (K2, K3, K6a: one ``wgmma``
+pipeline), ``csrc/pair_mlp.cu`` (K6b, K7) and ``csrc/agg_bwd.cu`` (K4);
+``*_ref`` are their plain PyTorch versions (CPU tensors, and the kernels'
+yardstick on the card).  The pair-MLP kernels
 follow the TPU kernels' rounding points: operands in the compute dtype,
 f32 accumulation, bias added in f32, activations rounded after each
 LeakyReLU, ``s`` rounded to the compute dtype, the down-sweep delta
@@ -51,7 +52,6 @@ from spurfies_tpu_torch.ops import cuda_build
 DUMP_POS = 1.0e9        # dump-row position: w = exp(-rbf^2 * ~1e18) == 0
 HID = 256
 LAT = 32
-_ROWS = 128             # pair rows per CUDA block
 _IN0, _OUT0 = 48, 40    # padded first-layer depth / last down-sweep width
 
 LAUNCHES = {"pair_sdf_value_agg": 0, "pair_sdf_aggregate": 0,
@@ -61,19 +61,19 @@ LAUNCHES = {"pair_sdf_value_agg": 0, "pair_sdf_aggregate": 0,
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-_SIG = {
-    "pair_sdf_value_agg_launch": [_P, ctypes.c_int, _P, _P, ctypes.c_int,
-                                  ctypes.c_int, _P, _P, ctypes.c_float, _P,
-                                  _P],
-    # K6 / K7: inputs, m, wbuf, bbuf, outputs, stream
+_AGG_IN = [_P, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
+           ctypes.c_float]          # table, n_rows, idx, x, P, k, wbuf, bbuf, rbf2
+# the per-row kernels: inputs, m, wbuf, bbuf, outputs, stream
+_SIG = {                            # csrc/pair_mlp.cu: K6b, K7a, K7b
     "pair_sdf_value_launch": [_P, _LL, _P, _P, _P, _P],
     "pair_sdf_value_and_input_grad_launch": [_P, _LL, _P, _P, _P, _P, _P],
     "pair_sdf_rows_value_launch": [_P, _P, _LL, _P, _P, _P, _P, _P],
+}
+_SIG_SDF_AGG = {                    # csrc/sdf_agg.cu: K3, K2, K6a
+    "pair_sdf_aggregate_launch": _AGG_IN + [_P, _P, _P, _P],
+    "pair_sdf_value_agg_launch": _AGG_IN + [_P, _P],
     "pair_sdf_rows_grad_launch": [_P, _P, _LL, _P, _P, _P, _P, _P, _P],
 }
-_SIG_K3 = {"pair_sdf_aggregate_launch": [_P, ctypes.c_int, _P, _P, ctypes.c_int,
-                                        ctypes.c_int, _P, _P, ctypes.c_float,
-                                        _P, _P, _P, _P]}
 _SIG_BWD = {"pair_sdf_aggregate_bwd_launch": [_P, _P, _P, _P, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int, _P,
                                               _P]}
@@ -95,7 +95,8 @@ class PriorLayers:
     _packed_k3: torch.Tensor = None
 
     def kernel_buffers(self):
-        """(bf16 weights, f32 biases) in the layout of csrc/pair_mlp.cu."""
+        """(bf16 weights, f32 biases) in the layout of csrc/pair_mlp.cu; the
+        biases serve csrc/sdf_agg.cu too."""
         if self._packed is None:
             if self.compute_dtype != torch.bfloat16:
                 raise ValueError("the pair-MLP kernels run in bf16 only; "
@@ -120,14 +121,15 @@ class PriorLayers:
         return self._packed
 
     def k3_buffer(self):
-        """K3's bf16 weights (``csrc/sdf_agg.cu``), packed once in the byte
-        layout of its shared-memory stages, so that each of the 26 chunks is
-        one contiguous bulk copy: chunk 0 is W0^T ``[256, 64]`` (k >= 35
-        zero); chunks 1-12 W_l^T for l = 1, 2, 3 and chunks 13-24 W_l for
-        l = 3, 2, 1, each layer as four ``[256, 64]`` column blocks; then
-        W0 ``[40, 256]`` (rows >= 35 zero) as four ``[40, 64]`` blocks, and
-        w_v ``[256]``.  Every block is :func:`_swizzle128`'d.  K3's biases
-        are :meth:`kernel_buffers`' f32 buffer."""
+        """The bf16 weights of ``csrc/sdf_agg.cu`` (K3, K2, K6a), packed
+        once in the byte layout of its shared-memory stages, so that each of
+        the 26 chunks is one contiguous bulk copy: chunk 0 is W0^T
+        ``[256, 64]`` (k >= 35 zero); chunks 1-12 W_l^T for l = 1, 2, 3 (the
+        up sweep ends here: K2 streams chunks 0-12 only) and chunks 13-24
+        W_l for l = 3, 2, 1, each layer as four ``[256, 64]`` column blocks;
+        then W0 ``[40, 256]`` (rows >= 35 zero) as four ``[40, 64]`` blocks,
+        and w_v ``[256]``.  Every block is :func:`_swizzle128`'d.  The
+        biases are :meth:`kernel_buffers`' f32 buffer."""
         if self._packed_k3 is None:
             self.kernel_buffers()                   # dtype and shape checks
             w0 = self.ws[0]
@@ -245,15 +247,19 @@ def _down_sweep(layers: PriorLayers, gates, t: int, device):
     return delta.float()
 
 
+def value_terms(table, idx_ext, x, layers: PriorLayers, rbf: float):
+    """Plain K2's per-pair terms: ``cols [P*k, 2] = (w s, w)``."""
+    g, xpi, w = _gather(table, idx_ext, x, rbf)
+    s, _ = _up_sweep(layers, _first_split(layers, g[:, :-3], xpi),
+                     keep_gates=False)
+    return torch.stack([w * s, w], dim=1)
+
+
 def pair_sdf_value_agg_ref(table, idx_ext, x, layers: PriorLayers,
                            rbf: float):
     """Plain K2: ``pt [P, 2] = (sum_k w s, sum_k w)``."""
     p, k = idx_ext.shape
-    g, xpi, w = _gather(table, idx_ext, x, rbf)
-    s, _ = _up_sweep(layers, _first_split(layers, g[:, :-3], xpi),
-                     keep_gates=False)
-    cols = torch.stack([w * s, w], dim=1)
-    return cols.view(p, k, 2).sum(dim=1)
+    return value_terms(table, idx_ext, x, layers, rbf).view(p, k, 2).sum(dim=1)
 
 
 def aggregate_terms(table, idx_ext, x, layers: PriorLayers, rbf: float):
@@ -287,44 +293,49 @@ def _check_inputs(name, table, idx_ext, x):
     if idx_ext.dtype != torch.int32 or x.dtype != torch.float32 or \
             tuple(x.shape) != (p, 3):
         raise ValueError(f"{name}: idx_ext int32 [P, k] and x f32 [P, 3]")
-    if _ROWS % k != 0:
-        raise ValueError(f"{name}: k={k} must divide {_ROWS}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.device.type == "cuda" and k > 32:
+        raise ValueError(f"{name}: k={k} must be at most 32")
+    return x.device.type == "cpu"
 
 
-def _pad_points(idx_ext, x, n_dump: int):
-    """Pad P to whole CUDA blocks with dump-row pairs."""
+def _launch_agg(name, table, idx_ext, x, layers: PriorLayers, rbf: float,
+                outs):
+    """Run K3 or K2 (the C entry ``{name}_launch`` of ``csrc/sdf_agg.cu``)
+    into the new tensors ``outs``."""
     p, k = idx_ext.shape
-    per_block = _ROWS // k
-    pad = (-p) % per_block
-    if pad:
-        idx_ext = torch.cat([idx_ext, idx_ext.new_full((pad, k), n_dump)])
-        x = torch.cat([x, x.new_zeros((pad, 3))])
-    return idx_ext.contiguous(), x.contiguous(), p + pad
+    bbuf = layers.kernel_buffers()[1]
+    wbuf = layers.k3_buffer()
+    idx_ext, x, table = (t.contiguous() for t in (idx_ext, x, table))
+    lib = cuda_build.load("sdf_agg", _SIG_SDF_AGG)
+    err = getattr(lib, f"{name}_launch")(
+        table.data_ptr(), table.shape[0], idx_ext.data_ptr(), x.data_ptr(),
+        p, k, wbuf.data_ptr(), bbuf.data_ptr(), float(rbf) ** 2,
+        *(t.data_ptr() for t in outs),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, name)
+    LAUNCHES[name] += 1
+    return outs
 
 
 @torch.no_grad()
 def pair_sdf_value_agg(table, idx_ext, x, layers: PriorLayers, rbf: float):
     """K2 (forward only: its outputs carry no gradient).  CPU tensors run
     :func:`pair_sdf_value_agg_ref`; CUDA tensors launch the kernel (bf16
-    compute only)."""
-    _check_inputs("pair_sdf_value_agg", table, idx_ext, x)
-    if x.device.type == "cpu":
+    compute only).  Returns ``pt [P, 2]``.
+
+    The kernel is K3 without the down sweep: it computes only the real
+    pairs (index in ``[0, N)``), and each point's sums skip the dump pairs'
+    terms, which are +-0, so they are what adding them in j order gives;
+    a point with no real pair gets ``(0, 0)``.  Its ``pt`` is K3's
+    ``pt[:, :2]`` bit for bit."""
+    if _check_inputs("pair_sdf_value_agg", table, idx_ext, x):
         return pair_sdf_value_agg_ref(table, idx_ext, x, layers, rbf)
-    if x.device.type != "cuda":
-        raise ValueError(f"pair_sdf_value_agg: unsupported device {x.device}")
-    p, k = idx_ext.shape
-    wbuf, bbuf = layers.kernel_buffers()
-    idx_p, x_p, pp = _pad_points(idx_ext, x, table.shape[0] - 1)
-    table = table.contiguous()
-    out = torch.empty((pp, 2), dtype=torch.float32, device=x.device)
-    lib = cuda_build.load("pair_mlp", _SIG)
-    err = lib.pair_sdf_value_agg_launch(
-        table.data_ptr(), table.shape[0], idx_p.data_ptr(), x_p.data_ptr(),
-        pp, k, wbuf.data_ptr(), bbuf.data_ptr(), float(rbf) ** 2,
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(err, "pair_sdf_value_agg")
-    LAUNCHES["pair_sdf_value_agg"] += 1
-    return out[:p]
+    pt = torch.empty((idx_ext.shape[0], 2), dtype=torch.float32,
+                     device=x.device)
+    return _launch_agg("pair_sdf_value_agg", table, idx_ext, x, layers, rbf,
+                       (pt,))[0]
 
 
 @torch.no_grad()
@@ -339,29 +350,14 @@ def pair_sdf_aggregate(table, idx_ext, x, layers: PriorLayers, rbf: float):
     has the prior's gradient at the dump position.  No consumer reads it:
     K4 drops the rows whose w is 0.  Each point's sums skip the dump pairs'
     terms, which are +-0, so they are what adding them in j order gives."""
-    _check_inputs("pair_sdf_aggregate", table, idx_ext, x)
-    if x.device.type == "cpu":
+    if _check_inputs("pair_sdf_aggregate", table, idx_ext, x):
         return pair_sdf_aggregate_ref(table, idx_ext, x, layers, rbf)
-    if x.device.type != "cuda":
-        raise ValueError(f"pair_sdf_aggregate: unsupported device {x.device}")
     p, k = idx_ext.shape
-    if k > 32:
-        raise ValueError(f"pair_sdf_aggregate: k={k} must be at most 32")
-    bbuf = layers.kernel_buffers()[1]
-    wbuf = layers.k3_buffer()
-    idx_ext, x, table = (t.contiguous() for t in (idx_ext, x, table))
     pt = torch.empty((p, 5), dtype=torch.float32, device=x.device)
     w = torch.empty((p * k,), dtype=torch.float32, device=x.device)
     r = torch.empty((p * k, LAT), dtype=torch.bfloat16, device=x.device)
-    lib = cuda_build.load("sdf_agg", _SIG_K3)
-    err = lib.pair_sdf_aggregate_launch(
-        table.data_ptr(), table.shape[0], idx_ext.data_ptr(), x.data_ptr(),
-        p, k, wbuf.data_ptr(), bbuf.data_ptr(), float(rbf) ** 2,
-        pt.data_ptr(), w.data_ptr(), r.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(err, "pair_sdf_aggregate")
-    LAUNCHES["pair_sdf_aggregate"] += 1
-    return pt, w, r
+    return _launch_agg("pair_sdf_aggregate", table, idx_ext, x, layers, rbf,
+                       (pt, w, r))
 
 
 def pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n: int):
@@ -507,7 +503,9 @@ def _check_rows(name, *ins):
 
 def _launch_rows(name, ins, layers: PriorLayers, out_cols):
     """Run the C entry ``{name}_launch`` on ``ins`` into new f32 outputs of
-    ``[M, c]`` for each c of ``out_cols`` (0: ``[M]``)."""
+    ``[M, c]`` for each c of ``out_cols`` (0: ``[M]``): K6a's in
+    ``csrc/sdf_agg.cu`` on :meth:`PriorLayers.k3_buffer`, the others' in
+    ``csrc/pair_mlp.cu``."""
     m = ins[0].shape[0]
     dev = ins[0].device
     outs = [torch.empty((m, c) if c else (m,), dtype=torch.float32,
@@ -515,7 +513,11 @@ def _launch_rows(name, ins, layers: PriorLayers, out_cols):
     if m == 0:
         return outs
     wbuf, bbuf = layers.kernel_buffers()
-    lib = cuda_build.load("pair_mlp", _SIG)
+    if f"{name}_launch" in _SIG_SDF_AGG:
+        wbuf = layers.k3_buffer()
+        lib = cuda_build.load("sdf_agg", _SIG_SDF_AGG)
+    else:
+        lib = cuda_build.load("pair_mlp", _SIG)
     err = getattr(lib, f"{name}_launch")(
         *(t.data_ptr() for t in ins), m, wbuf.data_ptr(), bbuf.data_ptr(),
         *(t.data_ptr() for t in outs),

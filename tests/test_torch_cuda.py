@@ -69,8 +69,8 @@ def test_select_knn_matches_plain(cuda, packed):
 
 
 def _pair_inputs(dev, m=1000, k=8):
-    """m points (not a whole number of K2's CUDA blocks, so its wrapper pads),
-    each with k neighbours scattered around it; 30 % of the pairs and the
+    """m points (not a whole number of 128-row tiles), each with k
+    neighbours scattered around it; 30 % of the pairs and the
     first 5 points' pairs invalid (the dump row); two pairs each of points
     5 and 6 index outside the table, which reads the dump row too."""
     rng = np.random.default_rng(0)
@@ -194,6 +194,41 @@ def test_pair_sdf_aggregate_skips_dump_pairs(cuda, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [2999, 5, 1])
+def test_pair_sdf_value_agg_skips_dump_pairs(cuda, m):
+    """K2 on points with 0..8 real pairs, indices outside the table and a P
+    that fills no whole tile: pt by ``_within``, and exactly (0, 0) on every
+    point with no real pair (the kernel computes no dump pair)."""
+    table, idx_ext, x, prior = _mixed_pairs(cuda, m)
+    before = pair_mlp.LAUNCHES["pair_sdf_value_agg"]
+    with torch.no_grad():
+        pt = pair_mlp.pair_sdf_value_agg(table, idx_ext, x, prior, RBF)
+        ref = pair_mlp.pair_sdf_value_agg_ref(table, idx_ext, x, prior, RBF)
+    torch.cuda.synchronize()
+    assert pair_mlp.LAUNCHES["pair_sdf_value_agg"] == before + 1
+    assert pt.shape == ref.shape == (m, 2) and bool(torch.isfinite(pt).all())
+    real = ((idx_ext >= 0) & (idx_ext < table.shape[0] - 1))
+    assert bool((pt[~real.any(1)] == 0).all())
+    _within(pt, ref, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["mixed", "pairs"])
+def test_pair_sdf_value_agg_is_the_aggregate_without_its_down_sweep(
+        cuda, inputs):
+    """K2 and K3 run the same up-sweep instructions on the same tiles and
+    sum in the same order, so K2's pt is K3's pt[:, :2] bit for bit."""
+    table, idx_ext, x, prior = (_mixed_pairs(cuda, 2999) if inputs == "mixed"
+                                else _pair_inputs(cuda))
+    with torch.no_grad():
+        pt2 = pair_mlp.pair_sdf_value_agg(table, idx_ext, x, prior, RBF)
+        pt3 = pair_mlp.pair_sdf_aggregate(table, idx_ext, x, prior, RBF)[0]
+    torch.cuda.synchronize()
+    assert bool((pt2[:, 1] > 0).any())
+    assert torch.equal(pt2, pt3[:, :2])
+
+
+@pytest.mark.cuda
 def test_render_through_kernels_matches_plain_render(cuda):
     """A small render through ``make_render_fn`` on the card launches every
     kernel, and agrees with the same render on the CPU (plain versions,
@@ -235,22 +270,19 @@ _ROWS = ("pair_sdf_rows_grad", "pair_sdf_rows_value",
          "pair_sdf_value_and_input_grad", "pair_sdf_value")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m", [1000, 1], ids=["ragged", "one-row"])
-@pytest.mark.parametrize("kernel", _ROWS)
-def test_pair_rows_kernels_match_plain(cuda, kernel, m):
-    """K6a / K6b / K7a / K7b against their plain versions, for a row count
-    that is not a whole number of 128-row blocks and for one row: x_pi
-    bit-equal (the same f32 subtraction), s and r by ``_within``."""
+def _rows_kernel_matches_plain(dev, kernel, m):
+    """One per-row kernel against its plain version on m seeded rows: the
+    launch counter +1, x_pi bit-equal (the same f32 subtraction), s and r
+    by ``_within``."""
     rng = np.random.default_rng(m)
     lat = rng.normal(0, 0.3, (m, 32))
     xpi = rng.normal(0, 0.03, (m, 3))
     x = rng.uniform(-0.5, 0.5, (m, 3))
     g = np.concatenate([lat, x - xpi], 1)
     u = np.concatenate([lat, xpi], 1)
-    args = [torch.from_numpy(a.astype(np.float32)).to(cuda)
+    args = [torch.from_numpy(a.astype(np.float32)).to(dev)
             for a in ((g, x) if "rows" in kernel else (u,))]
-    prior = pair_mlp._prep_layers(load_prior_npz(device=cuda), torch.bfloat16)
+    prior = pair_mlp._prep_layers(load_prior_npz(device=dev), torch.bfloat16)
     fn = getattr(pair_mlp, kernel)
     ref = getattr(pair_mlp, kernel + "_ref")
     before = pair_mlp.LAUNCHES[kernel]
@@ -268,6 +300,25 @@ def test_pair_rows_kernels_match_plain(cuda, kernel, m):
             assert torch.equal(a, b)
         else:
             _within(a, b, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1000, 1], ids=["ragged", "one-row"])
+@pytest.mark.parametrize("kernel", _ROWS)
+def test_pair_rows_kernels_match_plain(cuda, kernel, m):
+    """K6a / K6b / K7a / K7b against their plain versions, for a row count
+    that is not a whole number of 128-row blocks and for one row."""
+    _rows_kernel_matches_plain(cuda, kernel, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [127, 128, 129, 40000])
+def test_pair_sdf_rows_grad_tile_edges(cuda, m):
+    """K6a's tiles of 128 contiguous rows: one row short of a tile, one
+    tile, one row past it (a second tile whose second warpgroup has no
+    row), and more tiles than the card has SMs, so that each block walks
+    several."""
+    _rows_kernel_matches_plain(cuda, "pair_sdf_rows_grad", m)
 
 
 def _sum_order_close(what, out, ref, abs_sum, count):

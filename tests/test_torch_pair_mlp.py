@@ -222,34 +222,46 @@ def test_kernel_buffers_need_bf16(setup):
     assert bbuf.numel() == 4 * 256 + 1
 
 
-def test_dump_pairs_add_nothing_to_the_aggregate(setup):
-    """The premise that lets K3's kernel skip the dump pairs (index outside
-    [0, N)): in the plain K3 their terms are +-0 (w == 0 exactly), so the
-    per-point sums without them equal pt bit for bit, both in torch's own
-    order and in the kernel's (j = 0..k-1 from +0); and K4 does not read
-    their r_lat, whatever it holds."""
+@pytest.mark.parametrize("kernel", ["value_agg", "aggregate"])
+def test_dump_pairs_add_nothing_to_the_aggregate(setup, kernel):
+    """The premise that lets K2's and K3's kernels skip the dump pairs
+    (index outside [0, N)): in their plain versions those pairs' terms are
+    +-0 (w == 0 exactly), so the per-point sums without them equal pt bit
+    for bit, both in torch's own order and in the kernels' (j = 0..k-1 from
+    +0), and a point with no real pair gets exactly 0; and (K3) K4 does not
+    read their r_lat, whatever it holds."""
     prior, table, idx_ext, x = _torch_inputs(setup, torch.bfloat16)
     idx_ext = idx_ext.clone()
     idx_ext[7, :3] = -2
     idx_ext[8, 5:] = N + 11
     real = ((idx_ext >= 0) & (idx_ext < N)).reshape(-1)
     assert 0 < int(real.sum()) < M * K
-    cols, w, r_lat = tpm.aggregate_terms(table, idx_ext, x, prior, RBF)
-    pt, w_ref, r_ref = tpm.pair_sdf_aggregate_ref(table, idx_ext, x, prior,
-                                                  RBF)
-    assert torch.equal(w, w_ref) and torch.equal(r_lat, r_ref)
-    assert bool((w[~real] == 0).all()) and bool((cols[~real] == 0).all())
+    if kernel == "value_agg":
+        cols = tpm.value_terms(table, idx_ext, x, prior, RBF)
+        pt = tpm.pair_sdf_value_agg_ref(table, idx_ext, x, prior, RBF)
+    else:
+        cols, w, r_lat = tpm.aggregate_terms(table, idx_ext, x, prior, RBF)
+        pt, w_ref, r_ref = tpm.pair_sdf_aggregate_ref(table, idx_ext, x,
+                                                      prior, RBF)
+        assert torch.equal(w, w_ref) and torch.equal(r_lat, r_ref)
+    c = cols.shape[1]
+    assert pt.shape == (M, c)
+    assert bool((cols[~real, 1] == 0).all()) and bool((cols[~real] == 0).all())
     kept = torch.where(real[:, None], cols, 0.0)
-    assert torch.equal(kept.view(M, K, 5).sum(1), pt)
-    seq_all = torch.zeros(M, 5)
-    seq_real = torch.zeros(M, 5)
-    c3, r3 = cols.view(M, K, 5), real.view(M, K, 1)
+    assert torch.equal(kept.view(M, K, c).sum(1), pt)
+    empty = ~real.view(M, K).any(1)
+    assert bool(empty.any()) and bool((pt[empty] == 0).all())
+    seq_all = torch.zeros(M, c)
+    seq_real = torch.zeros(M, c)
+    c3, r3 = cols.view(M, K, c), real.view(M, K, 1)
     for j in range(K):
         seq_all = seq_all + c3[:, j]
         seq_real = torch.where(r3[:, j], seq_real + c3[:, j], seq_real)
     assert torch.equal(seq_all, seq_real)
     assert torch.equal(seq_real.view(torch.int32),
                        seq_all.view(torch.int32))
+    if kernel == "value_agg":
+        return
     # K4 drops the dump pairs: arbitrary finite r_lat there changes nothing
     num_bar = torch.from_numpy(
         np.random.default_rng(3).normal(size=M).astype(np.float32))
@@ -260,6 +272,36 @@ def test_dump_pairs_add_nothing_to_the_aggregate(setup):
     assert torch.equal(
         tpm.pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, N),
         tpm.pair_sdf_aggregate_bwd_ref(num_bar, w, r_junk, idx_ext, N))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_value_agg_is_the_aggregates_first_two_columns(setup, dtype):
+    """Plain K2's (sum w s, sum w) is plain K3's ``pt[:, :2]`` on the same
+    inputs: the same gather, up sweep and tail (K3 only adds the down
+    sweep), so the per-pair terms are bit-equal, and so are their sums in
+    the kernels' order (j = 0..k-1 from +0).  torch's own ``sum(1)`` over
+    the [P, k, 2] and [P, k, 5] terms runs in other orders: those two agree
+    within the f32 sum-order limit 2 k 2**-24 sum|terms|.  The kernels are
+    held bit-equal on the card (``tests/test_torch_cuda.py``,
+    ``chip_smoke.py`` phase 4)."""
+    prior, table, idx_ext, x = _torch_inputs(setup, dtype)
+    idx_ext = idx_ext.clone()
+    idx_ext[7, :3] = -2
+    c2 = tpm.value_terms(table, idx_ext, x, prior, RBF)
+    c3 = tpm.aggregate_terms(table, idx_ext, x, prior, RBF)[0]
+    assert torch.equal(c2, c3[:, :2])
+    seq2, seq3 = torch.zeros(M, 2), torch.zeros(M, 5)
+    for j in range(K):
+        seq2 = seq2 + c2.view(M, K, 2)[:, j]
+        seq3 = seq3 + c3.view(M, K, 5)[:, j]
+    assert torch.equal(seq2, seq3[:, :2])
+    pt2 = tpm.pair_sdf_value_agg_ref(table, idx_ext, x, prior, RBF)
+    pt3 = tpm.pair_sdf_aggregate_ref(table, idx_ext, x, prior, RBF)[0]
+    assert pt2.shape == (M, 2) and bool((pt2[:, 1] > 0).any())
+    limit = 2 * K * 2.0 ** -24 * c2.abs().view(M, K, 2).sum(1)
+    assert bool(((pt2 - pt3[:, :2]).abs() <= limit).all())
+    assert bool(((pt2 - seq2).abs() <= limit).all())
 
 
 def _unswizzle(buf, rows, k):
@@ -296,3 +338,27 @@ def test_k3_buffer_unpacks_to_the_prior_layers(setup):
     dn0 = _unswizzle(buf[25 * ch:25 * ch + 40 * 256], 40, 256)
     assert torch.equal(dn0[:35], ws[0]) and bool((dn0[35:] == 0).all())
     assert torch.equal(buf[25 * ch + 40 * 256:], ws[4].reshape(-1))
+
+
+def test_k3_buffer_up_sweep_gives_the_value_agg(setup):
+    """K2's kernel reads only chunks 0-12 of ``k3_buffer()`` (W0^T, then
+    W1-3^T) and w_v at its offset, with ``kernel_buffers()``' f32 biases:
+    the prior rebuilt from exactly those bytes, unswizzled with the
+    kernel's address formula, gives plain K2's pt bit for bit."""
+    prior, table, idx_ext, x = _torch_inputs(setup, torch.bfloat16)
+    buf = prior.k3_buffer()
+    bbuf = prior.kernel_buffers()[1]
+    ch = 256 * 64
+    wv_off = 25 * ch + 40 * 256                    # kWvOff, in elements
+    ws = [_unswizzle(buf[:ch], 256, 64)[:, :35].t()]
+    ws += [_unswizzle(buf[(1 + 4 * n) * ch:(5 + 4 * n) * ch], 256, 256).t()
+           for n in range(3)]
+    ws.append(buf[wv_off:wv_off + 256].reshape(256, 1))
+    bs = [bbuf[256 * l:256 * (l + 1)][None] for l in range(4)]
+    bs.append(bbuf[4 * 256:][None])
+    rebuilt = tpm.PriorLayers(ws, bs, 4, torch.bfloat16)
+    for a, b in zip(rebuilt.ws + rebuilt.bs, prior.ws + prior.bs):
+        assert a.shape == b.shape
+    assert torch.equal(
+        tpm.pair_sdf_value_agg_ref(table, idx_ext, x, rebuilt, RBF),
+        tpm.pair_sdf_value_agg_ref(table, idx_ext, x, prior, RBF))

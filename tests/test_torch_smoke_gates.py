@@ -144,3 +144,30 @@ def test_rel_l2_within_passes_inside_and_rejects_beyond():
         smoke.rel_l2_within("beyond", ref * 1.02, ref, 1e-2)
     assert smoke.rel_l2_within("control", ref * 1.02, ref, 1e-2,
                                hold=False) > 0
+
+
+def test_ptxas_report_names_each_entry_function():
+    """Phase 2 reads each kernel's registers and spills from the build's
+    ``-Xptxas -v`` log by entry function: K3, K2 and K6a share one source,
+    so a spill must be pinned on the kernel that has it."""
+    from spurfies_tpu_torch.ops import cuda_build
+
+    k3 = "_ZN12_GLOBAL__N_114sdf_agg_kernelEPKfiPKiS2_ii"
+    k2 = "_ZN12_GLOBAL__N_116value_agg_kernelEPKfiPKiS2_ii"
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{k3}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {k3}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, 452 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{k2}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {k2}",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, 452 bytes cmem[0]"])
+    report = cuda_build.ptxas_report(log)
+    assert list(report) == [k3, k2]
+    assert report[k3] == [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, 452 bytes cmem[0]"]
+    assert "4 bytes spill stores" in report[k2][0]
+    assert cuda_build.ptxas_report("ptxas info    : 0 bytes gmem") == {}
