@@ -449,7 +449,6 @@ def dump_cost(name, fn, args, prior, rbf, reps, limit):
         f"(ratio {ms_dump / ms_real:.4f}, must be < {limit:.4g})")
     if ms_dump >= limit * ms_real:
         fail(f"{name}: dump pairs still cost product work")
-    return ms_dump
 
 
 def sass_opcodes(lib, kernel, opcodes):
@@ -1414,10 +1413,9 @@ def main():
             # cost what a real one does (73 % of its pairs are dump pairs)
             table2, idx2, _ = inp["k2"]
             n_real = int(((idx2 >= 0) & (idx2 < table2.shape[0] - 1)).sum())
-            results["K2 pair_sdf_value_agg"]["dump_ms"] = dump_cost(
-                "K2 pair_sdf_value_agg (dump pairs)",
-                pair_mlp.pair_sdf_value_agg, inp["k2"], prior,
-                cfg.model.rbf, 10, 0.1 * idx2.numel() / max(n_real, 1))
+            dump_cost("K2 pair_sdf_value_agg (dump pairs)",
+                      pair_mlp.pair_sdf_value_agg, inp["k2"], prior,
+                      cfg.model.rbf, 10, 0.1 * idx2.numel() / max(n_real, 1))
             # K2 is K3 without the down sweep: the same tiles, the same
             # up-sweep instructions and sums, so its pt is K3's pt[:, :2]
             with torch.no_grad():
@@ -1815,9 +1813,8 @@ def main():
                 "max_abs_err") if k in t}
         if label.startswith("K8"):
             row["colour_path_ms"] = colour_path
-        for extra in ("atomic_adds", "dump_ms"):
-            if extra in r:
-                row[extra] = r[extra]
+        if "atomic_adds" in r:
+            row["atomic_adds"] = r["atomic_adds"]
         rows.append(row)
         if launches[key] == 0:
             fail(f"{label} was not launched on the main path")

@@ -82,14 +82,20 @@ def build(names=SOURCES) -> dict:
 
 
 def ptxas_report(log: str) -> dict:
-    """``{entry function: [its register and spill lines]}`` from the
-    ``-Xptxas -v`` output of one build (``build/<name>.log``)."""
+    """``{entry function: [its lines]}`` from the ``-Xptxas -v`` output of
+    one build (``build/<name>.log``): the register and spill lines that
+    follow each entry's "Compiling entry function", and the notes that name
+    it ("... in function '<name>'", such as a ``wgmma`` serialised for its
+    registers)."""
     report, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
+        named = re.search(r"in function '([^']+)'", line)
         if m:
             entry = m.group(1)
-            report[entry] = []
+            report.setdefault(entry, [])
+        elif named:
+            report.setdefault(named.group(1), []).append(line.strip())
         elif entry is not None and ("spill" in line or "Used" in line):
             report[entry].append(line.strip())
     return report

@@ -154,7 +154,11 @@ def test_ptxas_report_names_each_entry_function():
 
     k3 = "_ZN12_GLOBAL__N_114sdf_agg_kernelEPKfiPKiS2_ii"
     k2 = "_ZN12_GLOBAL__N_116value_agg_kernelEPKfiPKiS2_ii"
+    note = ("ptxas info    : (C7519) warpgroup.arrive is injected in around "
+            f"line 1878 by compiler to allow use of registers in GMMA in "
+            f"function '{k3}'")
     log = "\n".join([
+        note,
         "ptxas info    : 0 bytes gmem",
         f"ptxas info    : Compiling entry function '{k3}' for 'sm_90a'",
         f"ptxas info    : Function properties for {k3}",
@@ -167,6 +171,7 @@ def test_ptxas_report_names_each_entry_function():
     report = cuda_build.ptxas_report(log)
     assert list(report) == [k3, k2]
     assert report[k3] == [
+        note,
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 168 registers, 452 bytes cmem[0]"]
     assert "4 bytes spill stores" in report[k2][0]
