@@ -12,7 +12,8 @@ failure exits non-zero before the last line):
   2. build: every kernel of ``spurfies_tpu_torch/csrc`` with nvcc for
      sm_90a, one process per source, all at once (seconds, and each entry
      function's registers and spills); the HGMMA and HMMA counts of the
-     SASS of the wgmma pipeline's three kernels (K3, K2, K6a);
+     SASS of the wgmma kernels (WGMMA_KERNELS: K3, K2, K6a and the colour
+     stack's), each of which must hold HGMMA;
   3. scenes: the DUSt3R-like cloud of ``make_dust3r_like_scene`` (the
      JAX package's bench scene, 192x256 views; ~6k points -> the packed K1
      variant) and a dense 40k-point sphere (>2**15 points -> the exact K1
@@ -76,13 +77,15 @@ failure exits non-zero before the last line):
      timed and held against its plain version;
  14. the fused colour (``field.FUSED_COLOR``, set and restored around each
      use), in three places: after phase 5, view 0 of dust3r_like rendered
-     in full with its launch counts (K8a once per chunk); after phase 6,
+     in full with its launch counts (the pack and K8a once per chunk);
+     after phase 6,
      the first chunk against the plain versions (``compare_chunk``), K8a
      held against its plain version on that chunk's colour inputs, and the
      colour path timed through ``aggregate_color`` fused and dense
      (FUSED_COLOR off) at the same shapes, forward and forward+backward;
-     after phase 13, the training path of phase 12 with FUSED_COLOR on (K8a
-     and K8b once a step; K8b's dlat by phase 4's limits, its dW/db by
+     after phase 13, the training path of phase 12 with FUSED_COLOR on (the
+     pack, K8a and K8b once a step; the pack bit-equal to its plain
+     version, K8b's dlat by phase 4's limits, its dW/db by
      ``compare_grads``' 1e-2 relative L2), OPTION_WARMUP + OPTION_STEPS
      steps, and the colour path timed at one step's shapes;
  15. the ``kernels`` JSON line, the ``redesign_order`` line (the kernels
@@ -133,10 +136,13 @@ OPTIONS = {
 OPTION_WARMUP = 20
 OPTION_STEPS = 50
 # the fused colour path's training step: the default's launches, with the
-# colour stack through K8a forward and K8b backward (its latents' K5 stays)
-FUSED_COLOR_STEP = dict(PER_STEP, fused_color_fwd=1, fused_color_bwd=1)
+# colour stack through the pack (once a step), K8a forward and K8b backward
+# (its latents' K5 stays)
+FUSED_COLOR_STEP = dict(PER_STEP, pack_color_weights=1, fused_color_fwd=1,
+                        fused_color_bwd=1)
 MICRO_PAIRS = 655360
 # device-kernel names of the port's kernels, by the kernels line's label
+# (a label may have several: K8a and K8b launch one kernel per piece)
 KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
                 ("K1 select_knn exact", "select_exact_kernel"),
                 ("K2 pair_sdf_value_agg", "value_agg_kernel"),
@@ -148,8 +154,16 @@ KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
                 ("K7a pair_sdf_value_and_input_grad",
                  "pair_rows_kernel<true, false>"),
                 ("K7b pair_sdf_value", "pair_rows_kernel<false, false>"),
-                ("K8a fused_color_fwd", "color_kernel<false>"),
+                ("K8p pack_color_weights", "color_pack_kernel"),
+                ("K8a fused_color_fwd", "color_pair_fwd_kernel"),
+                ("K8a fused_color_fwd", "color_point_fwd_kernel"),
                 ("K8b fused_color_bwd", "color_kernel<true>"))
+# the wgmma kernels whose SASS must hold HGMMA: (label, library, kernel)
+WGMMA_KERNELS = (("K3", "sdf_agg", "sdf_agg_kernel"),
+                 ("K2", "sdf_agg", "value_agg_kernel"),
+                 ("K6a", "sdf_agg", "rows_grad_kernel"),
+                 ("K8a pair", "color_mlp", "color_pair_fwd_kernel"),
+                 ("K8a point", "color_mlp", "color_point_fwd_kernel"))
 # MACs of the colour stack: F_color per pair, R per point; the backward's
 # dW products repeat the forward's, its delta products skip what no output
 # reads (F0's posenc rows, R0's dir_enc rows)
@@ -680,7 +694,9 @@ def kernel_sites():
     )
     from spurfies_tpu_torch.ops import select_knn as sk
 
-    return [(fused_color, "fused_color_fwd", fused_color.fused_color_fwd_ref),
+    return [(fused_color, "pack_color_weights",
+             fused_color.pack_color_weights_ref),
+            (fused_color, "fused_color_fwd", fused_color.fused_color_fwd_ref),
             (fused_color, "fused_color_bwd", fused_color.fused_color_bwd_ref),
             (voxel_grid, "select_knn", sk.select_knn_ref),
             (field, "pair_sdf_value_agg", pair_mlp.pair_sdf_value_agg_ref),
@@ -812,10 +828,13 @@ def check_step(tag, seen, prior_f32, radius):
     best = {}
     for name, calls in seen.items():
         big = 1 if name in ("pair_sdf_value_agg", "pair_sdf_aggregate") else 0
-        calls = sorted(calls, key=lambda a: -a[big].shape[0])
+        calls = sorted(calls, key=lambda a: -getattr(a[big], "shape",
+                                                    (0,))[0])
         for i, args in enumerate(calls):
             what = f"{name} ({tag}, launch {i + 1} of {len(calls)})"
-            if name == "fused_color_fwd":
+            if name == "pack_color_weights":
+                r = check_pack(what, args, 20)
+            elif name == "fused_color_fwd":
                 r = check_k8a(what, args, 10)
             elif name == "fused_color_bwd":
                 r = check_k8b(what, args, 5)
@@ -1043,18 +1062,50 @@ def k8_work(wn, p, bwd):
             real)
 
 
-def check_k8a(name, args, reps):
-    """K8a against its plain version on one launch's inputs: rgb by the
-    limits of phase 4, with the f32 plain control beside them."""
+def check_pack(name, args, reps):
+    """The pack against its plain version: the same bits."""
     import torch
 
     from spurfies_tpu_torch.ops import fused_color as fc
 
-    x_pi, lat, wn, dir_enc, f_color, r, dt = args
     with torch.no_grad():
+        out = fc.pack_color_weights(*args)
+        ref = fc.pack_color_weights_ref(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            bad = (out != ref).nonzero().flatten()
+            log(f"  {name}: {bad.numel()} values differ, in chunks "
+                f"{sorted(set((bad // fc.PACK_CHUNK).tolist()))[:20]}; first "
+                f"{bad[:5].tolist()}: kernel {out[bad[:5]].tolist()}, plain "
+                f"{ref[bad[:5]].tolist()}; finite weights "
+                f"{all(bool(torch.isfinite(l['w']).all()) for n in args for l in n)}")
+            fail(f"{name}: the pack differs from its plain version")
+        ms = cuda_ms(lambda: fc.pack_color_weights(*args), reps)
+        plain_ms = cuda_ms(lambda: fc.pack_color_weights_ref(*args), 3)
+    n_bytes = 4 * (COLOR_PARAMS - 4 * 256 - 2 * 256 - 3) + 2 * out.numel()
+    b_ms, b_by = bound_ms(n_bytes, 0, PEAK_BF16_FLOPS)
+    log(f"{name}: {out.numel()} bf16 values, bit-equal to plain; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "max_abs_err": 0.0}
+
+
+def check_k8a(name, args, reps):
+    """K8a (the pair and point kernels, on the step's packed weights)
+    against its plain version on one launch's inputs: rgb by the limits
+    of phase 4, with the f32 plain control beside them."""
+    import torch
+
+    from spurfies_tpu_torch.ops import fused_color as fc
+
+    x_pi, lat, wn, dir_enc, f_color, r, dt, _ = args
+    with torch.no_grad():
+        # the step's optimizer has updated the weights since its pack
+        args = (*args[:7], fc.pack_color_weights(f_color, r))
         out = fc.fused_color_fwd(*args)
         ref = fc.fused_color_fwd_ref(*args)
-        ctrl = fc.fused_color_fwd_ref(*args[:-1], torch.float32)
+        ctrl = fc.fused_color_fwd_ref(*args[:6], torch.float32)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(out).all()):
             fail(f"{name}: non-finite rgb")
@@ -1342,9 +1393,8 @@ def main():
                 if "registers" in ln or "spill" in ln]}
             for entry, lines in report.items():
                 log(f"  {src} {entry}: " + " | ".join(lines))
-    for label, kernel in (("K3", "sdf_agg_kernel"), ("K2", "value_agg_kernel"),
-                          ("K6a", "rows_grad_kernel")):
-        ops = sass_opcodes(cuda_build.lib_path("sdf_agg"), kernel,
+    for label, lib, kernel in WGMMA_KERNELS:
+        ops = sass_opcodes(cuda_build.lib_path(lib), kernel,
                            ("HGMMA", "HMMA"))
         log(f"build: {label} SASS ({kernel}): " + (
             "cuobjdump not found" if ops is None else
@@ -1542,6 +1592,7 @@ def main():
         launches_colour_render, {"select_knn": iters + 1,
                                  "pair_sdf_value_agg": iters,
                                  "pair_sdf_aggregate": 1,
+                                 "pack_color_weights": 1,
                                  "fused_color_fwd": 1},
         chunks["dust3r_like"], "select_knn_packed")
     if launches_colour_render != expect:
@@ -1735,6 +1786,7 @@ def main():
     train_runs = (launches_train, launches_dense, *launches_options,
                   launches_colour_train)
     results["K8b fused_color_bwd"] = colour_best["fused_color_bwd"]
+    results["K8p pack_color_weights"] = colour_best["pack_color_weights"]
 
     def total(runs, key):
         return sum(c[key] for c in runs)
@@ -1787,6 +1839,9 @@ def main():
         "K7b pair_sdf_value": ("pair_sdf_value",
                                "spurfies_tpu_torch/csrc/pair_mlp.cu",
                                "spurfies_tpu/ops/pallas_mlp.py:146"),
+        "K8p pack_color_weights": ("pack_color_weights",
+                                   "spurfies_tpu_torch/csrc/color_mlp.cu",
+                                   "spurfies_tpu/ops/pallas_color.py:63"),
         "K8a fused_color_fwd": ("fused_color_fwd",
                                 "spurfies_tpu_torch/csrc/color_mlp.cu",
                                 "spurfies_tpu/ops/pallas_color.py:92"),

@@ -670,18 +670,708 @@ int launch(const float* x_pi, const float* lat, const float* wn,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The Hopper pipeline of the colour stack: the weights packed once a step
+// (pack_kernel), streamed into a shared-memory ring by cp.async.bulk from a
+// producer warp, and multiplied on wgmma by two consumer warpgroups, on a
+// persistent grid.  The stack is split where the TPU body already rounds:
+// g = bf16([dir_enc | agg]).
+namespace wg {
+
+constexpr int kWgRows = 64;                 // rows of a consumer warpgroup
+constexpr int kConsumers = 256;             // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kTile = 2 * kWgRows;          // rows (pairs or points) a tile
+constexpr int kStages = 4;
+constexpr int kChunk = 32768;               // bytes of a ring stage
+constexpr int kBlk = kWgRows * 128;         // a 64-column block of act
+constexpr int kGld = 320;                   // K8a's g row: 277 -> 5 blocks
+
+// The packed weights: chunks of kChunk bytes, each an image of stage
+// blocks ([n][64] bf16, K-major, 128-byte swizzled).  Forward products
+// read W^T ([out][in]), reverse products W ([in][out]).
+constexpr int kCF0 = 0;     // F0^T [256][128]: 2 chunks
+constexpr int kCF1 = 2;     // F1^T, F2^T, F3^T [256][256]: 4 chunks each
+constexpr int kCR0 = 14;    // R0^T [256][320]: 5 chunks
+constexpr int kCR1 = 19;    // R1^T [256][256]: 4 chunks
+constexpr int kCR2 = 23;    // R2^T [8][256]: 4 blocks of 1 KB
+constexpr int kCR2b = 24;   // R2 [256][64] (k < 3)
+constexpr int kCR1b = 25;   // R1 [256][256]: 4 chunks
+constexpr int kCR0b = 29;   // R0[21:277] [256][256]: 4 chunks
+constexpr int kCF3b = 33;   // F3, F2, F1 [256][256]: 4 chunks each
+constexpr int kCF0b = 45;   // F0[39:103] [64][256]: 4 blocks of 8 KB
+constexpr int kNChunks = 46;
+constexpr int kR2Bytes = 4 * 8 * 128;
+
+// One matrix of the pack: B[n][k] = W[k][n] (trans) or W[n + row0][k],
+// zero outside W, for n < rows and k < kpad, from byte `at` (in = 0: all
+// zero, for the tail of R2^T's chunk).
+struct PackSeg {
+  const float* w;
+  int in, out, trans, rows, kpad, row0, at;
+};
+constexpr int kSegs = 15;
+struct PackSegs {
+  PackSeg s[kSegs];
+  int unit0[kSegs + 1];  // first 16-byte unit of each segment
+};
+
+// One thread a 16-byte unit (8 bf16) of the packed image: unit u of a
+// segment is block u / (8 rows), row r, stored chunk sc of the row, which
+// holds the row's logical chunk sc ^ (r % 8).
+__global__ void __launch_bounds__(256)
+color_pack_kernel(PackSegs segs, bf16* __restrict__ out) {
+  for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < segs.unit0[kSegs];
+       u += gridDim.x * blockDim.x) {
+    int i = 0;
+    while (u >= segs.unit0[i + 1]) ++i;
+    const PackSeg sg = segs.s[i];
+    const int v = u - segs.unit0[i];
+    const int blk = v / (sg.rows * 8), rem = v - blk * sg.rows * 8;
+    const int r = rem >> 3, sc = rem & 7;
+    const int c0 = blk * 64 + ((sc ^ (r & 7)) << 3);
+    float x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = c0 + e;
+      if (sg.trans)
+        x[e] = (k < sg.in && r < sg.out) ? __ldg(sg.w + (size_t)k * sg.out + r)
+                                         : 0.f;
+      else
+        x[e] = (r + sg.row0 < sg.in && k < sg.out)
+                   ? __ldg(sg.w + (size_t)(r + sg.row0) * sg.out + k)
+                   : 0.f;
+    }
+    *reinterpret_cast<uint4*>(
+        reinterpret_cast<char*>(out) + (size_t)sg.at +
+        (size_t)blk * sg.rows * 128 + r * 128 + sc * 16) =
+        make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]),
+                   pack2(x[6], x[7]));
+  }
+}
+
+PackSegs pack_segs(const void* const* ws) {
+  auto w = [&](int i) { return static_cast<const float*>(ws[i]); };
+  constexpr int c = kChunk;
+  const PackSeg s[kSegs] = {
+      {w(0), kIn0, kHid, 1, kHid, 128, 0, kCF0 * c},
+      {w(1), kHid, kHid, 1, kHid, kHid, 0, kCF1 * c},
+      {w(2), kHid, kHid, 1, kHid, kHid, 0, (kCF1 + 4) * c},
+      {w(3), kHid, kHid, 1, kHid, kHid, 0, (kCF1 + 8) * c},
+      {w(4), kRIn, kHid, 1, kHid, 320, 0, kCR0 * c},
+      {w(5), kHid, kHid, 1, kHid, kHid, 0, kCR1 * c},
+      {w(6), kHid, kOut, 1, 8, kHid, 0, kCR2 * c},
+      {w(6), 0, 0, 0, (c - kR2Bytes) / 128, 64, 0, kCR2 * c + kR2Bytes},
+      {w(6), kHid, kOut, 0, kHid, 64, 0, kCR2b * c},
+      {w(5), kHid, kHid, 0, kHid, kHid, 0, kCR1b * c},
+      {w(4), kRIn, kHid, 0, kHid, kHid, kDir, kCR0b * c},
+      {w(3), kHid, kHid, 0, kHid, kHid, 0, kCF3b * c},
+      {w(2), kHid, kHid, 0, kHid, kHid, 0, (kCF3b + 4) * c},
+      {w(1), kHid, kHid, 0, kHid, kHid, 0, (kCF3b + 8) * c},
+      {w(0), kIn0, kHid, 0, kLat, kHid, kPos, kCF0b * c}};
+  PackSegs segs;
+  int at = 0;
+  for (int i = 0; i < kSegs; ++i) {
+    segs.s[i] = s[i];
+    segs.unit0[i] = at;
+    at += s[i].rows * s[i].kpad / 8;
+  }
+  segs.unit0[kSegs] = at;
+  return segs;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of element (r, c) in a K-major image of 64-column blocks of
+// 64 rows, 128-byte swizzled (16-byte chunk c / 8 of row r stored at chunk
+// (c / 8) ^ (r % 8)): a warpgroup's activations.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 6) * kBlk + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) +
+         (c & 7) * 2;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Expect `bytes` on `bar` and copy them from global src to shared dst,
+// completion reported to `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Generic-proxy writes to shared memory, made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Descriptor of a K-major, 128-byte-swizzled operand at shared address
+// `addr`: 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d[128] (+)= A [64, 16] . B [16, 256] by descriptors; scale_d 0 overwrites.
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[32] (+)= A [64, 16] . B [16, 64].
+__device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[4] (+)= A [64, 16] . B [16, 8].
+__device__ __forceinline__ void wgmma_8(float (&d)[4], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The ring: full[s] (the chunk arrived), empty[s] (the 8 consumer warps
+// are done with it); `it` counts the chunks taken.
+struct Ring {
+  uint32_t base;  // shared address of stage 0
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+// acc = A [64, 64 NKB] . B over NKB chunks of the ring (KSTEPS k16 steps
+// each, one [256][64] block a chunk), each stage released when read.
+template <int NKB, int KSTEPS>
+__device__ __forceinline__ void layer(float (&acc)[128], uint32_t act,
+                                      const Ring& ring, int& it, int lane) {
+  wg_fence();
+  int prev = 0;
+#pragma unroll 1
+  for (int kb = 0; kb < NKB; ++kb) {
+    const int stage = it & (kStages - 1);
+    mbar_wait(ring.full + stage, (it / kStages) & 1);
+    const uint32_t a = act + kb * kBlk;
+    const uint32_t b = ring.base + stage * kChunk;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks)
+      wgmma_256(acc, wg_desc(a + ks * 32), wg_desc(b + ks * 32),
+                (kb | ks) != 0);
+    wg_commit();
+    if (kb > 0) {
+      wg_wait<1>();
+      if (lane == 0) mbar_arrive(ring.empty + prev);
+    }
+    prev = stage;
+    ++it;
+  }
+  wg_wait<0>();
+  if (lane == 0) mbar_arrive(ring.empty + prev);
+}
+
+// acc = A [64, 256] . B from one chunk holding B as four [N][64] blocks
+// (N = 64: F0's latent rows; N = 8: R2^T).
+template <int N>
+__device__ __forceinline__ void narrow_product(float (&acc)[N / 2],
+                                               uint32_t act, const Ring& ring,
+                                               int& it, int lane) {
+  const int stage = it & (kStages - 1);
+  mbar_wait(ring.full + stage, (it / kStages) & 1);
+  const uint32_t b = ring.base + stage * kChunk;
+  wg_fence();
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t da = wg_desc(act + kb * kBlk + ks * 32);
+      const uint64_t db = wg_desc(b + kb * N * 128 + ks * 32);
+      if constexpr (N == 64)
+        wgmma_64(acc, da, db, (kb | ks) != 0);
+      else
+        wgmma_8(acc, da, db, (kb | ks) != 0);
+    }
+  wg_commit();
+  wg_wait<0>();
+  if (lane == 0) mbar_arrive(ring.empty + stage);
+  ++it;
+}
+
+// The producer's lane 0: chunk c of the packed weights into the stage of
+// the stream's chunk number `it`, once the consumers have released it.
+__device__ __forceinline__ void issue_chunk(const Ring& ring,
+                                            unsigned char* ring_ptr,
+                                            const char* wsrc, int c, int it) {
+  const int stage = it & (kStages - 1);
+  mbar_wait(ring.empty + stage, ((it / kStages) & 1) ^ 1);
+  bulk_load(ring_ptr + stage * kChunk, wsrc + (size_t)c * kChunk,
+            c == kCR2 ? kR2Bytes : kChunk, ring.full + stage);
+}
+
+// The block's dynamic shared memory, from a 1024-aligned base.
+__device__ __forceinline__ unsigned char* block_smem() {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  return smem_raw + (((raw + 1023u) & ~1023u) - raw);
+}
+
+// Shared memory: the ring, two warpgroups' activations (kActW bytes
+// each), f32 biases, f32 scratch, then the ring's barriers.
+template <int kActW, int kBias, int kF32>
+struct Smem {
+  static constexpr int ring = 0;
+  static constexpr int act = kStages * kChunk;
+  static constexpr int bias = act + 2 * kActW;
+  static constexpr int f32 = bias + kBias * 4;
+  static constexpr int bar = (f32 + kF32 * 4 + 7) / 8 * 8;
+  static constexpr int bytes = bar + 2 * kStages * 8 + 1024;
+  static_assert(bytes <= 232448, "shared memory");
+};
+using PairSmem = Smem<kWgRows * kHid * 2, 4 * kHid, kTile>;       // + wn
+using PointSmem = Smem<kWgRows * kGld * 2, 2 * kHid + 8, 0>;
+
+// Barriers initialised and the ring described; every thread calls it.
+__device__ __forceinline__ Ring ring_setup(unsigned char* sm, int bar_off) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + bar_off);
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  return Ring{smem_u32(sm), full, empty};
+}
+
+// The producer warp: for each of the block's tiles, the chunks c0 .. c1 - 1.
+__device__ __forceinline__ void produce(const Ring& ring, unsigned char* sm,
+                                        const bf16* wbuf, long long n_tiles,
+                                        int c0, int c1) {
+  if ((threadIdx.x & 31) != 0) return;
+  const char* wsrc = reinterpret_cast<const char*>(wbuf);
+  int it = 0;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x)
+    for (int c = c0; c < c1; ++c) issue_chunk(ring, sm, wsrc, c, it++);
+}
+
+// A layer's epilogue over the warpgroup's accumulators (element
+// 4 i + 2 h + j: row 16 w4 + g + 8 h, column 8 i + 2 t + j):
+// x = bf16(max(a, 0.01 a)) (kLeaky) or bf16(a), a = acc + b in f32,
+// written over the activations.
+template <bool kLeaky>
+__device__ __forceinline__ void epi_act(const float (&acc)[128],
+                                        unsigned char* act, const float* bias,
+                                        int w4, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = 8 * i + 2 * t;
+    const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = w4 * 16 + g + 8 * h;
+      float v0 = __fadd_rn(acc[4 * i + 2 * h], b0);
+      float v1 = __fadd_rn(acc[4 * i + 2 * h + 1], b1);
+      if (kLeaky) {
+        v0 = fmaxf(v0, __fmul_rn(0.01f, v0));
+        v1 = fmaxf(v1, __fmul_rn(0.01f, v1));
+      }
+      *reinterpret_cast<uint32_t*>(act + swz(row, col)) = pack2(v0, v1);
+    }
+  }
+}
+
+// The consumer thread's place: warpgroup wg, its warp w4, lane = 4 g + t.
+struct Me {
+  int wg, ti, lane, w4, g, t;
+};
+
+__device__ __forceinline__ Me me() {
+  const int tid = threadIdx.x, lane = tid & 31;
+  return Me{tid / 128, tid & 127, lane, (tid >> 5) & 3, lane >> 2, lane & 3};
+}
+
+// The pair half (K8a): F_color on 128 pair rows (16 points) a tile, the
+// wn-sum, and g = bf16([dir_enc | agg]) into g [P, ldg] (zero from 277).
+__device__ void pair_fwd_body(const float* __restrict__ x_pi,
+                              const float* __restrict__ lat,
+                              const float* __restrict__ wn,
+                              const float* __restrict__ dir_enc,
+                              long long n_pts, const bf16* __restrict__ wbuf,
+                              Weights p, bf16* __restrict__ g_out, int ldg) {
+  using S = PairSmem;
+  unsigned char* sm = block_smem();
+  float* bias_s = reinterpret_cast<float*>(sm + S::bias);
+  float* wn_s = reinterpret_cast<float*>(sm + S::f32);
+  for (int e = threadIdx.x; e < 4 * kHid; e += kThreads)
+    bias_s[e] = __ldg(p.b[e / kHid] + (e % kHid));
+  const Ring ring = ring_setup(sm, S::bar);
+  __syncthreads();
+  const long long m = n_pts * kK;
+  const long long n_tiles = (m + kTile - 1) / kTile;
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x / 32 == 8)
+      produce(ring, sm + S::ring, wbuf, n_tiles, kCF0, kCR0);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const Me c = me();
+  unsigned char* act = sm + S::act + c.wg * (S::bias - S::act) / 2;
+  const uint32_t act_a = smem_u32(act);
+  float* wn_w = wn_s + c.wg * kWgRows;
+  int it = 0;
+  float acc[128];
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long row0 = t * kTile + c.wg * kWgRows;
+    // u = [posenc(x_pi) | lat | 0] (128 columns) and wn; rows past m zero
+    for (int e = c.ti; e < kWgRows * 16; e += 128) {
+      const int r = e >> 4, q = e & 15;
+      const long long row = row0 + r;
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int col = q * 8 + k;
+        float x = 0.f;
+        if (row < m) {
+          if (col < 3) {
+            x = __ldg(x_pi + row * 3 + col);
+          } else if (col < kPos) {
+            const int j = col - 3, band = j / 6, w = j - band * 6;
+            const float xf =
+                __ldg(x_pi + row * 3 + w % 3) * static_cast<float>(1 << band);
+            x = w < 3 ? sinf(xf) : cosf(xf);
+          } else if (col < kIn0) {
+            x = __ldg(lat + row * kLat + (col - kPos));
+          }
+        }
+        v[k] = x;
+      }
+      *reinterpret_cast<uint4*>(act + swz(r, q * 8)) =
+          make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                     pack2(v[6], v[7]));
+    }
+    if (c.ti < kWgRows)
+      wn_w[c.ti] = row0 + c.ti < m ? __ldg(wn + row0 + c.ti) : 0.f;
+    fence_async_smem();
+    bar_sync(1 + c.wg, 128);
+    layer<2, 4>(acc, act_a, ring, it, c.lane);
+    bar_sync(1 + c.wg, 128);
+    epi_act<true>(acc, act, bias_s, c.w4, c.g, c.t);
+    fence_async_smem();
+    bar_sync(1 + c.wg, 128);
+#pragma unroll 1
+    for (int l = 1; l < 4; ++l) {
+      layer<4, 4>(acc, act_a, ring, it, c.lane);
+      bar_sync(1 + c.wg, 128);
+      if (l < 3)
+        epi_act<true>(acc, act, bias_s + l * kHid, c.w4, c.g, c.t);
+      else
+        epi_act<false>(acc, act, bias_s + l * kHid, c.w4, c.g, c.t);
+      fence_async_smem();
+      bar_sync(1 + c.wg, 128);
+    }
+    // agg = sum_j wn feat (f32, j in order) and g of the warpgroup's 8
+    // points: columns 2 ti, 2 ti + 1 of each
+    const long long pt0 = row0 / kK;
+#pragma unroll 1
+    for (int pp = 0; pp < kWgRows / kK; ++pp) {
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kK; ++j) {
+        const int r = pp * kK + j;
+        const __nv_bfloat162 f = *reinterpret_cast<const __nv_bfloat162*>(
+            act + swz(r, 2 * c.ti));
+        s0 = __fadd_rn(s0, __fmul_rn(__low2float(f), wn_w[r]));
+        s1 = __fadd_rn(s1, __fmul_rn(__high2float(f), wn_w[r]));
+      }
+      const long long pt = pt0 + pp;
+      if (pt < n_pts) {
+        bf16* gr = g_out + pt * ldg;
+        gr[kDir + 2 * c.ti] = __float2bfloat16_rn(s0);
+        gr[kDir + 2 * c.ti + 1] = __float2bfloat16_rn(s1);
+        if (c.ti < kDir)
+          gr[c.ti] = __float2bfloat16_rn(__ldg(dir_enc + pt * kDir + c.ti));
+        for (int col = kRIn + c.ti; col < ldg; col += 128)
+          gr[col] = __float2bfloat16_rn(0.f);
+      }
+    }
+    bar_sync(1 + c.wg, 128);  // act is read before the next tile's u
+  }
+}
+
+// The point half (K8a): R on 128 points a tile (64 a warpgroup) from
+// g [P, ldg] bf16: rgb [P, 3] f32.
+__device__ void point_fwd_body(const bf16* __restrict__ g_in, int ldg,
+                               long long n_pts, const bf16* __restrict__ wbuf,
+                               Weights p, float* __restrict__ rgb) {
+  using S = PointSmem;
+  unsigned char* sm = block_smem();
+  float* bias_s = reinterpret_cast<float*>(sm + S::bias);
+  for (int e = threadIdx.x; e < 2 * kHid + 8; e += kThreads)
+    bias_s[e] = e < 2 * kHid ? __ldg(p.b[4 + e / kHid] + (e % kHid))
+                             : (e - 2 * kHid < kOut
+                                    ? __ldg(p.b[6] + (e - 2 * kHid))
+                                    : 0.f);
+  const Ring ring = ring_setup(sm, S::bar);
+  __syncthreads();
+  const long long n_tiles = (n_pts + kTile - 1) / kTile;
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x / 32 == 8)
+      produce(ring, sm + S::ring, wbuf, n_tiles, kCR0, kCR2 + 1);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const Me c = me();
+  unsigned char* act = sm + S::act + c.wg * (S::bias - S::act) / 2;
+  const uint32_t act_a = smem_u32(act);
+  int it = 0;
+  float acc[128];
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long pt0 = t * kTile + c.wg * kWgRows;
+    // g (320 columns); points past P zero
+    for (int e = c.ti; e < kWgRows * (kGld / 8); e += 128) {
+      const int r = e / (kGld / 8), q = e - r * (kGld / 8);
+      const long long pt = pt0 + r;
+      *reinterpret_cast<uint4*>(act + swz(r, q * 8)) =
+          pt < n_pts ? *reinterpret_cast<const uint4*>(g_in + pt * ldg + q * 8)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_async_smem();
+    bar_sync(1 + c.wg, 128);
+    layer<5, 4>(acc, act_a, ring, it, c.lane);
+    bar_sync(1 + c.wg, 128);
+    epi_act<true>(acc, act, bias_s, c.w4, c.g, c.t);
+    fence_async_smem();
+    bar_sync(1 + c.wg, 128);
+    layer<4, 4>(acc, act_a, ring, it, c.lane);
+    bar_sync(1 + c.wg, 128);
+    epi_act<true>(acc, act, bias_s + kHid, c.w4, c.g, c.t);
+    fence_async_smem();
+    bar_sync(1 + c.wg, 128);
+    float z[4];
+    narrow_product<8>(z, act_a, ring, it, c.lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = c.w4 * 16 + c.g + 8 * (e >> 1), col = 2 * c.t + (e & 1);
+      const long long pt = pt0 + row;
+      if (col < kOut && pt < n_pts)
+        rgb[pt * kOut + col] =
+            1.f / (1.f + expf(-__fadd_rn(z[e], bias_s[2 * kHid + col])));
+    }
+    bar_sync(1 + c.wg, 128);  // act is read before the next tile's g
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+color_pair_fwd_kernel(const float* __restrict__ x_pi,
+                      const float* __restrict__ lat,
+                      const float* __restrict__ wn,
+                      const float* __restrict__ dir_enc, long long n_pts,
+                      const bf16* __restrict__ wbuf, Weights p,
+                      bf16* __restrict__ g_out) {
+  pair_fwd_body(x_pi, lat, wn, dir_enc, n_pts, wbuf, p, g_out, kGld);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+color_point_fwd_kernel(const bf16* __restrict__ g_in, long long n_pts,
+                       const bf16* __restrict__ wbuf, Weights p,
+                       float* __restrict__ rgb) {
+  point_fwd_body(g_in, kGld, n_pts, wbuf, p, rgb);
+}
+
+// One block per SM, at most one a tile; the kernel's shared memory allowed.
+cudaError_t grid_for(const void* kernel, int smem, long long tiles,
+                     int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  *grid = static_cast<int>(sms < tiles ? sms : tiles);
+  return err;
+}
+
+Weights weights(const void* const* ws, const void* const* bs) {
+  Weights p;
+  for (int i = 0; i < 7; ++i) {
+    p.w[i] = static_cast<const float*>(ws[i]);
+    p.b[i] = static_cast<const float*>(bs[i]);
+  }
+  return p;
+}
+
+}  // namespace wg
+
 }  // namespace
 
-// K8a. x_pi [8P, 3], lat [8P, 64], wn [8P], dir_enc [P, 21] f32; ws / bs:
-// host arrays of the 7 device pointers of F_color's and R's f32 weights
-// [in, out] and biases [out]. rgb [P, 3] f32.
+// The pack (once a step): ws, host array of the 7 device pointers of
+// F_color's and R's f32 weights [in, out] -> out, bf16 [kNChunks * 16384]
+// (wg::pack_segs' images; fused_color.pack_color_weights_ref is its plain
+// version).
+extern "C" int color_pack_launch(const void* const* ws, void* out,
+                                 void* stream) {
+  const wg::PackSegs segs = wg::pack_segs(ws);
+  const int units = segs.unit0[wg::kSegs];
+  wg::color_pack_kernel<<<(units + 255) / 256, 256, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      segs, static_cast<bf16*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8a. x_pi [8P, 3], lat [8P, 64], wn [8P], dir_enc [P, 21] f32; wbuf: the
+// pack; bs: host array of the 7 device pointers of the f32 biases; g:
+// bf16 [P, 320] scratch (g = [dir_enc | agg | 0]); rgb [P, 3] f32.
 extern "C" int fused_color_fwd_launch(const float* x_pi, const float* lat,
                                       const float* wn, const float* dir_enc,
-                                      long long n_pts, const void* const* ws,
-                                      const void* const* bs, float* rgb,
-                                      void* stream) {
-  return launch<false>(x_pi, lat, wn, dir_enc, n_pts, ws, bs, nullptr, rgb,
-                       nullptr, nullptr, nullptr, stream);
+                                      long long n_pts, const void* wbuf,
+                                      const void* const* bs, void* g,
+                                      float* rgb, void* stream) {
+  if (n_pts < 0 || n_pts > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pts == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* no_w[7] = {};
+  const Weights p = wg::weights(no_w, bs);
+  const bf16* w = static_cast<const bf16*>(wbuf);
+  bf16* gb = static_cast<bf16*>(g);
+  int grid = 0;
+  cudaError_t err = wg::grid_for(
+      reinterpret_cast<const void*>(wg::color_pair_fwd_kernel),
+      wg::PairSmem::bytes, (n_pts * kK + wg::kTile - 1) / wg::kTile, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wg::color_pair_fwd_kernel<<<grid, wg::kThreads, wg::PairSmem::bytes, st>>>(
+      x_pi, lat, wn, dir_enc, n_pts, w, p, gb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = wg::grid_for(reinterpret_cast<const void*>(wg::color_point_fwd_kernel),
+                     wg::PointSmem::bytes,
+                     (n_pts + wg::kTile - 1) / wg::kTile, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wg::color_point_fwd_kernel<<<grid, wg::kThreads, wg::PointSmem::bytes,
+                               st>>>(gb, n_pts, w, p, rgb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K8b. The inputs of K8a and rgb_bar [P, 3] f32 -> dlat [8P, 64] f32 and

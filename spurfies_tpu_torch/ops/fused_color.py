@@ -30,6 +30,7 @@ import torch
 
 from spurfies_tpu_torch.core.embedder import positional_encoding
 from spurfies_tpu_torch.ops import cuda_build
+from spurfies_tpu_torch.ops.pair_mlp import _swizzle128
 
 PK = 8                  # neighbours per point
 POS_MULTIRES = 6        # posenc(x_pi) -> 39 columns
@@ -42,13 +43,31 @@ R_SHAPES = ((DIR + HID, HID), (HID, HID), (HID, 3))
 _PTS = 16               # points per CUDA block
 _SCRATCH = 3 * HID      # K8b's stored layer inputs per pair row (bf16)
 N_GRADS = sum(i * o + o for i, o in F_SHAPES + R_SHAPES)     # 361,731
+G_COLS = 320            # K8a's g rows: [dir_enc | agg | 0], 5 blocks of 64
+# The packed weights (csrc/color_mlp.cu, wg::pack_segs): 46 chunks of
+# 16,384 bf16, each the image of the ring stage that a product reads:
+# (chunk, layer of F_color + R, transposed, rows, columns, first row).  A
+# transposed entry is W^T [out, in] (the forward products), else W [in,
+# out] from its first row (the reverse products); zero-padded to (rows,
+# columns), then _swizzle128'd.
+PACK_CHUNK = 16384
+PACK_CHUNKS = 46
+PACK = ((0, 0, True, HID, 128, 0), (2, 1, True, HID, HID, 0),
+        (6, 2, True, HID, HID, 0), (10, 3, True, HID, HID, 0),
+        (14, 4, True, HID, 320, 0), (19, 5, True, HID, HID, 0),
+        (23, 6, True, 8, HID, 0), (24, 6, False, HID, 64, 0),
+        (25, 5, False, HID, HID, 0), (29, 4, False, HID, HID, DIR),
+        (33, 3, False, HID, HID, 0), (37, 2, False, HID, HID, 0),
+        (41, 1, False, HID, HID, 0), (45, 0, False, LAT, HID, 39))
 
-LAUNCHES = {"fused_color_fwd": 0, "fused_color_bwd": 0}
+LAUNCHES = {"pack_color_weights": 0, "fused_color_fwd": 0,
+            "fused_color_bwd": 0}
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _LL = ctypes.c_longlong
-_SIG = {"fused_color_fwd_launch": [_P, _P, _P, _P, _LL, _PP, _PP, _P, _P],
+_SIG = {"color_pack_launch": [_PP, _P, _P],
+        "fused_color_fwd_launch": [_P, _P, _P, _P, _LL, _P, _PP, _P, _P, _P],
         "fused_color_bwd_launch": [_P, _P, _P, _P, _LL, _PP, _PP, _P, _P, _P,
                                    _P, _P]}
 
@@ -63,9 +82,11 @@ def _gate(pre):
     return torch.where(pre > 0, 1.0, 0.01)
 
 
-def _fwd_body(x_pi, lat, wn, dir_enc, f_color, r, dt):
-    """``_fwd_body`` of ``pallas_color.py:54-89``: rgb and the residuals of
-    the reverse sweeps."""
+def pair_half_ref(x_pi, lat, wn, dir_enc, f_color, dt):
+    """The pair half of ``_fwd_body`` (``pallas_color.py:54-75``): F_color
+    per pair, the wn-sum per point, ``g = dt([dir_enc | agg])``; returns
+    ``(g [P, 277], residuals)``.  The kernels split the stack here, where
+    the TPU body rounds."""
     u = torch.cat([positional_encoding(x_pi, POS_MULTIRES), lat], -1)
     h = u.to(dt)
     fw_in, f_pre = [], []
@@ -79,7 +100,12 @@ def _fwd_body(x_pi, lat, wn, dir_enc, f_color, r, dt):
             h = a.to(dt)
     p = dir_enc.shape[0]
     agg = (h.float() * wn[:, None]).reshape(p, PK, -1).sum(1)
-    g = torch.cat([dir_enc, agg], -1).to(dt)
+    return torch.cat([dir_enc, agg], -1).to(dt), (fw_in, f_pre)
+
+
+def point_half_ref(g, r, dt):
+    """The point half of ``_fwd_body`` (``pallas_color.py:76-89``): R on
+    ``g`` and the sigmoid; returns ``(rgb [P, 3], residuals)``."""
     r_in, r_pre = [], []
     for i, layer in enumerate(r):
         r_in.append(g)
@@ -89,11 +115,20 @@ def _fwd_body(x_pi, lat, wn, dir_enc, f_color, r, dt):
             g = torch.maximum(a, 0.01 * a).to(dt)
         else:
             g = a
-    return torch.sigmoid(g), (fw_in, f_pre, r_in, r_pre)
+    return torch.sigmoid(g), (r_in, r_pre)
 
 
-def fused_color_fwd_ref(x_pi, lat, wn, dir_enc, f_color, r, dt):
-    """Plain K8a: rgb ``[P, 3]`` f32."""
+def _fwd_body(x_pi, lat, wn, dir_enc, f_color, r, dt):
+    """``_fwd_body`` of ``pallas_color.py:54-89``: rgb and the residuals of
+    the reverse sweeps, the pair half then the point half."""
+    g, (fw_in, f_pre) = pair_half_ref(x_pi, lat, wn, dir_enc, f_color, dt)
+    rgb, (r_in, r_pre) = point_half_ref(g, r, dt)
+    return rgb, (fw_in, f_pre, r_in, r_pre)
+
+
+def fused_color_fwd_ref(x_pi, lat, wn, dir_enc, f_color, r, dt, packed=None):
+    """Plain K8a: rgb ``[P, 3]`` f32 (``packed``, the kernels' weights, is
+    not read: the plain version rounds the f32 weights itself)."""
     return _fwd_body(x_pi, lat, wn, dir_enc, f_color, r, dt)[0]
 
 
@@ -122,6 +157,19 @@ def fused_color_bwd_ref(x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt):
     return delta[:, -LAT:], dws, dbs
 
 
+def _net_inputs(name, f_color, r):
+    """(label, tensor, shape) of every weight and bias of F_color and R."""
+    ins = []
+    for layers, shapes, net in ((f_color, F_SHAPES, "F_color"),
+                                (r, R_SHAPES, "R")):
+        if len(layers) != len(shapes):
+            raise ValueError(f"{name}: {net} must have {len(shapes)} layers")
+        for i, (layer, (fi, fo)) in enumerate(zip(layers, shapes)):
+            ins += [(f"{net}[{i}].w", layer["w"], (fi, fo)),
+                    (f"{net}[{i}].b", layer["b"], (fo,))]
+    return ins
+
+
 def _check(name, x_pi, lat, wn, dir_enc, f_color, r, rgb_bar=None):
     """Inputs of K8: f32, shapes of ModelConfig's colour nets, one device;
     on the card, contiguous.  Returns True for CPU tensors."""
@@ -130,14 +178,8 @@ def _check(name, x_pi, lat, wn, dir_enc, f_color, r, rgb_bar=None):
            ("wn", wn, (PK * p,)), ("dir_enc", dir_enc, (p, DIR))]
     if rgb_bar is not None:
         ins.append(("rgb_bar", rgb_bar, (p, 3)))
-    for layers, shapes, net in ((f_color, F_SHAPES, "F_color"),
-                                (r, R_SHAPES, "R")):
-        if len(layers) != len(shapes):
-            raise ValueError(f"{name}: {net} must have {len(shapes)} layers")
-        for i, (layer, (fi, fo)) in enumerate(zip(layers, shapes)):
-            ins += [(f"{net}[{i}].w", layer["w"], (fi, fo)),
-                    (f"{net}[{i}].b", layer["b"], (fo,))]
-    dev = x_pi.device
+    ins += _net_inputs(name, f_color, r)
+    dev = ins[0][1].device
     for label, t, shape in ins:
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {label} must be f32 {shape}, got "
@@ -159,30 +201,92 @@ def _pointers(f_color, r):
     return ws, bs
 
 
+def pack_color_weights_ref(f_color, r):
+    """Plain pack: the ``PACK`` images composed with ``_swizzle128``, bf16
+    ``[PACK_CHUNKS * PACK_CHUNK]`` (unused tails of a chunk zero)."""
+    ws = [layer["w"] for layer in list(f_color) + list(r)]
+    out = ws[0].new_zeros(PACK_CHUNKS * PACK_CHUNK, dtype=torch.bfloat16)
+    for chunk, layer, trans, rows, cols, row0 in PACK:
+        w = ws[layer].t() if trans else ws[layer][row0:row0 + rows]
+        b = w.new_zeros(rows, cols)
+        b[:w.shape[0], :w.shape[1]] = w
+        img = _swizzle128(b.to(torch.bfloat16))
+        out[chunk * PACK_CHUNK:chunk * PACK_CHUNK + img.numel()] = img
+    return out
+
+
+@torch.no_grad()
+def pack_color_weights(f_color, r):
+    """The colour kernels' weights, rounded to bf16 and packed once (per
+    step: ``FusedColor`` packs in its forward and keeps the result for its
+    backward), bf16 ``[PACK_CHUNKS * PACK_CHUNK]``.  CPU tensors run
+    :func:`pack_color_weights_ref`; CUDA tensors launch the pack kernel."""
+    ins = _net_inputs("pack_color_weights", f_color, r)
+    dev = ins[0][1].device
+    for label, t, shape in ins:
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"pack_color_weights: {label} must be f32 "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError("pack_color_weights: weights on different "
+                             "devices")
+    if dev.type == "cpu":
+        return pack_color_weights_ref(f_color, r)
+    if dev.type != "cuda" or not all(t.is_contiguous() for _, t, _ in ins):
+        raise ValueError("pack_color_weights: contiguous CUDA or CPU weights")
+    out = torch.empty(PACK_CHUNKS * PACK_CHUNK, dtype=torch.bfloat16,
+                      device=dev)
+    ws, _ = _pointers(f_color, r)
+    err = _lib().color_pack_launch(ws, out.data_ptr(),
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "pack_color_weights")
+    LAUNCHES["pack_color_weights"] += 1
+    return out
+
+
+def _lib():
+    """The kernels' library, built on first use."""
+    return cuda_build.load("color_mlp", _SIG)
+
+
 def _need_bf16(name, dt):
     if dt != torch.bfloat16:
         raise ValueError(f"{name}: the colour kernels run in bf16 only; got "
                          f"{dt}")
 
 
+def _check_packed(name, packed, dev):
+    if packed.dtype != torch.bfloat16 or packed.device != dev or \
+            tuple(packed.shape) != (PACK_CHUNKS * PACK_CHUNK,) or \
+            not packed.is_contiguous():
+        raise ValueError(f"{name}: packed must be pack_color_weights' "
+                         "output on the inputs' device")
+
+
 @torch.no_grad()
-def fused_color_fwd(x_pi, lat, wn, dir_enc, f_color, r, dt):
+def fused_color_fwd(x_pi, lat, wn, dir_enc, f_color, r, dt, packed=None):
     """K8a: rgb ``[P, 3]`` f32 (forward only; the differentiable form is
     :class:`FusedColor`).  CPU tensors run :func:`fused_color_fwd_ref`;
-    CUDA tensors launch the kernel (``dt`` bf16 only)."""
+    CUDA tensors launch the pair and point kernels (``dt`` bf16 only) on
+    ``packed`` (:func:`pack_color_weights` of the same nets; packed here
+    when None)."""
     if _check("fused_color_fwd", x_pi, lat, wn, dir_enc, f_color, r):
         return fused_color_fwd_ref(x_pi, lat, wn, dir_enc, f_color, r, dt)
     _need_bf16("fused_color_fwd", dt)
     p = dir_enc.shape[0]
-    rgb = torch.empty((p, 3), dtype=torch.float32, device=x_pi.device)
+    dev = x_pi.device
+    rgb = torch.empty((p, 3), dtype=torch.float32, device=dev)
     if p == 0:
         return rgb
-    ws, bs = _pointers(f_color, r)
-    lib = cuda_build.load("color_mlp", _SIG)
-    err = lib.fused_color_fwd_launch(
+    if packed is None:
+        packed = pack_color_weights(f_color, r)
+    _check_packed("fused_color_fwd", packed, dev)
+    g = torch.empty((p, G_COLS), dtype=torch.bfloat16, device=dev)
+    _, bs = _pointers(f_color, r)
+    err = _lib().fused_color_fwd_launch(
         x_pi.data_ptr(), lat.data_ptr(), wn.data_ptr(), dir_enc.data_ptr(), p,
-        ws, bs, rgb.data_ptr(),
-        torch.cuda.current_stream(x_pi.device).cuda_stream)
+        packed.data_ptr(), bs, g.data_ptr(), rgb.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "fused_color_fwd")
     LAUNCHES["fused_color_fwd"] += 1
     return rgb
@@ -208,7 +312,7 @@ def fused_color_bwd(x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt):
         scratch = torch.empty((blocks * _PTS * PK * _SCRATCH,),
                               dtype=torch.bfloat16, device=dev)
         ws, bs = _pointers(f_color, r)
-        lib = cuda_build.load("color_mlp", _SIG)
+        lib = _lib()
         err = lib.fused_color_bwd_launch(
             x_pi.data_ptr(), lat.data_ptr(), wn.data_ptr(),
             dir_enc.data_ptr(), p, ws, bs, rgb_bar.data_ptr(),
@@ -238,8 +342,8 @@ class FusedColor(torch.autograd.Function):
     """rgb ``[P, 3]`` from the pair inputs: K8a forward, K8b backward
     (``fused_color``'s custom VJP, ``pallas_color.py:283-330``).
 
-    It saves only its inputs; the backward recomputes the forward, as the
-    TPU kernel does.  Gradients go to ``lat`` and to every weight and bias
+    It saves its inputs and the packed weights (one pack a step); the
+    backward recomputes the forward, as the TPU kernel does.  Gradients go to ``lat`` and to every weight and bias
     of F_color and R.  x_pi, wn and dir_enc get none (the JAX VJP returns
     zeros there): the shading points are detached in the renderer
     (``model/renderer.py``, ``z_all.detach()``), and the RBF weights and
@@ -248,13 +352,15 @@ class FusedColor(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_pi, lat, wn, dir_enc, dt, *wb):
-        ctx.save_for_backward(x_pi, lat, wn, dir_enc, *wb)
+        packed = pack_color_weights(*_nets(wb))
+        ctx.save_for_backward(x_pi, lat, wn, dir_enc, packed, *wb)
         ctx.dt = dt
-        return fused_color_fwd(x_pi, lat, wn, dir_enc, *_nets(wb), dt)
+        return fused_color_fwd(x_pi, lat, wn, dir_enc, *_nets(wb), dt,
+                               packed=packed)
 
     @staticmethod
     def backward(ctx, rgb_bar):
-        x_pi, lat, wn, dir_enc, *wb = ctx.saved_tensors
+        x_pi, lat, wn, dir_enc, packed, *wb = ctx.saved_tensors
         dlat, dws, dbs = fused_color_bwd(x_pi, lat, wn, dir_enc, *_nets(wb),
                                          rgb_bar.contiguous(), ctx.dt)
         grads = [g for pair in zip(dws, dbs) for g in pair]

@@ -467,10 +467,12 @@ def _rel_l2(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [1000, 1], ids=["ragged", "one-point"])
+@pytest.mark.parametrize("p", [1000, 4099, 1],
+                         ids=["ragged", "ragged-tiles", "one-point"])
 def test_fused_color_kernels_match_plain(cuda, p):
-    """K8a and K8b against their plain versions in bf16, for a point count
-    that is not a whole number of 16-point blocks and for one point (which
+    """K8a and K8b against their plain versions in bf16, for point counts
+    that are not a whole number of the kernels' tiles (128 pair rows, 128
+    points; 4099 also gives more tiles than SMs) and for one point (which
     has no valid neighbour).  rgb by ``_within``; dlat and every dW/db
     within 4e-2 relative L2: each delta is rounded to bf16 before each
     product, so a rounding that the f32 sums' order moves by one ulp can
@@ -501,6 +503,21 @@ def test_fused_color_kernels_match_plain(cuda, p):
         assert _rel_l2(a, b) < 4e-2, i
     with pytest.raises(ValueError, match="bf16"):
         fc.fused_color_fwd(*ins, f_color, r, torch.float32)
+
+
+@pytest.mark.cuda
+def test_pack_color_weights_matches_plain(cuda):
+    """The pack kernel gives the plain pack's bits (the same bf16 rounding
+    of each weight, the same swizzled places, zeros elsewhere)."""
+    from spurfies_tpu_torch.ops import fused_color as fc
+
+    _, f_color, r, _ = _colour_inputs(cuda, 1)
+    before = fc.LAUNCHES["pack_color_weights"]
+    out = fc.pack_color_weights(f_color, r)
+    ref = fc.pack_color_weights_ref(f_color, r)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["pack_color_weights"] == before + 1
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The port stands alone: no module of spurfies_tpu_torch, nor
-chip_smoke.py, chip_k3_parts.py or the card-only tests, imports JAX, optax,
-orbax or anything of spurfies_tpu, and every port module imports with JAX
-made unimportable."""
+chip_smoke.py, chip_k3_parts.py, chip_k8_parts.py or the card-only tests,
+imports JAX, optax, orbax or anything of spurfies_tpu, and every port
+module imports with JAX made unimportable."""
 
 import ast
 import os
@@ -28,6 +28,7 @@ def _sources():
     # test_torch_cuda.py runs on the card's machine, which has no JAX
     return _port_modules() + [ROOT / "chip_smoke.py",
                               ROOT / "chip_k3_parts.py",
+                              ROOT / "chip_k8_parts.py",
                               ROOT / "tests" / "test_torch_cuda.py"]
 
 

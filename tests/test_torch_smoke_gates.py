@@ -176,3 +176,33 @@ def test_ptxas_report_names_each_entry_function():
         "ptxas info    : Used 168 registers, 452 bytes cmem[0]"]
     assert "4 bytes spill stores" in report[k2][0]
     assert cuda_build.ptxas_report("ptxas info    : 0 bytes gmem") == {}
+
+
+def test_profile_summary_sums_the_device_kernels_of_a_label():
+    """A kernels-line label with several device kernels (K8a: the pair and
+    point kernels; K8b: each piece of its backward) gets the sum of their
+    device times, and a kernel of no label adds to the busy time only."""
+    from torch.autograd import DeviceType
+
+    class Evt:
+        def __init__(self, key, us, dev=DeviceType.CUDA):
+            self.key, self.self_device_time_total = key, us
+            self.device_type, self.is_user_annotation = dev, False
+
+    class Prof:
+        def key_averages(self):
+            return [Evt("void wg::color_pair_fwd_kernel(float const*)", 700.0),
+                    Evt("void wg::color_point_fwd_kernel(bf16 const*)", 300.0),
+                    Evt("void wg::color_pack_kernel(PackSegs)", 5.0),
+                    Evt("void other_kernel()", 1000.0),
+                    Evt("aten::mm", 1000.0, DeviceType.CPU)]
+
+    labels = {lb for lb, _ in smoke.KERNEL_NAMES}
+    assert sum(lb == "K8a fused_color_fwd" for lb, _ in
+               smoke.KERNEL_NAMES) >= 2
+    out = smoke.profile_summary(Prof(), 10.0)
+    assert out["kernel_ms"]["K8a fused_color_fwd"] == 1.0
+    assert out["kernel_ms"]["K8p pack_color_weights"] == 0.005
+    assert set(out["kernel_ms"]) == labels
+    assert out["device_busy_ms"] == 2.005
+    assert out["pytorch_ops_ms"] == {"aten::mm": 1.0}
