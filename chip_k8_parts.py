@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where K8b's time goes: ``csrc/color_mlp.cu`` timed with parts taken out.
+"""Where K8b's and K8a's time goes: ``csrc/color_mlp.cu`` timed with parts
+taken out.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -23,35 +24,39 @@ import os
 import subprocess
 import sys
 
-_FAKE_ADD = """typedef __nv_bfloat16 bf16;
-
-// an add that never happens but keeps its operand alive
-__device__ __forceinline__ void fake_add(float* p, float v) {
-  if (v == -1.2345e-37f) *p = v;
-}
-__device__ __forceinline__ void fake_add(float2* p, float2 v) {
-  if (v.x == -1.2345e-37f) *p = v;
-}"""
-
 VARIANTS = {
     "base": [],
-    # every dW/db atomicAdd made a store that never happens
-    "no_atomics": [("typedef __nv_bfloat16 bf16;", _FAKE_ADD),
-                   ("atomicAdd(", "fake_add(")],
-    # the f32 weights neither read nor rounded into shared memory
-    "no_weight_loads": [("  const int pairs = k_pad / 2;",
-                         "  return;\n  const int pairs = k_pad / 2;"),
-                        ("  const int pairs = n_pad / 2;",
-                         "  return;\n  const int pairs = n_pad / 2;")],
-    # the dW products (mma_tile with a transposed A) skipped
-    "no_dw_products": [("  const int lane = threadIdx.x & 31, g = lane >> 2, "
-                        "t = lane & 3;\n#pragma unroll 1\n  for (int ks = 0;",
-                        "  if (!kAK) return;\n  const int lane = threadIdx.x "
-                        "& 31, g = lane >> 2, t = lane & 3;\n#pragma unroll 1"
-                        "\n  for (int ks = 0;")],
+    # the split-K dW product's mma instructions removed
+    "no_dw_products": [("          mma_sync_bf16(acc_c, a[mi], bb);",
+                        "          if (0) mma_sync_bf16(acc_c, a[mi], bb);")],
+    # neither the dW kernel nor the fixed-order sums launched
+    "no_dw_pass": [("  color_dw_kernel<<<", "  if (0) color_dw_kernel<<<"),
+                   ("  color_reduce_kernel<<<",
+                    "  if (0) color_reduce_kernel<<<")],
+    # the producer signals each stage without copying weights
+    "no_weight_loads": [("  bulk_load(ring_ptr + stage * kChunk,",
+                         "  mbar_arrive(ring.full + stage);\n"
+                         "  if (0) bulk_load(ring_ptr + stage * kChunk,")],
+    # every wgmma instruction removed
+    "no_products": [("      wgmma_256(acc, wg_desc(", "      if (0) wgmma_256("
+                     "acc, wg_desc("),
+                    ("        wgmma_64(acc, da, db,",
+                     "        if (0) wgmma_64(acc, da, db,"),
+                    ("        wgmma_8(acc, da, db,",
+                     "        if (0) wgmma_8(acc, da, db,")],
+    # the layers' epilogues (bias, LeakyReLU, gates, column sums) removed
+    "no_epilogues": [("        epi_act<true>(acc, act,",
+                      "        if (0) epi_act<true>(acc, act,"),
+                     ("        epi_act<false>(acc, act,",
+                      "        if (0) epi_act<false>(acc, act,"),
+                     ("    epi_act<true>(acc, act,",
+                      "    if (0) epi_act<true>(acc, act,"),
+                     ("    epi_delta<", "    if (0) epi_delta<")],
+    # no layer input or delta stored to the scratch
+    "no_scratch_stores": [("  for (int e = ti; e < kWgRows * w8; e += 128) {",
+                           "  return;\n  for (int e = ti; e < kWgRows * w8; "
+                           "e += 128) {")],
 }
-VARIANTS["no_atomics_no_dw_products"] = (VARIANTS["no_atomics"]
-                                         + VARIANTS["no_dw_products"])
 
 
 def main():
@@ -99,6 +104,7 @@ def main():
             for fn_name, sig in fc._SIG.items():
                 getattr(lib, fn_name).argtypes = sig
                 getattr(lib, fn_name).restype = ctypes.c_int
+            lib.fused_color_bwd_scratch_bytes.restype = ctypes.c_longlong
             fc._lib = lambda lib=lib: lib
             times = {}
             for kernel, fn in (("K8a", lambda: fc.fused_color_fwd(

@@ -86,7 +86,8 @@ failure exits non-zero before the last line):
      after phase 13, the training path of phase 12 with FUSED_COLOR on (the
      pack, K8a and K8b once a step; the pack bit-equal to its plain
      version, K8b's dlat by phase 4's limits, its dW/db by
-     ``compare_grads``' 1e-2 relative L2), OPTION_WARMUP + OPTION_STEPS
+     ``compare_grads``' 1e-2 relative L2 and bit-equal over two
+     launches), OPTION_WARMUP + OPTION_STEPS
      steps, and the colour path timed at one step's shapes;
  15. the ``kernels`` JSON line, the ``redesign_order`` line (the kernels
      ranked by launches x (ms - bound_ms) in this run), the ``nvidia-smi``
@@ -157,13 +158,21 @@ KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
                 ("K8p pack_color_weights", "color_pack_kernel"),
                 ("K8a fused_color_fwd", "color_pair_fwd_kernel"),
                 ("K8a fused_color_fwd", "color_point_fwd_kernel"),
-                ("K8b fused_color_bwd", "color_kernel<true>"))
+                ("K8b fused_color_bwd", "color_pair_recompute_kernel"),
+                ("K8b fused_color_bwd", "color_point_bwd_kernel"),
+                ("K8b fused_color_bwd", "color_pair_bwd_kernel"),
+                ("K8b fused_color_bwd", "color_dw_kernel"),
+                ("K8b fused_color_bwd", "color_reduce_kernel"))
 # the wgmma kernels whose SASS must hold HGMMA: (label, library, kernel)
 WGMMA_KERNELS = (("K3", "sdf_agg", "sdf_agg_kernel"),
                  ("K2", "sdf_agg", "value_agg_kernel"),
                  ("K6a", "sdf_agg", "rows_grad_kernel"),
                  ("K8a pair", "color_mlp", "color_pair_fwd_kernel"),
-                 ("K8a point", "color_mlp", "color_point_fwd_kernel"))
+                 ("K8a point", "color_mlp", "color_point_fwd_kernel"),
+                 ("K8b pair recompute", "color_mlp",
+                  "color_pair_recompute_kernel"),
+                 ("K8b point", "color_mlp", "color_point_bwd_kernel"),
+                 ("K8b reverse pair", "color_mlp", "color_pair_bwd_kernel"))
 # MACs of the colour stack: F_color per pair, R per point; the backward's
 # dW products repeat the forward's, its delta products skip what no output
 # reads (F0's posenc rows, R0's dir_enc rows)
@@ -1131,24 +1140,34 @@ def check_k8a(name, args, reps):
 def check_k8b(name, args, reps):
     """K8b against its plain version on one launch's inputs: dlat by the
     limits of phase 4, each dW/db within ``compare_grads``' 1e-2 relative
-    L2 (the dW/db sums run in another order: atomics), the f32 plain
-    control read beside each; and no latent gradient on a pair of weight
-    0."""
+    L2 (the dW/db sums run in another order: split-K partials), the f32
+    plain control read beside each; no latent gradient on a pair of weight
+    0; and a second launch gives the same bits in dlat and every dW/db."""
     import torch
 
     from spurfies_tpu_torch.ops import fused_color as fc
 
-    x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt = args
+    x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt, _ = args
     with torch.no_grad():
+        # the step's optimizer has updated the weights since its pack
+        args = (*args[:8], fc.pack_color_weights(f_color, r))
         dlat, dws, dbs = fc.fused_color_bwd(*args)
         ref = fc.fused_color_bwd_ref(*args)
-        ctrl = fc.fused_color_bwd_ref(*args[:-1], torch.float32)
+        ctrl = fc.fused_color_bwd_ref(*args[:7], torch.float32)
         torch.cuda.synchronize()
         outs = [dlat] + dws + dbs
         if not all(bool(torch.isfinite(o).all()) for o in outs):
             fail(f"{name}: non-finite output")
         if bool((dlat[wn == 0] != 0).any()):
             fail(f"{name}: a pair of weight 0 got a latent gradient")
+        again = fc.fused_color_bwd(*args)
+        same = [torch.equal(a, b) for a, b in zip(
+            outs, [again[0]] + again[1] + again[2])]
+        log(f"  {name}: a second launch gives the same bits in "
+            f"{sum(same)} of {len(same)} outputs (dlat, 7 dW, 7 db)")
+        if not all(same):
+            fail(f"{name}: two launches differ (dW/db not deterministic)")
+        del again
         err = within(f"{name} dlat", dlat, ref[0])
         within(f"{name} dlat, control f32 plain", ctrl[0], ref[0],
                hold=False)
@@ -1166,15 +1185,15 @@ def check_k8b(name, args, reps):
     flops, flops_all, n_bytes, real = k8_work(wn, p, True)
     b_ms, b_by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
     b_all, _ = bound_ms(n_bytes, flops_all, PEAK_BF16_FLOPS)
-    adds = -(-p // 16) * COLOR_PARAMS
+    scratch = fc._lib().fused_color_bwd_scratch_bytes(p)
     log(f"{name}: P={p}, {real} real pairs of {8 * p}; kernel {ms:.4f} ms "
-        f"({flops_all / ms / 1e9:.1f} TFLOP/s executed; {adds} dW/db atomic "
-        f"adds), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"({flops_all / ms / 1e9:.1f} TFLOP/s executed; scratch {scratch} "
+        f"bytes), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
         f"{b_all:.4f} ms counting every pair)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "max_abs_err": err,
             "bound_all_rows_ms": b_all, "rows": 8 * p, "rows_needed": real,
-            "atomic_adds": adds}
+            "scratch_bytes": scratch}
 
 
 def colour_paths(args, reps):
@@ -1868,8 +1887,8 @@ def main():
                 "max_abs_err") if k in t}
         if label.startswith("K8"):
             row["colour_path_ms"] = colour_path
-        if "atomic_adds" in r:
-            row["atomic_adds"] = r["atomic_adds"]
+        if "scratch_bytes" in r:
+            row["scratch_bytes"] = r["scratch_bytes"]
         rows.append(row)
         if launches[key] == 0:
             fail(f"{label} was not launched on the main path")

@@ -1,53 +1,65 @@
-// K8a / K8b — the fused colour MLP stack, forward and backward.
+// K8a / K8b -- the fused colour MLP stack, forward and backward, on Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernels of spurfies_tpu/ops/pallas_color.py:
-//   * K8a: _color_fwd_call -> _color_fwd_kernel (math _fwd_body),
-//   * K8b: _color_bwd_call -> _color_bwd_kernel (recompute, reverse sweeps,
-//     dW/db of every layer, dlat).
+//   * K8a: _color_fwd_call -> _color_fwd_kernel (call :205, body :92);
+//   * K8b: _color_bwd_call -> _color_bwd_kernel (call :256, body :108):
+//     the forward recomputed, the reverse sweeps, dW/db of every layer and
+//     dlat.
 // Per pair t = (point p, neighbour j), with x_pi [3], lat [64], wn (the
 // normalized RBF weight, 0 for an invalid pair) and per point dir_enc [21]:
 //   u    = [posenc(x_pi) (39) | lat (64)]          (posenc multires 6)
 //   h    = u; 3 x h = bf16(max(a, 0.01 a)), a = h @ W_i + b_i (f32 bias)
 //   feat = bf16(h @ W_3 + b_3)                     (no activation)
-//   agg  = sum_j wn * feat                         (f32)
+//   agg  = sum_j wn * feat                         (f32, j in order)
 //   g    = bf16([dir_enc | agg]) (277); 2 x LeakyReLU layers, then
 //   rgb  = sigmoid(g2 @ R_2 + b)                   (f32)
-// with bf16 operands and f32 accumulation in every product. K8b recomputes
-// all of that and then runs the reverse sweeps as the TPU body does: each
-// delta stays f32, is rounded to bf16 for each product, is gated by
-// (a > 0 ? 1 : 0.01) in f32, and db is its f32 column sum; dlat is the last
-// 64 columns of d/du. The gate is read from the sign of the stored bf16
+// with bf16 operands and f32 accumulation in every product.  The backward
+// rounds each delta to bf16 for its products, gates it with (a > 0 ? 1 :
+// 0.01) in f32, sums db from the f32 delta, and dlat is the last 64
+// columns of d/du.  The gate is read from the sign of the stored bf16
 // activation, which is the sign of a except for a positive pre-activation
 // below bf16's smallest subnormal.
 //
-// What bounds it on an H100: operations. F_color does 446 kFLOP per pair
-// and R 274 kFLOP per point against ~270 bytes of input per pair, far above
-// the ~295 FLOP/byte ridge; K8b does about three times K8a's work. The
-// weights are trainable, so unlike the frozen prior of pair_mlp.cu they
-// cannot be packed once: every block reads the f32 [in, out] matrices and
-// rounds them on load (1.44 MB a block, from L2).
+// What bounds them on an H100: operations.  F_color does 446 kFLOP per
+// pair and R 274 kFLOP per point against ~270 bytes of input per pair, far
+// above the ~295 FLOP/byte ridge; K8b does about three times K8a's work.
 //
-// Design (simple first; wgmma, TMA and a persistent grid are later work):
-//   * a block owns 16 points = 128 pair rows (the TPU tile of 128 points
-//     would need 512 KB per activation); 8 warps; mma.sync m16n8k16 bf16;
-//   * activations [128, 256] bf16 in shared memory, one layer's weights at a
-//     time (the largest, R0^T, [256, 288]); F_color's layers write their
-//     output over their input after a barrier (warp w: rows 32 (w & 3),
-//     columns 128 (w >> 2));
-//   * the R head runs on the block's 16 points in the freed activation
-//     buffer;
-//   * K8b keeps the inputs of F_color's layers 1-3 for the reverse sweep in
-//     a bf16 global scratch (768 values a pair, written and read back by the
-//     same block, mostly from L2); u is recomputed from x_pi and lat;
-//   * the cross-block dW/db sum (the TPU grid ran in order and accumulated
-//     into revisited output blocks): each block adds its 361,731 partial
-//     sums into one zeroed f32 buffer with atomicAdd (float2 where the
-//     layout allows), ~361k adds a block; the order of the adds changes
-//     from run to run, so dW/db agree with a sequential sum up to f32
-//     reordering;
-//   * posenc uses sinf/cosf (accurate): an invalid slot reads row 0, so its
-//     x_pi can be ~1, which is ~32 rad at 2^5;
-//   * the ragged last block reads zeros and writes nothing past the end.
+// Design.  The weights are trainable, so they are packed once a step
+// (color_pack_kernel: the 7 f32 matrices rounded to bf16 as W^T for the
+// forward and W for the reverse products, 46 chunks of 32 KB in the byte
+// layout of a shared-memory stage; FusedColor keeps the pack for the
+// backward).  Every product then runs on one pipeline, as in sdf_agg.cu: a
+// persistent grid of one block per SM, a producer warp that streams the
+// chunks by cp.async.bulk into a four-stage mbarrier ring, and two consumer
+// warpgroups that multiply by wgmma (m64n256k16; m64n64k16 for dlat,
+// m64n8k16 for rgb) with A and B in shared memory and f32 accumulators in
+// registers (setmaxnreg 40 / 232).  The stack is split where the TPU body
+// already rounds, g = bf16([dir_enc | agg]), so the split is exact:
+//   * pair kernels, 128 pair rows (16 points) a tile, 64 a warpgroup:
+//     F_color, the wn-sum and g (K8a: color_pair_fwd_kernel; K8b's
+//     recompute, color_pair_recompute_kernel, also stores the layers'
+//     inputs u, h1-h3);
+//   * point kernels, 128 points a tile: R on g (K8a: color_point_fwd_kernel
+//     -> rgb; K8b: color_point_bwd_kernel, R forward and reverse -> R's
+//     deltas and d_agg = delta_R0 @ R0[21:]^T in f32);
+//   * K8b's reverse pair kernel (color_pair_bwd_kernel): delta_F3 = wn
+//     d_agg[point], the reverse sweep through F3..F1 with the gates read
+//     from the stored h, and dlat.
+// dW/db without atomics, in a fixed order, so two launches give the same
+// bits: each delta goes to a bf16 scratch beside its layer's input, and
+// color_dw_kernel computes dW_l = X_l^T delta_l as a split-K product (each
+// block a 128 x 128 tile over a fixed row range, mma.sync with
+// ldmatrix.trans, its partial written once to [splits, 360,192]); db's
+// partials are each warpgroup tile's f32 column sums (the 4 warps' sums
+// added in order).  color_reduce_kernel then adds the splits and the tiles
+// in order.  Cost at the training shape (26,624 points): 1.03 GB of
+// scratch (1.3 % of the card; 3,840 bytes a pair row for F_color) and
+// about 3 GB of HBM traffic, some 0.9 ms at 3.35 TB/s: each X and delta
+// is written once and read twice by the dW pass (two 128-wide tiles).
+// posenc uses sinf/cosf (accurate): an invalid slot reads row 0, so its
+// x_pi can be ~1, which is ~32 rad at 2^5.  Ragged tiles read zeros and
+// write no output past the end.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,57 +70,38 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kPts = 16;            // points per block
 constexpr int kK = 8;               // neighbours per point
-constexpr int kRows = kPts * kK;    // 128 pair rows per block
-constexpr int kThreads = 256;       // 8 warps
-constexpr int kWarps = kThreads / 32;
 constexpr int kHid = 256;
 constexpr int kLat = 64;
 constexpr int kPos = 39;            // posenc(x_pi): 3 + 6 bands x (sin, cos) x 3
 constexpr int kIn0 = kPos + kLat;   // 103
-constexpr int kIn0P = 112;          // padded to whole k-steps
 constexpr int kDir = 21;
 constexpr int kRIn = kDir + kHid;   // 277
-constexpr int kRInP = 288;
 constexpr int kOut = 3;
-constexpr int kS = kHid + 8;        // row stride of 256-wide bf16 tiles
-constexpr int kS0 = kIn0P + 8;      // row stride of F0^T
-constexpr int kSR0 = kRInP + 8;     // row stride of R0^T and of g
-constexpr int kSR2 = 24;            // row stride of R2 and of its delta
 
 // Output buffer of K8b (f32): dW of F0..F3, R0..R2 ([in, out] each), then
 // db of F0..F3, R0, R1, R2.
-constexpr int kGwF0 = 0;
 constexpr int kGwR0 = kIn0 * kHid + 3 * kHid * kHid;   // 222,976
 constexpr int kGwR1 = kGwR0 + kRIn * kHid;
 constexpr int kGwR2 = kGwR1 + kHid * kHid;
 constexpr int kGb = kGwR2 + kHid * kOut;               // 360,192
-constexpr int kGbR0 = kGb + 4 * kHid;
-constexpr int kGbR1 = kGbR0 + kHid;
-constexpr int kGbR2 = kGbR1 + kHid;
-constexpr int kGrads = kGbR2 + kOut;                   // 361,731
-
-// Shared memory (bytes).
-constexpr int kSmAct = 0;                          // bf16 [128][264]
-constexpr int kSmW = kSmAct + kRows * kS * 2;      // bf16 weights or X
-constexpr int kSmWn = kSmW + kHid * kSR0 * 2;      // f32 [128]
-constexpr int kSmem = kSmWn + kRows * 4;
-// The R head's buffers, inside the activation buffer once F_color's output
-// is aggregated.
-constexpr int kSmG = 0;                            // bf16 [16][296]
-constexpr int kSmR1 = kSmG + kPts * kSR0 * 2;      // bf16 [16][264]
-constexpr int kSmR2 = kSmR1 + kPts * kS * 2;       // bf16 [16][264]
-constexpr int kSmDa = kSmR2 + kPts * kS * 2;       // bf16 [16][264]
-constexpr int kSmDb = kSmDa + kPts * kS * 2;       // bf16 [16][264]
-constexpr int kSmD3 = kSmDb + kPts * kS * 2;       // bf16 [16][24]
-constexpr int kSmD3f = kSmD3 + kPts * kSR2 * 2;    // f32 [16][4]
-constexpr int kSmAgg = kSmD3f + kPts * 4 * 4;      // f32 [16][256]
-constexpr int kSmREnd = kSmAgg + kPts * kHid * 4;
-static_assert(kSmREnd <= kRows * kS * 2, "the R head fits in act");
-static_assert(kRows * kS * 2 <= kHid * kSR0 * 2, "X fits in the weights");
-static_assert(kSmem <= 232448, "shared memory");
+constexpr int kGrads = kGb + 6 * kHid + kOut;          // 361,731
 static_assert(kGrads == 361731, "dW/db layout");
+
+// K8b's scratch, per pair row (bf16): the inputs X_l of F_color's layers
+// [u (103, zero to 128) | h1 | h2 | h3] and their deltas [d0 | d1 | d2 |
+// d3]; per point (bf16): R's inputs [g (277, zero to 384) | r1 | r2] and
+// deltas [d_R0 | d_R1 | d_R2 (3, zero to 128)], and d_agg (f32, 256); the
+// db partials, a row per warpgroup tile (f32: F's 1,024, R's 515); the dW
+// partials [splits][360,192].
+constexpr int kXs = 128 + 3 * kHid;     // 896
+constexpr int kDs = 4 * kHid;           // 1024
+constexpr int kXr = 384 + 2 * kHid;     // 896
+constexpr int kDr = 2 * kHid + 128;     // 640
+constexpr int kDbF = 4 * kHid;          // 1,024
+constexpr int kDbR = 2 * kHid + kOut;   // 515
+constexpr int kMaxSplits = 64;
+constexpr int kSplitRows = 2048;        // pair rows per split, at least
 
 struct Weights {
   const float* w[7];   // F0..F3, R0..R2: f32 [in, out]
@@ -130,16 +123,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two bf16 at p and p + step (k and k + 1 of a fragment), packed.
-template <bool kContig>
-__device__ __forceinline__ uint32_t ld2(const bf16* p, int step) {
-  if (kContig) return *reinterpret_cast<const uint32_t*>(p);
-  __nv_bfloat162 v;
-  v.x = p[0];
-  v.y = p[step];
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int MT, int NT>
 __device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
 #pragma unroll
@@ -150,532 +133,9 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 }
 
-// acc += A[m0 .. m0 + 16 MT, 0 .. 16 ksteps] @ B[.., n0 .. n0 + 8 NT] for
-// one warp, with A(m, k) = A[m am + k ak] and B(k, n) = B[k bk + n bn];
-// kAK / kBK: k is the contiguous index (ak == 1 / bk == 1).
-template <int MT, int NT, bool kAK, bool kBK>
-__device__ __forceinline__ void mma_tile(const bf16* A, int am, int ak,
-                                         const bf16* B, int bk, int bn,
-                                         int m0, int n0, int ksteps,
-                                         float (&acc)[MT][NT][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int ks = 0; ks < ksteps; ++ks) {
-    const int k0 = ks * 16 + 2 * t;
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      const bf16* ar = A + (m0 + mi * 16 + g) * am + k0 * ak;
-      a[mi][0] = ld2<kAK>(ar, ak);
-      a[mi][1] = ld2<kAK>(ar + 8 * am, ak);
-      a[mi][2] = ld2<kAK>(ar + 8 * ak, ak);
-      a[mi][3] = ld2<kAK>(ar + 8 * am + 8 * ak, ak);
-    }
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const bf16* br = B + k0 * bk + (n0 + ni * 8 + g) * bn;
-      const uint32_t b0 = ld2<kBK>(br, bk);
-      const uint32_t b1 = ld2<kBK>(br + 8 * bk, bk);
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
-    }
-  }
-}
-
-// The [16 MT m_tiles, 8 NT n_tiles] product in tiles dealt out to the warps;
-// epi(m0, n0, acc) after each tile (nothing is written in place).
-template <int MT, int NT, bool kAK, bool kBK, class Epi>
-__device__ __forceinline__ void tile_gemm(const bf16* A, int am, int ak,
-                                          const bf16* B, int bk, int bn,
-                                          int m_tiles, int n_tiles,
-                                          int ksteps, Epi epi) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll 1
-  for (int tile = warp; tile < m_tiles * n_tiles; tile += kWarps) {
-    const int m0 = (tile / n_tiles) * 16 * MT;
-    const int n0 = (tile % n_tiles) * 8 * NT;
-    float acc[MT][NT][4];
-    zero_acc(acc);
-    mma_tile<MT, NT, kAK, kBK>(A, am, ak, B, bk, bn, m0, n0, ksteps, acc);
-    epi(m0, n0, acc);
-  }
-}
-
-// Bt[n][k] = bf16(W[k][n]) for k < K, n < N, zero elsewhere up to
-// [n_pad][k_pad]; W f32 [K, N] (the forward products' B, k contiguous).
-__device__ __forceinline__ void load_wt(bf16* dst, int stride,
-                                        const float* __restrict__ W, int K,
-                                        int N, int k_pad, int n_pad) {
-  const int pairs = k_pad / 2;
-  for (int e = threadIdx.x; e < pairs * n_pad; e += kThreads) {
-    const int kp = e / n_pad, n = e - kp * n_pad, k = 2 * kp;
-    const float lo = (k < K && n < N) ? __ldg(W + (size_t)k * N + n) : 0.f;
-    const float hi =
-        (k + 1 < K && n < N) ? __ldg(W + (size_t)(k + 1) * N + n) : 0.f;
-    *reinterpret_cast<uint32_t*>(dst + n * stride + k) = pack2(lo, hi);
-  }
-}
-
-// Ws[r][c] = bf16(W[row0 + r][c]) for c < N, zero for N <= c < n_pad; W f32
-// [., N] (the backward products' B = W^T, k contiguous).
-__device__ __forceinline__ void load_wn(bf16* dst, int stride,
-                                        const float* __restrict__ W, int row0,
-                                        int rows, int N, int n_pad) {
-  const int pairs = n_pad / 2;
-  for (int e = threadIdx.x; e < rows * pairs; e += kThreads) {
-    const int r = e / pairs, c = 2 * (e - r * pairs);
-    const float* src = W + (size_t)(row0 + r) * N + c;
-    const float lo = c < N ? __ldg(src) : 0.f;
-    const float hi = c + 1 < N ? __ldg(src + 1) : 0.f;
-    *reinterpret_cast<uint32_t*>(dst + r * stride + c) = pack2(lo, hi);
-  }
-}
-
-// u = [posenc(x_pi) | lat | 0] of the block's rows, bf16 [128][112] at
-// stride kS; rows past m are zero.
-__device__ __forceinline__ void build_u(bf16* dst,
-                                        const float* __restrict__ x_pi,
-                                        const float* __restrict__ lat,
-                                        long long row0, long long m) {
-  for (int e = threadIdx.x; e < kRows * kIn0P; e += kThreads) {
-    const int r = e / kIn0P, c = e - r * kIn0P;
-    const long long q = row0 + r;
-    float v = 0.f;
-    if (q < m) {
-      if (c < 3) {
-        v = __ldg(x_pi + q * 3 + c);
-      } else if (c < kPos) {
-        const int j = c - 3, band = j / 6, w = j - band * 6;
-        const float xf =
-            __ldg(x_pi + q * 3 + w % 3) * static_cast<float>(1 << band);
-        v = w < 3 ? sinf(xf) : cosf(xf);
-      } else if (c < kIn0) {
-        v = __ldg(lat + q * kLat + (c - kPos));
-      }
-    }
-    dst[r * kS + c] = __float2bfloat16_rn(v);
-  }
-}
-
-// Per-column sums of a 16-row tile's values (v[ni][j]: this thread's rows g
-// and g + 8 already added), into db[n0 + ...] with one atomic a column.
-template <int NT>
-__device__ __forceinline__ void add_colsum(float (&v)[NT][2],
-                                           float* __restrict__ db, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float s = v[ni][j];
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (g == 0) atomicAdd(db + n0 + ni * 8 + 2 * t + j, s);
-    }
-}
-
-// A 16-row dW tile's partial sums into dw [., ncols] (rows < m_real).
-template <int NT>
-__device__ __forceinline__ void add_dw(float (&acc)[1][NT][4],
-                                       float* __restrict__ dw, int ncols,
-                                       int m_real, int m0, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + g + 8 * h, col = n0 + ni * 8 + 2 * t;
-      if (row >= m_real) continue;
-      float* d = dw + (size_t)row * ncols + col;
-      if ((ncols & 1) == 0) {
-        atomicAdd(reinterpret_cast<float2*>(d),
-                  make_float2(acc[0][ni][2 * h], acc[0][ni][2 * h + 1]));
-      } else {
-        if (col < ncols) atomicAdd(d, acc[0][ni][2 * h]);
-        if (col + 1 < ncols) atomicAdd(d + 1, acc[0][ni][2 * h + 1]);
-      }
-    }
-}
-
-// An R-head layer's epilogue on a 16-point tile: a = acc + b, stored as
-// bf16(max(a, 0.01 a)).
-template <int NT>
-__device__ __forceinline__ void epi_leaky(float (&acc)[1][NT][4], bf16* dst,
-                                          const float* __restrict__ bias,
-                                          int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = g + 8 * h, col = n0 + ni * 8 + 2 * t;
-      const float a0 = acc[0][ni][2 * h] + __ldg(bias + col);
-      const float a1 = acc[0][ni][2 * h + 1] + __ldg(bias + col + 1);
-      *reinterpret_cast<uint32_t*>(dst + row * kS + col) =
-          pack2(fmaxf(a0, 0.01f * a0), fmaxf(a1, 0.01f * a1));
-    }
-}
-
-// A reverse-sweep epilogue of the R head: delta = acc * gate(act > 0), its
-// bf16 copy into dst and its column sums into db.
-template <int NT>
-__device__ __forceinline__ void epi_delta(float (&acc)[1][NT][4], bf16* dst,
-                                          const bf16* act,
-                                          float* __restrict__ db, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float v[NT][2];
-#pragma unroll
-  for (int ni = 0; ni < NT; ++ni) {
-    v[ni][0] = v[ni][1] = 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = g + 8 * h, col = n0 + ni * 8 + 2 * t;
-      const float d0 = acc[0][ni][2 * h] *
-          (__bfloat162float(act[row * kS + col]) > 0.f ? 1.f : 0.01f);
-      const float d1 = acc[0][ni][2 * h + 1] *
-          (__bfloat162float(act[row * kS + col + 1]) > 0.f ? 1.f : 0.01f);
-      *reinterpret_cast<uint32_t*>(dst + row * kS + col) = pack2(d0, d1);
-      v[ni][0] += d0;
-      v[ni][1] += d1;
-    }
-  }
-  add_colsum(v, db, n0);
-}
-
-__device__ __forceinline__ int gw_f(int l) {
-  return l == 0 ? kGwF0 : kIn0 * kHid + (l - 1) * kHid * kHid;
-}
-
-template <bool kBwd>
-__global__ void __launch_bounds__(kThreads, 1)
-color_kernel(const float* __restrict__ x_pi, const float* __restrict__ lat,
-             const float* __restrict__ wn, const float* __restrict__ dir_enc,
-             long long n_pts, Weights p, const float* __restrict__ rgb_bar,
-             float* __restrict__ rgb, float* __restrict__ dlat,
-             float* __restrict__ grads, bf16* __restrict__ hs) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem + kSmAct);
-  bf16* wsm = reinterpret_cast<bf16*>(smem + kSmW);
-  float* wn_s = reinterpret_cast<float*>(smem + kSmWn);
-  bf16* gb = reinterpret_cast<bf16*>(smem + kSmAct + kSmG);
-  bf16* r1b = reinterpret_cast<bf16*>(smem + kSmAct + kSmR1);
-  bf16* r2b = reinterpret_cast<bf16*>(smem + kSmAct + kSmR2);
-  bf16* dab = reinterpret_cast<bf16*>(smem + kSmAct + kSmDa);
-  bf16* dbb = reinterpret_cast<bf16*>(smem + kSmAct + kSmDb);
-  bf16* d3b = reinterpret_cast<bf16*>(smem + kSmAct + kSmD3);
-  float* d3f = reinterpret_cast<float*>(smem + kSmAct + kSmD3f);
-  float* dagg = reinterpret_cast<float*>(smem + kSmAct + kSmAgg);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int rg = warp & 3, cg = warp >> 2;
-  const long long pt0 = (long long)blockIdx.x * kPts;
-  const long long row0 = pt0 * kK;
-  const long long m = n_pts * kK;
-
-  // --- inputs: u, wn and F0^T ---
-  build_u(act, x_pi, lat, row0, m);
-  if (tid < kRows) wn_s[tid] = row0 + tid < m ? __ldg(wn + row0 + tid) : 0.f;
-  load_wt(wsm, kS0, p.w[0], kIn0, kHid, kIn0P, kHid);
-  __syncthreads();
-
-  // --- F_color on the 128 pair rows, each layer over its input ---
-  float acc[2][16][4];
-#pragma unroll 1
-  for (int l = 0; l < 4; ++l) {
-    zero_acc(acc);
-    if (l == 0) {
-      mma_tile<2, 16, true, true>(act, kS, 1, wsm, 1, kS0, rg * 32, cg * 128,
-                                  kIn0P / 16, acc);
-    } else {
-      mma_tile<2, 16, true, true>(act, kS, 1, wsm, 1, kS, rg * 32, cg * 128,
-                                  kHid / 16, acc);
-    }
-    __syncthreads();
-    const float* bias = p.b[l];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = rg * 32 + mi * 16 + g + 8 * h;
-#pragma unroll
-        for (int ni = 0; ni < 16; ++ni) {
-          const int col = cg * 128 + ni * 8 + 2 * t;
-          const float a0 = acc[mi][ni][2 * h] + __ldg(bias + col);
-          const float a1 = acc[mi][ni][2 * h + 1] + __ldg(bias + col + 1);
-          uint32_t v;
-          if (l < 3) {
-            v = pack2(fmaxf(a0, 0.01f * a0), fmaxf(a1, 0.01f * a1));
-            if (kBwd)
-              *reinterpret_cast<uint32_t*>(
-                  hs + ((row0 + row) * 3 + l) * kHid + col) = v;
-          } else {
-            v = pack2(a0, a1);
-          }
-          *reinterpret_cast<uint32_t*>(act + row * kS + col) = v;
-        }
-      }
-    if (l < 3) {
-      load_wt(wsm, kS, p.w[l + 1], kHid, kHid, kHid, kHid);
-    } else {
-      load_wt(wsm, kSR0, p.w[4], kRIn, kHid, kRInP, kHid);
-    }
-    __syncthreads();
-  }
-
-  // --- agg = sum_j wn feat (f32), then g = bf16([dir_enc | agg]) ---
-  {
-    float aggv[kPts];
-#pragma unroll
-    for (int pp = 0; pp < kPts; ++pp) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < kK; ++j) {
-        const int r = pp * kK + j;
-        s = __fadd_rn(s, __fmul_rn(__bfloat162float(act[r * kS + tid]),
-                                   wn_s[r]));
-      }
-      aggv[pp] = s;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int pp = 0; pp < kPts; ++pp)
-      gb[pp * kSR0 + kDir + tid] = __float2bfloat16_rn(aggv[pp]);
-    for (int e = tid; e < kPts * kDir; e += kThreads) {
-      const int pp = e / kDir, c = e - pp * kDir;
-      const float v =
-          pt0 + pp < n_pts ? __ldg(dir_enc + (pt0 + pp) * kDir + c) : 0.f;
-      gb[pp * kSR0 + c] = __float2bfloat16_rn(v);
-    }
-    for (int e = tid; e < kPts * (kSR0 - kRIn); e += kThreads) {
-      const int pp = e / (kSR0 - kRIn);
-      gb[pp * kSR0 + kRIn + (e - pp * (kSR0 - kRIn))] = __float2bfloat16_rn(0.f);
-    }
-    __syncthreads();
-  }
-
-  // --- R head on the 16 points ---
-  tile_gemm<1, 4, true, true>(
-      gb, kSR0, 1, wsm, 1, kSR0, 1, kHid / 32, kRInP / 16,
-      [&](int, int n0, float (&a)[1][4][4]) { epi_leaky(a, r1b, p.b[4], n0); });
-  __syncthreads();
-  load_wt(wsm, kS, p.w[5], kHid, kHid, kHid, kHid);
-  __syncthreads();
-  tile_gemm<1, 4, true, true>(
-      r1b, kS, 1, wsm, 1, kS, 1, kHid / 32, kHid / 16,
-      [&](int, int n0, float (&a)[1][4][4]) { epi_leaky(a, r2b, p.b[5], n0); });
-  __syncthreads();
-  load_wt(wsm, kS, p.w[6], kHid, kOut, kHid, 8);
-  __syncthreads();
-  if (warp == 0) {
-    float a[1][1][4];
-    zero_acc(a);
-    mma_tile<1, 1, true, true>(r2b, kS, 1, wsm, 1, kS, 0, 0, kHid / 16, a);
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int row = g + 8 * h, col = 2 * t + j;
-        if (col >= kOut) continue;
-        const long long pt = pt0 + row;
-        const float z = a[0][0][2 * h + j] + __ldg(p.b[6] + col);
-        const float s = 1.f / (1.f + expf(-z));
-        if (!kBwd) {
-          if (pt < n_pts) rgb[pt * kOut + col] = s;
-        } else {
-          const float rb = pt < n_pts ? __ldg(rgb_bar + pt * kOut + col) : 0.f;
-          d3f[row * 4 + col] = __fmul_rn(__fmul_rn(rb, s), __fsub_rn(1.f, s));
-        }
-      }
-  }
-  if (!kBwd) return;
-  __syncthreads();
-
-  // --- R head, reverse ---
-  for (int e = tid; e < kPts * kSR2; e += kThreads) {
-    const int pp = e / kSR2, c = e - pp * kSR2;
-    d3b[e] = __float2bfloat16_rn(c < kOut ? d3f[pp * 4 + c] : 0.f);
-  }
-  if (tid < kOut) {
-    float s = 0.f;
-    for (int pp = 0; pp < kPts; ++pp) s += d3f[pp * 4 + tid];
-    atomicAdd(grads + kGbR2 + tid, s);
-  }
-  load_wn(wsm, kSR2, p.w[6], 0, kHid, kOut, 16);
-  __syncthreads();
-  // dW_R2 = r2^T d3 [256, 3]; delta2 = (d3 @ R2^T) * gate(r2) [16, 256]
-  tile_gemm<1, 1, false, false>(
-      r2b, 1, kS, d3b, kSR2, 1, kHid / 16, 1, 1,
-      [&](int m0, int n0, float (&a)[1][1][4]) {
-        add_dw(a, grads + kGwR2, kOut, kHid, m0, n0);
-      });
-  tile_gemm<1, 4, true, true>(
-      d3b, kSR2, 1, wsm, 1, kSR2, 1, kHid / 32, 1,
-      [&](int, int n0, float (&a)[1][4][4]) {
-        epi_delta(a, dab, r2b, grads + kGbR1, n0);
-      });
-  __syncthreads();
-  // dW_R1 = r1^T delta2; delta1 = (delta2 @ R1^T) * gate(r1)
-  tile_gemm<1, 8, false, false>(
-      r1b, 1, kS, dab, kS, 1, kHid / 16, kHid / 64, 1,
-      [&](int m0, int n0, float (&a)[1][8][4]) {
-        add_dw(a, grads + kGwR1, kHid, kHid, m0, n0);
-      });
-  load_wn(wsm, kS, p.w[5], 0, kHid, kHid, kHid);
-  __syncthreads();
-  tile_gemm<1, 4, true, true>(
-      dab, kS, 1, wsm, 1, kS, 1, kHid / 32, kHid / 16,
-      [&](int, int n0, float (&a)[1][4][4]) {
-        epi_delta(a, dbb, r1b, grads + kGbR0, n0);
-      });
-  __syncthreads();
-  // dW_R0 = g^T delta1 [277, 256]; d_agg = delta1 @ R0[21:]^T (f32)
-  tile_gemm<1, 8, false, false>(
-      gb, 1, kSR0, dbb, kS, 1, kRInP / 16, kHid / 64, 1,
-      [&](int m0, int n0, float (&a)[1][8][4]) {
-        add_dw(a, grads + kGwR0, kHid, kRIn, m0, n0);
-      });
-  load_wn(wsm, kS, p.w[4], kDir, kHid, kHid, kHid);
-  __syncthreads();
-  tile_gemm<1, 4, true, true>(
-      dbb, kS, 1, wsm, 1, kS, 1, kHid / 32, kHid / 16,
-      [&](int, int n0, float (&a)[1][4][4]) {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = g + 8 * h, col = n0 + ni * 8 + 2 * t;
-            dagg[row * kHid + col] = a[0][ni][2 * h];
-            dagg[row * kHid + col + 1] = a[0][ni][2 * h + 1];
-          }
-      });
-  __syncthreads();
-
-  // --- d_feat = wn * d_agg[point] (f32) into act as bf16; db_F3 ---
-  {
-    float dv[kPts];
-#pragma unroll
-    for (int pp = 0; pp < kPts; ++pp) dv[pp] = dagg[pp * kHid + tid];
-    __syncthreads();
-    float s = 0.f;
-#pragma unroll
-    for (int pp = 0; pp < kPts; ++pp)
-#pragma unroll
-      for (int j = 0; j < kK; ++j) {
-        const int r = pp * kK + j;
-        const float d = dv[pp] * wn_s[r];
-        s += d;
-        act[r * kS + tid] = __float2bfloat16_rn(d);
-      }
-    atomicAdd(grads + kGb + 3 * kHid + tid, s);
-  }
-
-  // --- F_color, reverse: layer l's input X (h_l from the scratch, or u) ---
-  bf16* xb = wsm;
-#pragma unroll 1
-  for (int l = 3; l >= 0; --l) {
-    if (l > 0) {
-      for (int e = tid; e < kRows * (kHid / 8); e += kThreads) {
-        const int r = e / (kHid / 8), q = e - r * (kHid / 8);
-        *reinterpret_cast<uint4*>(xb + r * kS + q * 8) =
-            *reinterpret_cast<const uint4*>(
-                hs + ((row0 + r) * 3 + (l - 1)) * kHid + q * 8);
-      }
-    } else {
-      build_u(xb, x_pi, lat, row0, m);
-    }
-    __syncthreads();
-    // dW_l = X^T delta, K = the 128 pair rows
-    tile_gemm<1, 8, false, false>(
-        xb, 1, kS, act, kS, 1, (l > 0 ? kHid : kIn0P) / 16, kHid / 64,
-        kRows / 16, [&](int m0, int n0, float (&a)[1][8][4]) {
-          add_dw(a, grads + gw_f(l), kHid, l > 0 ? kHid : kIn0, m0, n0);
-        });
-    __syncthreads();
-    if (l > 0) {
-      // delta = (delta @ W_l^T) * gate(h_l) over act; db_{l-1}
-      load_wn(wsm, kS, p.w[l], 0, kHid, kHid, kHid);
-      __syncthreads();
-      zero_acc(acc);
-      mma_tile<2, 16, true, true>(act, kS, 1, wsm, 1, kS, rg * 32, cg * 128,
-                                  kHid / 16, acc);
-      __syncthreads();
-#pragma unroll
-      for (int ni = 0; ni < 16; ++ni) {
-        const int col = cg * 128 + ni * 8 + 2 * t;
-        float v[1][2] = {{0.f, 0.f}};
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = rg * 32 + mi * 16 + g + 8 * h;
-            const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(
-                hs + ((row0 + row) * 3 + (l - 1)) * kHid + col);
-            const float d0 = acc[mi][ni][2 * h] *
-                (__bfloat162float(hv.x) > 0.f ? 1.f : 0.01f);
-            const float d1 = acc[mi][ni][2 * h + 1] *
-                (__bfloat162float(hv.y) > 0.f ? 1.f : 0.01f);
-            *reinterpret_cast<uint32_t*>(act + row * kS + col) = pack2(d0, d1);
-            v[0][0] += d0;
-            v[0][1] += d1;
-          }
-        add_colsum<1>(v, grads + kGb + (l - 1) * kHid, col - 2 * t);
-      }
-      __syncthreads();
-    } else {
-      // dlat = (delta @ F0^T)[:, 39:103] (f32, no gate)
-      load_wn(wsm, kS, p.w[0], kPos, kLat, kHid, kHid);
-      __syncthreads();
-      tile_gemm<1, 8, true, true>(
-          act, kS, 1, wsm, 1, kS, kRows / 16, kLat / 64, kHid / 16,
-          [&](int m0, int n0, float (&a)[1][8][4]) {
-#pragma unroll
-            for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const long long q = row0 + m0 + g + 8 * h;
-                if (q < m)
-                  *reinterpret_cast<float2*>(dlat + q * kLat + n0 + ni * 8 +
-                                             2 * t) =
-                      make_float2(a[0][ni][2 * h], a[0][ni][2 * h + 1]);
-              }
-          });
-    }
-  }
-}
-
-template <bool kBwd>
-int launch(const float* x_pi, const float* lat, const float* wn,
-           const float* dir_enc, long long n_pts, const void* const* ws,
-           const void* const* bs, const float* rgb_bar, float* rgb,
-           float* dlat, float* grads, void* hs, void* stream) {
-  if (n_pts < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pts == 0) return 0;
-  const long long blocks = (n_pts + kPts - 1) / kPts;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      color_kernel<kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Weights p;
-  for (int i = 0; i < 7; ++i) {
-    p.w[i] = static_cast<const float*>(ws[i]);
-    p.b[i] = static_cast<const float*>(bs[i]);
-  }
-  color_kernel<kBwd><<<static_cast<unsigned>(blocks), kThreads, kSmem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x_pi, lat, wn, dir_enc, n_pts, p, rgb_bar, rgb, dlat, grads,
-      static_cast<bf16*>(hs));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
-// The Hopper pipeline of the colour stack: the weights packed once a step
-// (pack_kernel), streamed into a shared-memory ring by cp.async.bulk from a
-// producer warp, and multiplied on wgmma by two consumer warpgroups, on a
-// persistent grid.  The stack is split where the TPU body already rounds:
-// g = bf16([dir_enc | agg]).
+// The Hopper pipeline (see the header): the pack, the ring, the wgmma
+// products and the pair and point kernels.
 namespace wg {
 
 constexpr int kWgRows = 64;                 // rows of a consumer warpgroup
@@ -685,7 +145,7 @@ constexpr int kTile = 2 * kWgRows;          // rows (pairs or points) a tile
 constexpr int kStages = 4;
 constexpr int kChunk = 32768;               // bytes of a ring stage
 constexpr int kBlk = kWgRows * 128;         // a 64-column block of act
-constexpr int kGld = 320;                   // K8a's g row: 277 -> 5 blocks
+constexpr int kGld = 320;                   // g as R0's A: 277 -> 5 blocks
 
 // The packed weights: chunks of kChunk bytes, each an image of stage
 // blocks ([n][64] bf16, K-major, 128-byte swizzled).  Forward products
@@ -1036,14 +496,18 @@ template <int kActW, int kBias, int kF32>
 struct Smem {
   static constexpr int ring = 0;
   static constexpr int act = kStages * kChunk;
+  static constexpr int act_w = kActW;
   static constexpr int bias = act + 2 * kActW;
   static constexpr int f32 = bias + kBias * 4;
   static constexpr int bar = (f32 + kF32 * 4 + 7) / 8 * 8;
   static constexpr int bytes = bar + 2 * kStages * 8 + 1024;
   static_assert(bytes <= 232448, "shared memory");
 };
-using PairSmem = Smem<kWgRows * kHid * 2, 4 * kHid, kTile>;       // + wn
-using PointSmem = Smem<kWgRows * kGld * 2, 2 * kHid + 8, 0>;
+// pair kernels: F's biases and wn; K8b's reverse: the column-sum staging
+// [2 warpgroups][4 warps][256]; point kernels: R's biases and the staging
+using PairSmem = Smem<kWgRows * kHid * 2, 4 * kHid, kTile>;
+using PairBwdSmem = Smem<kWgRows * kHid * 2, 0, 8 * kHid>;
+using PointSmem = Smem<kWgRows * kGld * 2, 2 * kHid + 8, 8 * kHid>;
 
 // Barriers initialised and the ring described; every thread calls it.
 __device__ __forceinline__ Ring ring_setup(unsigned char* sm, int bar_off) {
@@ -1106,14 +570,93 @@ __device__ __forceinline__ Me me() {
   return Me{tid / 128, tid & 127, lane, (tid >> 5) & 3, lane >> 2, lane & 3};
 }
 
-// The pair half (K8a): F_color on 128 pair rows (16 points) a tile, the
-// wn-sum, and g = bf16([dir_enc | agg]) into g [P, ldg] (zero from 277).
-__device__ void pair_fwd_body(const float* __restrict__ x_pi,
-                              const float* __restrict__ lat,
-                              const float* __restrict__ wn,
-                              const float* __restrict__ dir_enc,
-                              long long n_pts, const bf16* __restrict__ wbuf,
-                              Weights p, bf16* __restrict__ g_out, int ldg) {
+// The 4 warps' column sums staged in part [4][ld] (by stage_colsum),
+// added in order into out[0, ncols); between two warpgroup barriers.
+__device__ __forceinline__ void colsum_out(const float* part, int ld,
+                                           int ncols, float* __restrict__ out,
+                                           const Me& c) {
+  bar_sync(1 + c.wg, 128);
+  for (int col = c.ti; col < ncols; col += 128)
+    out[col] = ((part[col] + part[ld + col]) + part[2 * ld + col]) +
+               part[3 * ld + col];
+  bar_sync(1 + c.wg, 128);
+}
+
+// The warp's sums of columns (col, col + 1) from each thread's sums over
+// its rows: a shuffle tree over the 8 row groups, stored by g == 0 into
+// the warp's row of part [4][ld].
+__device__ __forceinline__ void stage_colsum(float s0, float s1, int col,
+                                             float* part, int ld,
+                                             const Me& c) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  if (c.g == 0) {
+    part[c.w4 * ld + col] = s0;
+    part[c.w4 * ld + col + 1] = s1;
+  }
+}
+
+// A reverse epilogue: delta = acc * (h > 0 ? 1 : 0.01) in f32, h the bf16
+// activation of the layer below at (row, col): in the warpgroup's
+// activations themselves, or (kGlobal) in the row-major gate_src.  delta
+// is written over the activations as bf16 and its column sums staged in
+// part [4][256].
+template <bool kGlobal>
+__device__ __forceinline__ void epi_delta(const float (&acc)[128],
+                                          unsigned char* act,
+                                          const bf16* gate_src, int ld,
+                                          float* part, const Me& c) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = 8 * i + 2 * c.t;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = c.w4 * 16 + c.g + 8 * h;
+      const __nv_bfloat162 hv =
+          kGlobal ? *reinterpret_cast<const __nv_bfloat162*>(
+                        gate_src + (size_t)row * ld + col)
+                  : *reinterpret_cast<const __nv_bfloat162*>(act +
+                                                             swz(row, col));
+      const float d0 = acc[4 * i + 2 * h] *
+                       (__bfloat162float(hv.x) > 0.f ? 1.f : 0.01f);
+      const float d1 = acc[4 * i + 2 * h + 1] *
+                       (__bfloat162float(hv.y) > 0.f ? 1.f : 0.01f);
+      *reinterpret_cast<uint32_t*>(act + swz(row, col)) = pack2(d0, d1);
+      s0 += d0;
+      s1 += d1;
+    }
+    stage_colsum(s0, s1, col, part, kHid, c);
+  }
+}
+
+// The warpgroup's activations, columns [0, 8 n8) of its 64 rows, to the
+// global row-major dst (row stride ld), zero from 8 n8 to 8 w8.
+__device__ __forceinline__ void act_out(bf16* __restrict__ dst, int ld,
+                                        const unsigned char* act, int n8,
+                                        int w8, int ti) {
+  for (int e = ti; e < kWgRows * w8; e += 128) {
+    const int r = e / w8, q = e - r * w8;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + q * 8) =
+        q < n8 ? *reinterpret_cast<const uint4*>(act + swz(r, q * 8))
+               : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+
+// The pair half: F_color on 128 pair rows (16 points) a tile, the wn-sum,
+// and g = bf16([dir_enc | agg]) into g_out [P, ldg] (zero from 277 to
+// gcols).  kStore (K8b's recompute): also each layer's input, u and h1-h3,
+// into xs [rows, kXs] for the dW products and the reverse gates.
+template <bool kStore>
+__device__ __forceinline__ void pair_fwd_body(
+    const float* __restrict__ x_pi, const float* __restrict__ lat,
+    const float* __restrict__ wn, const float* __restrict__ dir_enc,
+    long long n_pts, const bf16* __restrict__ wbuf, Weights p,
+    bf16* __restrict__ g_out, int ldg, int gcols, bf16* __restrict__ xs) {
   using S = PairSmem;
   unsigned char* sm = block_smem();
   float* bias_s = reinterpret_cast<float*>(sm + S::bias);
@@ -1133,7 +676,7 @@ __device__ void pair_fwd_body(const float* __restrict__ x_pi,
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const Me c = me();
-  unsigned char* act = sm + S::act + c.wg * (S::bias - S::act) / 2;
+  unsigned char* act = sm + S::act + c.wg * S::act_w;
   const uint32_t act_a = smem_u32(act);
   float* wn_w = wn_s + c.wg * kWgRows;
   int it = 0;
@@ -1171,14 +714,13 @@ __device__ void pair_fwd_body(const float* __restrict__ x_pi,
       wn_w[c.ti] = row0 + c.ti < m ? __ldg(wn + row0 + c.ti) : 0.f;
     fence_async_smem();
     bar_sync(1 + c.wg, 128);
-    layer<2, 4>(acc, act_a, ring, it, c.lane);
-    bar_sync(1 + c.wg, 128);
-    epi_act<true>(acc, act, bias_s, c.w4, c.g, c.t);
-    fence_async_smem();
-    bar_sync(1 + c.wg, 128);
+    if (kStore) act_out(xs + row0 * kXs, kXs, act, 16, 16, c.ti);
 #pragma unroll 1
-    for (int l = 1; l < 4; ++l) {
-      layer<4, 4>(acc, act_a, ring, it, c.lane);
+    for (int l = 0; l < 4; ++l) {
+      if (l == 0)
+        layer<2, 4>(acc, act_a, ring, it, c.lane);
+      else
+        layer<4, 4>(acc, act_a, ring, it, c.lane);
       bar_sync(1 + c.wg, 128);
       if (l < 3)
         epi_act<true>(acc, act, bias_s + l * kHid, c.w4, c.g, c.t);
@@ -1186,6 +728,8 @@ __device__ void pair_fwd_body(const float* __restrict__ x_pi,
         epi_act<false>(acc, act, bias_s + l * kHid, c.w4, c.g, c.t);
       fence_async_smem();
       bar_sync(1 + c.wg, 128);
+      if (kStore && l < 3)
+        act_out(xs + row0 * kXs + 128 + l * kHid, kXs, act, 32, 32, c.ti);
     }
     // agg = sum_j wn feat (f32, j in order) and g of the warpgroup's 8
     // points: columns 2 ti, 2 ti + 1 of each
@@ -1208,7 +752,7 @@ __device__ void pair_fwd_body(const float* __restrict__ x_pi,
         gr[kDir + 2 * c.ti + 1] = __float2bfloat16_rn(s1);
         if (c.ti < kDir)
           gr[c.ti] = __float2bfloat16_rn(__ldg(dir_enc + pt * kDir + c.ti));
-        for (int col = kRIn + c.ti; col < ldg; col += 128)
+        for (int col = kRIn + c.ti; col < gcols; col += 128)
           gr[col] = __float2bfloat16_rn(0.f);
       }
     }
@@ -1216,11 +760,18 @@ __device__ void pair_fwd_body(const float* __restrict__ x_pi,
   }
 }
 
-// The point half (K8a): R on 128 points a tile (64 a warpgroup) from
-// g [P, ldg] bf16: rgb [P, 3] f32.
-__device__ void point_fwd_body(const bf16* __restrict__ g_in, int ldg,
-                               long long n_pts, const bf16* __restrict__ wbuf,
-                               Weights p, float* __restrict__ rgb) {
+// The point half: R on 128 points a tile (64 a warpgroup) from g [P, ldg]
+// bf16.  K8a: rgb [P, 3] f32.  kBwd (K8b): from rgb_bar, R's reverse
+// sweep: r1, r2 into xr (g is there already), the bf16 deltas into dr,
+// their f32 column sums into dbp (a row of 515 a warpgroup tile), and
+// d_agg = delta_R0 @ R0[21:]^T (f32) into d_agg [P, 256].
+template <bool kBwd>
+__device__ __forceinline__ void point_body(
+    const bf16* __restrict__ g_in, int ldg, long long n_pts,
+    const bf16* __restrict__ wbuf, Weights p, float* __restrict__ rgb,
+    const float* __restrict__ rgb_bar, bf16* __restrict__ xr,
+    bf16* __restrict__ dr, float* __restrict__ d_agg,
+    float* __restrict__ dbp) {
   using S = PointSmem;
   unsigned char* sm = block_smem();
   float* bias_s = reinterpret_cast<float*>(sm + S::bias);
@@ -1236,13 +787,15 @@ __device__ void point_fwd_body(const bf16* __restrict__ g_in, int ldg,
   if (role == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x / 32 == 8)
-      produce(ring, sm + S::ring, wbuf, n_tiles, kCR0, kCR2 + 1);
+      produce(ring, sm + S::ring, wbuf, n_tiles, kCR0,
+              kBwd ? kCF3b : kCR2 + 1);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const Me c = me();
-  unsigned char* act = sm + S::act + c.wg * (S::bias - S::act) / 2;
+  unsigned char* act = sm + S::act + c.wg * S::act_w;
   const uint32_t act_a = smem_u32(act);
+  float* part = reinterpret_cast<float*>(sm + S::f32) + c.wg * 4 * kHid;
   int it = 0;
   float acc[128];
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -1262,22 +815,169 @@ __device__ void point_fwd_body(const bf16* __restrict__ g_in, int ldg,
     epi_act<true>(acc, act, bias_s, c.w4, c.g, c.t);
     fence_async_smem();
     bar_sync(1 + c.wg, 128);
+    if (kBwd) act_out(xr + pt0 * kXr + 384, kXr, act, 32, 32, c.ti);
     layer<4, 4>(acc, act_a, ring, it, c.lane);
     bar_sync(1 + c.wg, 128);
     epi_act<true>(acc, act, bias_s + kHid, c.w4, c.g, c.t);
     fence_async_smem();
     bar_sync(1 + c.wg, 128);
+    if (kBwd) act_out(xr + pt0 * kXr + 384 + kHid, kXr, act, 32, 32, c.ti);
     float z[4];
     narrow_product<8>(z, act_a, ring, it, c.lane);
+    if (!kBwd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = c.w4 * 16 + c.g + 8 * (e >> 1),
+                  col = 2 * c.t + (e & 1);
+        const long long pt = pt0 + row;
+        if (col < kOut && pt < n_pts)
+          rgb[pt * kOut + col] =
+              1.f / (1.f + expf(-__fadd_rn(z[e], bias_s[2 * kHid + col])));
+      }
+      bar_sync(1 + c.wg, 128);  // act is read before the next tile's g
+      continue;
+    }
+    // --- R, reverse: d3 = rgb_bar s (1 - s) (f32), bf16 into block 4 ---
+    float* db_row = dbp + (t * 2 + c.wg) * kDbR;
+    unsigned char* act4 = act + 4 * kBlk;
+    float d3[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = c.w4 * 16 + c.g + 8 * (e >> 1), col = 2 * c.t + (e & 1);
       const long long pt = pt0 + row;
-      if (col < kOut && pt < n_pts)
-        rgb[pt * kOut + col] =
-            1.f / (1.f + expf(-__fadd_rn(z[e], bias_s[2 * kHid + col])));
+      const float s =
+          1.f / (1.f + expf(-__fadd_rn(z[e], bias_s[2 * kHid + col])));
+      const float rb = (col < kOut && pt < n_pts)
+                           ? __ldg(rgb_bar + pt * kOut + col) : 0.f;
+      d3[e] = __fmul_rn(__fmul_rn(rb, s), __fsub_rn(1.f, s));
     }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(
+          act4 + swz(c.w4 * 16 + c.g + 8 * h, 2 * c.t)) =
+          pack2(d3[2 * h], d3[2 * h + 1]);
+    for (int e = c.ti; e < kWgRows * 7; e += 128) {
+      const int r = e / 7, q = 1 + e - r * 7;
+      *reinterpret_cast<uint4*>(act4 + swz(r, q * 8)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    stage_colsum(d3[0] + d3[2], d3[1] + d3[3], 2 * c.t, part, 8, c);
+    fence_async_smem();
+    colsum_out(part, 8, kOut, db_row + 2 * kHid, c);
+    act_out(dr + pt0 * kDr + 2 * kHid, kDr, act4, 8, 16, c.ti);
+    // delta_R1 = (d3 @ R2^T) * gate(r2), r2 in act
+    layer<1, 1>(acc, act_a + 4 * kBlk, ring, it, c.lane);
+    bar_sync(1 + c.wg, 128);
+    epi_delta<false>(acc, act, nullptr, 0, part, c);
+    fence_async_smem();
+    colsum_out(part, kHid, kHid, db_row + kHid, c);
+    act_out(dr + pt0 * kDr + kHid, kDr, act, 32, 32, c.ti);
+    // delta_R0 = (delta_R1 @ R1^T) * gate(r1), r1 in xr
+    layer<4, 4>(acc, act_a, ring, it, c.lane);
+    bar_sync(1 + c.wg, 128);
+    epi_delta<true>(acc, act, xr + pt0 * kXr + 384, kXr, part, c);
+    fence_async_smem();
+    colsum_out(part, kHid, kHid, db_row, c);
+    act_out(dr + pt0 * kDr, kDr, act, 32, 32, c.ti);
+    // d_agg = delta_R0 @ R0[21:]^T (f32)
+    layer<4, 4>(acc, act_a, ring, it, c.lane);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long pt = pt0 + c.w4 * 16 + c.g + 8 * h;
+        *reinterpret_cast<float2*>(d_agg + pt * kHid + 8 * i + 2 * c.t) =
+            make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      }
     bar_sync(1 + c.wg, 128);  // act is read before the next tile's g
+  }
+}
+
+// K8b's reverse pair kernel: for 128 pair rows a tile, delta_F3 = bf16(wn
+// d_agg[point]), then delta_{l-1} = (delta_l @ F_l^T) * gate(h_l) for l =
+// 3, 2, 1 (h_l from xs), each bf16 delta into ds and its f32 column sums
+// into dbp (a row of 1,024 a warpgroup tile), and dlat = (delta_F0 @
+// F0[39:103]^T) (f32).
+__device__ __forceinline__ void pair_bwd_body(
+    const float* __restrict__ wn, const float* __restrict__ d_agg,
+    long long n_pts, const bf16* __restrict__ wbuf,
+    const bf16* __restrict__ xs, bf16* __restrict__ ds,
+    float* __restrict__ dlat, float* __restrict__ dbp) {
+  using S = PairBwdSmem;
+  unsigned char* sm = block_smem();
+  const Ring ring = ring_setup(sm, S::bar);
+  __syncthreads();
+  const long long m = n_pts * kK;
+  const long long n_tiles = (m + kTile - 1) / kTile;
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x / 32 == 8)
+      produce(ring, sm + S::ring, wbuf, n_tiles, kCF3b, kNChunks);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const Me c = me();
+  unsigned char* act = sm + S::act + c.wg * S::act_w;
+  const uint32_t act_a = smem_u32(act);
+  float* part = reinterpret_cast<float*>(sm + S::f32) + c.wg * 4 * kHid;
+  int it = 0;
+  float acc[128];
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long row0 = t * kTile + c.wg * kWgRows;
+    float* db_row = dbp + (t * 2 + c.wg) * (4 * kHid);
+    // delta_F3 = wn d_agg[point] (f32): thread ti takes 8 columns (q) of
+    // rows ti / 32 + 4 k; rows past m zero
+    {
+      const int q = c.ti & 31, rg = c.ti >> 5;
+      float s[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s[e] = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < kWgRows / 4; ++k) {
+        const int r = rg + 4 * k;
+        const long long row = row0 + r;
+        const float w = row < m ? __ldg(wn + row) : 0.f;
+        const float4* src =
+            reinterpret_cast<const float4*>(d_agg + (row / kK) * kHid + q * 8);
+        const float4 a = __ldg(src), b = __ldg(src + 1);
+        const float d[8] = {a.x * w, a.y * w, a.z * w, a.w * w,
+                            b.x * w, b.y * w, b.z * w, b.w * w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[e] += d[e];
+        *reinterpret_cast<uint4*>(act + swz(r, q * 8)) =
+            make_uint4(pack2(d[0], d[1]), pack2(d[2], d[3]), pack2(d[4], d[5]),
+                       pack2(d[6], d[7]));
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) part[rg * kHid + q * 8 + e] = s[e];
+    }
+    fence_async_smem();
+    colsum_out(part, kHid, kHid, db_row + 3 * kHid, c);
+    act_out(ds + row0 * kDs + 3 * kHid, kDs, act, 32, 32, c.ti);
+#pragma unroll 1
+    for (int l = 3; l >= 1; --l) {
+      layer<4, 4>(acc, act_a, ring, it, c.lane);
+      bar_sync(1 + c.wg, 128);
+      epi_delta<true>(acc, act, xs + row0 * kXs + 128 + (l - 1) * kHid, kXs,
+                      part, c);
+      fence_async_smem();
+      colsum_out(part, kHid, kHid, db_row + (l - 1) * kHid, c);
+      act_out(ds + row0 * kDs + (l - 1) * kHid, kDs, act, 32, 32, c.ti);
+    }
+    // dlat = (delta_F0 @ F0[39:103]^T)[:, 0:64] (f32, no gate)
+    float a[32];
+    narrow_product<64>(a, act_a, ring, it, c.lane);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = row0 + c.w4 * 16 + c.g + 8 * h;
+        if (row < m)
+          *reinterpret_cast<float2*>(dlat + row * kLat + 8 * i + 2 * c.t) =
+              make_float2(a[4 * i + 2 * h], a[4 * i + 2 * h + 1]);
+      }
+    bar_sync(1 + c.wg, 128);  // act is read before the next tile's delta
   }
 }
 
@@ -1288,14 +988,46 @@ color_pair_fwd_kernel(const float* __restrict__ x_pi,
                       const float* __restrict__ dir_enc, long long n_pts,
                       const bf16* __restrict__ wbuf, Weights p,
                       bf16* __restrict__ g_out) {
-  pair_fwd_body(x_pi, lat, wn, dir_enc, n_pts, wbuf, p, g_out, kGld);
+  pair_fwd_body<false>(x_pi, lat, wn, dir_enc, n_pts, wbuf, p, g_out, kGld,
+                       kGld, nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 color_point_fwd_kernel(const bf16* __restrict__ g_in, long long n_pts,
                        const bf16* __restrict__ wbuf, Weights p,
                        float* __restrict__ rgb) {
-  point_fwd_body(g_in, kGld, n_pts, wbuf, p, rgb);
+  point_body<false>(g_in, kGld, n_pts, wbuf, p, rgb, nullptr, nullptr,
+                    nullptr, nullptr, nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+color_pair_recompute_kernel(const float* __restrict__ x_pi,
+                            const float* __restrict__ lat,
+                            const float* __restrict__ wn,
+                            const float* __restrict__ dir_enc,
+                            long long n_pts, const bf16* __restrict__ wbuf,
+                            Weights p, bf16* __restrict__ xr,
+                            bf16* __restrict__ xs) {
+  pair_fwd_body<true>(x_pi, lat, wn, dir_enc, n_pts, wbuf, p, xr, kXr, 384,
+                      xs);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+color_point_bwd_kernel(long long n_pts, const bf16* __restrict__ wbuf,
+                       Weights p, const float* __restrict__ rgb_bar,
+                       bf16* __restrict__ xr, bf16* __restrict__ dr,
+                       float* __restrict__ d_agg, float* __restrict__ dbp) {
+  point_body<true>(xr, kXr, n_pts, wbuf, p, nullptr, rgb_bar, xr, dr, d_agg,
+                   dbp);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+color_pair_bwd_kernel(const float* __restrict__ wn,
+                      const float* __restrict__ d_agg, long long n_pts,
+                      const bf16* __restrict__ wbuf,
+                      const bf16* __restrict__ xs, bf16* __restrict__ ds,
+                      float* __restrict__ dlat, float* __restrict__ dbp) {
+  pair_bwd_body(wn, d_agg, n_pts, wbuf, xs, ds, dlat, dbp);
 }
 
 // One block per SM, at most one a tile; the kernel's shared memory allowed.
@@ -1313,10 +1045,10 @@ cudaError_t grid_for(const void* kernel, int smem, long long tiles,
   return err;
 }
 
-Weights weights(const void* const* ws, const void* const* bs) {
+Weights weights(const void* const* bs) {
   Weights p;
   for (int i = 0; i < 7; ++i) {
-    p.w[i] = static_cast<const float*>(ws[i]);
+    p.w[i] = nullptr;
     p.b[i] = static_cast<const float*>(bs[i]);
   }
   return p;
@@ -1324,10 +1056,217 @@ Weights weights(const void* const* ws, const void* const* bs) {
 
 }  // namespace wg
 
+// --- dW = X^T delta as a split-K product, and the fixed-order sums ---
+
+// One layer's product for the dW kernel: X [rows, .] and delta [rows, .]
+// bf16 (row strides ldx, ldd; first column x0, d0), dW [m_real, n_real]
+// at `out` of each split's partial.
+struct DwJob {
+  const bf16* x;
+  const bf16* d;
+  int ldx, ldd, x0, d0, m_real, n_real;
+  long long rows;
+  int out;
+};
+
+// The 7 layers' jobs; layer l's 128 x 128 output tiles are the blocks
+// tile0[l] .. tile0[l + 1] - 1 of gridDim.x; blockIdx.y is the split.
+struct DwJobs {
+  DwJob l[7];
+  int tile0[8];
+};
+
+constexpr int kDwThreads = 256;          // 8 warps
+constexpr int kDwRows = 32;              // rows of a k-chunk
+constexpr int kDwS = 136;                // shared row stride (bf16)
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool on) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(on ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void mma_sync_bf16(float (&c)[4],
+                                              const uint32_t (&a)[4],
+                                              const uint32_t* b) {
+  mma_bf16(c, a, b[0], b[1]);
+}
+
+// Block (tile, split): a 128 x 128 tile of dW_l = X^T delta over the
+// split's rows, in k-chunks of 32 rows (cp.async, two buffers); 8 warps
+// of 64 x 32; A = X^T and B = delta both read with ldmatrix.trans from
+// their row-major chunks.  The partial goes to part[split][...], written
+// once: no atomics, so the sum over splits is in a fixed order.
+__global__ void __launch_bounds__(kDwThreads)
+color_dw_kernel(DwJobs jobs, float* __restrict__ part) {
+  __shared__ __align__(16) bf16 xs_s[2][kDwRows][kDwS];
+  __shared__ __align__(16) bf16 ds_s[2][kDwRows][kDwS];
+  int l = 0;
+  while ((int)blockIdx.x >= jobs.tile0[l + 1]) ++l;
+  const DwJob j = jobs.l[l];
+  const int tile = blockIdx.x - jobs.tile0[l];
+  const int n_tiles = (j.n_real + 127) / 128;
+  const int mt = tile / n_tiles, nt = tile - mt * n_tiles;
+  const long long per =
+      ((j.rows + gridDim.y - 1) / gridDim.y + kDwRows - 1) / kDwRows * kDwRows;
+  const long long r0 = (long long)blockIdx.y * per;
+  const long long r1 = min(j.rows, r0 + per);
+  const int chunks = r1 > r0 ? (int)((r1 - r0 + kDwRows - 1) / kDwRows) : 0;
+  const bf16* xb = j.x + j.x0 + mt * 128;
+  const bf16* db = j.d + j.d0 + nt * 128;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+
+  auto load = [&](int c, int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = tid + i * kDwThreads, r = e >> 4, q = e & 15;
+      const long long row = r0 + (long long)c * kDwRows + r;
+      const bool on = row < r1;
+      const long long src = on ? row : r0;
+      cp_async16(&xs_s[buf][r][q * 8], xb + src * j.ldx + q * 8, on);
+      cp_async16(&ds_s[buf][r][q * 8], db + src * j.ldd + q * 8, on);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float acc[4][4][4];
+  zero_acc(acc);
+  if (chunks > 0) load(0, 0);
+#pragma unroll 1
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < chunks) {
+      load(c + 1, buf ^ 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kDwRows / 16; ++ks) {
+      const int k0 = ks * 16;
+      uint32_t a[4][4], b[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4_t(a[mi], &xs_s[buf][k0 + (lane & 7) + ((lane >> 4) << 3)]
+                              [wm * 64 + mi * 16 + ((lane >> 3) & 1) * 8]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldsm_x4_t(b[np], &ds_s[buf][k0 + (lane & 7) + ((lane >> 3) & 1) * 8]
+                              [wn * 32 + np * 16 + (lane >> 4) * 8]);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          float(&acc_c)[4] = acc[mi][ni];
+          const uint32_t* bb = b[ni >> 1] + 2 * (ni & 1);
+          mma_sync_bf16(acc_c, a[mi], bb);
+        }
+    }
+    __syncthreads();
+  }
+  float* out = part + (size_t)blockIdx.y * kGb + j.out;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = mt * 128 + wm * 64 + mi * 16 + g + 8 * (e >> 1);
+        const int col = nt * 128 + wn * 32 + ni * 8 + 2 * t + (e & 1);
+        if (row < j.m_real && col < j.n_real)
+          out[(size_t)row * j.n_real + col] = acc[mi][ni][e];
+      }
+}
+
+// grads = the dW partials summed over the splits and the db partials over
+// the warpgroup tiles, each in a fixed order.  Blocks below dw_blocks: one
+// dW value a thread; the rest: 32 db columns a block, warp w summing the
+// tiles w, w + 8, ... and lane 0..31 then adding the 8 warps' sums in
+// order.
+__global__ void __launch_bounds__(kDwThreads)
+color_reduce_kernel(const float* __restrict__ part, int splits,
+                    const float* __restrict__ dbf, int n_f,
+                    const float* __restrict__ dbr, int n_r, int dw_blocks,
+                    float* __restrict__ grads) {
+  constexpr int kWarps = kDwThreads / 32;
+  __shared__ float sums[kWarps][32];
+  if ((int)blockIdx.x < dw_blocks) {
+    const int e = blockIdx.x * kDwThreads + threadIdx.x;
+    if (e >= kGb) return;
+    float s = 0.f;
+    for (int sp = 0; sp < splits; ++sp) s += part[(size_t)sp * kGb + e];
+    grads[e] = s;
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = (blockIdx.x - dw_blocks) * 32 + lane;
+  const bool f = col < kDbF;
+  const float* src = f ? dbf + col : dbr + (col - kDbF);
+  const int ld = f ? kDbF : kDbR, n = f ? n_f : n_r;
+  float s = 0.f;
+  if (col < kDbF + kDbR)
+    for (int b = warp; b < n; b += kWarps) s += src[(size_t)b * ld];
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && col < kDbF + kDbR) {
+    float v = 0.f;
+    for (int w = 0; w < kWarps; ++w) v += sums[w][lane];
+    grads[kGb + col] = v;
+  }
+}
+
+// K8b's scratch, carved from one buffer: xs, ds, xr, dr, d_agg, the db
+// partials of the pair and point tiles, the dW partials.
+struct BwdScratch {
+  size_t off[8];
+  size_t bytes;
+  long long pair_tiles, point_tiles;
+  int splits;
+};
+
+BwdScratch bwd_scratch(long long n_pts) {
+  BwdScratch sc;
+  sc.pair_tiles = (n_pts * kK + wg::kTile - 1) / wg::kTile;
+  sc.point_tiles = (n_pts + wg::kTile - 1) / wg::kTile;
+  const long long rows = sc.pair_tiles * wg::kTile;
+  const long long pts = sc.point_tiles * wg::kTile;
+  const long long split = (n_pts * kK + kSplitRows - 1) / kSplitRows;
+  sc.splits = static_cast<int>(split < 1            ? 1
+                               : split > kMaxSplits ? kMaxSplits
+                                                    : split);
+  const size_t sizes[8] = {(size_t)rows * kXs * 2,
+                           (size_t)rows * kDs * 2,
+                           (size_t)pts * kXr * 2,
+                           (size_t)pts * kDr * 2,
+                           (size_t)pts * kHid * 4,
+                           (size_t)sc.pair_tiles * 2 * kDbF * 4,
+                           (size_t)sc.point_tiles * 2 * kDbR * 4,
+                           (size_t)sc.splits * kGb * 4};
+  size_t at = 0;
+  for (int i = 0; i < 8; ++i) {
+    sc.off[i] = at;
+    at += (sizes[i] + 255) / 256 * 256;
+  }
+  sc.bytes = at;
+  return sc;
+}
+
 }  // namespace
 
 // The pack (once a step): ws, host array of the 7 device pointers of
-// F_color's and R's f32 weights [in, out] -> out, bf16 [kNChunks * 16384]
+// F_color's and R's f32 weights [in, out] -> out, bf16 [46 * 16384]
 // (wg::pack_segs' images; fused_color.pack_color_weights_ref is its plain
 // version).
 extern "C" int color_pack_launch(const void* const* ws, void* out,
@@ -1352,8 +1291,7 @@ extern "C" int fused_color_fwd_launch(const float* x_pi, const float* lat,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pts == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* no_w[7] = {};
-  const Weights p = wg::weights(no_w, bs);
+  const Weights p = wg::weights(bs);
   const bf16* w = static_cast<const bf16*>(wbuf);
   bf16* gb = static_cast<bf16*>(g);
   int grid = 0;
@@ -1374,15 +1312,89 @@ extern "C" int fused_color_fwd_launch(const float* x_pi, const float* lat,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Bytes of K8b's scratch for n_pts points.
+extern "C" long long fused_color_bwd_scratch_bytes(long long n_pts) {
+  return n_pts > 0 ? static_cast<long long>(bwd_scratch(n_pts).bytes) : 0;
+}
+
 // K8b. The inputs of K8a and rgb_bar [P, 3] f32 -> dlat [8P, 64] f32 and
-// grads [361731] f32 (dW then db, zeroed by the caller); hs: bf16 scratch
-// of ceil(P / 16) * 128 * 768 values.
+// grads [361731] f32 (dW then db, every value written); scratch:
+// fused_color_bwd_scratch_bytes(P) bytes.  Five launches: the pair
+// recompute, the point kernel (R forward and reverse), the reverse pair
+// kernel, the split-K dW product and the fixed-order sums.
 extern "C" int fused_color_bwd_launch(const float* x_pi, const float* lat,
                                       const float* wn, const float* dir_enc,
-                                      long long n_pts, const void* const* ws,
+                                      long long n_pts, const void* wbuf,
                                       const void* const* bs,
                                       const float* rgb_bar, float* dlat,
-                                      float* grads, void* hs, void* stream) {
-  return launch<true>(x_pi, lat, wn, dir_enc, n_pts, ws, bs, rgb_bar, nullptr,
-                      dlat, grads, hs, stream);
+                                      float* grads, void* scratch,
+                                      void* stream) {
+  if (n_pts < 0 || n_pts > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pts == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Weights p = wg::weights(bs);
+  const bf16* w = static_cast<const bf16*>(wbuf);
+  const BwdScratch sc = bwd_scratch(n_pts);
+  char* base = static_cast<char*>(scratch);
+  bf16* xs = reinterpret_cast<bf16*>(base + sc.off[0]);
+  bf16* ds = reinterpret_cast<bf16*>(base + sc.off[1]);
+  bf16* xr = reinterpret_cast<bf16*>(base + sc.off[2]);
+  bf16* dr = reinterpret_cast<bf16*>(base + sc.off[3]);
+  float* d_agg = reinterpret_cast<float*>(base + sc.off[4]);
+  float* dbf = reinterpret_cast<float*>(base + sc.off[5]);
+  float* dbr = reinterpret_cast<float*>(base + sc.off[6]);
+  float* part = reinterpret_cast<float*>(base + sc.off[7]);
+  int grid = 0;
+  cudaError_t err = wg::grid_for(
+      reinterpret_cast<const void*>(wg::color_pair_recompute_kernel),
+      wg::PairSmem::bytes, sc.pair_tiles, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wg::color_pair_recompute_kernel<<<grid, wg::kThreads, wg::PairSmem::bytes,
+                                    st>>>(x_pi, lat, wn, dir_enc, n_pts, w, p,
+                                          xr, xs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = wg::grid_for(reinterpret_cast<const void*>(wg::color_point_bwd_kernel),
+                     wg::PointSmem::bytes, sc.point_tiles, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wg::color_point_bwd_kernel<<<grid, wg::kThreads, wg::PointSmem::bytes,
+                               st>>>(n_pts, w, p, rgb_bar, xr, dr, d_agg,
+                                     dbr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = wg::grid_for(reinterpret_cast<const void*>(wg::color_pair_bwd_kernel),
+                     wg::PairBwdSmem::bytes, sc.pair_tiles, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wg::color_pair_bwd_kernel<<<grid, wg::kThreads, wg::PairBwdSmem::bytes,
+                              st>>>(wn, d_agg, n_pts, w, xs, ds, dlat, dbf);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the 7 layers' split-K jobs: F_color over the pair rows, R over points
+  const long long rows = n_pts * kK;
+  DwJobs jobs;
+  const int f_in[4] = {kIn0, kHid, kHid, kHid};
+  for (int l = 0; l < 4; ++l)
+    jobs.l[l] = DwJob{xs, ds, kXs, kDs, l == 0 ? 0 : 128 + (l - 1) * kHid,
+                      l * kHid, f_in[l], kHid, rows,
+                      l == 0 ? 0 : kIn0 * kHid + (l - 1) * kHid * kHid};
+  jobs.l[4] = DwJob{xr, dr, kXr, kDr, 0, 0, kRIn, kHid, n_pts, kGwR0};
+  jobs.l[5] = DwJob{xr, dr, kXr, kDr, 384, kHid, kHid, kHid, n_pts, kGwR1};
+  jobs.l[6] = DwJob{xr, dr, kXr, kDr, 384 + kHid, 2 * kHid, kHid, kOut,
+                    n_pts, kGwR2};
+  int at = 0;
+  for (int l = 0; l < 7; ++l) {
+    jobs.tile0[l] = at;
+    at += ((jobs.l[l].m_real + 127) / 128) * ((jobs.l[l].n_real + 127) / 128);
+  }
+  jobs.tile0[7] = at;
+  color_dw_kernel<<<dim3(at, sc.splits), kDwThreads, 0, st>>>(jobs, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int dw_blocks = (kGb + kDwThreads - 1) / kDwThreads;
+  const int db_blocks = (kDbF + kDbR + 31) / 32;
+  color_reduce_kernel<<<dw_blocks + db_blocks, kDwThreads, 0, st>>>(
+      part, sc.splits, dbf, static_cast<int>(sc.pair_tiles * 2), dbr,
+      static_cast<int>(sc.point_tiles * 2), dw_blocks, grads);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -16,8 +16,10 @@ LeakyReLU ``max(a, 0.01 a)`` in f32 before the cast, F_color's last layer
 rounded to ``dt`` before the f32 weighted sum, ``g = [dir_enc | agg]``
 rounded, R's last layer f32 into the sigmoid.  The backward rounds each
 delta to ``dt`` for each product, gates it with ``a > 0 ? 1 : 0.01`` and
-sums ``db`` from the f32 delta.  K8b adds every block's dW/db with
-atomics, so it agrees with its plain version up to f32 reordering there.
+sums ``db`` from the f32 delta.  K8b sums dW/db in a fixed order of its
+own (split-K partials, then the splits and tiles in order; no atomics),
+so two launches give the same bits, and it agrees with its plain version
+up to f32 reordering there.
 
 Weights are the trainable ``F_color`` / ``R`` lists of ``{"w": [in, out],
 "b": [out]}`` f32 tensors.  Pair rows are point-major: ``x_pi``, ``lat``
@@ -40,8 +42,8 @@ HID = 256
 N_F, N_R = 4, 3
 F_SHAPES = ((39 + LAT, HID), (HID, HID), (HID, HID), (HID, HID))
 R_SHAPES = ((DIR + HID, HID), (HID, HID), (HID, 3))
-_PTS = 16               # points per CUDA block
-_SCRATCH = 3 * HID      # K8b's stored layer inputs per pair row (bf16)
+_SPLIT_ROWS = 2048      # the dW kernel's pair rows per split, at least
+_MAX_SPLITS = 64
 N_GRADS = sum(i * o + o for i, o in F_SHAPES + R_SHAPES)     # 361,731
 G_COLS = 320            # K8a's g rows: [dir_enc | agg | 0], 5 blocks of 64
 # The packed weights (csrc/color_mlp.cu, wg::pack_segs): 46 chunks of
@@ -68,8 +70,9 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _LL = ctypes.c_longlong
 _SIG = {"color_pack_launch": [_PP, _P, _P],
         "fused_color_fwd_launch": [_P, _P, _P, _P, _LL, _P, _PP, _P, _P, _P],
-        "fused_color_bwd_launch": [_P, _P, _P, _P, _LL, _PP, _PP, _P, _P, _P,
-                                   _P, _P]}
+        "fused_color_bwd_launch": [_P, _P, _P, _P, _LL, _P, _PP, _P, _P, _P,
+                                   _P, _P],
+        "fused_color_bwd_scratch_bytes": [_LL]}
 
 
 def _mm(a, w, dt):
@@ -132,29 +135,67 @@ def fused_color_fwd_ref(x_pi, lat, wn, dir_enc, f_color, r, dt, packed=None):
     return _fwd_body(x_pi, lat, wn, dir_enc, f_color, r, dt)[0]
 
 
-def fused_color_bwd_ref(x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt):
-    """Plain K8b (``_color_bwd_kernel``, ``pallas_color.py:108-176``):
-    ``(dlat [8P, 64], dws, dbs)``, dws the 7 weight gradients ``[in, out]``
-    and dbs the 7 bias gradients ``[out]`` of F_color then R, all f32."""
-    rgb, (fw_in, f_pre, r_in, r_pre) = _fwd_body(x_pi, lat, wn, dir_enc,
-                                                 f_color, r, dt)
-    dws, dbs = [None] * (N_F + N_R), [None] * (N_F + N_R)
+def point_bwd_ref(g, r, rgb_bar, dt):
+    """The point kernel's part of ``_color_bwd_kernel``
+    (``pallas_color.py:135-151``): R forward on ``g`` and its reverse sweep.
+    Returns ``(d_agg [P, 256] f32, R's inputs, R's f32 deltas)``."""
+    rgb, (r_in, r_pre) = point_half_ref(g, r, dt)
+    deltas = [None] * N_R
     delta = rgb_bar * rgb * (1.0 - rgb)
     for i in range(N_R - 1, -1, -1):
-        dws[N_F + i] = _mm(r_in[i].t(), delta, dt)
-        dbs[N_F + i] = delta.sum(0)
+        deltas[i] = delta
         delta = _mm(delta, r[i]["w"].t(), dt)
         if i > 0:
             delta = delta * _gate(r_pre[i - 1])
-    d_agg = delta[:, DIR:]
+    return delta[:, DIR:], r_in, deltas
+
+
+def pair_bwd_ref(d_agg, wn, f_color, f_pre, dt):
+    """The reverse pair kernel's part (``pallas_color.py:152-176``):
+    delta_F3 = wn d_agg[point], the sweep through F_color.  Returns ``(dlat
+    [8P, 64], F_color's f32 deltas)``."""
+    deltas = [None] * N_F
     delta = torch.repeat_interleave(d_agg, PK, 0) * wn[:, None]
     for i in range(N_F - 1, -1, -1):
-        dws[i] = _mm(fw_in[i].t(), delta, dt)
-        dbs[i] = delta.sum(0)
+        deltas[i] = delta
         delta = _mm(delta, f_color[i]["w"].t(), dt)
         if i > 0:
             delta = delta * _gate(f_pre[i - 1])
-    return delta[:, -LAT:], dws, dbs
+    return delta[:, -LAT:], deltas
+
+
+def dw_splits(n_pts):
+    """The number of row ranges the kernel's split-K dW product takes."""
+    return min(max(-(-PK * n_pts // _SPLIT_ROWS), 1), _MAX_SPLITS)
+
+
+def dw_split_ref(x, delta, splits, dt):
+    """Plain split-K product ``x^T delta`` as the dW kernel sums it: the rows
+    in ``splits`` ranges of a whole number of 32-row chunks, each range's
+    ``_mm`` then the ranges added in order."""
+    rows = x.shape[0]
+    per = -(-(-(-rows // splits)) // 32) * 32
+    out = None
+    for s in range(splits):
+        part = _mm(x[s * per:(s + 1) * per].t(), delta[s * per:(s + 1) * per],
+                   dt)
+        out = part if out is None else out + part
+    return out
+
+
+def fused_color_bwd_ref(x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt,
+                        packed=None):
+    """Plain K8b (``_color_bwd_kernel``, ``pallas_color.py:108-176``):
+    ``(dlat [8P, 64], dws, dbs)``, dws the 7 weight gradients ``[in, out]``
+    and dbs the 7 bias gradients ``[out]`` of F_color then R, all f32
+    (``packed`` is not read)."""
+    g, (fw_in, f_pre) = pair_half_ref(x_pi, lat, wn, dir_enc, f_color, dt)
+    d_agg, r_in, r_deltas = point_bwd_ref(g, r, rgb_bar, dt)
+    dlat, f_deltas = pair_bwd_ref(d_agg, wn, f_color, f_pre, dt)
+    ins, deltas = fw_in + r_in, f_deltas + r_deltas
+    dws = [_mm(x.t(), d, dt) for x, d in zip(ins, deltas)]
+    dbs = [d.sum(0) for d in deltas]
+    return dlat, dws, dbs
 
 
 def _net_inputs(name, f_color, r):
@@ -246,7 +287,9 @@ def pack_color_weights(f_color, r):
 
 def _lib():
     """The kernels' library, built on first use."""
-    return cuda_build.load("color_mlp", _SIG)
+    lib = cuda_build.load("color_mlp", _SIG)
+    lib.fused_color_bwd_scratch_bytes.restype = ctypes.c_longlong
+    return lib
 
 
 def _need_bf16(name, dt):
@@ -293,11 +336,14 @@ def fused_color_fwd(x_pi, lat, wn, dir_enc, f_color, r, dt, packed=None):
 
 
 @torch.no_grad()
-def fused_color_bwd(x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt):
+def fused_color_bwd(x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt,
+                    packed=None):
     """K8b: ``(dlat [8P, 64], dws, dbs)`` for the cotangent ``rgb_bar
     [P, 3]``.  CPU tensors run :func:`fused_color_bwd_ref`; CUDA tensors
-    launch the kernel (``dt`` bf16 only), which needs a bf16 scratch of
-    768 values per pair row for the inputs of F_color's layers 1-3."""
+    launch the kernels (``dt`` bf16 only) on ``packed`` (the forward's
+    :func:`pack_color_weights`; packed here when None), with a scratch of
+    about 3.9 KB a pair row: the layers' bf16 inputs and deltas for the
+    split-K dW product, and the f32 partial sums."""
     if _check("fused_color_bwd", x_pi, lat, wn, dir_enc, f_color, r,
               rgb_bar):
         return fused_color_bwd_ref(x_pi, lat, wn, dir_enc, f_color, r,
@@ -306,16 +352,19 @@ def fused_color_bwd(x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt):
     p = dir_enc.shape[0]
     dev = x_pi.device
     dlat = torch.empty((PK * p, LAT), dtype=torch.float32, device=dev)
-    grads = torch.zeros((N_GRADS,), dtype=torch.float32, device=dev)
+    grads = (torch.empty if p > 0 else torch.zeros)(
+        (N_GRADS,), dtype=torch.float32, device=dev)
     if p > 0:
-        blocks = -(-p // _PTS)
-        scratch = torch.empty((blocks * _PTS * PK * _SCRATCH,),
-                              dtype=torch.bfloat16, device=dev)
-        ws, bs = _pointers(f_color, r)
+        if packed is None:
+            packed = pack_color_weights(f_color, r)
+        _check_packed("fused_color_bwd", packed, dev)
         lib = _lib()
+        scratch = torch.empty((lib.fused_color_bwd_scratch_bytes(p),),
+                              dtype=torch.uint8, device=dev)
+        _, bs = _pointers(f_color, r)
         err = lib.fused_color_bwd_launch(
             x_pi.data_ptr(), lat.data_ptr(), wn.data_ptr(),
-            dir_enc.data_ptr(), p, ws, bs, rgb_bar.data_ptr(),
+            dir_enc.data_ptr(), p, packed.data_ptr(), bs, rgb_bar.data_ptr(),
             dlat.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         cuda_build.check(err, "fused_color_bwd")
@@ -362,7 +411,8 @@ class FusedColor(torch.autograd.Function):
     def backward(ctx, rgb_bar):
         x_pi, lat, wn, dir_enc, packed, *wb = ctx.saved_tensors
         dlat, dws, dbs = fused_color_bwd(x_pi, lat, wn, dir_enc, *_nets(wb),
-                                         rgb_bar.contiguous(), ctx.dt)
+                                         rgb_bar.contiguous(), ctx.dt,
+                                         packed=packed)
         grads = [g for pair in zip(dws, dbs) for g in pair]
         return (None, dlat, None, None, None, *grads)
 

@@ -1,7 +1,9 @@
 """The colour kernels' pieces on the CPU: the packed weights of
-``ops/fused_color.pack_color_weights`` and the plain halves the kernels
-split the stack into, against ``fused_color_fwd_ref`` and the JAX
-package's ``_fwd_body`` (``spurfies_tpu/ops/pallas_color.py:54``).
+``ops/fused_color.pack_color_weights``, the plain halves the kernels split
+the forward into (against ``fused_color_fwd_ref`` and the JAX package's
+``_fwd_body``, ``spurfies_tpu/ops/pallas_color.py:54``), and the plain
+reverse pieces and split-K dW product of K8b (against
+``fused_color_bwd_ref``).
 
 Weights and inputs are made with numpy from a seed: ModelConfig's colour
 nets (F_color 103 -> 256 x 4, R 277 -> 256 -> 256 -> 3), 128 points of 8
@@ -134,3 +136,58 @@ def test_pack_checks_its_weights():
     bad[1]["w"] = bad[1]["w"].double()
     with pytest.raises(ValueError, match="f32"):
         fc.pack_color_weights(bad, r)
+
+
+def _sum_order_close(got, want, abs_sum, count):
+    """Two f32 sums of the same ``count`` terms in two orders lie within
+    2 count 2**-24 sum|terms| of each other."""
+    assert bool(((got - want).abs() <= 2 * count * 2.0 ** -24 * abs_sum
+                 + 1e-30).all())
+
+
+@pytest.mark.parametrize("splits", [1, 3, 64])
+def test_split_k_dw_is_the_product(splits):
+    """The dW kernel's plain version: the rows in ``splits`` ranges of whole
+    32-row chunks, each range's product then the ranges in order, is
+    ``_mm(X^T, delta)``: bit for bit with one range, else within the f32
+    sum-order limit; ``dw_splits`` caps the ranges at 64."""
+    rng = np.random.default_rng(splits)
+    x = torch.from_numpy(rng.normal(size=(1000, 96)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(1000, 40)).astype(np.float32))
+    dt = torch.bfloat16
+    got = fc.dw_split_ref(x, d, splits, dt)
+    want = fc._mm(x.t(), d, dt)
+    if splits == 1:
+        assert torch.equal(got, want)
+    abs_sum = fc._mm(x.abs().t(), d.abs(), dt)
+    _sum_order_close(got, want, abs_sum, x.shape[0])
+    assert fc.dw_splits(1) == 1 and fc.dw_splits(26624) == 64
+    assert fc.dw_splits(1000) == 4
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_reverse_pieces_compose_to_the_backward(dt):
+    """The kernels' pieces of K8b, composed (the pair half, the point
+    kernel's forward and reverse, the reverse pair kernel, then each dW as
+    the split-K product over 3 row ranges and each db as a column sum),
+    give the plain K8b: dlat and db bit for bit, dW within the f32
+    sum-order limit."""
+    f_color, r = _torch_nets(_nets())
+    ins = [torch.from_numpy(a) for a in _inputs()]
+    rgb_bar = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(P, 3)).astype(np.float32))
+    tdt = DT[dt][1]
+    g, (fw_in, f_pre) = fc.pair_half_ref(*ins, f_color, tdt)
+    d_agg, r_in, r_deltas = fc.point_bwd_ref(g, r, rgb_bar, tdt)
+    dlat, f_deltas = fc.pair_bwd_ref(d_agg, ins[2], f_color, f_pre, tdt)
+    ref_dlat, ref_dws, ref_dbs = fc.fused_color_bwd_ref(*ins, f_color, r,
+                                                        rgb_bar, tdt)
+    assert torch.equal(dlat, ref_dlat)
+    assert bool((dlat[ins[2] == 0] == 0).all())
+    for x, d, want_w, want_b in zip(fw_in + r_in, f_deltas + r_deltas,
+                                    ref_dws, ref_dbs):
+        got = fc.dw_split_ref(x, d, 3, tdt)
+        assert got.shape == want_w.shape
+        _sum_order_close(got, want_w, fc._mm(x.abs().t(), d.abs(), tdt),
+                         x.shape[0])
+        assert torch.equal(d.sum(0), want_b)

@@ -506,6 +506,23 @@ def test_fused_color_kernels_match_plain(cuda, p):
 
 
 @pytest.mark.cuda
+def test_fused_color_bwd_is_deterministic(cuda):
+    """K8b sums dW/db in a fixed order (split-K partials, then the splits
+    and tiles in order; no atomics): two launches on the same inputs give
+    the same bits in dlat and in every dW and db."""
+    from spurfies_tpu_torch.ops import fused_color as fc
+
+    ins, f_color, r, rgb_bar = _colour_inputs(cuda, 26624)
+    first = fc.fused_color_bwd(*ins, f_color, r, rgb_bar, torch.bfloat16)
+    first = [first[0].clone()] + [t.clone() for t in first[1] + first[2]]
+    again = fc.fused_color_bwd(*ins, f_color, r, rgb_bar, torch.bfloat16)
+    again = [again[0]] + again[1] + again[2]
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, again)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
 def test_pack_color_weights_matches_plain(cuda):
     """The pack kernel gives the plain pack's bits (the same bf16 rounding
     of each weight, the same swizzled places, zeros elsewhere)."""
