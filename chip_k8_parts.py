@@ -17,10 +17,13 @@ wrong by design; only their times mean anything.
 VARIANTS below names each variant and its edits.  It prints each
 variant's ptxas register and spill report, then two rounds of times (ms,
 CUDA events over 10 calls of the wrapper after one warm-up; K8a's time
-beside K8b's), then the ``nvidia-smi`` name and power limit.
+beside K8b's), each device kernel's time a launch on the unedited source
+(``torch.profiler`` over 5 calls of each wrapper on one pack), then the
+``nvidia-smi`` name and power limit.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -122,6 +125,28 @@ def main():
                 times[kernel] = t0.elapsed_time(t1) / 10
             print(f"round {rnd} {name}: K8b {times['K8b']:.4f} ms, K8a "
                   f"{times['K8a']:.4f} ms", flush=True)
+    # each device kernel's share, on the source as it is
+    lib = ctypes.CDLL(str(out / "libcolor_base.so"))
+    for fn_name, sig in fc._SIG.items():
+        getattr(lib, fn_name).argtypes = sig
+        getattr(lib, fn_name).restype = ctypes.c_int
+    lib.fused_color_bwd_scratch_bytes.restype = ctypes.c_longlong
+    fc._lib = lambda: lib
+    packed = fc.pack_color_weights(f_color, r)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            fc.fused_color_fwd(*args, torch.bfloat16, packed=packed)
+            fc.fused_color_bwd(*args, rgb_bar, torch.bfloat16, packed=packed)
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        name = re.search(r"color_\w+_kernel", evt.key)
+        if name and evt.self_device_time_total > 0:
+            print(f"profile {name.group(0)}: "
+                  f"{evt.self_device_time_total / 1e3 / evt.count:.4f} ms a "
+                  f"launch ({evt.count} launches)", flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

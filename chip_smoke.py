@@ -77,7 +77,9 @@ failure exits non-zero before the last line):
      timed and held against its plain version;
  14. the fused colour (``field.FUSED_COLOR``, set and restored around each
      use), in three places: after phase 5, view 0 of dust3r_like rendered
-     in full with its launch counts (the pack and K8a once per chunk);
+     in full with its launch counts (the pack and K8a once per chunk), then
+     once more under ``torch.profiler`` (the ``profile fused_color
+     render:`` line);
      after phase 6,
      the first chunk against the plain versions (``compare_chunk``), K8a
      held against its plain version on that chunk's colour inputs, and the
@@ -638,10 +640,15 @@ def profile_summary(prof, wall_ms):
         into = ops if evt.device_type == DeviceType.CPU else kernels
         into[evt.key] = into.get(evt.key, 0.0) + us
     groups = {label: 0.0 for label, _ in KERNEL_NAMES}
+    parts = {}              # labels of several device kernels: each one's
     for key, us in kernels.items():
-        label = next((lb for lb, pat in KERNEL_NAMES if pat in key), None)
-        if label is not None:
-            groups[label] += us / 1e3
+        hit = next(((lb, pat) for lb, pat in KERNEL_NAMES if pat in key),
+                   None)
+        if hit is not None:
+            groups[hit[0]] += us / 1e3
+            parts[hit[1]] = parts.get(hit[1], 0.0) + us / 1e3
+    multi = {lb for lb, _ in KERNEL_NAMES
+             if sum(lb == other for other, _ in KERNEL_NAMES) > 1}
     busy_ms = sum(kernels.values()) / 1e3
     if busy_ms <= 0:
         fail("profile: the profiler saw no device time")
@@ -650,6 +657,8 @@ def profile_summary(prof, wall_ms):
             "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "kernel_ms": groups,
+            "kernel_parts_ms": {pat: parts.get(pat, 0.0)
+                                for lb, pat in KERNEL_NAMES if lb in multi},
             "pytorch_ops_ms": {k: v / 1e3 for k, v in top_ops},
             "pytorch_ops_total_ms": sum(ops.values()) / 1e3}
 
@@ -1601,8 +1610,9 @@ def main():
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    colour_render_fn = make_render_fn(cfg, device="cuda")
     with fused_color_set(True):
-        out_c = make_render_fn(cfg, device="cuda")(
+        out_c = colour_render_fn(
             tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1627,6 +1637,10 @@ def main():
         f"masked PSNR {p:.2f} dB (random colour MLPs); launches "
         f"{launches_colour_render}")
     del out_c
+    with fused_color_set(True):
+        rprof = profiled(lambda: colour_render_fn(
+            tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"]))
+    log(f"profile fused_color render: {json.dumps(rprof)}")
 
     # --- 6. one chunk through the plain versions, on the card ---
     scene, tp, frozen, view, _ = scenes["dust3r_like"]

@@ -17,9 +17,10 @@
 // with bf16 operands and f32 accumulation in every product.  The backward
 // rounds each delta to bf16 for its products, gates it with (a > 0 ? 1 :
 // 0.01) in f32, sums db from the f32 delta, and dlat is the last 64
-// columns of d/du.  The gate is read from the sign of the stored bf16
-// activation, which is the sign of a except for a positive pre-activation
-// below bf16's smallest subnormal.
+// columns of d/du.  F_color's gates are bits of a > 0 kept by the
+// recompute; R's are read from the sign of the stored bf16 activation,
+// which is the sign of a except for a positive pre-activation below
+// bf16's smallest subnormal.
 //
 // What bounds them on an H100: operations.  F_color does 446 kFLOP per
 // pair and R 274 kFLOP per point against ~270 bytes of input per pair, far
@@ -44,8 +45,9 @@
 //     -> rgb; K8b: color_point_bwd_kernel, R forward and reverse -> R's
 //     deltas and d_agg = delta_R0 @ R0[21:]^T in f32);
 //   * K8b's reverse pair kernel (color_pair_bwd_kernel): delta_F3 = wn
-//     d_agg[point], the reverse sweep through F3..F1 with the gates read
-//     from the stored h, and dlat.
+//     d_agg[point], the reverse sweep through F3..F1 with the recompute's
+//     gate bits (16 bytes a thread and layer, read before the product),
+//     and dlat.
 // dW/db without atomics, in a fixed order, so two launches give the same
 // bits: each delta goes to a bf16 scratch beside its layer's input, and
 // color_dw_kernel computes dW_l = X_l^T delta_l as a split-K product (each
@@ -53,7 +55,7 @@
 // ldmatrix.trans, its partial written once to [splits, 360,192]); db's
 // partials are each warpgroup tile's f32 column sums (the 4 warps' sums
 // added in order).  color_reduce_kernel then adds the splits and the tiles
-// in order.  Cost at the training shape (26,624 points): 1.03 GB of
+// in order.  Cost at the training shape (26,624 points): 1.05 GB of
 // scratch (1.3 % of the card; 3,840 bytes a pair row for F_color) and
 // about 3 GB of HBM traffic, some 0.9 ms at 3.35 TB/s: each X and delta
 // is written once and read twice by the dW pass (two 128-wide tiles).
@@ -93,7 +95,7 @@ static_assert(kGrads == 361731, "dW/db layout");
 // d3]; per point (bf16): R's inputs [g (277, zero to 384) | r1 | r2] and
 // deltas [d_R0 | d_R1 | d_R2 (3, zero to 128)], and d_agg (f32, 256); the
 // db partials, a row per warpgroup tile (f32: F's 1,024, R's 515); the dW
-// partials [splits][360,192].
+// partials [splits][360,192]; F_color's gate bits (96 bytes a pair row).
 constexpr int kXs = 128 + 3 * kHid;     // 896
 constexpr int kDs = 4 * kHid;           // 1024
 constexpr int kXr = 384 + 2 * kHid;     // 896
@@ -461,10 +463,11 @@ __device__ __forceinline__ void narrow_product(float (&acc)[N / 2],
     for (int ks = 0; ks < 4; ++ks) {
       const uint64_t da = wg_desc(act + kb * kBlk + ks * 32);
       const uint64_t db = wg_desc(b + kb * N * 128 + ks * 32);
-      if constexpr (N == 64)
+      if constexpr (N == 64) {
         wgmma_64(acc, da, db, (kb | ks) != 0);
-      else
+      } else {
         wgmma_8(acc, da, db, (kb | ks) != 0);
+      }
     }
   wg_commit();
   wg_wait<0>();
@@ -537,11 +540,13 @@ __device__ __forceinline__ void produce(const Ring& ring, unsigned char* sm,
 // A layer's epilogue over the warpgroup's accumulators (element
 // 4 i + 2 h + j: row 16 w4 + g + 8 h, column 8 i + 2 t + j):
 // x = bf16(max(a, 0.01 a)) (kLeaky) or bf16(a), a = acc + b in f32,
-// written over the activations.
+// written over the activations.  With `gate`, also the gate bits (a > 0)
+// of the thread's elements: word 2 h + i / 16, bit 2 (i % 16) + j.
 template <bool kLeaky>
 __device__ __forceinline__ void epi_act(const float (&acc)[128],
                                         unsigned char* act, const float* bias,
-                                        int w4, int g, int t) {
+                                        int w4, int g, int t,
+                                        uint32_t* gate = nullptr) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int col = 8 * i + 2 * t;
@@ -551,6 +556,9 @@ __device__ __forceinline__ void epi_act(const float (&acc)[128],
       const int row = w4 * 16 + g + 8 * h;
       float v0 = __fadd_rn(acc[4 * i + 2 * h], b0);
       float v1 = __fadd_rn(acc[4 * i + 2 * h + 1], b1);
+      if (gate)
+        gate[2 * h + (i >> 4)] |=
+            ((v0 > 0.f ? 1u : 0u) | (v1 > 0.f ? 2u : 0u)) << (2 * (i & 15));
       if (kLeaky) {
         v0 = fmaxf(v0, __fmul_rn(0.01f, v0));
         v1 = fmaxf(v1, __fmul_rn(0.01f, v1));
@@ -633,6 +641,30 @@ __device__ __forceinline__ void epi_delta(const float (&acc)[128],
   }
 }
 
+// The same from gate bits (epi_act's layout, four words a thread).
+__device__ __forceinline__ void epi_delta_bits(const float (&acc)[128],
+                                               unsigned char* act,
+                                               const uint4 gb, float* part,
+                                               const Me& c) {
+  const uint32_t gate[4] = {gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = 8 * i + 2 * c.t;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = c.w4 * 16 + c.g + 8 * h;
+      const uint32_t bits = gate[2 * h + (i >> 4)] >> (2 * (i & 15));
+      const float d0 = acc[4 * i + 2 * h] * ((bits & 1u) ? 1.f : 0.01f);
+      const float d1 = acc[4 * i + 2 * h + 1] * ((bits & 2u) ? 1.f : 0.01f);
+      *reinterpret_cast<uint32_t*>(act + swz(row, col)) = pack2(d0, d1);
+      s0 += d0;
+      s1 += d1;
+    }
+    stage_colsum(s0, s1, col, part, kHid, c);
+  }
+}
+
 // The warpgroup's activations, columns [0, 8 n8) of its 64 rows, to the
 // global row-major dst (row stride ld), zero from 8 n8 to 8 w8.
 __device__ __forceinline__ void act_out(bf16* __restrict__ dst, int ld,
@@ -650,13 +682,15 @@ __device__ __forceinline__ void act_out(bf16* __restrict__ dst, int ld,
 // The pair half: F_color on 128 pair rows (16 points) a tile, the wn-sum,
 // and g = bf16([dir_enc | agg]) into g_out [P, ldg] (zero from 277 to
 // gcols).  kStore (K8b's recompute): also each layer's input, u and h1-h3,
-// into xs [rows, kXs] for the dW products and the reverse gates.
+// into xs [rows, kXs] for the dW products, and the gate bits of layers 0-2
+// into gbits [warpgroup tile][3][128 threads] (uint4 a thread).
 template <bool kStore>
 __device__ __forceinline__ void pair_fwd_body(
     const float* __restrict__ x_pi, const float* __restrict__ lat,
     const float* __restrict__ wn, const float* __restrict__ dir_enc,
     long long n_pts, const bf16* __restrict__ wbuf, Weights p,
-    bf16* __restrict__ g_out, int ldg, int gcols, bf16* __restrict__ xs) {
+    bf16* __restrict__ g_out, int ldg, int gcols, bf16* __restrict__ xs,
+    uint4* __restrict__ gbits) {
   using S = PairSmem;
   unsigned char* sm = block_smem();
   float* bias_s = reinterpret_cast<float*>(sm + S::bias);
@@ -683,32 +717,52 @@ __device__ __forceinline__ void pair_fwd_body(
   float acc[128];
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long row0 = t * kTile + c.wg * kWgRows;
-    // u = [posenc(x_pi) | lat | 0] (128 columns) and wn; rows past m zero
-    for (int e = c.ti; e < kWgRows * 16; e += 128) {
-      const int r = e >> 4, q = e & 15;
+    // u = [posenc(x_pi) | lat | 0] (128 columns) and wn; rows past m
+    // zero.  Two threads a row: half h takes bands 3 h .. 3 h + 2 (one
+    // sincosf for each band's sin and cos) and lat's columns 32 h ..
+    {
+      const int r = c.ti >> 1, h = c.ti & 1;
       const long long row = row0 + r;
-      float v[8];
+      const bool in = row < m;
+      auto put = [&](int col, float v) {
+        *reinterpret_cast<bf16*>(act + swz(r, col)) = __float2bfloat16_rn(v);
+      };
+      float x[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) x[k] = in ? __ldg(x_pi + row * 3 + k) : 0.f;
+      if (h == 0) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) put(k, x[k]);
+      }
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const int band = 3 * h + b;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          float sv, cv;
+          sincosf(x[k] * static_cast<float>(1 << band), &sv, &cv);
+          put(3 + 6 * band + k, in ? sv : 0.f);
+          put(6 + 6 * band + k, in ? cv : 0.f);
+        }
+      }
+      const float4* lp =
+          reinterpret_cast<const float4*>(lat + (in ? row : 0) * kLat) + 8 * h;
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const int col = q * 8 + k;
-        float x = 0.f;
-        if (row < m) {
-          if (col < 3) {
-            x = __ldg(x_pi + row * 3 + col);
-          } else if (col < kPos) {
-            const int j = col - 3, band = j / 6, w = j - band * 6;
-            const float xf =
-                __ldg(x_pi + row * 3 + w % 3) * static_cast<float>(1 << band);
-            x = w < 3 ? sinf(xf) : cosf(xf);
-          } else if (col < kIn0) {
-            x = __ldg(lat + row * kLat + (col - kPos));
-          }
-        }
-        v[k] = x;
+        const float4 v = in ? __ldg(lp + k) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const int col = kPos + 32 * h + 4 * k;
+        put(col, v.x);
+        put(col + 1, v.y);
+        put(col + 2, v.z);
+        put(col + 3, v.w);
       }
-      *reinterpret_cast<uint4*>(act + swz(r, q * 8)) =
-          make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
-                     pack2(v[6], v[7]));
+      if (h == 1) {
+        put(kIn0, 0.f);
+#pragma unroll
+        for (int q = 13; q < 16; ++q)
+          *reinterpret_cast<uint4*>(act + swz(r, q * 8)) =
+              make_uint4(0u, 0u, 0u, 0u);
+      }
     }
     if (c.ti < kWgRows)
       wn_w[c.ti] = row0 + c.ti < m ? __ldg(wn + row0 + c.ti) : 0.f;
@@ -722,10 +776,16 @@ __device__ __forceinline__ void pair_fwd_body(
       else
         layer<4, 4>(acc, act_a, ring, it, c.lane);
       bar_sync(1 + c.wg, 128);
-      if (l < 3)
+      if (l < 3 && kStore) {
+        uint32_t gate[4] = {0u, 0u, 0u, 0u};
+        epi_act<true>(acc, act, bias_s + l * kHid, c.w4, c.g, c.t, gate);
+        gbits[((t * 2 + c.wg) * 3 + l) * 128 + c.ti] =
+            make_uint4(gate[0], gate[1], gate[2], gate[3]);
+      } else if (l < 3) {
         epi_act<true>(acc, act, bias_s + l * kHid, c.w4, c.g, c.t);
-      else
+      } else {
         epi_act<false>(acc, act, bias_s + l * kHid, c.w4, c.g, c.t);
+      }
       fence_async_smem();
       bar_sync(1 + c.wg, 128);
       if (kStore && l < 3)
@@ -895,13 +955,14 @@ __device__ __forceinline__ void point_body(
 
 // K8b's reverse pair kernel: for 128 pair rows a tile, delta_F3 = bf16(wn
 // d_agg[point]), then delta_{l-1} = (delta_l @ F_l^T) * gate(h_l) for l =
-// 3, 2, 1 (h_l from xs), each bf16 delta into ds and its f32 column sums
+// 3, 2, 1 (the gate bits of the recompute), each bf16 delta into ds and
+// its f32 column sums
 // into dbp (a row of 1,024 a warpgroup tile), and dlat = (delta_F0 @
 // F0[39:103]^T) (f32).
 __device__ __forceinline__ void pair_bwd_body(
     const float* __restrict__ wn, const float* __restrict__ d_agg,
     long long n_pts, const bf16* __restrict__ wbuf,
-    const bf16* __restrict__ xs, bf16* __restrict__ ds,
+    const uint4* __restrict__ gbits, bf16* __restrict__ ds,
     float* __restrict__ dlat, float* __restrict__ dbp) {
   using S = PairBwdSmem;
   unsigned char* sm = block_smem();
@@ -957,10 +1018,10 @@ __device__ __forceinline__ void pair_bwd_body(
     act_out(ds + row0 * kDs + 3 * kHid, kDs, act, 32, 32, c.ti);
 #pragma unroll 1
     for (int l = 3; l >= 1; --l) {
+      const uint4 gb = __ldg(gbits + ((t * 2 + c.wg) * 3 + l - 1) * 128 + c.ti);
       layer<4, 4>(acc, act_a, ring, it, c.lane);
       bar_sync(1 + c.wg, 128);
-      epi_delta<true>(acc, act, xs + row0 * kXs + 128 + (l - 1) * kHid, kXs,
-                      part, c);
+      epi_delta_bits(acc, act, gb, part, c);
       fence_async_smem();
       colsum_out(part, kHid, kHid, db_row + (l - 1) * kHid, c);
       act_out(ds + row0 * kDs + (l - 1) * kHid, kDs, act, 32, 32, c.ti);
@@ -989,7 +1050,7 @@ color_pair_fwd_kernel(const float* __restrict__ x_pi,
                       const bf16* __restrict__ wbuf, Weights p,
                       bf16* __restrict__ g_out) {
   pair_fwd_body<false>(x_pi, lat, wn, dir_enc, n_pts, wbuf, p, g_out, kGld,
-                       kGld, nullptr);
+                       kGld, nullptr, nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1007,9 +1068,10 @@ color_pair_recompute_kernel(const float* __restrict__ x_pi,
                             const float* __restrict__ dir_enc,
                             long long n_pts, const bf16* __restrict__ wbuf,
                             Weights p, bf16* __restrict__ xr,
-                            bf16* __restrict__ xs) {
+                            bf16* __restrict__ xs,
+                            uint4* __restrict__ gbits) {
   pair_fwd_body<true>(x_pi, lat, wn, dir_enc, n_pts, wbuf, p, xr, kXr, 384,
-                      xs);
+                      xs, gbits);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1025,9 +1087,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 color_pair_bwd_kernel(const float* __restrict__ wn,
                       const float* __restrict__ d_agg, long long n_pts,
                       const bf16* __restrict__ wbuf,
-                      const bf16* __restrict__ xs, bf16* __restrict__ ds,
+                      const uint4* __restrict__ gbits, bf16* __restrict__ ds,
                       float* __restrict__ dlat, float* __restrict__ dbp) {
-  pair_bwd_body(wn, d_agg, n_pts, wbuf, xs, ds, dlat, dbp);
+  pair_bwd_body(wn, d_agg, n_pts, wbuf, gbits, ds, dlat, dbp);
 }
 
 // One block per SM, at most one a tile; the kernel's shared memory allowed.
@@ -1228,9 +1290,9 @@ color_reduce_kernel(const float* __restrict__ part, int splits,
 }
 
 // K8b's scratch, carved from one buffer: xs, ds, xr, dr, d_agg, the db
-// partials of the pair and point tiles, the dW partials.
+// partials of the pair and point tiles, the dW partials, the gate bits.
 struct BwdScratch {
-  size_t off[8];
+  size_t off[9];
   size_t bytes;
   long long pair_tiles, point_tiles;
   int splits;
@@ -1246,16 +1308,17 @@ BwdScratch bwd_scratch(long long n_pts) {
   sc.splits = static_cast<int>(split < 1            ? 1
                                : split > kMaxSplits ? kMaxSplits
                                                     : split);
-  const size_t sizes[8] = {(size_t)rows * kXs * 2,
+  const size_t sizes[9] = {(size_t)rows * kXs * 2,
                            (size_t)rows * kDs * 2,
                            (size_t)pts * kXr * 2,
                            (size_t)pts * kDr * 2,
                            (size_t)pts * kHid * 4,
                            (size_t)sc.pair_tiles * 2 * kDbF * 4,
                            (size_t)sc.point_tiles * 2 * kDbR * 4,
-                           (size_t)sc.splits * kGb * 4};
+                           (size_t)sc.splits * kGb * 4,
+                           (size_t)sc.pair_tiles * 2 * 3 * 128 * 16};
   size_t at = 0;
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < 9; ++i) {
     sc.off[i] = at;
     at += (sizes[i] + 255) / 256 * 256;
   }
@@ -1345,6 +1408,7 @@ extern "C" int fused_color_bwd_launch(const float* x_pi, const float* lat,
   float* dbf = reinterpret_cast<float*>(base + sc.off[5]);
   float* dbr = reinterpret_cast<float*>(base + sc.off[6]);
   float* part = reinterpret_cast<float*>(base + sc.off[7]);
+  uint4* gbits = reinterpret_cast<uint4*>(base + sc.off[8]);
   int grid = 0;
   cudaError_t err = wg::grid_for(
       reinterpret_cast<const void*>(wg::color_pair_recompute_kernel),
@@ -1352,7 +1416,7 @@ extern "C" int fused_color_bwd_launch(const float* x_pi, const float* lat,
   if (err != cudaSuccess) return static_cast<int>(err);
   wg::color_pair_recompute_kernel<<<grid, wg::kThreads, wg::PairSmem::bytes,
                                     st>>>(x_pi, lat, wn, dir_enc, n_pts, w, p,
-                                          xr, xs);
+                                          xr, xs, gbits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = wg::grid_for(reinterpret_cast<const void*>(wg::color_point_bwd_kernel),
@@ -1367,7 +1431,8 @@ extern "C" int fused_color_bwd_launch(const float* x_pi, const float* lat,
                      wg::PairBwdSmem::bytes, sc.pair_tiles, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   wg::color_pair_bwd_kernel<<<grid, wg::kThreads, wg::PairBwdSmem::bytes,
-                              st>>>(wn, d_agg, n_pts, w, xs, ds, dlat, dbf);
+                              st>>>(wn, d_agg, n_pts, w, gbits, ds, dlat,
+                                    dbf);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // the 7 layers' split-K jobs: F_color over the pair rows, R over points

@@ -181,7 +181,8 @@ def test_ptxas_report_names_each_entry_function():
 def test_profile_summary_sums_the_device_kernels_of_a_label():
     """A kernels-line label with several device kernels (K8a: the pair and
     point kernels; K8b: each piece of its backward) gets the sum of their
-    device times, and a kernel of no label adds to the busy time only."""
+    device times, each of them listed in ``kernel_parts_ms``, and a kernel
+    of no label adds to the busy time only."""
     from torch.autograd import DeviceType
 
     class Evt:
@@ -202,6 +203,10 @@ def test_profile_summary_sums_the_device_kernels_of_a_label():
                smoke.KERNEL_NAMES) >= 2
     out = smoke.profile_summary(Prof(), 10.0)
     assert out["kernel_ms"]["K8a fused_color_fwd"] == 1.0
+    assert out["kernel_parts_ms"]["color_pair_fwd_kernel"] == 0.7
+    assert out["kernel_parts_ms"]["color_point_fwd_kernel"] == 0.3
+    assert out["kernel_parts_ms"]["color_dw_kernel"] == 0.0
+    assert "color_pack_kernel" not in out["kernel_parts_ms"]
     assert out["kernel_ms"]["K8p pack_color_weights"] == 0.005
     assert set(out["kernel_ms"]) == labels
     assert out["device_busy_ms"] == 2.005
