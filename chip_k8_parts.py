@@ -30,8 +30,8 @@ import sys
 VARIANTS = {
     "base": [],
     # the split-K dW product's mma instructions removed
-    "no_dw_products": [("          mma_sync_bf16(acc_c, a[mi], bb);",
-                        "          if (0) mma_sync_bf16(acc_c, a[mi], bb);")],
+    "no_dw_products": [("          mma_bf16(acc[mi][ni], a[mi],",
+                        "          if (0) mma_bf16(acc[mi][ni], a[mi],")],
     # neither the dW kernel nor the fixed-order sums launched
     "no_dw_pass": [("  color_dw_kernel<<<", "  if (0) color_dw_kernel<<<"),
                    ("  color_reduce_kernel<<<",

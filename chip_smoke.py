@@ -77,9 +77,9 @@ failure exits non-zero before the last line):
      timed and held against its plain version;
  14. the fused colour (``field.FUSED_COLOR``, set and restored around each
      use), in three places: after phase 5, view 0 of dust3r_like rendered
-     in full with its launch counts (the pack and K8a once per chunk), then
-     once more under ``torch.profiler`` (the ``profile fused_color
-     render:`` line);
+     in full with its launch counts (the pack and K8a once per chunk), and
+     after phase 7 once more under ``torch.profiler`` (the ``profile
+     fused_color render:`` line);
      after phase 6,
      the first chunk against the plain versions (``compare_chunk``), K8a
      held against its plain version on that chunk's colour inputs, and the
@@ -1637,10 +1637,6 @@ def main():
         f"masked PSNR {p:.2f} dB (random colour MLPs); launches "
         f"{launches_colour_render}")
     del out_c
-    with fused_color_set(True):
-        rprof = profiled(lambda: colour_render_fn(
-            tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"]))
-    log(f"profile fused_color render: {json.dumps(rprof)}")
 
     # --- 6. one chunk through the plain versions, on the card ---
     scene, tp, frozen, view, _ = scenes["dust3r_like"]
@@ -1695,6 +1691,11 @@ def main():
     # --- 7. where the time goes (the dust3r_like scene of phase 6) ---
     prof = profile_render(render_image, scene, tp, frozen, view)
     log(f"profile: {json.dumps(prof)}")
+    # the same view under FUSED_COLOR, profiled after the timed renders
+    with fused_color_set(True):
+        rprof = profiled(lambda: colour_render_fn(
+            tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"]))
+    log(f"profile fused_color render: {json.dumps(rprof)}")
 
     del render_image, outs, out_k, out_p
     torch.cuda.empty_cache()

@@ -59,8 +59,8 @@
 // scratch (1.3 % of the card; 3,840 bytes a pair row for F_color) and
 // about 3 GB of HBM traffic, some 0.9 ms at 3.35 TB/s: each X and delta
 // is written once and read twice by the dW pass (two 128-wide tiles).
-// posenc uses sinf/cosf (accurate): an invalid slot reads row 0, so its
-// x_pi can be ~1, which is ~32 rad at 2^5.  Ragged tiles read zeros and
+// posenc uses sincosf (accurate, not the fast intrinsics): an invalid
+// slot reads row 0, so its x_pi can be ~1, which is ~32 rad at 2^5.  Ragged tiles read zeros and
 // write no output past the end.
 
 #include <cuda_bf16.h>
@@ -105,9 +105,8 @@ constexpr int kDbR = 2 * kHid + kOut;   // 515
 constexpr int kMaxSplits = 64;
 constexpr int kSplitRows = 2048;        // pair rows per split, at least
 
-struct Weights {
-  const float* w[7];   // F0..F3, R0..R2: f32 [in, out]
-  const float* b[7];   // f32 [out]
+struct Biases {
+  const float* b[7];   // F0..F3, R0..R2: f32 [out]
 };
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -688,7 +687,7 @@ template <bool kStore>
 __device__ __forceinline__ void pair_fwd_body(
     const float* __restrict__ x_pi, const float* __restrict__ lat,
     const float* __restrict__ wn, const float* __restrict__ dir_enc,
-    long long n_pts, const bf16* __restrict__ wbuf, Weights p,
+    long long n_pts, const bf16* __restrict__ wbuf, Biases p,
     bf16* __restrict__ g_out, int ldg, int gcols, bf16* __restrict__ xs,
     uint4* __restrict__ gbits) {
   using S = PairSmem;
@@ -828,7 +827,7 @@ __device__ __forceinline__ void pair_fwd_body(
 template <bool kBwd>
 __device__ __forceinline__ void point_body(
     const bf16* __restrict__ g_in, int ldg, long long n_pts,
-    const bf16* __restrict__ wbuf, Weights p, float* __restrict__ rgb,
+    const bf16* __restrict__ wbuf, Biases p, float* __restrict__ rgb,
     const float* __restrict__ rgb_bar, bf16* __restrict__ xr,
     bf16* __restrict__ dr, float* __restrict__ d_agg,
     float* __restrict__ dbp) {
@@ -1047,7 +1046,7 @@ color_pair_fwd_kernel(const float* __restrict__ x_pi,
                       const float* __restrict__ lat,
                       const float* __restrict__ wn,
                       const float* __restrict__ dir_enc, long long n_pts,
-                      const bf16* __restrict__ wbuf, Weights p,
+                      const bf16* __restrict__ wbuf, Biases p,
                       bf16* __restrict__ g_out) {
   pair_fwd_body<false>(x_pi, lat, wn, dir_enc, n_pts, wbuf, p, g_out, kGld,
                        kGld, nullptr, nullptr);
@@ -1055,7 +1054,7 @@ color_pair_fwd_kernel(const float* __restrict__ x_pi,
 
 __global__ void __launch_bounds__(kThreads, 1)
 color_point_fwd_kernel(const bf16* __restrict__ g_in, long long n_pts,
-                       const bf16* __restrict__ wbuf, Weights p,
+                       const bf16* __restrict__ wbuf, Biases p,
                        float* __restrict__ rgb) {
   point_body<false>(g_in, kGld, n_pts, wbuf, p, rgb, nullptr, nullptr,
                     nullptr, nullptr, nullptr);
@@ -1067,7 +1066,7 @@ color_pair_recompute_kernel(const float* __restrict__ x_pi,
                             const float* __restrict__ wn,
                             const float* __restrict__ dir_enc,
                             long long n_pts, const bf16* __restrict__ wbuf,
-                            Weights p, bf16* __restrict__ xr,
+                            Biases p, bf16* __restrict__ xr,
                             bf16* __restrict__ xs,
                             uint4* __restrict__ gbits) {
   pair_fwd_body<true>(x_pi, lat, wn, dir_enc, n_pts, wbuf, p, xr, kXr, 384,
@@ -1076,7 +1075,7 @@ color_pair_recompute_kernel(const float* __restrict__ x_pi,
 
 __global__ void __launch_bounds__(kThreads, 1)
 color_point_bwd_kernel(long long n_pts, const bf16* __restrict__ wbuf,
-                       Weights p, const float* __restrict__ rgb_bar,
+                       Biases p, const float* __restrict__ rgb_bar,
                        bf16* __restrict__ xr, bf16* __restrict__ dr,
                        float* __restrict__ d_agg, float* __restrict__ dbp) {
   point_body<true>(xr, kXr, n_pts, wbuf, p, nullptr, rgb_bar, xr, dr, d_agg,
@@ -1107,12 +1106,9 @@ cudaError_t grid_for(const void* kernel, int smem, long long tiles,
   return err;
 }
 
-Weights weights(const void* const* bs) {
-  Weights p;
-  for (int i = 0; i < 7; ++i) {
-    p.w[i] = nullptr;
-    p.b[i] = static_cast<const float*>(bs[i]);
-  }
+Biases biases(const void* const* bs) {
+  Biases p;
+  for (int i = 0; i < 7; ++i) p.b[i] = static_cast<const float*>(bs[i]);
   return p;
 }
 
@@ -1155,12 +1151,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
-}
-
-__device__ __forceinline__ void mma_sync_bf16(float (&c)[4],
-                                              const uint32_t (&a)[4],
-                                              const uint32_t* b) {
-  mma_bf16(c, a, b[0], b[1]);
 }
 
 // Block (tile, split): a 128 x 128 tile of dW_l = X^T delta over the
@@ -1230,11 +1220,9 @@ color_dw_kernel(DwJobs jobs, float* __restrict__ part) {
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          float(&acc_c)[4] = acc[mi][ni];
-          const uint32_t* bb = b[ni >> 1] + 2 * (ni & 1);
-          mma_sync_bf16(acc_c, a[mi], bb);
-        }
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16(acc[mi][ni], a[mi], b[ni >> 1][2 * (ni & 1)],
+                   b[ni >> 1][2 * (ni & 1) + 1]);
     }
     __syncthreads();
   }
@@ -1354,7 +1342,7 @@ extern "C" int fused_color_fwd_launch(const float* x_pi, const float* lat,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pts == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Weights p = wg::weights(bs);
+  const Biases p = wg::biases(bs);
   const bf16* w = static_cast<const bf16*>(wbuf);
   bf16* gb = static_cast<bf16*>(g);
   int grid = 0;
@@ -1396,7 +1384,7 @@ extern "C" int fused_color_bwd_launch(const float* x_pi, const float* lat,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pts == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Weights p = wg::weights(bs);
+  const Biases p = wg::biases(bs);
   const bf16* w = static_cast<const bf16*>(wbuf);
   const BwdScratch sc = bwd_scratch(n_pts);
   char* base = static_cast<char*>(scratch);

@@ -42,8 +42,6 @@ HID = 256
 N_F, N_R = 4, 3
 F_SHAPES = ((39 + LAT, HID), (HID, HID), (HID, HID), (HID, HID))
 R_SHAPES = ((DIR + HID, HID), (HID, HID), (HID, 3))
-_SPLIT_ROWS = 2048      # the dW kernel's pair rows per split, at least
-_MAX_SPLITS = 64
 N_GRADS = sum(i * o + o for i, o in F_SHAPES + R_SHAPES)     # 361,731
 G_COLS = 320            # K8a's g rows: [dir_enc | agg | 0], 5 blocks of 64
 # The packed weights (csrc/color_mlp.cu, wg::pack_segs): 46 chunks of
@@ -162,11 +160,6 @@ def pair_bwd_ref(d_agg, wn, f_color, f_pre, dt):
         if i > 0:
             delta = delta * _gate(f_pre[i - 1])
     return delta[:, -LAT:], deltas
-
-
-def dw_splits(n_pts):
-    """The number of row ranges the kernel's split-K dW product takes."""
-    return min(max(-(-PK * n_pts // _SPLIT_ROWS), 1), _MAX_SPLITS)
 
 
 def dw_split_ref(x, delta, splits, dt):
