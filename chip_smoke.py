@@ -861,7 +861,7 @@ def check_step(tag, seen, prior_f32, radius):
             elif name == "pair_sdf_aggregate_bwd":
                 r = check_k4(what, args, 50)
             elif name == "scatter_add_rows":
-                r = check_k5(what, args, 50)
+                r = check_k5(what, args, 50, study=i == 0)
             elif big:
                 table, idx_ext, x, layers, rbf = args
                 r = check_pair(what, getattr(pair_mlp, name),
@@ -1013,8 +1013,70 @@ def check_k4(name, args, reps):
             "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
 
 
-def check_k5(name, args, reps):
-    """K5 against its plain version on one real launch's inputs."""
+def k5_inputs_study(ct, idx, n, tiles=(128, 256, 512)):
+    """What K5's time depends on in one launch's inputs: the share of rows
+    that are all zero, the rows at the hottest index, and for each tile
+    size T the kept (and the non-zero) rows against their distinct (T-row
+    tile, index) pairs, the adds left after a pre-sum of equal indices
+    within each tile."""
+    import torch
+
+    m = ct.shape[0]
+    keep = (idx >= 0) & (idx < n)
+    zero = (ct == 0).all(1)
+    hot = torch.bincount(idx[keep].long(), minlength=n)
+    out = {"rows": m, "kept": int(keep.sum()),
+           "zero_rows_share": float(zero.float().mean()),
+           "hottest_index": int(hot.argmax()),
+           "rows_at_hottest": int(hot.max()),
+           "nonzero_rows_at_hottest": int(
+               (keep & ~zero & (idx == hot.argmax())).sum())}
+    row = torch.arange(m, device=idx.device)
+    for t in tiles:
+        key = (row // t) * n + idx.long()
+        out[f"distinct_T{t}"] = int(torch.unique(key[keep]).numel())
+        out[f"distinct_nonzero_T{t}"] = int(
+            torch.unique(key[keep & ~zero]).numel())
+    out["nonzero_kept"] = int((keep & ~zero).sum())
+    return out
+
+
+def k5_variants_ms(ct, idx, n, reps):
+    """Step 0 of K5's redesign: the kernel timed on one launch's inputs
+    four ways -- as they are; with every all-zero row's index set to n
+    (dropped before any atomic); with the rows in a random order (the same
+    row stride); with ``arange(m) % n`` for idx, no index repeated within
+    n rows: the contention floor (timing only, its result is not
+    compared)."""
+    import torch
+
+    from spurfies_tpu_torch.ops import scatter_rows as sr
+
+    m, d = ct.shape
+    zero = (ct == 0).all(1)
+    idx_nz = torch.where(zero, torch.full_like(idx, n), idx)
+    perm = torch.randperm(m, device=ct.device)
+    ct_perm = torch.empty((m, ct.stride(0)), dtype=ct.dtype,
+                          device=ct.device)[:, :d]
+    ct_perm.copy_(ct[perm])
+    idx_perm = idx[perm].contiguous()
+    idx_flat = (torch.arange(m, device=ct.device) % n).to(torch.int32)
+    saved = dict(sr.LAUNCHES)
+    out = {"as_is": cuda_ms(lambda: sr.scatter_add_rows(ct, idx, n), reps),
+           "zero_rows_dropped": cuda_ms(
+               lambda: sr.scatter_add_rows(ct, idx_nz, n), reps),
+           "random_order": cuda_ms(
+               lambda: sr.scatter_add_rows(ct_perm, idx_perm, n), reps),
+           "no_repeats": cuda_ms(
+               lambda: sr.scatter_add_rows(ct, idx_flat, n), reps)}
+    sr.LAUNCHES.update(saved)
+    return out
+
+
+def check_k5(name, args, reps, study=False):
+    """K5 against its plain version on one real launch's inputs; with
+    ``study``, also :func:`k5_inputs_study` and :func:`k5_variants_ms` of
+    these inputs (the ``K5 step 0`` line)."""
     import torch
 
     from spurfies_tpu_torch.ops import scatter_rows as sr
@@ -1046,8 +1108,13 @@ def check_k5(name, args, reps):
         f"{kept / max(int((count > 0).sum()), 1):.1f} rows per latent row "
         f"hit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+    res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+    if study:
+        res["step0"] = dict(k5_inputs_study(ct, idx, n),
+                            ms=k5_variants_ms(ct, idx, n, reps))
+        log(f"K5 step 0, {name}: {json.dumps(res['step0'])}")
+    return res
 
 
 def rel_l2_within(what, out, ref, limit, hold=True):
