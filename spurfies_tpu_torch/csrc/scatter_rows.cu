@@ -50,7 +50,10 @@ scatter_rows_kernel(const float* __restrict__ ct, int ld,
   if (static_cast<unsigned>(i) >= static_cast<unsigned>(n)) return;
   const float* src = ct + row * ld;
   float* dst = out + static_cast<int64_t>(i) * d;
-  for (int c = lane; c < d; c += 32) atomicAdd(dst + c, __ldg(src + c));
+  for (int c = lane; c < d; c += 32) {
+    const float v = __ldg(src + c);
+    if (v != 0.f) atomicAdd(dst + c, v);   // +-0 adds nothing; NaN is added
+  }
 }
 
 }  // namespace

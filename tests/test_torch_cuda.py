@@ -332,25 +332,59 @@ def _sum_order_close(what, out, ref, abs_sum, count):
     smoke.sum_order_within(what, out, ref, abs_sum, count)
 
 
+def _scatter_inputs(kind, m, d, n, stride):
+    """K5's inputs: ``random`` indices in [-n/8, n + n/8) with a quarter of
+    the rows on one index; ``step`` as a training step has them (40 % of
+    the rows all zero at index 0, the rest random, one NaN); ``one-index``
+    every row on one index; ``ragged`` (m not a multiple of a tile) random,
+    with indices below 0 and at or above n; ``one-row`` one kept row;
+    ``outside`` only indices outside [0, n), down to -2**31 and up to
+    2**31 - 1."""
+    rng = np.random.default_rng(m + d)
+    wide = rng.normal(size=(m, stride)).astype(np.float32)
+    idx = rng.integers(-n // 8 - 1, n + n // 8 + 1, m).astype(np.int32)
+    if kind == "random":
+        idx[: m // 4] = 3                              # heavy duplicates
+    elif kind == "step":
+        zero = rng.uniform(size=m) < 0.4
+        wide[zero, :d] = 0.0
+        idx[zero] = 0
+        wide[m // 2, d // 2] = np.nan
+        idx[m // 2] = 5
+    elif kind == "one-index":
+        idx[:] = 3
+    elif kind == "one-row":
+        idx[:] = n // 2
+    elif kind == "outside":
+        idx[:] = np.array([-2 ** 31, -1, n, 2 ** 31 - 1], np.int32)[:m]
+    return torch.from_numpy(wide), torch.from_numpy(idx)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,d,n,stride", [(4096, 32, 512, 32),
-                                          (2048, 64, 96, 64),
-                                          (212992, 64, 6040, 67)])
-def test_scatter_add_rows_matches_plain(cuda, m, d, n, stride):
-    """K5 against its plain version: duplicates, indices outside [0, n)
-    dropped, and a strided ct (the colour cotangent's 64 of 67 columns)."""
-    rng = np.random.default_rng(m)
-    wide = torch.from_numpy(rng.normal(size=(m, stride)).astype(np.float32))
+@pytest.mark.parametrize("kind,m,d,n,stride", [
+    ("random", 4096, 32, 512, 32), ("random", 2048, 64, 96, 64),
+    ("random", 212992, 64, 6040, 67), ("step", 212992, 64, 6040, 67),
+    ("step", 532480, 32, 6040, 35), ("one-index", 5000, 32, 50, 35),
+    ("ragged", 257, 64, 96, 67), ("one-row", 1, 32, 10, 35),
+    ("outside", 4, 64, 9, 67)])
+def test_scatter_add_rows_matches_plain(cuda, kind, m, d, n, stride):
+    """K5 against its plain version: duplicates, a hot row of zeros as a
+    step has it, every row on one index, tile edges, indices outside
+    [0, n) dropped, a NaN that must reach its output entry, and a strided
+    ct (the colour cotangent's 64 of 67 columns)."""
+    wide, idx = _scatter_inputs(kind, m, d, n, stride)
     ct = wide.to(cuda)[:, :d]
-    idx = rng.integers(-n // 8, n + n // 8, m).astype(np.int32)
-    idx[: m // 4] = 3                                  # heavy duplicates
-    idx = torch.from_numpy(idx).to(cuda)
+    idx = idx.to(cuda)
     before = sr.LAUNCHES["scatter_add_rows"]
     out = sr.scatter_add_rows(ct, idx, n)
     ref = sr.scatter_add_rows_ref(ct, idx, n)
     torch.cuda.synchronize()
     assert sr.LAUNCHES["scatter_add_rows"] == before + 1
     assert out.shape == (n, d)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert int(torch.isnan(ref).sum()) == (1 if kind == "step" else 0)
+    ct = torch.nan_to_num(ct, nan=0.0)
+    out, ref = (torch.nan_to_num(t, nan=0.0) for t in (out, ref))
     keep = (idx >= 0) & (idx < n)
     count = torch.bincount(idx[keep].long(), minlength=n)
     _sum_order_close("K5", out, ref,

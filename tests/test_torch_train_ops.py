@@ -70,6 +70,39 @@ def test_scatter_rows_reads_a_strided_slice():
         tsr.scatter_add_rows(wide[:, :64], idx[:10], 50)
 
 
+def test_zero_rows_add_nothing_to_the_scatter():
+    """Why K5 may skip an add whose value is 0 (+0 or -0): a sum that
+    starts at +0 never becomes -0, and adding +-0 to it leaves its bits as
+    they were.  On the plain version, dropping the all-zero rows (40 %,
+    at index 0, as a step's masked slots are), and then every zero-valued
+    term of each column, gives the same bits; a NaN term is not 0 and
+    still reaches ``out``."""
+    rng = np.random.default_rng(9)
+    m, d, n = 3000, 16, 40
+    ct = rng.normal(size=(m, d)).astype(np.float32)
+    idx = rng.integers(-2, n + 2, m).astype(np.int32)
+    zero = rng.uniform(size=m) < 0.4
+    zero[5] = False
+    ct[zero] = np.where(rng.uniform(size=(int(zero.sum()), d)) < 0.5,
+                        np.float32(0.0), np.float32(-0.0))
+    idx[zero] = 0
+    ct[rng.uniform(size=(m, d)) < 0.1] = -0.0             # scattered zeros
+    ct[5, 3], idx[5] = np.nan, 7
+    ct, idx = torch.from_numpy(ct), torch.from_numpy(idx)
+    full = tsr.scatter_add_rows_ref(ct, idx, n)
+    keep = torch.from_numpy(~zero)
+    rows = tsr.scatter_add_rows_ref(ct[keep], idx[keep], n)
+    terms = torch.stack([tsr.scatter_add_rows_ref(
+        ct[ct[:, c] != 0][:, c:c + 1], idx[ct[:, c] != 0], n)[:, 0]
+        for c in range(d)], 1)
+    assert bool((full.view(torch.int32) == rows.view(torch.int32)).all())
+    assert bool((full.view(torch.int32) == terms.view(torch.int32)).all())
+    assert not bool(torch.signbit(full[full == 0]).any())   # no -0 sums
+    for out in (full, rows, terms):
+        assert bool(torch.isnan(out[7, 3]))
+        assert int(torch.isnan(out).sum()) == 1
+
+
 # ---------------------------------------------------------------- K4 ----
 
 def _bwd_inputs(p=256, k=8, n=300, seed=4):
