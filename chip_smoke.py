@@ -52,7 +52,10 @@ failure exits non-zero before the last line):
      (render SDF, pseudo-SDF) by the limits of phase 4; K4 and K5 within
      the f32 sum-order limit of ``sum_order_within`` (an f32-reordered
      plain sum is read beside it as a control), with timings, bounds and
-     ``index_add_`` as the library yardstick;
+     ``index_add_`` as the library yardstick; on each path's largest K5
+     launch, the ``K5 step 0`` line (its zero rows, hottest index and
+     distinct (tile, index) pairs, and K5 timed as it is, with the zero
+     rows dropped, in a random order and with no repeated index);
   9. reference step: the loss and the gradient of every trained tensor of
      one batch, through the kernels and through the plain versions, with
      the same batch and draws, compared by ``compare_grads``; then two

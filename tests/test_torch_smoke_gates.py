@@ -211,3 +211,22 @@ def test_profile_summary_sums_the_device_kernels_of_a_label():
     assert set(out["kernel_ms"]) == labels
     assert out["device_busy_ms"] == 2.005
     assert out["pytorch_ops_ms"] == {"aten::mm": 1.0}
+
+
+def test_k5_inputs_study_counts_what_k5_depends_on():
+    """``k5_inputs_study`` on a hand-made launch of 10 rows, n = 4: rows
+    0-2 are zero at index 0 (one of them -0), row 3 is non-zero at index
+    0, rows 4-6 share index 2, row 7 lies outside [0, n), rows 8-9 sit at
+    index 1 and 2 in the second 8-row tile."""
+    ct = torch.ones(10, 3)
+    ct[:3] = 0.0
+    ct[1, 1] = -0.0
+    idx = torch.tensor([0, 0, 0, 0, 2, 2, 2, 4, 1, 2], dtype=torch.int32)
+    got = smoke.k5_inputs_study(ct, idx, 4, tiles=(8, 16))
+    assert got["kept"] == 9 and got["nonzero_kept"] == 6
+    assert got["zero_rows_share"] == pytest.approx(0.3)
+    assert got["hottest_index"] == 0 and got["rows_at_hottest"] == 4
+    assert got["nonzero_rows_at_hottest"] == 1
+    # tile 0 holds indices {0, 2} (4 at n dropped), tile 1 {1, 2}
+    assert got["distinct_T8"] == 4 and got["distinct_nonzero_T8"] == 4
+    assert got["distinct_T16"] == 3 and got["distinct_nonzero_T16"] == 3
