@@ -9,8 +9,10 @@ stride and scattered into ``[N, 64]``.
 
 The CUDA kernel is ``csrc/scatter_rows.cu``; :func:`scatter_add_rows_ref`
 is its plain PyTorch version (CPU tensors, and the kernel's yardstick on
-the card).  The kernel sums with atomics, so the two agree up to f32
-reordering.
+the card).  The kernel sums the rows of one index within a 256-row tile in
+a fixed order, skips the sums that are 0 (adding +-0 to a sum that starts
+at +0 changes no bit) and adds the rest with atomics, so the two agree up
+to f32 reordering.
 """
 
 import ctypes
