@@ -12,8 +12,8 @@ failure exits non-zero before the last line):
   2. build: every kernel of ``spurfies_tpu_torch/csrc`` with nvcc for
      sm_90a, one process per source, all at once (seconds, and each entry
      function's registers and spills); the HGMMA and HMMA counts of the
-     SASS of the wgmma kernels (WGMMA_KERNELS: K3, K2, K6a and the colour
-     stack's), each of which must hold HGMMA;
+     SASS of the wgmma kernels (WGMMA_KERNELS: K3, K2, K6a, K6b and the
+     colour stack's), each of which must hold HGMMA;
   3. scenes: the DUSt3R-like cloud of ``make_dust3r_like_scene`` (the
      JAX package's bench scene, 192x256 views; ~6k points -> the packed K1
      variant) and a dense 40k-point sphere (>2**15 points -> the exact K1
@@ -29,7 +29,8 @@ failure exits non-zero before the last line):
      bit-equal to K3's pt[:, :2] on the probe input; on dust3r_like also
      K6b / K6a on that chunk's probe and shading pair rows
      (``model.fused_agg=false``, K6a's r_lat bit-equal to K3's on the
-     valid pairs) and K7a on its shading pairs compacted as
+     valid pairs, K6b's s and x_pi bit-equal to K6a's on the probe rows)
+     and K7a on its shading pairs compacted as
      ``model.pair_budget_frac=0.625`` compacts them;
   5. render path: launch counters set to 0, then ``make_render_fn`` renders
      view 0 of both scenes in full (2 x 49,152 rays, default ModelConfig,
@@ -156,10 +157,10 @@ KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
                 ("K4 pair_sdf_aggregate_bwd", "agg_bwd_kernel"),
                 ("K5 scatter_add_rows", "scatter_rows_kernel"),
                 ("K6a pair_sdf_rows_grad", "rows_grad_kernel"),
-                ("K6b pair_sdf_rows_value", "pair_rows_kernel<false, true>"),
+                ("K6b pair_sdf_rows_value", "rows_value_kernel"),
                 ("K7a pair_sdf_value_and_input_grad",
-                 "pair_rows_kernel<true, false>"),
-                ("K7b pair_sdf_value", "pair_rows_kernel<false, false>"),
+                 "pair_rows_kernel<true>"),
+                ("K7b pair_sdf_value", "pair_rows_kernel<false>"),
                 ("K8p pack_color_weights", "color_pack_kernel"),
                 ("K8a fused_color_fwd", "color_pair_fwd_kernel"),
                 ("K8a fused_color_fwd", "color_point_fwd_kernel"),
@@ -172,6 +173,7 @@ KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
 WGMMA_KERNELS = (("K3", "sdf_agg", "sdf_agg_kernel"),
                  ("K2", "sdf_agg", "value_agg_kernel"),
                  ("K6a", "sdf_agg", "rows_grad_kernel"),
+                 ("K6b", "sdf_agg", "rows_value_kernel"),
                  ("K8a pair", "color_mlp", "color_pair_fwd_kernel"),
                  ("K8a point", "color_mlp", "color_point_fwd_kernel"),
                  ("K8b pair recompute", "color_mlp",
@@ -1601,7 +1603,18 @@ def main():
                 f"shading pairs: {'bit-equal' if same else 'DIFFERENT'}")
             if not same:
                 fail("K6a and K3 disagree on the same pairs")
-            del r_lat, r6
+            # K6b is K6a without the down sweep: on the probe's rows its s
+            # and x_pi are K6a's, bit for bit
+            with torch.no_grad():
+                (g, xr), _ = inp["k6b"]
+                s6b, xpi6b = pair_mlp.pair_sdf_rows_value(g, xr, prior)
+                s6a, _, xpi6a = pair_mlp.pair_sdf_rows_grad(g, xr, prior)
+                same = torch.equal(s6b, s6a) and torch.equal(xpi6b, xpi6a)
+            log(f"K6b s, x_pi vs K6a s, x_pi on the {g.shape[0]} probe rows: "
+                f"{'bit-equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail("K6b and K6a disagree on the same rows")
+            del r_lat, r6, s6b, xpi6b, s6a, xpi6a
         del inp
         torch.cuda.empty_cache()
 
@@ -1934,7 +1947,7 @@ def main():
                                    "spurfies_tpu_torch/csrc/sdf_agg.cu",
                                    "spurfies_tpu/ops/pallas_mlp.py:195"),
         "K6b pair_sdf_rows_value": ("pair_sdf_rows_value",
-                                    "spurfies_tpu_torch/csrc/pair_mlp.cu",
+                                    "spurfies_tpu_torch/csrc/sdf_agg.cu",
                                     "spurfies_tpu/ops/pallas_mlp.py:260"),
         "K7a pair_sdf_value_and_input_grad": (
             "pair_sdf_value_and_input_grad",

@@ -1,9 +1,7 @@
-// K6b, K7a and K7b -- the frozen prior per pair row.  (K2, K3 and K6a,
+// K7a and K7b -- the frozen prior per pair row.  (K2, K3, K6a and K6b,
 // the same prior on Hopper's wgmma pipeline, are csrc/sdf_agg.cu.)
 //
 // Replaces the TPU kernels of spurfies_tpu/ops/pallas_mlp.py:
-//   * K6b: _fused_value_gx_call -> _value_kernel_gx (raw gathered rows
-//     [lat | pos] and a query per row; the model.fused_agg=false probe),
 //   * K7a / K7b: _fused_mlp_call -> _mlp_kernel and _fused_value_call ->
 //     _value_kernel (a pre-assembled u = [lat | x_pi]; the pair-compacted
 //     SDF of model.pair_budget_frac, and the pair-MLP microbenchmark).
@@ -14,8 +12,7 @@
 // masked.  Their first layer is one 48-deep product over bf16(u), equal to
 // the TPU body's g_lat @ W_lat + x_pi @ W_pos up to f32 summation order.
 //
-// What they compute, per row with u = [lat (32) | x_pi (3)] (K6b: from
-// g = [lat | pos] and the row's query x, x_pi = x - pos):
+// What they compute, per row with u = [lat (32) | x_pi (3)]:
 //   a0 = lat @ W_lat + x_pi @ W_pos + b0; then 3 x (LeakyReLU(0.01), 256x256)
 //   s  = LeakyReLU(a3) @ w_v + b_v   (F_geometry[4] and T pre-fused, f32)
 //   K7a: r = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)
@@ -24,7 +21,7 @@
 // down-sweep delta rounded to bf16 after each product and after each gate.
 //
 // What bounds them on an H100: operations.  About 0.41 MFLOP per row
-// (K7a 0.82) against 150-310 bytes of input and output per row (r is
+// (K7a 0.82) against 150-300 bytes of input and output per row (r is
 // written in f32): far above the card's ~295 FLOP/byte ridge.  The TPU
 // kernel's point was to keep the [rows, 256] activations out of HBM; here
 // they live in shared memory and the matrix products run on the tensor
@@ -73,8 +70,7 @@ constexpr int kOffWv = kOffDn0 + kOut0 * kHid;      // w_v [256]
 // Shared memory layout (bytes).
 constexpr int kSmAct = 0;
 constexpr int kSmW = kSmAct + kRows * kAStr * 2;
-constexpr int kSmXpi = kSmW + kHid * kWStr * 2;          // f32 [128][3]
-constexpr int kSmS = kSmXpi + kRows * 3 * 4;             // f32 [128]
+constexpr int kSmS = kSmW + kHid * kWStr * 2;            // f32 [128]
 constexpr int kSmWv = kSmS + kRows * 4;                  // f32 [256]
 constexpr int kSmGate = kSmWv + kHid * 4;                // u32 [4][128][8]
 constexpr int kSmemValue = kSmGate;
@@ -347,23 +343,19 @@ __device__ __forceinline__ void load_first(unsigned char* smem,
             wbuf + kOffUp0, kHid, kIn0);
 }
 
-// K6b / K7: the prior on each of m pair rows, no weight and no sum.  The
-// input `in` is [m, 35] f32: with kRowsIn (K6b) raw table rows g = [lat |
-// pos] and xq [m, 3] the query of each row, so that u = [lat | x - pos] is
-// made here and x_pi = x - pos (f32) written to out_xpi [m, 3]; else (K7) u
-// itself.  out_s [m] = bf16(s) as f32; with kGrad (K7a) out_r [m, 35]
-// = r = ds/du, the bf16 delta of the down sweep, as f32.  The last block
-// is ragged: its missing rows read zeros and are not written.
-template <bool kGrad, bool kRowsIn>
+// K7: the prior on each of m pair rows u [m, 35] f32, no weight and no
+// sum.  out_s [m] = bf16(s) as f32; with kGrad (K7a) out_r [m, 35] = r =
+// ds/du, the bf16 delta of the down sweep, as f32.  The last block is
+// ragged: its missing rows read zeros and are not written.
+template <bool kGrad>
 __global__ void __launch_bounds__(kThreads, 1)
-pair_rows_kernel(const float* __restrict__ in, const float* __restrict__ xq,
-                 long long m, const __nv_bfloat16* __restrict__ wbuf,
+pair_rows_kernel(const float* __restrict__ in, long long m,
+                 const __nv_bfloat16* __restrict__ wbuf,
                  const float* __restrict__ bbuf, float* __restrict__ out_s,
-                 float* __restrict__ out_r, float* __restrict__ out_xpi) {
+                 float* __restrict__ out_r) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
   float* r_s = reinterpret_cast<float*>(smem + kSmAct);  // after the sweeps
-  float* xpi_s = reinterpret_cast<float*>(smem + kSmXpi);
   const float* s_s = reinterpret_cast<const float*>(smem + kSmS);
 
   const int tid = threadIdx.x;
@@ -374,14 +366,7 @@ pair_rows_kernel(const float* __restrict__ in, const float* __restrict__ xq,
   const float* src = in + row0 * kRowW;
   for (int e = tid; e < kRows * kRowW; e += kThreads) {
     const int r = e / kRowW, c = e - r * kRowW;
-    float v = r < rows ? __ldg(src + e) : 0.f;
-    if (kRowsIn && c >= kLat) {
-      const float xv =
-          r < rows ? __ldg(xq + (row0 + r) * 3 + (c - kLat)) : 0.f;
-      v = __fsub_rn(xv, v);
-      xpi_s[r * 3 + (c - kLat)] = v;
-    }
-    in0[r * kI0Str + c] = __float2bfloat16_rn(v);
+    in0[r * kI0Str + c] = __float2bfloat16_rn(r < rows ? __ldg(src + e) : 0.f);
   }
   constexpr int kPad = kIn0 - kRowW;
   for (int e = tid; e < kRows * kPad; e += kThreads) {
@@ -417,29 +402,23 @@ pair_rows_kernel(const float* __restrict__ in, const float* __restrict__ xq,
     for (int e = tid; e < rows * kRowW; e += kThreads)
       out_r[row0 * kRowW + e] = r_s[e];
   }
-  if (kRowsIn) {
-    for (int e = tid; e < rows * 3; e += kThreads)
-      out_xpi[row0 * 3 + e] = xpi_s[e];
-  }
 }
 
-template <bool kGrad, bool kRowsIn>
-int launch_rows(const float* in, const float* x, long long m,
-                const void* wbuf, const float* bbuf, float* out_s,
-                float* out_r, float* out_xpi, void* stream) {
+template <bool kGrad>
+int launch_rows(const float* in, long long m, const void* wbuf,
+                const float* bbuf, float* out_s, float* out_r, void* stream) {
   if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return 0;
   const int smem = kGrad ? kSmemGrad : kSmemValue;
   cudaError_t err = cudaFuncSetAttribute(
-      pair_rows_kernel<kGrad, kRowsIn>,
+      pair_rows_kernel<kGrad>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (m + kRows - 1) / kRows;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  pair_rows_kernel<kGrad, kRowsIn><<<static_cast<unsigned>(blocks), kThreads,
-                                     smem, static_cast<cudaStream_t>(stream)>>>(
-      in, x, m, static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s, out_r,
-      out_xpi);
+  pair_rows_kernel<kGrad><<<static_cast<unsigned>(blocks), kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      in, m, static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s, out_r);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -449,8 +428,7 @@ int launch_rows(const float* in, const float* x, long long m,
 extern "C" int pair_sdf_value_launch(const float* u, long long m,
                                      const void* wbuf, const float* bbuf,
                                      float* out_s, void* stream) {
-  return launch_rows<false, false>(u, nullptr, m, wbuf, bbuf, out_s, nullptr,
-                                   nullptr, stream);
+  return launch_rows<false>(u, m, wbuf, bbuf, out_s, nullptr, stream);
 }
 
 // K7a: u [m, 35] f32 -> out_s [m], out_r [m, 35].
@@ -461,15 +439,5 @@ extern "C" int pair_sdf_value_and_input_grad_launch(const float* u,
                                                     float* out_s,
                                                     float* out_r,
                                                     void* stream) {
-  return launch_rows<true, false>(u, nullptr, m, wbuf, bbuf, out_s, out_r,
-                                  nullptr, stream);
-}
-
-// K6b: g [m, 35] f32, x [m, 3] f32 -> out_s [m], out_xpi [m, 3].
-extern "C" int pair_sdf_rows_value_launch(const float* g, const float* x,
-                                          long long m, const void* wbuf,
-                                          const float* bbuf, float* out_s,
-                                          float* out_xpi, void* stream) {
-  return launch_rows<false, true>(g, x, m, wbuf, bbuf, out_s, nullptr,
-                                  out_xpi, stream);
+  return launch_rows<true>(u, m, wbuf, bbuf, out_s, out_r, stream);
 }

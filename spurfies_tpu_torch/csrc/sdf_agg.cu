@@ -1,7 +1,7 @@
-// K3, K2 and K6a -- the frozen prior's pair MLP on Hopper (sm_90a), on one
-// pipeline: a persistent grid, a producer warp that streams the weights
-// into a shared-memory ring by cp.async.bulk, and two consumer warpgroups
-// that run the products on wgmma.
+// K3, K2, K6a and K6b -- the frozen prior's pair MLP on Hopper (sm_90a),
+// on one pipeline: a persistent grid, a producer warp that streams the
+// weights into a shared-memory ring by cp.async.bulk, and two consumer
+// warpgroups that run the products on wgmma.
 //
 // Replaces the TPU kernels of spurfies_tpu/ops/pallas_mlp.py:
 //   * K3 (sdf_agg_kernel): _fused_agg_call -> _mlp_kernel_agg (call :747,
@@ -12,7 +12,10 @@
 //     the down sweep;
 //   * K6a (rows_grad_kernel): _fused_mlp_gx_call -> _mlp_kernel_gx (call
 //     :322, body :195): model.fused_agg=false, K3's sweeps on rows given
-//     one by one, with per-row outputs.
+//     one by one, with per-row outputs;
+//   * K6b (rows_value_kernel): _fused_value_gx_call -> _value_kernel_gx
+//     (call :363, body :260): model.fused_agg=false's probe, K6a without
+//     the down sweep.
 //
 // What they compute, per pair row t = (point p, neighbour j) with table row
 // g = table[idx[p, j]] = [lat (32) | pos (3)] (K6a: g and the query x given
@@ -23,7 +26,7 @@
 //   r  = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)   (K3, K6a)
 //   K3: per point (sum w s, sum w, sum w r_pos); per pair w (f32), r_lat
 //   (bf16).  K2: per point (sum w s, sum w).  K6a: per row s, r [35] and
-//   x_pi, all f32.
+//   x_pi, all f32.  K6b: per row s and x_pi.
 // Rounding follows _mlp_kernel_agg: bf16 operands, f32 accumulation, bias
 // added in f32, activations rounded to bf16 after each LeakyReLU, the
 // down-sweep delta rounded to bf16 after each product and after each gate.
@@ -32,8 +35,9 @@
 // g_lat @ W_lat + x_pi @ W_pos up to f32 summation order.
 //
 // What bounds them on an H100: operations.  0.82 MFLOP per real pair or
-// row for K3 and K6a (up and down sweep 0.21 MMACs each), 0.41 for K2,
-// against ~110 (K3), ~50 (K2) and ~310 (K6a) bytes of input and output:
+// row for K3 and K6a (up and down sweep 0.21 MMACs each), 0.41 for K2 and
+// K6b, against ~110 (K3), ~50 (K2), ~310 (K6a) and ~170 (K6b) bytes of
+// input and output:
 // far above the card's ~295 FLOP/byte ridge.  What a block reads most is
 // the weights: 820 KB per tile of 128 rows (K2: the up sweep's 410 KB),
 // from L2.
@@ -70,9 +74,9 @@
 //     hand their registers over: setmaxnreg gives the producer warpgroup
 //     40 a thread and the consumers 232; ptxas still reports 168, 65,536
 //     over 384 threads, so the 128 accumulators leave little room and the
-//     gate bits are kept in shared memory).  The producer (K3, K2)
-//     fills the next tile's row list (a two-slot ring of tile descriptors)
-//     and streams the weight chunks of every tile (26; K2 13) into a
+//     gate bits are kept in shared memory).  The producer fills the next
+//     tile's row list (K3, K2: a two-slot ring of tile descriptors) and
+//     streams the weight chunks of every tile (26; K2 and K6b 13) into a
 //     four-stage ring of 32 KB shared-memory stages: one cp.async.bulk per
 //     chunk, completed on the stage's mbarrier, so the next chunk (or the
 //     next layer's first one) loads while the current one is multiplied.
@@ -887,14 +891,18 @@ value_agg_kernel(const float* __restrict__ table, int n_rows,
                   out_w, out_r);
 }
 
-// K6a.  g [m, 35] f32 rows [lat | pos], xq [m, 3] the query of each row;
-// out_s [m] = bf16(s) as f32, out_r [m, 35] = r = ds/du, the bf16 delta of
-// the down sweep, as f32, out_xpi [m, 3] = x - pos in f32.
-__global__ void __launch_bounds__(kThreads, 1)
-rows_grad_kernel(const float* __restrict__ g_in, const float* __restrict__ xq,
-                 long long m, const __nv_bfloat16* __restrict__ wbuf,
-                 const float* __restrict__ bbuf, float* __restrict__ out_s,
-                 float* __restrict__ out_r, float* __restrict__ out_xpi) {
+// K6a (kGrad) and K6b.  g [m, 35] f32 rows [lat | pos], xq [m, 3] the
+// query of each row; out_s [m] = bf16(s) as f32, out_xpi [m, 3] = x - pos
+// in f32; K6a only: out_r [m, 35] = r = ds/du, the bf16 delta of the down
+// sweep, as f32.  K6b streams the up sweep's 13 weight chunks a tile and
+// keeps no gate bits; its s and x_pi are K6a's bit for bit.
+template <bool kGrad>
+__device__ __forceinline__ void rows_body(
+    const float* __restrict__ g_in, const float* __restrict__ xq,
+    long long m, const __nv_bfloat16* __restrict__ wbuf,
+    const float* __restrict__ bbuf, float* __restrict__ out_s,
+    float* __restrict__ out_r, float* __restrict__ out_xpi) {
+  constexpr int kTileChunks = kGrad ? kChunks : kUpChunks;
   unsigned char* sm = block_smem();
   block_setup(sm, wbuf, bbuf);
   float* s_s = reinterpret_cast<float*>(sm + kSmS);
@@ -906,11 +914,11 @@ rows_grad_kernel(const float* __restrict__ g_in, const float* __restrict__ xq,
   if (role == kConsumers / 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (warp != kConsumers / 32) return;
-    // --- producer: all 26 weight chunks of each of the block's tiles ---
+    // --- producer: the weight chunks of each of the block's tiles ---
     const char* wsrc = reinterpret_cast<const char*>(wbuf);
     int it = 0;
     for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      for (int c = 0; c < kChunks; ++c) {
+      for (int c = 0; c < kTileChunks; ++c) {
         if (lane == 0) issue_chunk(sm, wsrc, c, it);
         ++it;
       }
@@ -971,30 +979,51 @@ rows_grad_kernel(const float* __restrict__ g_in, const float* __restrict__ xq,
       bar_sync(1 + wg, 128);
 
       float acc0[20];
-      sweeps<true>(cw, s_s + wg * kWgRows, bv, slope, it, acc0);
+      sweeps<kGrad>(cw, s_s + wg * kWgRows, bv, slope, it, acc0);
       bar_sync(1 + wg, 128);  // every product of the warpgroup has read act
-      // r = the bf16 delta of columns 0..34, staged over the activations
+      if (kGrad) {
+        // r = the bf16 delta of columns 0..34, staged over the activations
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = cw.w4 * 16 + cw.g + 8 * h;
+        for (int h = 0; h < 2; ++h) {
+          const int row = cw.w4 * 16 + cw.g + 8 * h;
 #pragma unroll
-        for (int i = 0; i < 5; ++i) {
+          for (int i = 0; i < 5; ++i) {
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int col = 8 * i + 2 * cw.t4 + j;
-            if (col < kRowW)
-              r_s[row * kRowW + col] = bf16_round(acc0[4 * i + 2 * h + j]);
+            for (int j = 0; j < 2; ++j) {
+              const int col = 8 * i + 2 * cw.t4 + j;
+              if (col < kRowW)
+                r_s[row * kRowW + col] = bf16_round(acc0[4 * i + 2 * h + j]);
+            }
           }
         }
+        bar_sync(1 + wg, 128);
       }
-      bar_sync(1 + wg, 128);
       // the warpgroup's n rows: s, and r as one contiguous run
       if (ti < n) out_s[row0 + ti] = s_s[wg * kWgRows + ti];
-      float* ro = out_r + row0 * kRowW;
-      for (int e = ti; e < n * kRowW; e += 128) ro[e] = r_s[e];
-      bar_sync(1 + wg, 128);  // r_s is read before the next tile's gather
+      if (kGrad) {
+        float* ro = out_r + row0 * kRowW;
+        for (int e = ti; e < n * kRowW; e += 128) ro[e] = r_s[e];
+        bar_sync(1 + wg, 128);  // r_s is read before the next tile's gather
+      }
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+rows_grad_kernel(const float* __restrict__ g_in, const float* __restrict__ xq,
+                 long long m, const __nv_bfloat16* __restrict__ wbuf,
+                 const float* __restrict__ bbuf, float* __restrict__ out_s,
+                 float* __restrict__ out_r, float* __restrict__ out_xpi) {
+  rows_body<true>(g_in, xq, m, wbuf, bbuf, out_s, out_r, out_xpi);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+rows_value_kernel(const float* __restrict__ g_in,
+                  const float* __restrict__ xq, long long m,
+                  const __nv_bfloat16* __restrict__ wbuf,
+                  const float* __restrict__ bbuf, float* __restrict__ out_s,
+                  float* __restrict__ out_xpi) {
+  rows_body<false>(g_in, xq, m, wbuf, bbuf, out_s, nullptr, out_xpi);
 }
 
 // One block per SM, at most one per unit of work (`units` > 0); the
@@ -1033,6 +1062,30 @@ int launch_agg(const float* table, int n_rows, const int* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kGrad>
+int launch_rows(const float* g, const float* x, long long m,
+                const void* wbuf, const float* bbuf, float* out_s,
+                float* out_r, float* out_xpi, void* stream) {
+  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
+  int grid = 0;
+  const auto kernel_ptr =
+      kGrad ? reinterpret_cast<const void*>(rows_grad_kernel)
+            : reinterpret_cast<const void*>(rows_value_kernel);
+  const cudaError_t err = grid_for(kernel_ptr, (m + kRows - 1) / kRows,
+                                   &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* w = static_cast<const __nv_bfloat16*>(wbuf);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (kGrad)
+    rows_grad_kernel<<<grid, kThreads, kSmem, st>>>(g, x, m, w, bbuf, out_s,
+                                                    out_r, out_xpi);
+  else
+    rows_value_kernel<<<grid, kThreads, kSmem, st>>>(g, x, m, w, bbuf,
+                                                     out_s, out_xpi);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // table [n_rows, 35] f32 (row n_rows - 1: the dump row), idx [n_pts, k]
@@ -1066,16 +1119,15 @@ extern "C" int pair_sdf_rows_grad_launch(const float* g, const float* x,
                                          const float* bbuf, float* out_s,
                                          float* out_r, float* out_xpi,
                                          void* stream) {
-  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (m == 0) return 0;
-  int grid = 0;
-  const cudaError_t err = grid_for(
-      reinterpret_cast<const void*>(rows_grad_kernel), (m + kRows - 1) / kRows,
-      &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rows_grad_kernel<<<grid, kThreads, kSmem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      g, x, m, static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s, out_r,
-      out_xpi);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows<true>(g, x, m, wbuf, bbuf, out_s, out_r, out_xpi,
+                           stream);
+}
+
+// K6b: the same inputs -> out_s [m], out_xpi [m, 3].
+extern "C" int pair_sdf_rows_value_launch(const float* g, const float* x,
+                                          long long m, const void* wbuf,
+                                          const float* bbuf, float* out_s,
+                                          float* out_xpi, void* stream) {
+  return launch_rows<false>(g, x, m, wbuf, bbuf, out_s, nullptr, out_xpi,
+                            stream);
 }

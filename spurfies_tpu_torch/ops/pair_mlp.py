@@ -25,8 +25,8 @@ backward together, as the custom VJP of ``spurfies_tpu/model/field.py``'s
 ``spurfies_tpu/ops/pallas_mlp.py:458-533``, whose backwards are
 elementwise (no kernel, as in the JAX package).
 
-The CUDA kernels are ``csrc/sdf_agg.cu`` (K2, K3, K6a: one ``wgmma``
-pipeline), ``csrc/pair_mlp.cu`` (K6b, K7) and ``csrc/agg_bwd.cu`` (K4);
+The CUDA kernels are ``csrc/sdf_agg.cu`` (K2, K3, K6a, K6b: one ``wgmma``
+pipeline), ``csrc/pair_mlp.cu`` (K7) and ``csrc/agg_bwd.cu`` (K4);
 ``*_ref`` are their plain PyTorch versions (CPU tensors, and the kernels'
 yardstick on the card).  The pair-MLP kernels
 follow the TPU kernels' rounding points: operands in the compute dtype,
@@ -64,15 +64,15 @@ _LL = ctypes.c_longlong
 _AGG_IN = [_P, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
            ctypes.c_float]          # table, n_rows, idx, x, P, k, wbuf, bbuf, rbf2
 # the per-row kernels: inputs, m, wbuf, bbuf, outputs, stream
-_SIG = {                            # csrc/pair_mlp.cu: K6b, K7a, K7b
+_SIG = {                            # csrc/pair_mlp.cu: K7a, K7b
     "pair_sdf_value_launch": [_P, _LL, _P, _P, _P, _P],
     "pair_sdf_value_and_input_grad_launch": [_P, _LL, _P, _P, _P, _P, _P],
-    "pair_sdf_rows_value_launch": [_P, _P, _LL, _P, _P, _P, _P, _P],
 }
-_SIG_SDF_AGG = {                    # csrc/sdf_agg.cu: K3, K2, K6a
+_SIG_SDF_AGG = {                    # csrc/sdf_agg.cu: K3, K2, K6a, K6b
     "pair_sdf_aggregate_launch": _AGG_IN + [_P, _P, _P, _P],
     "pair_sdf_value_agg_launch": _AGG_IN + [_P, _P],
     "pair_sdf_rows_grad_launch": [_P, _P, _LL, _P, _P, _P, _P, _P, _P],
+    "pair_sdf_rows_value_launch": [_P, _P, _LL, _P, _P, _P, _P, _P],
 }
 _SIG_BWD = {"pair_sdf_aggregate_bwd_launch": [_P, _P, _P, _P, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int, _P,
@@ -95,8 +95,8 @@ class PriorLayers:
     _packed_k3: torch.Tensor = None
 
     def kernel_buffers(self):
-        """(bf16 weights, f32 biases) in the layout of csrc/pair_mlp.cu; the
-        biases serve csrc/sdf_agg.cu too."""
+        """(bf16 weights, f32 biases) in the layout of csrc/pair_mlp.cu (K7);
+        the biases serve csrc/sdf_agg.cu too."""
         if self._packed is None:
             if self.compute_dtype != torch.bfloat16:
                 raise ValueError("the pair-MLP kernels run in bf16 only; "
@@ -121,12 +121,13 @@ class PriorLayers:
         return self._packed
 
     def k3_buffer(self):
-        """The bf16 weights of ``csrc/sdf_agg.cu`` (K3, K2, K6a), packed
+        """The bf16 weights of ``csrc/sdf_agg.cu`` (K3, K2, K6a, K6b), packed
         once in the byte layout of its shared-memory stages, so that each of
         the 26 chunks is one contiguous bulk copy: chunk 0 is W0^T
         ``[256, 64]`` (k >= 35 zero); chunks 1-12 W_l^T for l = 1, 2, 3 (the
-        up sweep ends here: K2 streams chunks 0-12 only) and chunks 13-24
-        W_l for l = 3, 2, 1, each layer as four ``[256, 64]`` column blocks;
+        up sweep ends here: K2 and K6b stream chunks 0-12 only) and chunks
+        13-24 W_l for l = 3, 2, 1, each layer as four ``[256, 64]`` column
+        blocks;
         then W0 ``[40, 256]`` (rows >= 35 zero) as four ``[40, 64]`` blocks,
         and w_v ``[256]``.  Every block is :func:`_swizzle128`'d.  The
         biases are :meth:`kernel_buffers`' f32 buffer."""
@@ -503,8 +504,8 @@ def _check_rows(name, *ins):
 
 def _launch_rows(name, ins, layers: PriorLayers, out_cols):
     """Run the C entry ``{name}_launch`` on ``ins`` into new f32 outputs of
-    ``[M, c]`` for each c of ``out_cols`` (0: ``[M]``): K6a's in
-    ``csrc/sdf_agg.cu`` on :meth:`PriorLayers.k3_buffer`, the others' in
+    ``[M, c]`` for each c of ``out_cols`` (0: ``[M]``): K6a's and K6b's in
+    ``csrc/sdf_agg.cu`` on :meth:`PriorLayers.k3_buffer`, K7's in
     ``csrc/pair_mlp.cu``."""
     m = ins[0].shape[0]
     dev = ins[0].device
@@ -549,7 +550,8 @@ def pair_sdf_value_and_input_grad(u, layers: PriorLayers):
 @torch.no_grad()
 def pair_sdf_rows_value(g, x, layers: PriorLayers):
     """K6b: ``(s [M], x_pi [M, 3])`` from rows ``g [M, 35]`` and queries
-    ``x [M, 3]`` (no gradient: the sampler's probe)."""
+    ``x [M, 3]`` (no gradient: the sampler's probe).  The kernel is K6a
+    without the down sweep: its ``s`` and ``x_pi`` are K6a's bit for bit."""
     if _check_rows("pair_sdf_rows_value", g, x):
         return pair_sdf_rows_value_ref(g, x, layers)
     return tuple(_launch_rows("pair_sdf_rows_value", (g, x), layers,

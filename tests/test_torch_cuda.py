@@ -321,6 +321,36 @@ def test_pair_sdf_rows_grad_tile_edges(cuda, m):
     _rows_kernel_matches_plain(cuda, "pair_sdf_rows_grad", m)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [127, 128, 129, 40000])
+def test_pair_sdf_rows_value_tile_edges(cuda, m):
+    """K6b on K6a's tiles of 128 contiguous rows, at the same edges."""
+    _rows_kernel_matches_plain(cuda, "pair_sdf_rows_value", m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1000, 40000])
+def test_pair_sdf_rows_value_is_rows_grad_without_its_down_sweep(cuda, m):
+    """K6b runs K6a's tiles and up-sweep instructions without the down
+    sweep: its s and x_pi are K6a's bit for bit, here on rows of which a
+    third are gathered row 0 (masked slots), as the probe has them."""
+    rng = np.random.default_rng(m + 1)
+    table = np.concatenate([rng.normal(0, 0.3, (50, 32)),
+                            rng.uniform(-0.5, 0.5, (50, 3))], 1)
+    rows = rng.integers(0, 50, m)
+    rows[rng.uniform(size=m) < 0.3] = 0
+    g = table[rows]
+    x = g[:, 32:] + rng.normal(0, 0.03, (m, 3))
+    g, x = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (g, x))
+    prior = pair_mlp._prep_layers(load_prior_npz(device=cuda), torch.bfloat16)
+    with torch.no_grad():
+        s_b, xpi_b = pair_mlp.pair_sdf_rows_value(g, x, prior)
+        s_a, _, xpi_a = pair_mlp.pair_sdf_rows_grad(g, x, prior)
+    torch.cuda.synchronize()
+    assert torch.equal(s_b, s_a)
+    assert torch.equal(xpi_b, xpi_a)
+
+
 def _sum_order_close(what, out, ref, abs_sum, count):
     """Atomic sums against index_add_: the same f32 terms summed in another
     order, held to ``chip_smoke.sum_order_within``'s limit (2 c 2**-24
