@@ -45,7 +45,9 @@ failure exits non-zero before the last line):
      ``model.render_budget_frac=0.9``;
   7. where the render's time goes: view 0 of the DUSt3R-like scene
      rendered warm TIMED_RENDERS times (rays/s), then once under
-     ``torch.profiler`` (the ``profile:`` JSON line);
+     ``torch.profiler`` (the ``profile:`` JSON line), and once more under
+     ``model.fused_agg=false`` (the ``profile fused_agg=false render:``
+     line);
   8. training kernels: a ``Trainer`` on the DUSt3R-like scene at full
      width (1024 rays/step, default config, auto budgets) takes one step
      whose kernel inputs are kept; every launch of it runs again against
@@ -1046,16 +1048,36 @@ def k5_inputs_study(ct, idx, n, tiles=(128, 256, 512)):
     return out
 
 
-def k5_variants_ms(ct, idx, n, reps):
-    """Step 0 of K5's redesign: the kernel timed on one launch's inputs
-    four ways -- as they are; with every all-zero row's index set to n
-    (dropped before any atomic); with the rows in a random order (the same
-    row stride); with ``arange(m) % n`` for idx, no index repeated within
-    n rows: the contention floor (timing only, its result is not
-    compared)."""
+def k5_kernel_ms(ct, idx, n, reps):
+    """K5's own device time on these inputs: its C entry launched ``reps``
+    times into one zeroed output (CUDA events).  The wrapper's checks and
+    zero fill take more host time than the kernel takes on the card, so
+    timing the wrapper would time the host."""
     import torch
 
+    from spurfies_tpu_torch.ops import cuda_build
     from spurfies_tpu_torch.ops import scatter_rows as sr
+
+    m, d = ct.shape
+    out = torch.zeros((n, d), device=ct.device)
+    lib = cuda_build.load("scatter_rows", sr._SIG)
+    stream = torch.cuda.current_stream(ct.device).cuda_stream
+
+    def run():
+        cuda_build.check(lib.scatter_add_rows_launch(
+            ct.data_ptr(), ct.stride(0), idx.data_ptr(), m, d, n,
+            out.data_ptr(), stream), "scatter_add_rows")
+    return cuda_ms(run, reps)
+
+
+def k5_variants_ms(ct, idx, n, reps):
+    """Step 0 of K5's redesign: the kernel timed on one launch's inputs
+    four ways (:func:`k5_kernel_ms`) -- as they are; with every all-zero
+    row's index set to n (dropped before any atomic); with the rows in a
+    random order (the same row stride); with ``arange(m) % n`` for idx, no
+    index repeated within n rows: the contention floor (timing only, its
+    result is not compared)."""
+    import torch
 
     m, d = ct.shape
     zero = (ct == 0).all(1)
@@ -1066,22 +1088,18 @@ def k5_variants_ms(ct, idx, n, reps):
     ct_perm.copy_(ct[perm])
     idx_perm = idx[perm].contiguous()
     idx_flat = (torch.arange(m, device=ct.device) % n).to(torch.int32)
-    saved = dict(sr.LAUNCHES)
-    out = {"as_is": cuda_ms(lambda: sr.scatter_add_rows(ct, idx, n), reps),
-           "zero_rows_dropped": cuda_ms(
-               lambda: sr.scatter_add_rows(ct, idx_nz, n), reps),
-           "random_order": cuda_ms(
-               lambda: sr.scatter_add_rows(ct_perm, idx_perm, n), reps),
-           "no_repeats": cuda_ms(
-               lambda: sr.scatter_add_rows(ct, idx_flat, n), reps)}
-    sr.LAUNCHES.update(saved)
-    return out
+    return {"as_is": k5_kernel_ms(ct, idx, n, reps),
+            "zero_rows_dropped": k5_kernel_ms(ct, idx_nz, n, reps),
+            "random_order": k5_kernel_ms(ct_perm, idx_perm, n, reps),
+            "no_repeats": k5_kernel_ms(ct, idx_flat, n, reps)}
 
 
 def check_k5(name, args, reps, study=False):
-    """K5 against its plain version on one real launch's inputs; with
-    ``study``, also :func:`k5_inputs_study` and :func:`k5_variants_ms` of
-    these inputs (the ``K5 step 0`` line)."""
+    """K5 against its plain version on one real launch's inputs, timed by
+    :func:`k5_kernel_ms` (the wrapper's time beside it) and against
+    ``index_add_`` into one zeroed output; with ``study``, also
+    :func:`k5_inputs_study` and :func:`k5_variants_ms` of these inputs (the
+    ``K5 step 0`` line)."""
     import torch
 
     from spurfies_tpu_torch.ops import scatter_rows as sr
@@ -1101,18 +1119,21 @@ def check_k5(name, args, reps, study=False):
     err = sum_order_within(name, out, ref, abs_sum, count)
     sum_order_within(f"{name}, control: plain summed in another order",
                      ctrl, ref, abs_sum, count, hold=False)
-    ms = cuda_ms(lambda: sr.scatter_add_rows(*args), reps)
+    wrapper_ms = cuda_ms(lambda: sr.scatter_add_rows(*args), reps)
+    ms = k5_kernel_ms(ct, idx, n, reps)
     plain_ms = cuda_ms(lambda: sr.scatter_add_rows_ref(*args), 5)
+    # index_add_ of the kept rows, into one zeroed output like the kernel
     ct_k, idx_k = ct[keep].contiguous(), idx[keep].long()
-    lib_ms = cuda_ms(lambda: torch.zeros((n, d), device=ct.device)
-                     .index_add_(0, idx_k, ct_k), reps)
+    lib_out = torch.zeros((n, d), device=ct.device)
+    lib_ms = cuda_ms(lambda: lib_out.index_add_(0, idx_k, ct_k), reps)
     kept = int(keep.sum())
     n_bytes = m * 4 + kept * d * 4 + n * d * 4
     b_ms, b_by = bound_ms(n_bytes, float(kept * d), PEAK_F32_FLOPS)
     log(f"{name}: M={m} d={d} row stride {ct.stride(0)}, kept {kept}, "
         f"{kept / max(int((count > 0).sum()), 1):.1f} rows per latent row "
-        f"hit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"hit; kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} "
+        f"ms ({b_by})")
     res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
     if study:
@@ -1664,7 +1685,8 @@ def main():
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out_u = make_render_fn(cfg_unfused, device="cuda")(
+    unfused_render_fn = make_render_fn(cfg_unfused, device="cuda")
+    out_u = unfused_render_fn(
         tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1779,8 +1801,12 @@ def main():
         rprof = profiled(lambda: colour_render_fn(
             tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"]))
     log(f"profile fused_color render: {json.dumps(rprof)}")
+    # and under model.fused_agg=false (K6b probes, K6a shades)
+    uprof = profiled(lambda: unfused_render_fn(
+        tp, scene, frozen, view["uv"], view["pose"], view["intrinsics"]))
+    log(f"profile fused_agg=false render: {json.dumps(uprof)}")
 
-    del render_image, outs, out_k, out_p
+    del render_image, unfused_render_fn, outs, out_k, out_p
     torch.cuda.empty_cache()
 
     # --- 8-10. training: every launch of one step against its plain
