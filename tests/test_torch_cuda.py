@@ -395,13 +395,15 @@ def _scatter_inputs(kind, m, d, n, stride):
     ("random", 4096, 32, 512, 32), ("random", 2048, 64, 96, 64),
     ("random", 212992, 64, 6040, 67), ("step", 212992, 64, 6040, 67),
     ("step", 532480, 32, 6040, 35), ("one-index", 5000, 32, 50, 35),
+    ("random", 3000, 35, 100, 35), ("random", 3000, 8, 100, 9),
     ("ragged", 257, 64, 96, 67), ("one-row", 1, 32, 10, 35),
     ("outside", 4, 64, 9, 67)])
 def test_scatter_add_rows_matches_plain(cuda, kind, m, d, n, stride):
     """K5 against its plain version: duplicates, a hot row of zeros as a
     step has it, every row on one index, tile edges, indices outside
-    [0, n) dropped, a NaN that must reach its output entry, and a strided
-    ct (the colour cotangent's 64 of 67 columns)."""
+    [0, n) dropped, a NaN that must reach its output entry, widths that
+    are and are not a multiple of 4, and a strided ct (the colour
+    cotangent's 64 of 67 columns)."""
     wide, idx = _scatter_inputs(kind, m, d, n, stride)
     ct = wide.to(cuda)[:, :d]
     idx = idx.to(cuda)
