@@ -51,18 +51,6 @@ constexpr int kTile = 256;                // rows per block, one a thread
 constexpr int kBatch = 8;                 // rows loaded ahead of their adds
 constexpr unsigned long long kDropped = ~0ull;
 
-// Lanes 4 q .. 4 q + 3's values, in lane 4 q (the whole warp calls it).
-__device__ __forceinline__ float4 gather4(float v) {
-  const float v1 = __shfl_down_sync(0xffffffffu, v, 1);
-  const float v2 = __shfl_down_sync(0xffffffffu, v, 2);
-  const float v3 = __shfl_down_sync(0xffffffffu, v, 3);
-  return make_float4(v, v1, v2, v3);
-}
-
-__device__ __forceinline__ bool any_nonzero(float4 v) {
-  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
-}
-
 __global__ void __launch_bounds__(kTile)
 scatter_rows_kernel(const float* __restrict__ ct, long long ld,
                     const int* __restrict__ idx, long long m, int d, int n,
@@ -109,9 +97,6 @@ scatter_rows_kernel(const float* __restrict__ ct, long long ld,
   const unsigned run_end =
       __ballot_sync(0xffffffffu, lane == 31 || next_i != my_i) & valid;
 
-  // d % 4 == 0: lane 4 q adds columns 4 q .. 4 q + 3 of its 32 as one
-  // 16-byte red (the output rows are 16-byte aligned)
-  const bool vec4 = (d & 3) == 0;
   for (int c0 = 0; c0 < d; c0 += 64) {
     const int ca = c0 + lane, cb = c0 + 32 + lane;
     const bool has_a = ca < d, has_b = cb < d;
@@ -135,18 +120,8 @@ scatter_rows_kernel(const float* __restrict__ ct, long long ld,
         if ((run_end >> p) & 1u) {
           const unsigned i = __shfl_sync(0xffffffffu, my_i, p);
           float* dst = out + static_cast<long long>(i) * d;
-          if (vec4) {
-            const float4 va4 = gather4(sa), vb4 = gather4(sb);
-            if ((lane & 3) == 0) {
-              if (has_a && any_nonzero(va4))
-                atomicAdd(reinterpret_cast<float4*>(dst + ca), va4);
-              if (has_b && any_nonzero(vb4))
-                atomicAdd(reinterpret_cast<float4*>(dst + cb), vb4);
-            }
-          } else {
-            if (has_a && sa != 0.f) atomicAdd(dst + ca, sa);
-            if (has_b && sb != 0.f) atomicAdd(dst + cb, sb);
-          }
+          if (has_a && sa != 0.f) atomicAdd(dst + ca, sa);
+          if (has_b && sb != 0.f) atomicAdd(dst + cb, sb);
           sa = 0.f;
           sb = 0.f;
         }
@@ -158,8 +133,7 @@ scatter_rows_kernel(const float* __restrict__ ct, long long ld,
 }  // namespace
 
 // ct [m, d] f32 with row stride ld >= d (elements), idx [m] i32, out [n, d]
-// f32, 16-byte aligned and zeroed by the caller. Returns the launch's CUDA
-// error code.
+// f32, zeroed by the caller. Returns the launch's CUDA error code.
 extern "C" int scatter_add_rows_launch(const float* ct, int ld, const int* idx,
                                        int m, int d, int n, float* out,
                                        void* stream) {
