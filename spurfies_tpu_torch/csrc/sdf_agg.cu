@@ -1022,8 +1022,8 @@ rows_value_kernel(const float* __restrict__ g_in,
                   const float* __restrict__ xq, long long m,
                   const __nv_bfloat16* __restrict__ wbuf,
                   const float* __restrict__ bbuf, float* __restrict__ out_s,
-                  float* __restrict__ out_xpi) {
-  rows_body<false>(g_in, xq, m, wbuf, bbuf, out_s, nullptr, out_xpi);
+                  float* __restrict__ out_r, float* __restrict__ out_xpi) {
+  rows_body<false>(g_in, xq, m, wbuf, bbuf, out_s, out_r, out_xpi);
 }
 
 // One block per SM, at most one per unit of work (`units` > 0); the
@@ -1068,21 +1068,14 @@ int launch_rows(const float* g, const float* x, long long m,
                 float* out_r, float* out_xpi, void* stream) {
   if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return 0;
+  const auto kernel = kGrad ? rows_grad_kernel : rows_value_kernel;
   int grid = 0;
-  const auto kernel_ptr =
-      kGrad ? reinterpret_cast<const void*>(rows_grad_kernel)
-            : reinterpret_cast<const void*>(rows_value_kernel);
-  const cudaError_t err = grid_for(kernel_ptr, (m + kRows - 1) / kRows,
-                                   &grid);
+  const cudaError_t err = grid_for(reinterpret_cast<const void*>(kernel),
+                                   (m + kRows - 1) / kRows, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* w = static_cast<const __nv_bfloat16*>(wbuf);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (kGrad)
-    rows_grad_kernel<<<grid, kThreads, kSmem, st>>>(g, x, m, w, bbuf, out_s,
-                                                    out_r, out_xpi);
-  else
-    rows_value_kernel<<<grid, kThreads, kSmem, st>>>(g, x, m, w, bbuf,
-                                                     out_s, out_xpi);
+  kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      g, x, m, static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s, out_r,
+      out_xpi);
   return static_cast<int>(cudaGetLastError());
 }
 
