@@ -127,10 +127,9 @@ class PriorLayers:
         ``[256, 64]`` (k >= 35 zero); chunks 1-12 W_l^T for l = 1, 2, 3 (the
         up sweep ends here: K2 and K6b stream chunks 0-12 only) and chunks
         13-24 W_l for l = 3, 2, 1, each layer as four ``[256, 64]`` column
-        blocks;
-        then W0 ``[40, 256]`` (rows >= 35 zero) as four ``[40, 64]`` blocks,
-        and w_v ``[256]``.  Every block is :func:`_swizzle128`'d.  The
-        biases are :meth:`kernel_buffers`' f32 buffer."""
+        blocks; then W0 ``[40, 256]`` (rows >= 35 zero) as four ``[40, 64]``
+        blocks, and w_v ``[256]``.  Every block is :func:`_swizzle128`'d.
+        The biases are :meth:`kernel_buffers`' f32 buffer."""
         if self._packed_k3 is None:
             self.kernel_buffers()                   # dtype and shape checks
             w0 = self.ws[0]
