@@ -12,7 +12,7 @@
 // neighbour slot is clamped to row 0 before the gather, and its cotangent
 // is exactly 0, so 40-56 % of a launch's rows are all-zero rows at index 0:
 // with one atomic an element, each column of output row 0 took a chain of
-// 80k-300k adds of zero, 91 % of the kernel's time (PERF.md, PR 9 step 0).
+// 80k-300k adds of zero, 91 % of the kernel's time (PERF.md, section 6).
 // The real rows share targets too: consecutive rows are a point's k = 8
 // neighbours and consecutive points one ray's samples, about 10 rows of a
 // 256-row tile on each (tile, index).
@@ -41,7 +41,7 @@
 // What bounds it now: bytes. Each kept row of ct is read once (the zero
 // rows too, to learn that they are zero): 0.017 ms at 3.35 TB/s on the
 // colour path, where it takes 0.028 ms; its ~12k (tile, index) runs make
-// no chain of atomics deeper than a few dozen (PERF.md, PR 9).
+// no chain of atomics deeper than a few dozen (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
