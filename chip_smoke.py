@@ -1095,11 +1095,13 @@ def k5_variants_ms(ct, idx, n, reps):
 
 
 def check_k5(name, args, reps, study=False):
-    """K5 against its plain version on one real launch's inputs, timed by
-    :func:`k5_kernel_ms` (the wrapper's time beside it) and against
-    ``index_add_`` into one zeroed output; with ``study``, also
-    :func:`k5_inputs_study` and :func:`k5_variants_ms` of these inputs (the
-    ``K5 step 0`` line)."""
+    """K5 against its plain version on one real launch's inputs, timed
+    through its wrapper (``ms``, a fresh zeroed output each call, as every
+    kernel is timed) against ``torch.zeros(...).index_add_``; beside them
+    the kernel alone by :func:`k5_kernel_ms` (``kernel_ms``) against
+    ``index_add_`` into one zeroed output (``library_zeroed_ms``).  With
+    ``study``, also :func:`k5_inputs_study` and :func:`k5_variants_ms` of
+    these inputs (the ``K5 step 0`` line)."""
     import torch
 
     from spurfies_tpu_torch.ops import scatter_rows as sr
@@ -1119,23 +1121,27 @@ def check_k5(name, args, reps, study=False):
     err = sum_order_within(name, out, ref, abs_sum, count)
     sum_order_within(f"{name}, control: plain summed in another order",
                      ctrl, ref, abs_sum, count, hold=False)
-    wrapper_ms = cuda_ms(lambda: sr.scatter_add_rows(*args), reps)
-    ms = k5_kernel_ms(ct, idx, n, reps)
+    ms = cuda_ms(lambda: sr.scatter_add_rows(*args), reps)
+    kernel_ms = k5_kernel_ms(ct, idx, n, reps)
     plain_ms = cuda_ms(lambda: sr.scatter_add_rows_ref(*args), 5)
-    # index_add_ of the kept rows, into one zeroed output like the kernel
+    # index_add_ of the kept rows: into a fresh zeroed output like the
+    # wrapper, and into one zeroed output like k5_kernel_ms
     ct_k, idx_k = ct[keep].contiguous(), idx[keep].long()
+    lib_ms = cuda_ms(lambda: torch.zeros((n, d), device=ct.device)
+                     .index_add_(0, idx_k, ct_k), reps)
     lib_out = torch.zeros((n, d), device=ct.device)
-    lib_ms = cuda_ms(lambda: lib_out.index_add_(0, idx_k, ct_k), reps)
+    lib_zeroed_ms = cuda_ms(lambda: lib_out.index_add_(0, idx_k, ct_k), reps)
     kept = int(keep.sum())
     n_bytes = m * 4 + kept * d * 4 + n * d * 4
     b_ms, b_by = bound_ms(n_bytes, float(kept * d), PEAK_F32_FLOPS)
     log(f"{name}: M={m} d={d} row stride {ct.stride(0)}, kept {kept}, "
         f"{kept / max(int((count > 0).sum()), 1):.1f} rows per latent row "
-        f"hit; kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f}), plain "
-        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} "
-        f"ms ({b_by})")
+        f"hit; kernel {ms:.4f} ms (C entry alone {kernel_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms (into one zeroed "
+        f"output {lib_zeroed_ms:.4f}), bound {b_ms:.4f} ms ({b_by})")
     res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+           "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err,
+           "kernel_ms": kernel_ms, "library_zeroed_ms": lib_zeroed_ms}
     if study:
         res["step0"] = dict(k5_inputs_study(ct, idx, n),
                             ms=k5_variants_ms(ct, idx, n, reps))
@@ -2011,8 +2017,9 @@ def main():
                 "max_abs_err") if k in t}
         if label.startswith("K8"):
             row["colour_path_ms"] = colour_path
-        if "scratch_bytes" in r:
-            row["scratch_bytes"] = r["scratch_bytes"]
+        for k in ("scratch_bytes", "kernel_ms", "library_zeroed_ms"):
+            if k in r:
+                row[k] = r[k]
         rows.append(row)
         if launches[key] == 0:
             fail(f"{label} was not launched on the main path")

@@ -370,9 +370,9 @@ def _scatter_inputs(kind, m, d, n, stride):
     with indices below 0 and at or above n; ``one-row`` one kept row;
     ``outside`` only indices outside [0, n), down to -2**31 and up to
     2**31 - 1."""
-    rng = np.random.default_rng(m + d)
+    rng = np.random.default_rng(m)
     wide = rng.normal(size=(m, stride)).astype(np.float32)
-    idx = rng.integers(-n // 8 - 1, n + n // 8 + 1, m).astype(np.int32)
+    idx = rng.integers(-n // 8, n + n // 8, m).astype(np.int32)
     if kind == "random":
         idx[: m // 4] = 3                              # heavy duplicates
     elif kind == "step":
