@@ -19,7 +19,7 @@ variants' outputs are wrong by design; only their times mean anything.
   products_only  neither weight copies nor epilogues
   regs_56_224    setmaxnreg 56 / 224 in place of 40 / 232
 
-The edits reach K2's, K6a's and K6b's kernels in the same source too;
+The edits reach K2's, K6a's, K6b's and K7a's kernels in the same source too;
 only K3's (``sdf_agg_kernel``) is reported and timed.  It prints each
 variant's ptxas register and spill report of K3, then two rounds of
 times (ms, CUDA events over 10 launches after one warm-up), then the

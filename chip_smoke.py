@@ -12,8 +12,8 @@ failure exits non-zero before the last line):
   2. build: every kernel of ``spurfies_tpu_torch/csrc`` with nvcc for
      sm_90a, one process per source, all at once (seconds, and each entry
      function's registers and spills); the HGMMA and HMMA counts of the
-     SASS of the wgmma kernels (WGMMA_KERNELS: K3, K2, K6a, K6b and the
-     colour stack's), each of which must hold HGMMA;
+     SASS of the wgmma kernels (WGMMA_KERNELS: K3, K2, K6a, K6b, K7a and
+     the colour stack's), each of which must hold HGMMA;
   3. scenes: the DUSt3R-like cloud of ``make_dust3r_like_scene`` (the
      JAX package's bench scene, 192x256 views; ~6k points -> the packed K1
      variant) and a dense 40k-point sphere (>2**15 points -> the exact K1
@@ -21,7 +21,9 @@ failure exits non-zero before the last line):
      (``spurfies_tpu_torch/assets/local_prior.npz``) and seeded latents;
   4. render kernels: K1-K3 against their plain PyTorch versions on the
      card, in bf16, on the inputs of the first 4096-ray chunk of each
-     scene's render (probe and shading shapes), with timings and bounds;
+     scene's render (probe and shading shapes), with timings and bounds
+     (K1 also by its C entry, ``kernel_ms``, and on the shading input the
+     ``K1 step 0`` line: its lists per warp and the wrapper's host time);
      K2's and K3's pt exactly 0 on points with no real pair, K3's w and
      r_lat exactly 0 on dump pairs, and each timed again with every pair
      made a dump pair (K3: under a tenth of the real run's time; K2: under
@@ -29,8 +31,9 @@ failure exits non-zero before the last line):
      bit-equal to K3's pt[:, :2] on the probe input; on dust3r_like also
      K6b / K6a on that chunk's probe and shading pair rows
      (``model.fused_agg=false``, K6a's r_lat bit-equal to K3's on the
-     valid pairs, K6b's s and x_pi bit-equal to K6a's on the probe rows)
-     and K7a on its shading pairs compacted as
+     valid pairs, K6b's s and x_pi bit-equal to K6a's on the probe rows,
+     K7a's s and r bit-equal to K6a's on u = [g_lat | K6a's x_pi] of the
+     shading rows) and K7a on its shading pairs compacted as
      ``model.pair_budget_frac=0.625`` compacts them;
   5. render path: launch counters set to 0, then ``make_render_fn`` renders
      view 0 of both scenes in full (2 x 49,152 rays, default ModelConfig,
@@ -55,10 +58,12 @@ failure exits non-zero before the last line):
      (render SDF, pseudo-SDF) by the limits of phase 4; K4 and K5 within
      the f32 sum-order limit of ``sum_order_within`` (an f32-reordered
      plain sum is read beside it as a control), with timings, bounds and
-     ``index_add_`` as the library yardstick; on each path's largest K5
-     launch, the ``K5 step 0`` line (its zero rows, hottest index and
-     distinct (tile, index) pairs, and K5 timed as it is, with the zero
-     rows dropped, in a random order and with no repeated index);
+     ``index_add_`` as the library yardstick (K1, K4 and K5 also by their
+     C entries); on each path's largest K5 launch, the ``K5 step 0`` line
+     (its zero rows, hottest index and distinct (tile, index) pairs, and
+     K5 timed as it is, with the zero rows dropped, in a random order and
+     with no repeated index); on the default path's K1 launches, the ``K1
+     step 0`` line;
   9. reference step: the loss and the gradient of every trained tensor of
      one batch, through the kernels and through the plain versions, with
      the same batch and draws, compared by ``compare_grads``; then two
@@ -98,8 +103,10 @@ failure exits non-zero before the last line):
      launches), OPTION_WARMUP + OPTION_STEPS
      steps, and the colour path timed at one step's shapes;
  15. the ``kernels`` JSON line, the ``redesign_order`` line (the kernels
-     ranked by launches x (ms - bound_ms) in this run), the ``nvidia-smi``
-     line, then the device JSON line.
+     ranked by launches x (ms - bound_ms) in this run) and the
+     ``redesign_order_kernel_ms`` line (the same with the C entry's time
+     where a kernel has one), the ``nvidia-smi`` line, then the device
+     JSON line.
 """
 
 import contextlib
@@ -160,9 +167,8 @@ KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
                 ("K5 scatter_add_rows", "scatter_rows_kernel"),
                 ("K6a pair_sdf_rows_grad", "rows_grad_kernel"),
                 ("K6b pair_sdf_rows_value", "rows_value_kernel"),
-                ("K7a pair_sdf_value_and_input_grad",
-                 "pair_rows_kernel<true>"),
-                ("K7b pair_sdf_value", "pair_rows_kernel<false>"),
+                ("K7a pair_sdf_value_and_input_grad", "rows_pre_grad_kernel"),
+                ("K7b pair_sdf_value", "pair_value_kernel"),
                 ("K8p pack_color_weights", "color_pack_kernel"),
                 ("K8a fused_color_fwd", "color_pair_fwd_kernel"),
                 ("K8a fused_color_fwd", "color_point_fwd_kernel"),
@@ -176,6 +182,7 @@ WGMMA_KERNELS = (("K3", "sdf_agg", "sdf_agg_kernel"),
                  ("K2", "sdf_agg", "value_agg_kernel"),
                  ("K6a", "sdf_agg", "rows_grad_kernel"),
                  ("K6b", "sdf_agg", "rows_value_kernel"),
+                 ("K7a", "sdf_agg", "rows_pre_grad_kernel"),
                  ("K8a pair", "color_mlp", "color_pair_fwd_kernel"),
                  ("K8a point", "color_mlp", "color_point_fwd_kernel"),
                  ("K8b pair recompute", "color_mlp",
@@ -344,8 +351,91 @@ def k1_args(x, cid, scene, k, packed):
     return (x, cid, qt.idx, qt.pos, r2, k, packed)
 
 
-def check_k1(name, args, reps):
-    """K1 against its plain version on ``args`` (:func:`k1_args`)."""
+def k1_kernel_ms(args, reps):
+    """K1's own device time on ``args``: its C entry launched ``reps``
+    times into one pair of outputs (CUDA events).  At the training shape the
+    wrapper's checks, allocations and ``ctypes`` call take longer on the
+    host than the kernel takes on the card, so its time is the host's."""
+    import torch
+
+    from spurfies_tpu_torch.ops import cuda_build
+    from spurfies_tpu_torch.ops import select_knn as sk
+
+    x, cid, qidx, qpos, r2, k, packed = args
+    m = x.shape[0]
+    out_idx = torch.empty((m, k), dtype=torch.int32, device=x.device)
+    out_d2 = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    lib = cuda_build.load("select_knn", sk._SIG)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def run():
+        cuda_build.check(lib.select_knn_launch(
+            x.data_ptr(), cid.data_ptr(), qidx.data_ptr(), qpos.data_ptr(),
+            m, qidx.shape[0], qidx.shape[1], k, float(r2), int(packed),
+            out_idx.data_ptr(), out_d2.data_ptr(), stream), "select_knn")
+    return cuda_ms(run, reps)
+
+
+def k1_inputs_study(x, cid, qidx, qpos, r2, k):
+    """What K1's time depends on in one launch's inputs, per warp of 32
+    consecutive queries (as a kernel of one thread a query runs them, the
+    exact variant's design): the list lengths scanned (the mean over
+    queries, the mean of each warp's longest, and the share of lane-steps
+    idle while a warp walks its longest list), the candidates inside the
+    radius, and the distinct cells a warp reads."""
+    import torch
+
+    m, q = x.shape[0], qidx.shape[1]
+    in_grid = (cid >= 0) & (cid < qidx.shape[0])
+    c = torch.where(in_grid, cid, 0).long()
+    cand = qidx[c]
+    length = torch.where(in_grid, (cand >= 0).sum(1), 0)
+    diff = qpos[c] - x[:, :, None]
+    d2 = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]) \
+        + diff[:, 2] * diff[:, 2]
+    inside = ((cand >= 0) & (d2 <= r2) & in_grid[:, None]).sum(1)
+    pad = (-m) % 32
+    warp_max = torch.cat([length, length.new_zeros(pad)]).view(-1, 32) \
+        .amax(1).float()
+    cells = torch.where(in_grid, cid.long(), -1)
+    srt = torch.cat([cells, cells.new_full((pad,), -1)]).view(-1, 32) \
+        .sort(1).values
+    distinct = ((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0)).sum(1) \
+        + (srt[:, 0] >= 0).long()
+    return {"queries": m, "qcap": q,
+            "in_grid_share": float(in_grid.float().mean()),
+            "list_mean": float(length.float().mean()),
+            "warp_max_mean": float(warp_max.mean()),
+            "list_max": int(length.max()),
+            "idle_lane_share": 1.0 - float(length.sum()) /
+            max(float(warp_max.sum()) * 32.0, 1.0),
+            "inside_radius_mean": float(inside.float().mean()),
+            "inside_radius_ge_k_share": float((inside >= k).float().mean()),
+            "cells_per_warp_mean": float(distinct.float().mean()),
+            "cells_per_warp_max": int(distinct.max())}
+
+
+def k1_host_ms(args, reps):
+    """The host time of one K1 wrapper call: the host clock over ``reps``
+    calls with no synchronise between them."""
+    import torch
+
+    from spurfies_tpu_torch.ops import select_knn as sk
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sk.select_knn(*args)
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host_ms
+
+
+def check_k1(name, args, reps, study=False):
+    """K1 against its plain version on ``args`` (:func:`k1_args`), timed
+    through its wrapper (``ms``) and by its C entry (``kernel_ms``,
+    :func:`k1_kernel_ms`); with ``study`` also :func:`k1_step0` (the ``K1
+    step 0`` line: :func:`k1_inputs_study`, the wrapper's host time)."""
     import torch
 
     from spurfies_tpu_torch.ops import select_knn as sk
@@ -365,6 +455,7 @@ def check_k1(name, args, reps):
     if err != 0.0:
         fail(f"{name}: d2 differs by {err}")
     ms = cuda_ms(lambda: sk.select_knn(*args), reps)
+    kernel_ms = k1_kernel_ms(args, reps)
     plain_ms = cuda_ms(lambda: sk.select_knn_ref(*args), 3)
     # library yardstick: torch.topk over the [M, qcap] distance matrix
     in_grid = (cid >= 0) & (cid < qidx.shape[0])
@@ -382,11 +473,18 @@ def check_k1(name, args, reps):
     scanned = (qidx[c] >= 0).sum(1)[in_grid].sum()
     n_bytes = m * (12 + 4 + k * 8) + int(cells.numel()) * q * 16
     b_ms, b_by = bound_ms(n_bytes, 9.0 * float(scanned), PEAK_F32_FLOPS)
-    log(f"{name}: M={m} qcap={q} ids+d2 bit-equal; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, topk {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+    log(f"{name}: M={m} qcap={q} ids+d2 bit-equal; kernel {ms:.4f} ms "
+        f"(C entry alone {kernel_ms:.4f}), plain {plain_ms:.4f} ms, topk "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err,
+           "kernel_ms": kernel_ms, "rows": m}
+    if study:
+        res["step0"] = dict(k1_inputs_study(*args[:6]), wrapper_ms=ms,
+                            kernel_ms=kernel_ms,
+                            wrapper_host_ms=k1_host_ms(args, reps))
+        log(f"K1 step 0, {name}: {json.dumps(res['step0'])}")
+    return res
 
 
 def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
@@ -546,8 +644,10 @@ def check_rows(name, fn, ref, args, prior, prior_f32, reps, radius,
     down = 3 * 256 * 256 + 256 * 35
     per_row = 2.0 * (up + (down if grad else 0))
     # bytes: every input row read once, every output written once, and the
-    # packed bf16 weights and f32 biases
+    # packed bf16 weights (K7b's layout, or sdf_agg.cu's) and f32 biases
     wbuf, bbuf = prior.kernel_buffers()
+    if fn.__name__ != "pair_sdf_value":
+        wbuf = prior.k3_buffer()
     n_bytes = sum(t.numel() * 4 for t in args) + \
         sum(o.numel() * 4 for o in outs) + wbuf.numel() * 2 + bbuf.numel() * 4
     b_ms, b_by = bound_ms(n_bytes, per_row * n_real, PEAK_BF16_FLOPS)
@@ -864,7 +964,7 @@ def check_step(tag, seen, prior_f32, radius):
             elif name == "fused_color_bwd":
                 r = check_k8b(what, args, 5)
             elif name == "select_knn":
-                r = check_k1(what, args, 10)
+                r = check_k1(what, args, 10, study=tag == "dust3r_like")
             elif name == "pair_sdf_aggregate_bwd":
                 r = check_k4(what, args, 50)
             elif name == "scatter_add_rows":
@@ -996,6 +1096,7 @@ def check_k4(name, args, reps):
     sum_order_within(f"{name}, control: plain summed in another order",
                      ctrl, ref, abs_sum, count, hold=False)
     ms = cuda_ms(lambda: pair_mlp.pair_sdf_aggregate_bwd(*args), reps)
+    kernel_ms = k4_kernel_ms(*args, reps)
     plain_ms = cuda_ms(lambda: pair_mlp.pair_sdf_aggregate_bwd_ref(*args),
                        5)
     # library yardstick: index_add_ of the expanded cotangent's kept rows
@@ -1014,10 +1115,33 @@ def check_k4(name, args, reps):
     log(f"{name}: P={p} k={k} rows {p * k}, kept {kept} "
         f"({kept / (p * k):.3f}), dump rows {dump} ({dump / (p * k):.3f}), "
         f"{kept / max(int((count > 0).sum()), 1):.1f} adds per latent row "
-        f"hit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"hit; kernel {ms:.4f} ms (C entry alone {kernel_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err,
+            "kernel_ms": kernel_ms}
+
+
+def k4_kernel_ms(num_bar, w, r_lat, idx_ext, n, reps):
+    """K4's own device time on these inputs: its C entry launched ``reps``
+    times into one zeroed output (CUDA events), as :func:`k5_kernel_ms`
+    times K5."""
+    import torch
+
+    from spurfies_tpu_torch.ops import cuda_build, pair_mlp
+
+    p, k = idx_ext.shape
+    out = torch.zeros((n, 32), device=w.device)
+    lib = cuda_build.load("agg_bwd", pair_mlp._SIG_BWD)
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+
+    def run():
+        cuda_build.check(lib.pair_sdf_aggregate_bwd_launch(
+            num_bar.data_ptr(), w.data_ptr(), r_lat.data_ptr(),
+            idx_ext.data_ptr(), p * k, k, n, out.data_ptr(), stream),
+            "pair_sdf_aggregate_bwd")
+    return cuda_ms(run, reps)
 
 
 def k5_inputs_study(ct, idx, n, tiles=(128, 256, 512)):
@@ -1342,18 +1466,21 @@ def colour_paths(args, reps):
     return out
 
 
-def redesign_order(rows):
+def redesign_order(rows, key="ms"):
     """The kernels line's rows ranked by the time this run spent above
     their bounds: launches x (ms - bound_ms), the render and microbenchmark
     launches at the row's own shape and the training launches at its
     ``train_shape`` where it has one (else the row's shape is the training
-    one).  Returns [(label, excess ms)], largest first."""
+    one).  ``key="kernel_ms"`` takes the C entry's time where a row has
+    one (K1, K4, K5), else ``ms``.  Returns [(label, excess ms)], largest
+    first."""
     order = []
     for row in rows:
         t = row.get("train_shape", row)
         excess = ((row["launches_render"] + row["launches_microbench"])
-                  * (row["ms"] - row["bound_ms"])
-                  + row["launches_train"] * (t["ms"] - t["bound_ms"]))
+                  * (row.get(key, row["ms"]) - row["bound_ms"])
+                  + row["launches_train"]
+                  * (t.get(key, t["ms"]) - t["bound_ms"]))
         order.append((row["name"], excess))
     return sorted(order, key=lambda kv: -kv[1])
 
@@ -1573,7 +1700,7 @@ def main():
         check_k1(k1 + " (probe)", k1_args(*inp["probe_k1"], scene,
                                           cfg.model.k, packed), 20)
         results[k1] = check_k1(k1 + " (shading)", k1_args(
-            *inp["shade_k1"], scene, cfg.model.k, packed), 20)
+            *inp["shade_k1"], scene, cfg.model.k, packed), 20, study=True)
         if tag == "dust3r_like":
             results["K2 pair_sdf_value_agg"] = check_pair(
                 "K2 pair_sdf_value_agg", pair_mlp.pair_sdf_value_agg,
@@ -1641,7 +1768,19 @@ def main():
                 f"{'bit-equal' if same else 'DIFFERENT'}")
             if not same:
                 fail("K6b and K6a disagree on the same rows")
-            del r_lat, r6, s6b, xpi6b, s6a, xpi6a
+            # K7a is K6a whose gather reads x_pi from u: on u = [g_lat | K6a's
+            # x_pi] of the shading rows its s and r are K6a's, bit for bit
+            with torch.no_grad():
+                (g, xr), _ = inp["k6a"]
+                s6a, r6a, xpi6a = pair_mlp.pair_sdf_rows_grad(g, xr, prior)
+                u = torch.cat([g[:, :32], xpi6a], 1)
+                s7a, r7a = pair_mlp.pair_sdf_value_and_input_grad(u, prior)
+                same = torch.equal(s7a, s6a) and torch.equal(r7a, r6a)
+            log(f"K7a s, r vs K6a s, r on the {g.shape[0]} shading rows: "
+                f"{'bit-equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail("K7a and K6a disagree on the same rows")
+            del r_lat, r6, s6b, xpi6b, s6a, xpi6a, r6a, u, s7a, r7a
         del inp
         torch.cuda.empty_cache()
 
@@ -1983,7 +2122,7 @@ def main():
                                     "spurfies_tpu/ops/pallas_mlp.py:260"),
         "K7a pair_sdf_value_and_input_grad": (
             "pair_sdf_value_and_input_grad",
-            "spurfies_tpu_torch/csrc/pair_mlp.cu",
+            "spurfies_tpu_torch/csrc/sdf_agg.cu",
             "spurfies_tpu/ops/pallas_mlp.py:51"),
         "K7b pair_sdf_value": ("pair_sdf_value",
                                "spurfies_tpu_torch/csrc/pair_mlp.cu",
@@ -2013,8 +2152,8 @@ def main():
         if label in train_shape:
             t = train_shape[label]
             row["train_shape"] = {k: t[k] for k in (
-                "rows", "ms", "plain_ms", "bound_ms", "bound_all_rows_ms",
-                "max_abs_err") if k in t}
+                "rows", "ms", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_all_rows_ms", "max_abs_err") if k in t}
         if label.startswith("K8"):
             row["colour_path_ms"] = colour_path
         for k in ("scratch_bytes", "kernel_ms", "library_zeroed_ms"):
@@ -2025,6 +2164,8 @@ def main():
             fail(f"{label} was not launched on the main path")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"redesign_order": redesign_order(rows)}))
+    log(json.dumps({"redesign_order_kernel_ms":
+                    redesign_order(rows, "kernel_ms")}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

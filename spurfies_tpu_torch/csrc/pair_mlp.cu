@@ -1,44 +1,36 @@
-// K7a and K7b -- the frozen prior per pair row.  (K2, K3, K6a and K6b,
-// the same prior on Hopper's wgmma pipeline, are csrc/sdf_agg.cu.)
+// K7b -- the frozen prior's value per pair row.  (K2, K3, K6a, K6b and
+// K7a, the same prior on Hopper's wgmma pipeline, are csrc/sdf_agg.cu.)
 //
-// Replaces the TPU kernels of spurfies_tpu/ops/pallas_mlp.py:
-//   * K7a / K7b: _fused_mlp_call -> _mlp_kernel and _fused_value_call ->
-//     _value_kernel (a pre-assembled u = [lat | x_pi]; the pair-compacted
-//     SDF of model.pair_budget_frac, and the pair-MLP microbenchmark).
-// They share one set of sweeps (mlp_sweeps) and K3's rounding points: a
-// block owns 128 consecutive rows, reads them as one contiguous run, and
-// writes s (and r = ds/du, all 35 columns in f32, staged in shared memory
-// so that the write is one contiguous run too); the ragged last block is
-// masked.  Their first layer is one 48-deep product over bf16(u), equal to
-// the TPU body's g_lat @ W_lat + x_pi @ W_pos up to f32 summation order.
+// Replaces the TPU kernel of spurfies_tpu/ops/pallas_mlp.py:
+//   * K7b: _fused_value_call -> _value_kernel (a pre-assembled u = [lat |
+//     x_pi]; the pair-MLP microbenchmark).
+// It follows K3's rounding points: a block owns 128 consecutive rows,
+// reads them as one contiguous run and writes s; the ragged last block is
+// masked.  Its first layer is one 48-deep product over bf16(u), equal to
+// the TPU body's bf16(u) @ W0 up to f32 summation order.
 //
-// What they compute, per row with u = [lat (32) | x_pi (3)]:
-//   a0 = lat @ W_lat + x_pi @ W_pos + b0; then 3 x (LeakyReLU(0.01), 256x256)
+// What it computes, per row with u = [lat (32) | x_pi (3)]:
+//   a0 = u @ W0 + b0; then 3 x (LeakyReLU(0.01), 256x256)
 //   s  = LeakyReLU(a3) @ w_v + b_v   (F_geometry[4] and T pre-fused, f32)
-//   K7a: r = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)
 // Rounding follows _mlp_kernel_agg: bf16 operands, f32 accumulation, bias
-// added in f32, activations rounded to bf16 after each LeakyReLU, the
-// down-sweep delta rounded to bf16 after each product and after each gate.
+// added in f32, activations rounded to bf16 after each LeakyReLU.
 //
-// What bounds them on an H100: operations.  About 0.41 MFLOP per row
-// (K7a 0.82) against 150-300 bytes of input and output per row (r is
-// written in f32): far above the card's ~295 FLOP/byte ridge.  The TPU
-// kernel's point was to keep the [rows, 256] activations out of HBM; here
-// they live in shared memory and the matrix products run on the tensor
-// cores (mma.sync m16n8k16, bf16 -> f32), 128 rows per block.
+// What bounds it on an H100: operations.  About 0.41 MFLOP per row against
+// 144 bytes of input and output per row: far above the card's ~295
+// FLOP/byte ridge.  The TPU kernel's point was to keep the [rows, 256]
+// activations out of HBM; here they live in shared memory and the matrix
+// products run on the tensor cores (mma.sync m16n8k16, bf16 -> f32), 128
+// rows per block.
 //
-// Design (simple first; sdf_agg.cu's wgmma pipeline is their next design):
+// Design (simple first; sdf_agg.cu's wgmma pipeline is its next design):
 //   * activations: [128, 256] bf16 in shared memory (67.6 KB with padding);
 //     one layer's weights [256, 256] bf16 at a time (135 KB with padding),
-//     stored n-major so that both the up sweep (W^T) and the down sweep (W)
-//     read B fragments as contiguous pairs; row strides of 264 elements
-//     make the fragment loads bank-conflict free;
+//     stored n-major (W^T) so that B fragments are contiguous pairs; row
+//     strides of 264 elements make the fragment loads bank-conflict free;
 //   * 8 warps; warp w computes rows 32 (w & 3) .. +32 and columns
 //     128 (w >> 2) .. +128 of each layer (2 x 16 mma tiles held in
 //     registers), so a layer's output overwrites its input in place after a
-//     barrier;
-//   * K7a keeps the four layers' gates as bitmasks (4 x 4 KB) for the down
-//     sweep.
+//     barrier.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,18 +45,15 @@ constexpr int kHid = 256;
 constexpr int kLat = 32;       // latent columns of a table row
 constexpr int kRowW = kLat + 3;
 constexpr int kIn0 = 48;       // first-layer depth: 32 lat + 3 pos + 13 zero
-constexpr int kOut0 = 40;      // last down-sweep width: 35 padded to 8s
 constexpr int kAStr = kHid + 8;   // activation row stride (elements)
 constexpr int kWStr = kHid + 8;   // weight row stride, 256-deep layers
 constexpr int kW0Str = kIn0 + 8;  // weight row stride, first layer (up)
 constexpr int kI0Str = kIn0 + 8;  // first-layer input row stride
 
-// Weight buffer layout (bf16 elements), written by ops/pair_mlp.py.
+// Weight buffer layout (bf16 elements), PriorLayers.kernel_buffers.
 constexpr int kOffUp0 = 0;                        // W0^T [256][48]
 constexpr int kOffUp1 = kOffUp0 + kHid * kIn0;    // W_l^T [256][256], l=1..3
-constexpr int kOffDn1 = kOffUp1 + 3 * kHid * kHid;  // W_l [256][256], l=1..3
-constexpr int kOffDn0 = kOffDn1 + 3 * kHid * kHid;  // W0 [40][256]
-constexpr int kOffWv = kOffDn0 + kOut0 * kHid;      // w_v [256]
+constexpr int kOffWv = kOffUp1 + 3 * kHid * kHid;   // w_v [256]
 // Bias buffer (f32): b0..b3 [4][256], then b_v.
 
 // Shared memory layout (bytes).
@@ -72,11 +61,9 @@ constexpr int kSmAct = 0;
 constexpr int kSmW = kSmAct + kRows * kAStr * 2;
 constexpr int kSmS = kSmW + kHid * kWStr * 2;            // f32 [128]
 constexpr int kSmWv = kSmS + kRows * 4;                  // f32 [256]
-constexpr int kSmGate = kSmWv + kHid * 4;                // u32 [4][128][8]
-constexpr int kSmemValue = kSmGate;
-constexpr int kSmemGrad = kSmGate + 4 * kRows * 8 * 4;
+constexpr int kSmem = kSmWv + kHid * 4;
 static_assert(kRows * kI0Str * 2 <= kRows * kAStr * 2, "layer-0 input");
-static_assert(kSmemGrad <= 232448, "shared memory");
+static_assert(kSmem <= 232448, "shared memory");
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -150,106 +137,53 @@ __device__ __forceinline__ void zero_acc(float acc[2][16][4]) {
 }
 
 // Up-sweep epilogue: a = acc + b (f32), x = bf16(max(a, 0.01 a)) written
-// over the activations; with `gates`, the bits (a > 0) of this layer.
+// over the activations.
 __device__ __forceinline__ void epilogue_up(float acc[2][16][4],
                                             __nv_bfloat16* act,
                                             const float* __restrict__ bias,
-                                            uint32_t* gates, int rg, int cg,
-                                            int g, int t) {
+                                            int rg, int cg, int g, int t) {
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = rg * 32 + mi * 16 + g + 8 * h;
-      uint32_t words[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
       for (int ni = 0; ni < 16; ++ni) {
         const int col = cg * 128 + ni * 8 + 2 * t;
         const float v0 = __fadd_rn(acc[mi][ni][2 * h], __ldg(bias + col));
         const float v1 = __fadd_rn(acc[mi][ni][2 * h + 1], __ldg(bias + col + 1));
-        const uint32_t bits = (v0 > 0.f ? 1u : 0u) | (v1 > 0.f ? 2u : 0u);
-        words[ni >> 2] |= bits << (2 * t + 8 * (ni & 3));
         *reinterpret_cast<uint32_t*>(act + row * kAStr + col) =
             pack_bf16(fmaxf(v0, __fmul_rn(0.01f, v0)),
                       fmaxf(v1, __fmul_rn(0.01f, v1)));
       }
-      if (gates != nullptr) {
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          uint32_t v = words[w];
-          v |= __shfl_xor_sync(0xffffffffu, v, 1);
-          v |= __shfl_xor_sync(0xffffffffu, v, 2);
-          if (t == 0) gates[row * 8 + cg * 4 + w] = v;
-        }
-      }
     }
   }
 }
 
-__device__ __forceinline__ float gate_of(const uint32_t* gates, int row,
-                                         int col, float slope) {
-  return ((gates[row * 8 + (col >> 5)] >> (col & 31)) & 1u) ? 1.f : slope;
-}
-
-// Down-sweep epilogue for a 256-wide layer: delta = bf16(bf16(acc) * gate)
-// with the gate of the layer below, written over the activations.
-__device__ __forceinline__ void epilogue_down(float acc[2][16][4],
-                                              __nv_bfloat16* act,
-                                              const uint32_t* gates, int rg,
-                                              int cg, int g, int t,
-                                              float slope) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = rg * 32 + mi * 16 + g + 8 * h;
-#pragma unroll
-      for (int ni = 0; ni < 16; ++ni) {
-        const int col = cg * 128 + ni * 8 + 2 * t;
-        const float d0 = __fmul_rn(bf16_round(acc[mi][ni][2 * h]),
-                                   gate_of(gates, row, col, slope));
-        const float d1 = __fmul_rn(bf16_round(acc[mi][ni][2 * h + 1]),
-                                   gate_of(gates, row, col + 1, slope));
-        *reinterpret_cast<uint32_t*>(act + row * kAStr + col) =
-            pack_bf16(d0, d1);
-      }
-    }
-  }
-}
-
-// The prior's sweeps for one block of 128 rows.  On entry the first
-// layer's input [lat | x_pi | 0] is in act (row stride kI0Str), W0^T in
-// wsm and w_v in wv_s, after a barrier.  It runs the up sweep and the fused
-// 256 -> 1 tail into s_s; with kGrad it also runs the down sweep down to the
-// last product, whose [128, 40] accumulator it leaves in acc0 (warp w: rows
-// 16 w .. 16 w + 15, all five n-tiles) for the caller to round and write.
-// It ends without a barrier: other warps may still read act and wsm.
-template <bool kGrad>
-__device__ __forceinline__ void mlp_sweeps(unsigned char* smem,
-                                           const __nv_bfloat16* __restrict__ wbuf,
-                                           const float* __restrict__ bbuf,
-                                           float acc0[5][4]) {
+// The prior's up sweep for one block of 128 rows.  On entry the first
+// layer's input [lat | x_pi | 0] is in act (row stride kI0Str), W0^T in wsm
+// and w_v in wv_s, after a barrier.  It runs the four layers and the fused
+// 256 -> 1 tail into s_s, and ends without a barrier.
+__device__ __forceinline__ void mlp_up_sweep(
+    unsigned char* smem, const __nv_bfloat16* __restrict__ wbuf,
+    const float* __restrict__ bbuf) {
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
   __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + kSmW);
   float* s_s = reinterpret_cast<float*>(smem + kSmS);
   const float* wv_s = reinterpret_cast<const float*>(smem + kSmWv);
-  uint32_t* gates = kGrad ? reinterpret_cast<uint32_t*>(smem + kSmGate)
-                          : nullptr;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int rg = warp & 3, cg = warp >> 2;
-  const float slope = bf16_round(0.01f);
 
   float acc[2][16][4];
 
-  // --- up sweep ---
   // layer 0: the latent block (k = 0..31) and then the x_pi block
   // (k = 32..47), as two products into one f32 accumulator
   zero_acc(acc);
   warp_gemm<kIn0 / 16, kI0Str, kW0Str>(act, wsm, acc, rg, cg, g, t);
   __syncthreads();
-  epilogue_up(acc, act, bbuf, gates, rg, cg, g, t);
+  epilogue_up(acc, act, bbuf, rg, cg, g, t);
   load_rows(wsm, kWStr, wbuf + kOffUp1, kHid, kHid);
   __syncthreads();
 #pragma unroll 1
@@ -257,79 +191,26 @@ __device__ __forceinline__ void mlp_sweeps(unsigned char* smem,
     zero_acc(acc);
     warp_gemm<kHid / 16, kAStr, kWStr>(act, wsm, acc, rg, cg, g, t);
     __syncthreads();
-    epilogue_up(acc, act, bbuf + l * kHid,
-                kGrad ? gates + l * kRows * 8 : nullptr, rg, cg, g, t);
-    if (l < 3) {
+    epilogue_up(acc, act, bbuf + l * kHid, rg, cg, g, t);
+    if (l < 3)
       load_rows(wsm, kWStr, wbuf + kOffUp1 + l * kHid * kHid, kHid, kHid);
-    } else if (kGrad) {
-      load_rows(wsm, kWStr, wbuf + kOffDn1 + 2 * kHid * kHid, kHid, kHid);
-    }
     __syncthreads();
   }
 
   // fused linear tail 256 -> 1: s = bf16(x4 . w_v + b_v), 16 rows a warp
-  {
-    const float bv = __ldg(bbuf + 4 * kHid);
+  const float bv = __ldg(bbuf + 4 * kHid);
 #pragma unroll 1
-    for (int i = 0; i < 16; ++i) {
-      const int row = warp * 16 + i;
-      const __nv_bfloat16* xr = act + row * kAStr + lane * 8;
-      float part = 0.f;
+  for (int i = 0; i < 16; ++i) {
+    const int row = warp * 16 + i;
+    const __nv_bfloat16* xr = act + row * kAStr + lane * 8;
+    float part = 0.f;
 #pragma unroll
-      for (int c = 0; c < 8; ++c)
-        part = fmaf(__bfloat162float(xr[c]), wv_s[lane * 8 + c], part);
+    for (int c = 0; c < 8; ++c)
+      part = fmaf(__bfloat162float(xr[c]), wv_s[lane * 8 + c], part);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, o);
-      if (lane == 0) s_s[row] = bf16_round(__fadd_rn(part, bv));
-    }
-  }
-  if (!kGrad) return;
-
-  __syncthreads();
-  // --- down sweep: delta = bf16(bf16(w_v) * gate3), then through the
-  // transposed layers 3, 2, 1 and finally W0^T (256 -> 35) ---
-  const uint32_t* gate3 = gates + 3 * kRows * 8;
-  for (int e = tid; e < kRows * kHid; e += kThreads) {
-    const int r = e >> 8, c = e & (kHid - 1);
-    act[r * kAStr + c] = __float2bfloat16_rn(
-        __fmul_rn(wv_s[c], gate_of(gate3, r, c, slope)));
-  }
-  __syncthreads();
-#pragma unroll 1
-  for (int l = 3; l >= 1; --l) {
-    zero_acc(acc);
-    warp_gemm<kHid / 16, kAStr, kWStr>(act, wsm, acc, rg, cg, g, t);
-    __syncthreads();
-    epilogue_down(acc, act, gates + (l - 1) * kRows * 8, rg, cg, g, t, slope);
-    if (l > 1) {
-      load_rows(wsm, kWStr, wbuf + kOffDn1 + (l - 2) * kHid * kHid, kHid,
-                kHid);
-    } else {
-      load_rows(wsm, kWStr, wbuf + kOffDn0, kOut0, kHid);
-    }
-    __syncthreads();
-  }
-  // last product: [128, 256] x W0^T -> [128, 40]
-#pragma unroll
-  for (int ni = 0; ni < 5; ++ni)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc0[ni][e] = 0.f;
-#pragma unroll 1
-  for (int ks = 0; ks < kHid / 16; ++ks) {
-    const int k0 = ks * 16 + 2 * t;
-    const __nv_bfloat16* ar = act + (warp * 16 + g) * kAStr + k0;
-    uint32_t a[4];
-    a[0] = *reinterpret_cast<const uint32_t*>(ar);
-    a[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * kAStr);
-    a[2] = *reinterpret_cast<const uint32_t*>(ar + 8);
-    a[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * kAStr + 8);
-#pragma unroll
-    for (int ni = 0; ni < 5; ++ni) {
-      const __nv_bfloat16* br = wsm + (ni * 8 + g) * kWStr + k0;
-      mma_bf16(acc0[ni], a, *reinterpret_cast<const uint32_t*>(br),
-               *reinterpret_cast<const uint32_t*>(br + 8));
-    }
+    for (int o = 16; o > 0; o >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, o);
+    if (lane == 0) s_s[row] = bf16_round(__fadd_rn(part, bv));
   }
 }
 
@@ -343,19 +224,15 @@ __device__ __forceinline__ void load_first(unsigned char* smem,
             wbuf + kOffUp0, kHid, kIn0);
 }
 
-// K7: the prior on each of m pair rows u [m, 35] f32, no weight and no
-// sum.  out_s [m] = bf16(s) as f32; with kGrad (K7a) out_r [m, 35] = r =
-// ds/du, the bf16 delta of the down sweep, as f32.  The last block is
-// ragged: its missing rows read zeros and are not written.
-template <bool kGrad>
+// K7b: the prior on each of m pair rows u [m, 35] f32, no weight and no
+// sum: out_s [m] = bf16(s) as f32.  The last block is ragged: its missing
+// rows read zeros and are not written.
 __global__ void __launch_bounds__(kThreads, 1)
-pair_rows_kernel(const float* __restrict__ in, long long m,
-                 const __nv_bfloat16* __restrict__ wbuf,
-                 const float* __restrict__ bbuf, float* __restrict__ out_s,
-                 float* __restrict__ out_r) {
+pair_value_kernel(const float* __restrict__ in, long long m,
+                  const __nv_bfloat16* __restrict__ wbuf,
+                  const float* __restrict__ bbuf, float* __restrict__ out_s) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* in0 = reinterpret_cast<__nv_bfloat16*>(smem + kSmAct);
-  float* r_s = reinterpret_cast<float*>(smem + kSmAct);  // after the sweeps
   const float* s_s = reinterpret_cast<const float*>(smem + kSmS);
 
   const int tid = threadIdx.x;
@@ -376,50 +253,9 @@ pair_rows_kernel(const float* __restrict__ in, long long m,
   load_first(smem, wbuf);
   __syncthreads();
 
-  float acc0[5][4];
-  mlp_sweeps<kGrad>(smem, wbuf, bbuf, acc0);
-  if (kGrad) {
-    __syncthreads();  // every warp is done reading act: stage r there
-    const int warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = warp * 16 + g + 8 * h;
-#pragma unroll
-      for (int ni = 0; ni < 5; ++ni) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = ni * 8 + 2 * t + j;
-          if (col < kRowW)
-            r_s[row * kRowW + col] = bf16_round(acc0[ni][2 * h + j]);
-        }
-      }
-    }
-  }
+  mlp_up_sweep(smem, wbuf, bbuf);
   __syncthreads();
   if (tid < rows) out_s[row0 + tid] = s_s[tid];
-  if (kGrad) {
-    for (int e = tid; e < rows * kRowW; e += kThreads)
-      out_r[row0 * kRowW + e] = r_s[e];
-  }
-}
-
-template <bool kGrad>
-int launch_rows(const float* in, long long m, const void* wbuf,
-                const float* bbuf, float* out_s, float* out_r, void* stream) {
-  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (m == 0) return 0;
-  const int smem = kGrad ? kSmemGrad : kSmemValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_rows_kernel<kGrad>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (m + kRows - 1) / kRows;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  pair_rows_kernel<kGrad><<<static_cast<unsigned>(blocks), kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      in, m, static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s, out_r);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -428,16 +264,15 @@ int launch_rows(const float* in, long long m, const void* wbuf,
 extern "C" int pair_sdf_value_launch(const float* u, long long m,
                                      const void* wbuf, const float* bbuf,
                                      float* out_s, void* stream) {
-  return launch_rows<false>(u, m, wbuf, bbuf, out_s, nullptr, stream);
-}
-
-// K7a: u [m, 35] f32 -> out_s [m], out_r [m, 35].
-extern "C" int pair_sdf_value_and_input_grad_launch(const float* u,
-                                                    long long m,
-                                                    const void* wbuf,
-                                                    const float* bbuf,
-                                                    float* out_s,
-                                                    float* out_r,
-                                                    void* stream) {
-  return launch_rows<true>(u, m, wbuf, bbuf, out_s, out_r, stream);
+  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_value_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (m + kRows - 1) / kRows;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  pair_value_kernel<<<static_cast<unsigned>(blocks), kThreads, kSmem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      u, m, static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s);
+  return static_cast<int>(cudaGetLastError());
 }

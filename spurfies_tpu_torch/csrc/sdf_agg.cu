@@ -1,4 +1,4 @@
-// K3, K2, K6a and K6b -- the frozen prior's pair MLP on Hopper (sm_90a),
+// K3, K2, K6a, K6b and K7a -- the frozen prior's pair MLP on Hopper (sm_90a),
 // on one pipeline: a persistent grid, a producer warp that streams the
 // weights into a shared-memory ring by cp.async.bulk, and two consumer
 // warpgroups that run the products on wgmma.
@@ -15,24 +15,28 @@
 //     one by one, with per-row outputs;
 //   * K6b (rows_value_kernel): _fused_value_gx_call -> _value_kernel_gx
 //     (call :363, body :260): model.fused_agg=false's probe, K6a without
-//     the down sweep.
+//     the down sweep;
+//   * K7a (rows_pre_grad_kernel): _fused_mlp_call -> _mlp_kernel (call
+//     :126, body :51): model.pair_budget_frac's pair-compacted SDF, K6a on
+//     pre-assembled rows u = [lat | x_pi].
 //
 // What they compute, per pair row t = (point p, neighbour j) with table row
 // g = table[idx[p, j]] = [lat (32) | pos (3)] (K6a: g and the query x given
-// per row):
+// per row; K7a: u = [lat | x_pi] given per row):
 //   x_pi = x[p] - pos;  w = exp(-rbf^2 |x_pi|^2)
 //   a0 = [lat | x_pi] @ W0 + b0; then 3 x (LeakyReLU(0.01), 256x256)
 //   s  = LeakyReLU(a3) @ w_v + b_v   (F_geometry[4] and T pre-fused, f32)
 //   r  = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)   (K3, K6a)
 //   K3: per point (sum w s, sum w, sum w r_pos); per pair w (f32), r_lat
 //   (bf16).  K2: per point (sum w s, sum w).  K6a: per row s, r [35] and
-//   x_pi, all f32.  K6b: per row s and x_pi.
+//   x_pi, all f32.  K6b: per row s and x_pi.  K7a: per row s and r.
 // Rounding follows _mlp_kernel_agg: bf16 operands, f32 accumulation, bias
 // added in f32, activations rounded to bf16 after each LeakyReLU, the
 // down-sweep delta rounded to bf16 after each product and after each gate.
 // The up sweep's first product is one 48-deep product over
 // [bf16(lat) | bf16(x_pi) | 0], equal to the TPU body's
-// g_lat @ W_lat + x_pi @ W_pos up to f32 summation order.
+// g_lat @ W_lat + x_pi @ W_pos (K7a's: bf16(u) @ W0) up to f32 summation
+// order.
 //
 // What bounds them on an H100: operations.  0.82 MFLOP per real pair or
 // row for K3 and K6a (up and down sweep 0.21 MMACs each), 0.41 for K2 and
@@ -63,7 +67,10 @@
 //     weight chunks streamed; so its (sum w s, sum w) are K3's pt[:, :2]
 //     bit for bit.
 //   * K6a computes every row it is given (invalid slots arrive as gathered
-//     row 0 and the caller masks them, as the TPU kernel has them).  Its
+//     row 0 and the caller masks them, as the TPU kernel has them).  K7a is
+//     K6a whose gather reads x_pi from u instead of forming it (no query
+//     read, no x_pi written): given u = [g_lat | K6a's x_pi], its s and r
+//     are K6a's bit for bit.  Its
 //     tiles are 128 contiguous rows, block b taking tiles b, b + G, ...;
 //     each warpgroup reads its 64 rows itself (the ragged last tile reads
 //     zeros and writes nothing past m).  Once a warpgroup's last product
@@ -895,8 +902,10 @@ value_agg_kernel(const float* __restrict__ table, int n_rows,
 // query of each row; out_s [m] = bf16(s) as f32, out_xpi [m, 3] = x - pos
 // in f32; K6a only: out_r [m, 35] = r = ds/du, the bf16 delta of the down
 // sweep, as f32.  K6b streams the up sweep's 13 weight chunks a tile and
-// keeps no gate bits; its s and x_pi are K6a's bit for bit.
-template <bool kGrad>
+// keeps no gate bits; its s and x_pi are K6a's bit for bit.  With kPre
+// (K7a), g is u [m, 35] = [lat | x_pi]: the gather rounds its columns as
+// they are, and xq and out_xpi are neither read nor written.
+template <bool kGrad, bool kPre = false>
 __device__ __forceinline__ void rows_body(
     const float* __restrict__ g_in, const float* __restrict__ xq,
     long long m, const __nv_bfloat16* __restrict__ wbuf,
@@ -939,7 +948,7 @@ __device__ __forceinline__ void rows_body(
       const int n = static_cast<int>(min((long long)kWgRows, m - row0));
 
       // --- [lat | x_pi | 0] (48 columns), two threads a row; x_pi to
-      // HBM; rows past m are zeros ---
+      // HBM (kPre: read from u); rows past m are zeros ---
       {
         const int rl = ti & 63, half = ti >> 6;
         if (rl < n) {
@@ -954,14 +963,21 @@ __device__ __forceinline__ void rows_body(
                                                 kWgRows)) = pack8(v);
           }
           if (half == 0) {
-            const float* xp = xq + (row0 + rl) * 3;
-            const float e0 = __fsub_rn(__ldg(xp), __ldg(gr + kLat));
-            const float e1 = __fsub_rn(__ldg(xp + 1), __ldg(gr + kLat + 1));
-            const float e2 = __fsub_rn(__ldg(xp + 2), __ldg(gr + kLat + 2));
-            float* xo = out_xpi + (row0 + rl) * 3;
-            xo[0] = e0;
-            xo[1] = e1;
-            xo[2] = e2;
+            float e0, e1, e2;
+            if (kPre) {
+              e0 = __ldg(gr + kLat);
+              e1 = __ldg(gr + kLat + 1);
+              e2 = __ldg(gr + kLat + 2);
+            } else {
+              const float* xp = xq + (row0 + rl) * 3;
+              e0 = __fsub_rn(__ldg(xp), __ldg(gr + kLat));
+              e1 = __fsub_rn(__ldg(xp + 1), __ldg(gr + kLat + 1));
+              e2 = __fsub_rn(__ldg(xp + 2), __ldg(gr + kLat + 2));
+              float* xo = out_xpi + (row0 + rl) * 3;
+              xo[0] = e0;
+              xo[1] = e1;
+              xo[2] = e2;
+            }
             *reinterpret_cast<uint4*>(act + swz(rl, kLat, kWgRows)) =
                 make_uint4(pack_bf16(e0, e1), pack_bf16(e2, 0.f), 0u, 0u);
             *reinterpret_cast<uint4*>(act + swz(rl, kLat + 8, kWgRows)) =
@@ -1026,6 +1042,14 @@ rows_value_kernel(const float* __restrict__ g_in,
   rows_body<false>(g_in, xq, m, wbuf, bbuf, out_s, out_r, out_xpi);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+rows_pre_grad_kernel(const float* __restrict__ u, long long m,
+                     const __nv_bfloat16* __restrict__ wbuf,
+                     const float* __restrict__ bbuf, float* __restrict__ out_s,
+                     float* __restrict__ out_r) {
+  rows_body<true, true>(u, nullptr, m, wbuf, bbuf, out_s, out_r, nullptr);
+}
+
 // One block per SM, at most one per unit of work (`units` > 0); the
 // kernel's shared memory allowed.
 cudaError_t grid_for(const void* kernel, long long units, int* grid) {
@@ -1062,20 +1086,18 @@ int launch_agg(const float* table, int n_rows, const int* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kGrad>
-int launch_rows(const float* g, const float* x, long long m,
-                const void* wbuf, const float* bbuf, float* out_s,
-                float* out_r, float* out_xpi, void* stream) {
+// One of the per-row kernels on m rows (one unit of work a 128-row tile),
+// with its own arguments.
+template <typename Kernel, typename... Args>
+int launch_rows(Kernel kernel, long long m, void* stream, Args... args) {
   if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return 0;
-  const auto kernel = kGrad ? rows_grad_kernel : rows_value_kernel;
   int grid = 0;
   const cudaError_t err = grid_for(reinterpret_cast<const void*>(kernel),
                                    (m + kRows - 1) / kRows, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      g, x, m, static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s, out_r,
-      out_xpi);
+      args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1112,8 +1134,9 @@ extern "C" int pair_sdf_rows_grad_launch(const float* g, const float* x,
                                          const float* bbuf, float* out_s,
                                          float* out_r, float* out_xpi,
                                          void* stream) {
-  return launch_rows<true>(g, x, m, wbuf, bbuf, out_s, out_r, out_xpi,
-                           stream);
+  return launch_rows(rows_grad_kernel, m, stream, g, x, m,
+                     static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s,
+                     out_r, out_xpi);
 }
 
 // K6b: the same inputs -> out_s [m], out_xpi [m, 3].
@@ -1121,6 +1144,18 @@ extern "C" int pair_sdf_rows_value_launch(const float* g, const float* x,
                                           long long m, const void* wbuf,
                                           const float* bbuf, float* out_s,
                                           float* out_xpi, void* stream) {
-  return launch_rows<false>(g, x, m, wbuf, bbuf, out_s, nullptr, out_xpi,
-                            stream);
+  return launch_rows(rows_value_kernel, m, stream, g, x, m,
+                     static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s,
+                     static_cast<float*>(nullptr), out_xpi);
+}
+
+// K7a: u [m, 35] f32 = [lat | x_pi], wbuf / bbuf as above -> out_s [m],
+// out_r [m, 35].
+extern "C" int pair_sdf_pre_grad_launch(const float* u, long long m,
+                                        const void* wbuf, const float* bbuf,
+                                        float* out_s, float* out_r,
+                                        void* stream) {
+  return launch_rows(rows_pre_grad_kernel, m, stream, u, m,
+                     static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s,
+                     out_r);
 }

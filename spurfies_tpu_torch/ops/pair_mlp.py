@@ -25,8 +25,9 @@ backward together, as the custom VJP of ``spurfies_tpu/model/field.py``'s
 ``spurfies_tpu/ops/pallas_mlp.py:458-533``, whose backwards are
 elementwise (no kernel, as in the JAX package).
 
-The CUDA kernels are ``csrc/sdf_agg.cu`` (K2, K3, K6a, K6b: one ``wgmma``
-pipeline), ``csrc/pair_mlp.cu`` (K7) and ``csrc/agg_bwd.cu`` (K4);
+The CUDA kernels are ``csrc/sdf_agg.cu`` (K2, K3, K6a, K6b, K7a: one
+``wgmma`` pipeline), ``csrc/pair_mlp.cu`` (K7b) and ``csrc/agg_bwd.cu``
+(K4);
 ``*_ref`` are their plain PyTorch versions (CPU tensors, and the kernels'
 yardstick on the card).  The pair-MLP kernels
 follow the TPU kernels' rounding points: operands in the compute dtype,
@@ -64,15 +65,15 @@ _LL = ctypes.c_longlong
 _AGG_IN = [_P, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
            ctypes.c_float]          # table, n_rows, idx, x, P, k, wbuf, bbuf, rbf2
 # the per-row kernels: inputs, m, wbuf, bbuf, outputs, stream
-_SIG = {                            # csrc/pair_mlp.cu: K7a, K7b
+_SIG = {                            # csrc/pair_mlp.cu: K7b
     "pair_sdf_value_launch": [_P, _LL, _P, _P, _P, _P],
-    "pair_sdf_value_and_input_grad_launch": [_P, _LL, _P, _P, _P, _P, _P],
 }
-_SIG_SDF_AGG = {                    # csrc/sdf_agg.cu: K3, K2, K6a, K6b
+_SIG_SDF_AGG = {                    # csrc/sdf_agg.cu: K3, K2, K6a, K6b, K7a
     "pair_sdf_aggregate_launch": _AGG_IN + [_P, _P, _P, _P],
     "pair_sdf_value_agg_launch": _AGG_IN + [_P, _P],
     "pair_sdf_rows_grad_launch": [_P, _P, _LL, _P, _P, _P, _P, _P, _P],
     "pair_sdf_rows_value_launch": [_P, _P, _LL, _P, _P, _P, _P, _P],
+    "pair_sdf_pre_grad_launch": [_P, _LL, _P, _P, _P, _P, _P],
 }
 _SIG_BWD = {"pair_sdf_aggregate_bwd_launch": [_P, _P, _P, _P, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int, _P,
@@ -95,8 +96,9 @@ class PriorLayers:
     _packed_k3: torch.Tensor = None
 
     def kernel_buffers(self):
-        """(bf16 weights, f32 biases) in the layout of csrc/pair_mlp.cu (K7);
-        the biases serve csrc/sdf_agg.cu too."""
+        """(bf16 weights, f32 biases) in the layout of csrc/pair_mlp.cu
+        (K7b): W0^T ``[256, 48]`` (k >= 35 zero), W_l^T for l = 1, 2, 3 and
+        w_v; the biases serve csrc/sdf_agg.cu too."""
         if self._packed is None:
             if self.compute_dtype != torch.bfloat16:
                 raise ValueError("the pair-MLP kernels run in bf16 only; "
@@ -106,24 +108,21 @@ class PriorLayers:
                 raise ValueError("the pair-MLP kernels take the 35->256x4->1 "
                                  "prior of ModelConfig's defaults")
             w0 = self.ws[0]
-            dev = w0.device
-            up0 = torch.zeros(HID, _IN0, dtype=torch.bfloat16, device=dev)
+            up0 = torch.zeros(HID, _IN0, dtype=torch.bfloat16,
+                              device=w0.device)
             up0[:, :LAT + 3] = w0.t()
-            dn0 = torch.zeros(_OUT0, HID, dtype=torch.bfloat16, device=dev)
-            dn0[:LAT + 3] = w0
             parts = [up0.reshape(-1)]
             parts += [w.t().contiguous().reshape(-1) for w in self.ws[1:4]]
-            parts += [w.contiguous().reshape(-1) for w in self.ws[1:4]]
-            parts += [dn0.reshape(-1), self.ws[4].reshape(-1)]
+            parts += [self.ws[4].reshape(-1)]
             wbuf = torch.cat(parts).contiguous()
             bbuf = torch.cat([b.reshape(-1).float() for b in self.bs])
             self._packed = (wbuf, bbuf.contiguous())
         return self._packed
 
     def k3_buffer(self):
-        """The bf16 weights of ``csrc/sdf_agg.cu`` (K3, K2, K6a, K6b), packed
-        once in the byte layout of its shared-memory stages, so that each of
-        the 26 chunks is one contiguous bulk copy: chunk 0 is W0^T
+        """The bf16 weights of ``csrc/sdf_agg.cu`` (K3, K2, K6a, K6b, K7a),
+        packed once in the byte layout of its shared-memory stages, so that
+        each of the 26 chunks is one contiguous bulk copy: chunk 0 is W0^T
         ``[256, 64]`` (k >= 35 zero); chunks 1-12 W_l^T for l = 1, 2, 3 (the
         up sweep ends here: K2 and K6b stream chunks 0-12 only) and chunks
         13-24 W_l for l = 3, 2, 1, each layer as four ``[256, 64]`` column
@@ -460,9 +459,13 @@ def pair_sdf_value_ref(u, layers: PriorLayers):
 
 
 def pair_sdf_value_and_input_grad_ref(u, layers: PriorLayers):
-    """Plain K7a: ``(s [M], r [M, 35])``."""
-    s, gates = _up_sweep(layers, _mm(u, layers.ws[0]) + layers.bs[0],
-                         keep_gates=True)
+    """Plain K7a: ``(s [M], r [M, 35])``.  Its first layer is formed as
+    plain K6a forms it, ``lat @ W_lat + x_pi @ W_pos`` (``_mlp_kernel``'s
+    ``u @ W0`` up to f32 summation order), since K7a runs K6a's kernel:
+    on ``u = [g_lat | x - g_pos]`` its s and r are plain K6a's bit for
+    bit."""
+    s, gates = _up_sweep(layers, _first_split(layers, u[:, :LAT],
+                                              u[:, LAT:]), keep_gates=True)
     return s, _down_sweep(layers, gates, u.shape[0], u.device)
 
 
@@ -501,11 +504,11 @@ def _check_rows(name, *ins):
     return dev.type == "cpu"
 
 
-def _launch_rows(name, ins, layers: PriorLayers, out_cols):
-    """Run the C entry ``{name}_launch`` on ``ins`` into new f32 outputs of
-    ``[M, c]`` for each c of ``out_cols`` (0: ``[M]``): K6a's and K6b's in
-    ``csrc/sdf_agg.cu`` on :meth:`PriorLayers.k3_buffer`, K7's in
-    ``csrc/pair_mlp.cu``."""
+def _launch_rows(name, entry, ins, layers: PriorLayers, out_cols):
+    """Run the C entry ``entry`` on ``ins`` into new f32 outputs of
+    ``[M, c]`` for each c of ``out_cols`` (0: ``[M]``), counted under
+    ``name``: K6a's, K6b's and K7a's in ``csrc/sdf_agg.cu`` on
+    :meth:`PriorLayers.k3_buffer`, K7b's in ``csrc/pair_mlp.cu``."""
     m = ins[0].shape[0]
     dev = ins[0].device
     outs = [torch.empty((m, c) if c else (m,), dtype=torch.float32,
@@ -513,12 +516,12 @@ def _launch_rows(name, ins, layers: PriorLayers, out_cols):
     if m == 0:
         return outs
     wbuf, bbuf = layers.kernel_buffers()
-    if f"{name}_launch" in _SIG_SDF_AGG:
+    if entry in _SIG_SDF_AGG:
         wbuf = layers.k3_buffer()
         lib = cuda_build.load("sdf_agg", _SIG_SDF_AGG)
     else:
         lib = cuda_build.load("pair_mlp", _SIG)
-    err = getattr(lib, f"{name}_launch")(
+    err = getattr(lib, entry)(
         *(t.data_ptr() for t in ins), m, wbuf.data_ptr(), bbuf.data_ptr(),
         *(t.data_ptr() for t in outs),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -533,16 +536,20 @@ def pair_sdf_value(u, layers: PriorLayers):
     :func:`pair_sdf_value_ref`; CUDA tensors launch the kernel (bf16)."""
     if _check_rows("pair_sdf_value", u):
         return pair_sdf_value_ref(u, layers)
-    return _launch_rows("pair_sdf_value", (u,), layers, (0,))[0]
+    return _launch_rows("pair_sdf_value", "pair_sdf_value_launch", (u,),
+                        layers, (0,))[0]
 
 
 @torch.no_grad()
 def pair_sdf_value_and_input_grad(u, layers: PriorLayers):
     """K7a, forward only (the differentiable form is
-    :class:`PairSdfValueAndInputGrad`): ``(s [M], r [M, 35])``."""
+    :class:`PairSdfValueAndInputGrad`): ``(s [M], r [M, 35])``.  The kernel
+    is K6a's with a gather that reads x_pi from u: on ``u = [g_lat | K6a's
+    x_pi]`` its s and r are K6a's bit for bit."""
     if _check_rows("pair_sdf_value_and_input_grad", u):
         return pair_sdf_value_and_input_grad_ref(u, layers)
-    return tuple(_launch_rows("pair_sdf_value_and_input_grad", (u,), layers,
+    return tuple(_launch_rows("pair_sdf_value_and_input_grad",
+                              "pair_sdf_pre_grad_launch", (u,), layers,
                               (0, LAT + 3)))
 
 
@@ -553,7 +560,8 @@ def pair_sdf_rows_value(g, x, layers: PriorLayers):
     without the down sweep: its ``s`` and ``x_pi`` are K6a's bit for bit."""
     if _check_rows("pair_sdf_rows_value", g, x):
         return pair_sdf_rows_value_ref(g, x, layers)
-    return tuple(_launch_rows("pair_sdf_rows_value", (g, x), layers,
+    return tuple(_launch_rows("pair_sdf_rows_value",
+                              "pair_sdf_rows_value_launch", (g, x), layers,
                               (0, 3)))
 
 
@@ -563,7 +571,8 @@ def pair_sdf_rows_grad(g, x, layers: PriorLayers):
     :class:`PairSdfRowsGrad`): ``(s [M], r [M, 35], x_pi [M, 3])``."""
     if _check_rows("pair_sdf_rows_grad", g, x):
         return pair_sdf_rows_grad_ref(g, x, layers)
-    return tuple(_launch_rows("pair_sdf_rows_grad", (g, x), layers,
+    return tuple(_launch_rows("pair_sdf_rows_grad",
+                              "pair_sdf_rows_grad_launch", (g, x), layers,
                               (0, LAT + 3, 3)))
 
 

@@ -12,6 +12,11 @@ the cloud size as ``spurfies_tpu/ops/voxel_grid.py:340`` does):
   * exact: order by (d2 ascending, id descending);
   * packed: key = f32 bits of d2 with the low 15 mantissa bits replaced by
     the id; ids must be < 2**15; d2 comes back rounded to ~2**-8 relative.
+    Its kernel runs a group of ``GROUP`` lanes a query, lane l keeping the
+    k smallest keys of the candidates l, l + ``GROUP``, ..., and merges
+    them in k rounds of a group minimum; keys are distinct, so the result
+    is the plain version's bit for bit
+    (``tests/test_torch_k7_k1_premises.py`` models it).
 """
 
 import ctypes
@@ -24,6 +29,7 @@ ID_BITS = 15
 _ID_MASK = (1 << ID_BITS) - 1
 _SENTINEL = 1 << 30            # > every packed key (d2 < 2)
 SUPPORTED_K = (1, 2, 4, 8, 16)
+GROUP = 4                      # the packed kernel's lanes a query (kGroup)
 
 LAUNCHES = {"select_knn_packed": 0, "select_knn_exact": 0}
 

@@ -68,6 +68,52 @@ def test_select_knn_matches_plain(cuda, packed):
     assert torch.equal(kd[fin], rd[fin])
 
 
+def _knn_lists(dev, q, m, seed, k=8):
+    """K1's edges: a table whose lists hold 0, 1, k - 1, k and q
+    candidates (front-first, unique ids < 2**15, positions inf where
+    empty) and random lengths; m queries near their cells' candidates, the
+    first five on those five lists, a tenth of the rest with a cell outside
+    the grid (-7, -1, C, C + 5)."""
+    rng = np.random.default_rng(seed)
+    lengths = [0, 1, k - 1, k, q] + list(rng.integers(0, q + 1, 27))
+    lengths = [min(n, q) for n in lengths]
+    c = len(lengths)
+    qidx = np.full((c, q), -1, np.int32)
+    qpos = np.full((c, 3, q), np.inf, np.float32)
+    centre = rng.uniform(-0.5, 0.5, (c, 3)).astype(np.float32)
+    for i, n in enumerate(lengths):
+        qidx[i, :n] = rng.choice(2 ** 15, n, replace=False)
+        qpos[i, :, :n] = centre[i][:, None] + rng.normal(0, 0.02, (3, n))
+    cid = rng.integers(0, c, m).astype(np.int32)
+    cid[:5] = np.arange(min(5, m))[:m]
+    x = (centre[cid] + rng.normal(0, 0.01, (m, 3))).astype(np.float32)
+    out = rng.uniform(size=m) < 0.1
+    out[:5] = False
+    cid[out] = rng.choice([-7, -1, c, c + 5], int(out.sum()))
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, cid, qidx, qpos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,m", [(64, 1), (64, 63), (64, 65), (64, 1001),
+                                 (64, 40000), (128, 1001), (20, 1001),
+                                 (4, 1001)])
+@pytest.mark.parametrize("k", [8, 1, 16])
+def test_select_knn_packed_edges(cuda, q, m, k):
+    """K1 packed (a group of 4 lanes a query) against its plain version:
+    ids and d2 bit-equal on lists of 0, 1, k - 1, k and qcap candidates, a
+    qcap below k, cells outside the grid, and query counts that fill no
+    whole block of 64 queries (1, 63, 65, 1001) or many blocks."""
+    args = _knn_lists(cuda, q, m, seed=q + m + k, k=k)
+    r2 = float(np.float32(0.04 ** 2))
+    before = sk.LAUNCHES["select_knn_packed"]
+    ki, kd = sk.select_knn(*args, r2, k, True)
+    ri, rd = sk.select_knn_ref(*args, r2, k, True)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["select_knn_packed"] == before + 1
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd, rd)
+
+
 def _pair_inputs(dev, m=1000, k=8):
     """m points (not a whole number of 128-row tiles), each with k
     neighbours scattered around it; 30 % of the pairs and the
@@ -326,6 +372,37 @@ def test_pair_sdf_rows_grad_tile_edges(cuda, m):
 def test_pair_sdf_rows_value_tile_edges(cuda, m):
     """K6b on K6a's tiles of 128 contiguous rows, at the same edges."""
     _rows_kernel_matches_plain(cuda, "pair_sdf_rows_value", m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [127, 128, 129, 40000])
+def test_pair_sdf_value_and_input_grad_tile_edges(cuda, m):
+    """K7a on K6a's tiles of 128 contiguous rows, at the same edges."""
+    _rows_kernel_matches_plain(cuda, "pair_sdf_value_and_input_grad", m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1000, 40000])
+def test_pair_sdf_value_and_input_grad_is_rows_grad_on_its_rows(cuda, m):
+    """K7a runs K6a's kernel with a gather that reads x_pi from u: on
+    ``u = [g_lat | K6a's x_pi]`` its s and r are K6a's bit for bit, here on
+    rows of which a third are gathered row 0 (masked slots)."""
+    rng = np.random.default_rng(m + 2)
+    table = np.concatenate([rng.normal(0, 0.3, (50, 32)),
+                            rng.uniform(-0.5, 0.5, (50, 3))], 1)
+    rows = rng.integers(0, 50, m)
+    rows[rng.uniform(size=m) < 0.3] = 0
+    g = table[rows]
+    x = g[:, 32:] + rng.normal(0, 0.03, (m, 3))
+    g, x = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (g, x))
+    prior = pair_mlp._prep_layers(load_prior_npz(device=cuda), torch.bfloat16)
+    with torch.no_grad():
+        s6, r6, xpi = pair_mlp.pair_sdf_rows_grad(g, x, prior)
+        s7, r7 = pair_mlp.pair_sdf_value_and_input_grad(
+            torch.cat([g[:, :32], xpi], 1), prior)
+    torch.cuda.synchronize()
+    assert torch.equal(s7, s6)
+    assert torch.equal(r7, r6)
 
 
 @pytest.mark.cuda

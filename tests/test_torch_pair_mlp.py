@@ -218,7 +218,7 @@ def test_kernel_buffers_need_bf16(setup):
     with pytest.raises(ValueError, match="bf16"):
         prior.kernel_buffers()
     wbuf, bbuf = _torch_inputs(setup, torch.bfloat16)[0].kernel_buffers()
-    assert wbuf.dtype == torch.bfloat16 and wbuf.numel() == 416000
+    assert wbuf.dtype == torch.bfloat16 and wbuf.numel() == 209152
     assert bbuf.numel() == 4 * 256 + 1
 
 

@@ -230,3 +230,55 @@ def test_k5_inputs_study_counts_what_k5_depends_on():
     # tile 0 holds indices {0, 2} (4 at n dropped), tile 1 {1, 2}
     assert got["distinct_T8"] == 4 and got["distinct_nonzero_T8"] == 4
     assert got["distinct_T16"] == 3 and got["distinct_nonzero_T16"] == 3
+
+
+def test_k1_inputs_study_counts_what_k1_depends_on():
+    """``k1_inputs_study`` on a hand-made launch: 40 queries (a warp of 32
+    and a ragged one of 8) over three cells whose lists hold 4, 2 and 0
+    candidates; queries 0-15 in cell 0, 16-31 in cell 1, 32-35 in cell 2
+    and 36-39 outside the grid.  Every candidate of cell 0 lies inside the
+    radius of its queries, none of cell 1's."""
+    qidx = torch.full((3, 6), -1, dtype=torch.int32)
+    qidx[0, :4] = torch.tensor([5, 6, 7, 8])
+    qidx[1, :2] = torch.tensor([1, 2])
+    qpos = torch.full((3, 3, 6), float("inf"))
+    qpos[0, :, :4] = 0.0
+    qpos[1, :, :2] = 1.0
+    x = torch.zeros(40, 3)
+    cid = torch.tensor([0] * 16 + [1] * 16 + [2] * 4 + [-1, 3, 9, -5],
+                       dtype=torch.int32)
+    got = smoke.k1_inputs_study(x, cid, qidx, qpos, 0.01, 8)
+    assert got["queries"] == 40 and got["qcap"] == 6
+    assert got["in_grid_share"] == pytest.approx(0.9)
+    assert got["list_mean"] == pytest.approx((16 * 4 + 16 * 2) / 40)
+    # warp 0's longest list is 4, warp 1's (cell 2 and outside) 0
+    assert got["warp_max_mean"] == pytest.approx(2.0)
+    assert got["list_max"] == 4
+    # 96 candidates walked in 32 lanes x (4 + 0) steps
+    assert got["idle_lane_share"] == pytest.approx(1 - 96 / (32 * 4))
+    assert got["inside_radius_mean"] == pytest.approx(16 * 4 / 40)
+    assert got["inside_radius_ge_k_share"] == 0.0
+    assert got["cells_per_warp_mean"] == pytest.approx(1.5)
+    assert got["cells_per_warp_max"] == 2
+
+
+@pytest.mark.parametrize("key,first", [("ms", "K1"), ("kernel_ms", "K3")])
+def test_redesign_order_ranks_by_the_chosen_time(key, first):
+    """``redesign_order`` scores launches x (time - bound) with the render
+    and microbenchmark launches at the row's shape and the training ones at
+    its ``train_shape``; ``key="kernel_ms"`` takes the C entry's time where
+    a row has one (here K1: its wrapper's host time drops out)."""
+    rows = [{"name": "K1", "launches_render": 10, "launches_microbench": 0,
+             "launches_train": 100, "ms": 0.06, "kernel_ms": 0.02,
+             "bound_ms": 0.01,
+             "train_shape": {"ms": 0.05, "kernel_ms": 0.006,
+                             "bound_ms": 0.004}},
+            {"name": "K3", "launches_render": 10, "launches_microbench": 0,
+             "launches_train": 0, "ms": 0.5, "bound_ms": 0.2}]
+    order = smoke.redesign_order(rows, key)
+    assert order[0][0] == first
+    scores = dict(order)
+    assert scores["K3"] == pytest.approx(3.0)
+    want = (10 * 0.05 + 100 * 0.046) if key == "ms" else \
+        (10 * 0.01 + 100 * 0.002)
+    assert scores["K1"] == pytest.approx(want)
