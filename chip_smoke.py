@@ -158,9 +158,10 @@ FUSED_COLOR_STEP = dict(PER_STEP, pack_color_weights=1, fused_color_fwd=1,
                         fused_color_bwd=1)
 MICRO_PAIRS = 655360
 # device-kernel names of the port's kernels, by the kernels line's label
-# (a label may have several: K8a and K8b launch one kernel per piece)
-KERNEL_NAMES = (("K1 select_knn packed", "select_packed_kernel"),
-                ("K1 select_knn exact", "select_exact_kernel"),
+# (a label may have several: K8a and K8b launch one kernel per piece; K1's
+# two variants are one template, select_kernel<PackedKey or ExactKey, ...>)
+KERNEL_NAMES = (("K1 select_knn packed", "PackedKey"),
+                ("K1 select_knn exact", "ExactKey"),
                 ("K2 pair_sdf_value_agg", "value_agg_kernel"),
                 ("K3 pair_sdf_aggregate", "sdf_agg_kernel"),
                 ("K4 pair_sdf_aggregate_bwd", "agg_bwd_kernel"),
@@ -947,7 +948,8 @@ def check_step(tag, seen, prior_f32, radius):
     against its plain version: K1 bit-equal, the pair-MLP kernels and K8a
     by the limits of phase 4, K4/K5 by ``sum_order_within``, K8b's dlat by
     phase 4's and its dW/db by 1e-2 relative L2.  Returns, by wrapper name,
-    the result of its largest launch."""
+    the result of its largest launch, with the smaller launches' results
+    under ``later``."""
     from spurfies_tpu_torch.ops import pair_mlp
 
     best = {}
@@ -964,9 +966,10 @@ def check_step(tag, seen, prior_f32, radius):
             elif name == "fused_color_bwd":
                 r = check_k8b(what, args, 5)
             elif name == "select_knn":
-                r = check_k1(what, args, 10, study=tag == "dust3r_like")
+                r = check_k1(what, args, 10,
+                             study=tag in ("dust3r_like", "dense_sphere"))
             elif name == "pair_sdf_aggregate_bwd":
-                r = check_k4(what, args, 50)
+                r = check_k4(what, args, 50, study=i == 0)
             elif name == "scatter_add_rows":
                 r = check_k5(what, args, 50, study=i == 0)
             elif big:
@@ -982,6 +985,8 @@ def check_step(tag, seen, prior_f32, radius):
                                radius)
             if i == 0:
                 best[name] = r
+            else:
+                best[name].setdefault("later", []).append(r)
         del calls
     return best
 
@@ -1069,8 +1074,12 @@ def train_path(tag, trainer, per_step, warmup, steps, window):
     return best, launches, history
 
 
-def check_k4(name, args, reps):
-    """K4 against its plain version on one real launch's inputs."""
+def check_k4(name, args, reps, study=False):
+    """K4 against its plain version on one real launch's inputs, timed
+    through its wrapper (``ms``) and by its C entry (``kernel_ms``,
+    :func:`k4_kernel_ms`); with ``study`` also :func:`k4_inputs_study`,
+    :func:`k4_variants_ms` and :func:`k4_host_ms` of these inputs (the ``K4
+    step 0`` line)."""
     import torch
 
     from spurfies_tpu_torch.ops import pair_mlp
@@ -1118,21 +1127,117 @@ def check_k4(name, args, reps):
         f"hit; kernel {ms:.4f} ms (C entry alone {kernel_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err,
-            "kernel_ms": kernel_ms}
+    res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err,
+           "kernel_ms": kernel_ms, "rows": p * k}
+    if study:
+        res["step0"] = dict(k4_inputs_study(*args), wrapper_ms=ms,
+                            library_ms=lib_ms,
+                            kernel_ms=k4_variants_ms(*args, reps),
+                            host_ms=k4_host_ms(args, 10 * reps))
+        log(f"K4 step 0, {name}: {json.dumps(res['step0'])}")
+    return res
+
+
+def k4_inputs_study(num_bar, w, r_lat, idx_ext, n, tiles=(128, 256, 512)):
+    """What K4's time depends on in one launch's inputs: the kept rows
+    (index in [0, n) and w != 0), the dump rows (index n) and the w == 0
+    rows on a real index, the adds at the hottest latent row, and for each
+    tile size T the kept rows' distinct (T-row tile, index) pairs: the adds
+    left after a pre-sum of equal indices within each tile."""
+    import torch
+
+    flat = idx_ext.reshape(-1).long()
+    rows = flat.numel()
+    in_range = (flat >= 0) & (flat < n)
+    keep = in_range & (w != 0)
+    hot = torch.bincount(flat[keep], minlength=n)
+    out = {"rows": rows, "kept_share": float(keep.float().mean()),
+           "dump_share": float((flat == n).float().mean()),
+           "w0_share": float((in_range & (w == 0)).float().mean()),
+           "latent_rows_hit": int((hot > 0).sum()),
+           "adds_at_hottest": int(hot.max())}
+    row = torch.arange(rows, device=flat.device)
+    for t in tiles:
+        out[f"distinct_T{t}"] = int(torch.unique(
+            ((row // t) * n + flat)[keep]).numel())
+    return out
+
+
+def k4_variants_ms(num_bar, w, r_lat, idx_ext, n, reps):
+    """Step 0 of K4's redesign: its C entry timed (:func:`k4_kernel_ms`)
+    on one launch's inputs as they are, and as rows of k = 1 (num_bar
+    repeated a row): in the same order; in a random order; with every
+    dropped row (index outside [0, n) or w == 0) removed, the cost of the
+    warps that leave at once; with ``arange(rows) % n`` for idx, no index
+    repeated within n rows, the contention floor (timing only)."""
+    import torch
+
+    p, k = idx_ext.shape
+    flat = idx_ext.reshape(-1)
+    nb = torch.repeat_interleave(num_bar, k)
+    keep = (flat >= 0) & (flat < n) & (w != 0)
+    perm = torch.randperm(p * k, device=w.device)
+
+    def rows(sel):
+        return (nb[sel].contiguous(), w[sel].contiguous(),
+                r_lat[sel].contiguous(), flat[sel].contiguous()[:, None], n)
+    every = torch.arange(p * k, device=w.device)
+    flat_idx = (every % n).to(torch.int32)[:, None]
+    return {"as_is": k4_kernel_ms(num_bar, w, r_lat, idx_ext, n, reps),
+            "rows_k1": k4_kernel_ms(*rows(every), reps),
+            "random_order": k4_kernel_ms(*rows(perm), reps),
+            "dropped_removed": k4_kernel_ms(*rows(keep), reps),
+            "no_repeats": k4_kernel_ms(nb, w, r_lat, flat_idx, n, reps)}
+
+
+def k4_host_ms(args, reps):
+    """The host time of one K4 wrapper call (the host clock over ``reps``
+    calls with no synchronise between them, as :func:`k1_host_ms`), and of
+    each of its parts alone: the input checks, the output's allocation, the
+    stream lookup and the ``ctypes`` call (into one output; the C entry
+    zeroes it and launches the kernel)."""
+    import torch
+
+    from spurfies_tpu_torch.ops import cuda_build, pair_mlp
+
+    num_bar, w, r_lat, idx_ext, n = args
+    p, k = idx_ext.shape
+    dev = w.device
+    out = torch.zeros((n, 32), device=dev)
+    lib = cuda_build.load("agg_bwd", pair_mlp._SIG_BWD)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    parts = {
+        "wrapper": lambda: pair_mlp.pair_sdf_aggregate_bwd(*args),
+        "checks": lambda: pair_mlp._check_bwd_inputs(*args),
+        "alloc": lambda: torch.empty((n, 32), dtype=torch.float32,
+                                     device=dev),
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "ctypes_call": lambda: lib.pair_sdf_aggregate_bwd_launch(
+            num_bar.data_ptr(), w.data_ptr(), r_lat.data_ptr(),
+            idx_ext.data_ptr(), p * k, k, n, out.data_ptr(), stream)}
+    res = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        res[name] = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+    return res
 
 
 def k4_kernel_ms(num_bar, w, r_lat, idx_ext, n, reps):
-    """K4's own device time on these inputs: its C entry launched ``reps``
-    times into one zeroed output (CUDA events), as :func:`k5_kernel_ms`
-    times K5."""
+    """K4's own device time on these inputs: its C entry (which zeroes the
+    output, then launches the kernel) called ``reps`` times into one output
+    (CUDA events), as :func:`k5_kernel_ms` times K5."""
     import torch
 
     from spurfies_tpu_torch.ops import cuda_build, pair_mlp
 
     p, k = idx_ext.shape
-    out = torch.zeros((n, 32), device=w.device)
+    out = torch.empty((n, 32), device=w.device)
     lib = cuda_build.load("agg_bwd", pair_mlp._SIG_BWD)
     stream = torch.cuda.current_stream(w.device).cuda_stream
 
@@ -1472,15 +1577,18 @@ def redesign_order(rows, key="ms"):
     launches at the row's own shape and the training launches at its
     ``train_shape`` where it has one (else the row's shape is the training
     one).  ``key="kernel_ms"`` takes the C entry's time where a row has
-    one (K1, K4, K5), else ``ms``.  Returns [(label, excess ms)], largest
-    first."""
+    one (K1, K4, K5), else ``ms``.  A row's ``launch_2`` (K4's second,
+    smaller launch of a step) counts its ``launches`` at its own shape.
+    Returns [(label, excess ms)], largest first."""
     order = []
     for row in rows:
         t = row.get("train_shape", row)
+        l2 = row.get("launch_2", {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
         excess = ((row["launches_render"] + row["launches_microbench"])
                   * (row.get(key, row["ms"]) - row["bound_ms"])
-                  + row["launches_train"]
-                  * (t.get(key, t["ms"]) - t["bound_ms"]))
+                  + (row["launches_train"] - l2["launches"])
+                  * (t.get(key, t["ms"]) - t["bound_ms"])
+                  + l2["launches"] * (l2.get(key, l2["ms"]) - l2["bound_ms"]))
         order.append((row["name"], excess))
     return sorted(order, key=lambda kv: -kv[1])
 
@@ -1976,9 +2084,19 @@ def main():
         f"training, {psnr1:.2f} dB after {TRAIN_WARMUP + TRAIN_STEPS + 3} "
         "steps")
 
-    # a few steps on the dense sphere: N > 2**15, the exact K1
+    # a few steps on the dense sphere: N > 2**15, the exact K1; one
+    # captured step holds its launches (K1 exact, K4 at N = 37,267) against
+    # their plain versions first
     dense = Trainer(cfg, pts_b, cols_b, views_b, device="cuda")
     dense.load_frozen(prior_a)
+    seen = capture_step(dense)
+    got = {k: len(v) for k, v in seen.items()}
+    if got != PER_STEP:
+        fail(f"dense_sphere: one step launched {got}, expected {PER_STEP}")
+    dense_best = check_step(
+        "dense_sphere", seen, _prep_layers(dense.frozen, torch.float32),
+        dense.scene.spec.radius(dense.scene.table.r))
+    del seen
     dense_hist = []
     zero_counts()
     dense.run(DENSE_STEPS, window=DENSE_STEPS,
@@ -2083,6 +2201,7 @@ def main():
                 for k in launches_render}
     # the training shapes' times, beside phase 4's eval-chunk times
     train_shape = {"K1 select_knn packed": default_best["select_knn"],
+                   "K1 select_knn exact": dense_best["select_knn"],
                    "K2 pair_sdf_value_agg": default_best["pair_sdf_value_agg"],
                    "K3 pair_sdf_aggregate": default_best["pair_sdf_aggregate"],
                    "K6a pair_sdf_rows_grad": option_best["pair_sdf_rows_grad"],
@@ -2154,6 +2273,18 @@ def main():
             row["train_shape"] = {k: t[k] for k in (
                 "rows", "ms", "kernel_ms", "plain_ms", "bound_ms",
                 "bound_all_rows_ms", "max_abs_err") if k in t}
+        if label.startswith("K4"):
+            # the step's second, pseudo-SDF launch: one a step on every
+            # path that runs K4
+            l2 = r["later"][0]
+            row["launch_2"] = {k: l2[k] for k in (
+                "rows", "ms", "kernel_ms", "plain_ms", "bound_ms",
+                "library_ms", "max_abs_err")}
+            row["launch_2"]["launches"] = sum(
+                c[key] // per[key] for c, per in (
+                    (launches_train, PER_STEP), (launches_dense, PER_STEP),
+                    (launches_options[1], OPTIONS["pairs"][1]),
+                    (launches_colour_train, FUSED_COLOR_STEP)))
         if label.startswith("K8"):
             row["colour_path_ms"] = colour_path
         for k in ("scratch_bytes", "kernel_ms", "library_zeroed_ms"):

@@ -14,18 +14,28 @@
 // points, resident in L2). The TPU kernel's point was that the per-pair
 // cotangent [P*k, 32] never reaches HBM: it expanded it in VMEM and
 // scattered it row by row into a banked VMEM accumulator across a
-// sequential grid. Here each lane recomputes its column of the cotangent in
-// registers and adds it with a global atomic; blocks run in parallel and in
-// no order, so there is no bank trick and no VMEM budget fallback.
+// sequential grid. Here the cotangent is made in registers and added with
+// global atomics; blocks run in parallel and in no order.
 //
-// Design (simple first; a sorted segment-reduce is later work):
-//   * one warp per pair row, lane j owns latent column j: one coalesced
-//     64-byte read of r_lat and one 128-byte red.global.add.f32 sweep;
-//   * dump-row and w == 0 rows leave before any load of r_lat or atomic
-//     (in the eval render half of K3's rows are dump rows);
+// What held the first design (one warp a row, one scalar atomic an
+// element; PERF.md, section 6, "K4 step 0"): its idle warps. Half of a
+// training step's rows are dump rows, and each took a warp that left after
+// reading 8 bytes: with the dropped rows removed from its input it took 40 %
+// less time, while rows in a random order or with no index repeated
+// (no same-address chains) took no less.
+//
+// Design:
+//   * a grid of at most a few blocks an SM walks the rows 32 at a time, a
+//     warp a window: lane l reads idx and w of row 32 j + l (coalesced), and
+//     a ballot marks the kept rows, so a dropped row costs 8 bytes and no
+//     lane's time after that, and leaves before any load of r_lat;
+//   * the window's kept rows go 4 at a time to the warp's four groups of 8
+//     lanes; lane l of a group owns the columns 4 l .. 4 l + 3 of its row:
+//     one 8-byte load of r_lat and one red.global.add.v4.f32 (Hopper's
+//     atomicAdd(float4 *, float4)), 8 atomics a row instead of 32;
 //   * the product is rounded as the TPU kernel's (num_bar * w) * r, with
 //     __fmul_rn so that nothing is contracted;
-//   * the output is zeroed by the caller on the same stream.
+//   * the C entry zeroes the output on the given stream before the kernel.
 // The order of the atomic adds changes from run to run: sums agree with a
 // sequential sum up to f32 reordering, never bit for bit.
 
@@ -37,6 +47,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kBlocksPerSm = 8;   // 2048 threads: a full SM
 constexpr int kLat = 32;
 
 __global__ void __launch_bounds__(kThreads)
@@ -45,32 +56,82 @@ agg_bwd_kernel(const float* __restrict__ num_bar, const float* __restrict__ w,
                const int* __restrict__ idx, int rows, int k, int n,
                float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int i = __ldg(idx + row);
-  const float wr = __ldg(w + row);
-  if (static_cast<unsigned>(i) >= static_cast<unsigned>(n) || wr == 0.f)
-    return;
-  const float sw = __fmul_rn(__ldg(num_bar + row / k), wr);
-  const float r = __bfloat162float(r_lat[row * kLat + lane]);
-  atomicAdd(out + static_cast<int64_t>(i) * kLat + lane, __fmul_rn(sw, r));
+  const int group = lane >> 3;        // which of the 4 rows a pass takes
+  const int col = (lane & 7) * 4;     // the group lane's 4 columns
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps * 32;
+  for (long long base = (static_cast<long long>(blockIdx.x) * kWarps +
+                         (threadIdx.x >> 5)) * 32;
+       base < rows; base += stride) {
+    const long long row = base + lane;
+    int i = 0;
+    float sw = 0.f;
+    bool keep = false;
+    if (row < rows) {
+      i = __ldg(idx + row);
+      const float wr = __ldg(w + row);
+      keep = static_cast<unsigned>(i) < static_cast<unsigned>(n) &&
+             wr != 0.f;
+      if (keep)
+        sw = __fmul_rn(__ldg(num_bar + static_cast<int>(row) / k), wr);
+    }
+    unsigned kept = __ballot_sync(0xffffffffu, keep);
+    while (kept) {
+      // the next four kept rows of the window, lowest first
+      int src = -1;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int b = __ffs(kept) - 1;   // -1 once none is left
+        if (g == group) src = b;
+        kept &= kept - 1;
+      }
+      const int from = src < 0 ? lane : src;
+      const int ti = __shfl_sync(0xffffffffu, i, from);
+      const float tsw = __shfl_sync(0xffffffffu, sw, from);
+      if (src >= 0) {
+        const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
+            r_lat + (base + src) * kLat + col));
+        const float2 r01 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 r23 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        atomicAdd(reinterpret_cast<float4*>(
+                      out + static_cast<long long>(ti) * kLat + col),
+                  make_float4(__fmul_rn(tsw, r01.x), __fmul_rn(tsw, r01.y),
+                              __fmul_rn(tsw, r23.x), __fmul_rn(tsw, r23.y)));
+      }
+    }
+  }
 }
 
 }  // namespace
 
 // num_bar [rows / k] f32, w [rows] f32, r_lat [rows, 32] bf16, idx [rows]
-// i32 (point-major pair rows, k per point), out [n, 32] f32, zeroed by the
-// caller. Returns the launch's CUDA error code.
+// i32 (point-major pair rows, k per point), out [n, 32] f32, zeroed here on
+// the stream before the kernel. Returns the first CUDA error code.
 extern "C" int pair_sdf_aggregate_bwd_launch(const float* num_bar,
                                              const float* w, const void* r_lat,
                                              const int* idx, int rows, int k,
                                              int n, float* out, void* stream) {
   if (rows < 0 || k <= 0 || rows % k != 0 || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) return 0;
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  agg_bwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, static_cast<size_t>(n) * kLat * sizeof(float), s);
+  if (err != cudaSuccess || rows == 0) return static_cast<int>(err);
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  const long long windows = (rows + 31LL) / 32;
+  const long long need = (windows + kWarps - 1) / kWarps;
+  const int blocks = static_cast<int>(
+      need < static_cast<long long>(sms) * kBlocksPerSm
+          ? need : static_cast<long long>(sms) * kBlocksPerSm);
+  agg_bwd_kernel<<<blocks, kThreads, 0, s>>>(
       num_bar, w, static_cast<const __nv_bfloat16*>(r_lat), idx, rows, k, n,
       out);
   return static_cast<int>(cudaGetLastError());

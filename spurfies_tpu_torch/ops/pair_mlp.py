@@ -374,39 +374,52 @@ def pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n: int):
     return out[:n]
 
 
+def _check_bwd_inputs(num_bar, w, r_lat, idx_ext, n: int) -> bool:
+    """K4's input checks; True when the tensors lie on the CPU."""
+    p, k = idx_ext.shape
+    dev = w.device
+    if num_bar.device != dev or r_lat.device != dev or idx_ext.device != dev:
+        raise ValueError("pair_sdf_aggregate_bwd: inputs on different "
+                         "devices")
+    if num_bar.shape != (p,) or w.shape != (p * k,) or \
+            r_lat.shape != (p * k, LAT):
+        raise ValueError("pair_sdf_aggregate_bwd: num_bar [P], w [P*k] and "
+                         f"r_lat [P*k, {LAT}] for idx_ext [P, k]")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"pair_sdf_aggregate_bwd: unsupported device {dev}")
+    if (num_bar.dtype, w.dtype, r_lat.dtype, idx_ext.dtype) != \
+            (torch.float32, torch.float32, torch.bfloat16, torch.int32):
+        raise ValueError("pair_sdf_aggregate_bwd: num_bar and w f32, r_lat "
+                         "bf16, idx_ext int32")
+    if n <= 0 or not (num_bar.is_contiguous() and w.is_contiguous() and
+                      r_lat.is_contiguous() and idx_ext.is_contiguous()) \
+            or r_lat.data_ptr() % 8:
+        raise ValueError("pair_sdf_aggregate_bwd: contiguous inputs (r_lat "
+                         "8-byte aligned), n > 0")
+    return False
+
+
 def pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n: int):
     """K4: the latent cotangent ``[n, 32]`` of K3's per-point ``sum_k w s``.
 
     num_bar ``[P]`` f32; w ``[P*k]`` f32 and r_lat ``[P*k, 32]`` (bf16 on
     the card) are K3's residuals; idx_ext ``[P, k]`` int32.  CPU tensors run
     :func:`pair_sdf_aggregate_bwd_ref`; CUDA tensors launch the kernel.
+    Its wrapper is on every training step's host path, so it does the least
+    host work it can: the C entry zeroes the output, and the stream is read
+    as its raw handle.
     """
-    p, k = idx_ext.shape
-    if not (num_bar.device == w.device == r_lat.device == idx_ext.device):
-        raise ValueError("pair_sdf_aggregate_bwd: inputs on different "
-                         "devices")
-    if tuple(num_bar.shape) != (p,) or tuple(w.shape) != (p * k,) or \
-            tuple(r_lat.shape) != (p * k, LAT):
-        raise ValueError("pair_sdf_aggregate_bwd: num_bar [P], w [P*k] and "
-                         f"r_lat [P*k, {LAT}] for idx_ext [P, k]")
-    if w.device.type == "cpu":
+    if _check_bwd_inputs(num_bar, w, r_lat, idx_ext, n):
         return pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n)
-    if w.device.type != "cuda":
-        raise ValueError(f"pair_sdf_aggregate_bwd: unsupported device "
-                         f"{w.device}")
-    if num_bar.dtype != torch.float32 or w.dtype != torch.float32 or \
-            r_lat.dtype != torch.bfloat16 or idx_ext.dtype != torch.int32:
-        raise ValueError("pair_sdf_aggregate_bwd: num_bar and w f32, r_lat "
-                         "bf16, idx_ext int32")
-    if n <= 0 or not all(t.is_contiguous()
-                         for t in (num_bar, w, r_lat, idx_ext)):
-        raise ValueError("pair_sdf_aggregate_bwd: contiguous inputs, n > 0")
-    out = torch.zeros((n, LAT), dtype=torch.float32, device=w.device)
-    lib = cuda_build.load("agg_bwd", _SIG_BWD)
-    err = lib.pair_sdf_aggregate_bwd_launch(
+    p, k = idx_ext.shape
+    dev = w.device
+    out = torch.empty((n, LAT), dtype=torch.float32, device=dev)
+    err = cuda_build.load("agg_bwd", _SIG_BWD).pair_sdf_aggregate_bwd_launch(
         num_bar.data_ptr(), w.data_ptr(), r_lat.data_ptr(),
         idx_ext.data_ptr(), p * k, k, n, out.data_ptr(),
-        torch.cuda.current_stream(w.device).cuda_stream)
+        torch._C._cuda_getCurrentRawStream(dev.index))
     cuda_build.check(err, "pair_sdf_aggregate_bwd")
     LAUNCHES["pair_sdf_aggregate_bwd"] += 1
     return out

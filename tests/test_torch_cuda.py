@@ -114,6 +114,36 @@ def test_select_knn_packed_edges(cuda, q, m, k):
     assert torch.equal(kd, rd)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,m", [(128, 1), (128, 31), (128, 33),
+                                 (128, 1001), (128, 40000), (20, 1001),
+                                 (4, 1001)])
+@pytest.mark.parametrize("k", [8, 1, 16])
+def test_select_knn_exact_edges(cuda, q, m, k):
+    """K1 exact (a group of lanes a query, 64-bit keys) against its plain
+    version: ids and d2 bit-equal on lists of 0, 1, k - 1, k and qcap
+    candidates, a qcap below k, cells outside the grid, query counts that
+    fill no whole block (1, 31, 33, 1001) or many blocks, ids up to
+    2**31 - 32768 (id 0 kept) and exact d2 ties: in every list of two or
+    more, the second candidate sits on the first (the larger id first)."""
+    x, cid, qidx, qpos = _knn_lists(cuda, q, m, seed=q + m + k + 1, k=k)
+    qidx = torch.where(qidx >= 0, qidx * 65537, -1)
+    qidx[0, :1] = torch.where(qidx[0, :1] >= 0, 0, -1)
+    two = (qidx[:, 1] >= 0).nonzero()[:, 0]
+    qpos[two, :, 1] = qpos[two, :, 0]
+    r2 = float(np.float32(0.04 ** 2))
+    before = sk.LAUNCHES["select_knn_exact"]
+    ki, kd = sk.select_knn(x, cid, qidx, qpos, r2, k, False)
+    ri, rd = sk.select_knn_ref(x, cid, qidx, qpos, r2, k, False)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["select_knn_exact"] == before + 1
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd, rd)
+    if m >= 1001 and k > 1:
+        tie = (rd[:, 1:] == rd[:, :-1]) & torch.isfinite(rd[:, 1:])
+        assert bool(tie.any()) and int(ri.max()) >= 2 ** 15
+
+
 def _pair_inputs(dev, m=1000, k=8):
     """m points (not a whole number of 128-row tiles), each with k
     neighbours scattered around it; 30 % of the pairs and the
@@ -523,6 +553,67 @@ def test_pair_sdf_aggregate_bwd_matches_plain(cuda):
         num_bar.abs(), w.abs(), r_lat.abs(), idx_ext, n)
     _sum_order_close("K4", out, ref, abs_sum,
                      torch.bincount(flat[keep], minlength=n))
+
+
+def _bwd_case(kind, dev):
+    """K4's inputs as a training step has them: ``step`` 66,560 points x 8
+    (532,480 rows, a launch 1) or ``pseudo`` 1,024 x 8 (a launch 2), about
+    half the rows dump rows (index n, w 0) and a few w == 0 rows on real
+    indices, into n = 6,040 latent rows; ``hot`` the step with a quarter of
+    its rows on one latent row; ``all-dump`` no kept row; ``wide`` the step
+    into n = 40,000 > 2**15 latent rows, with indices outside [0, n] too."""
+    p, n = (1024, 6040) if kind == "pseudo" else (66560, 6040)
+    if kind == "wide":
+        n = 40000
+    rng = np.random.default_rng(len(kind))
+    idx = rng.integers(0, n, (p, 8)).astype(np.int32)
+    dump = rng.uniform(size=(p, 8)) < 0.5
+    idx[dump] = n
+    w = np.where(dump, 0.0, rng.uniform(0.0, 1.0, (p, 8))).astype(np.float32)
+    w[~dump & (rng.uniform(size=(p, 8)) < 0.01)] = 0.0
+    if kind == "hot":
+        hot = rng.uniform(size=(p, 8)) < 0.25
+        idx[hot & ~dump] = 17
+    elif kind == "all-dump":
+        idx[:] = n
+        w[:] = 0.0
+    elif kind == "wide":
+        idx[:5, :2] = np.array([-2 ** 31, -1], np.int32)
+        idx[5:10, :2] = np.array([n + 1, 2 ** 31 - 1], np.int32)
+    r = torch.from_numpy(rng.normal(0, 0.1, (p * 8, 32)).astype(np.float32))
+    num_bar = rng.normal(size=p).astype(np.float32)
+    return (torch.from_numpy(num_bar).to(dev),
+            torch.from_numpy(w.reshape(-1)).to(dev),
+            r.to(torch.bfloat16).to(dev), torch.from_numpy(idx).to(dev), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["step", "pseudo", "hot", "all-dump",
+                                  "wide"])
+def test_pair_sdf_aggregate_bwd_training_shapes(cuda, kind):
+    """K4 against its plain version at a training step's two launch sizes,
+    with one latent row hit by thousands of rows, with no row kept, and
+    into more than 2**15 latent rows: within the f32 sum-order limit, and
+    two launches within it of each other (the atomics' order changes)."""
+    num_bar, w, r_lat, idx_ext, n = _bwd_case(kind, cuda)
+    before = pair_mlp.LAUNCHES["pair_sdf_aggregate_bwd"]
+    out = pair_mlp.pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n)
+    again = pair_mlp.pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n)
+    ref = pair_mlp.pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n)
+    torch.cuda.synchronize()
+    assert pair_mlp.LAUNCHES["pair_sdf_aggregate_bwd"] == before + 2
+    assert out.shape == (n, 32) and bool(torch.isfinite(out).all())
+    flat = idx_ext.reshape(-1).long()
+    keep = (flat >= 0) & (flat < n) & (w != 0)
+    count = torch.bincount(flat[keep], minlength=n)
+    if kind == "hot":
+        assert int(count.max()) > 1000
+    if kind == "all-dump":
+        assert not bool(keep.any()) and bool((out == 0).all())
+    abs_sum = pair_mlp.pair_sdf_aggregate_bwd_ref(
+        num_bar.abs(), w.abs(), r_lat.abs(), idx_ext, n)
+    _sum_order_close("K4", out, ref, abs_sum, count)
+    _sum_order_close("K4, two launches", again, out, abs_sum, count)
 
 
 @pytest.mark.cuda
