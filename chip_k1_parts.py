@@ -7,17 +7,16 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds the variants into ``spurfies_tpu_torch/build/parts/`` (one
 ``nvcc`` each, all at once; a variant is a text edit of the source's
-``kPackedGroup``, ``kExactGroup`` and ``kExactStaged``):
+``kPackedGroup`` or ``kExactGroup``):
 
   * packed, 2, 4 and 8 lanes a query, on the first 4096-ray chunk's K1
     inputs of view 0 of the DUSt3R-like scene as ``chip_smoke.py``'s phase
     4 makes them (the shading query, 401,408 queries, and the first probe,
     131,072), and on the shading input's first 81,536, 11,520 and 1,024
     queries: the sizes of a training step's three K1 launches;
-  * exact, 4, 8 and 16 lanes a query, with each block's lists read from
-    the table or staged in shared memory, on the same chunk's inputs of
-    the dense sphere (37,267 points, qcap 128) and on the three K1
-    launches of one training step on it (``chip_smoke.capture_step``).
+  * exact, 4, 8 and 16 lanes a query, on the same chunk's inputs of the
+    dense sphere (37,267 points, qcap 128) and on the three K1 launches of
+    one training step on it (``chip_smoke.capture_step``).
 
 Each variant must give the plain version's ids and d2 bit for bit on every
 input; each is timed on each by its device time (``torch.profiler``, 20
@@ -31,14 +30,12 @@ import re
 import subprocess
 import sys
 
-# (label, packed, the key's name, the source's constants it sets)
+# (label, packed, the key's name, the source's constant and its value)
 VARIANTS = tuple(
-    [(f"packed G={g}", True, "PackedKey", {"kPackedGroup": g})
+    [(f"packed G={g}", True, "PackedKey", ("kPackedGroup", g))
      for g in (2, 4, 8)]
-    + [(f"exact G={g}", False, "ExactKey",
-        {"kExactGroup": g, "kExactStaged": "false"}) for g in (4, 8, 16)]
-    + [(f"exact staged G={g}", False, "ExactKey",
-        {"kExactGroup": g, "kExactStaged": "true"}) for g in (4, 8, 16)])
+    + [(f"exact G={g}", False, "ExactKey", ("kExactGroup", g))
+       for g in (4, 8, 16)])
 SIZES = (81536, 11520, 1024)
 
 
@@ -69,13 +66,11 @@ def build_variants(cuda_build):
     out = cuda_build.BUILD_DIR / "parts"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for label, _, key, consts in VARIANTS:
-        text = src
-        for const, value in consts.items():
-            pat = rf"constexpr (int|bool) {const} = \w+;"
-            if re.search(pat, text) is None:
-                raise SystemExit(f"chip_k1_parts: {const} not found")
-            text = re.sub(pat, rf"constexpr \1 {const} = {value};", text)
+    for label, _, key, (const, value) in VARIANTS:
+        pat = rf"constexpr int {const} = \d+;"
+        if re.search(pat, src) is None:
+            raise SystemExit(f"chip_k1_parts: {const} not found")
+        text = re.sub(pat, f"constexpr int {const} = {value};", src)
         name = "k1_" + re.sub(r"\W+", "_", label)
         (out / f"{name}.cu").write_text(text)
         procs[label] = (subprocess.Popen(

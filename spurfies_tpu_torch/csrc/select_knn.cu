@@ -41,8 +41,14 @@
 //   * exact: a uint64 key, high word the f32 bits of d2 (monotone for
 //     d2 >= +0, and a sum of squares is never -0), low word 0xFFFFFFFF - id,
 //     so that on a d2 tie the larger id comes first; the sentinel is all
-//     ones, which no key reaches (d2 <= radius2 is no NaN). Its lists are
-//     longer (qcap 128 for N > 2^15), so its G is kExactGroup.
+//     ones, which no key reaches (d2 <= radius2 is no NaN). G = 8: on the
+//     dense sphere's lists (qcap 128, 79 candidates a query) 8 lanes took
+//     the least time on a training step's launches, and 8 % more than 4
+//     on the render's shading query (chip_k1_parts.py). There it scans
+//     candidates at the packed variant's rate, about one an SM clock:
+//     the walk's instructions hold it, not its bytes, and staging a
+//     block's lists in shared memory was slower (PERF.md, section 6,
+//     PR 11).
 // The [Q, T] transposes of the TPU kernel exist only for its vector layout
 // and are gone. Distances use __fmul_rn/__fadd_rn so that nvcc does not
 // contract them into FMAs: the plain PyTorch version gives the same bits.
@@ -56,8 +62,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPackedGroup = 4;   // lanes a query, packed variant
 constexpr int kExactGroup = 8;    // lanes a query, exact variant
-constexpr bool kExactStaged = false;  // exact: lists staged in shared memory
-constexpr int kStageBytes = 48 * 1024;
 
 struct PackedKey {
   using T = int;
@@ -96,143 +100,51 @@ __device__ __forceinline__ float dist2(float x0, float x1, float x2,
                    __fmul_rn(d2, d2));
 }
 
-// Loads through the read-only cache (the table in global memory) or plain
-// ones (a list staged in shared memory).
-struct Ldg {
-  template <class V>
-  __device__ __forceinline__ V operator()(const V* p) const {
-    return __ldg(p);
-  }
-};
-struct Lds {
-  template <class V>
-  __device__ __forceinline__ V operator()(const V* p) const { return *p; }
-};
-
-// One lane's walk over its query's list (ids ci[t], positions cp[t],
-// cp[ps + t], cp[2 ps + t]): the candidates gl, gl + G, ..., keeping the K
-// smallest keys in order.  The list is packed front-first: the lane's
-// first empty slot ends it.
-template <class Key, int K, int G, class Ld>
-__device__ __forceinline__ void walk(typename Key::T (&best)[K], Ld ld,
-                                     const int* ci, const float* cp, int ps,
-                                     int q, int gl, float x0, float x1,
-                                     float x2, float radius2) {
-  using T = typename Key::T;
-  for (int t = gl; t < q; t += G) {
-    const int id = ld(ci + t);
-    const float p0 = ld(cp + t), p1 = ld(cp + ps + t),
-                p2 = ld(cp + 2 * ps + t);
-    if (id < 0) break;
-    const float d = dist2(x0, x1, x2, p0, p1, p2);
-    if (!(d <= radius2)) continue;
-    const T key = Key::make(d, id);
-    if (key < best[K - 1]) {
-      best[K - 1] = key;
-#pragma unroll
-      for (int j = K - 1; j > 0; --j) {
-        const T lo = best[j] < best[j - 1] ? best[j] : best[j - 1];
-        const T hi = best[j] < best[j - 1] ? best[j - 1] : best[j];
-        best[j - 1] = lo;
-        best[j] = hi;
-      }
-    }
-  }
-}
-
 // A group of G lanes per query (see the header): lane gl takes the
 // candidates gl, gl + G, ... of the query's list and keeps its own K
 // smallest keys in order; then K rounds of a group minimum over the lanes'
 // heads, the lane that owns it advancing.  Every lane of a warp reaches the
 // shuffles: a lane past m or outside the grid takes part with no key.
-// kStage: the block's queries come in runs of one cell (consecutive
-// samples of a ray); the first kRuns runs' lists are copied into shared
-// memory once ([run][ids, x, y, z][qpad], positions only where an id is),
-// and their queries walk them there; the rest read the table.
-template <class Key, int K, int G, bool kStage>
+template <class Key, int K, int G>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const float* __restrict__ x, const int* __restrict__ cid,
               const int* __restrict__ qidx, const float* __restrict__ qpos,
-              int m, int n_cells, int q, int qpad, float radius2,
+              int m, int n_cells, int q, float radius2,
               int* __restrict__ out_idx, float* __restrict__ out_d2) {
   using T = typename Key::T;
   constexpr int kSlots = (K + G - 1) / G;  // outputs a lane writes
-  constexpr int kQ = kThreads / G;         // queries a block
   const int gl = threadIdx.x & (G - 1);
-  const int qb = threadIdx.x / G;
-  const long long i = (long long)blockIdx.x * kQ + qb;
+  const long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) / G;
   T best[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) best[j] = Key::kSentinel;
-  int c = i < m ? __ldg(cid + i) : -1;
-  if (c >= n_cells) c = -1;
-  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
-  if (c >= 0) {
-    x0 = __ldg(x + 3 * i);
-    x1 = __ldg(x + 3 * i + 1);
-    x2 = __ldg(x + 3 * i + 2);
-  }
-  bool global = c >= 0;
-  if constexpr (kStage) {
-    static_assert(kQ <= 64, "one warp ranks the block's queries");
-    constexpr int kRuns = kQ / 4;
-    extern __shared__ int stage[];
-    __shared__ int cell_s[kQ], run_s[kQ], run_cell_s[kRuns];
-    __shared__ int n_runs_s;
-    if (gl == 0) cell_s[qb] = c;
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      // a run starts where a query's cell differs from the one before it
-      const int lane = threadIdx.x;
-      unsigned start[2];
+  const int c = i < m ? __ldg(cid + i) : -1;
+  if (c >= 0 && c < n_cells) {
+    const float x0 = __ldg(x + 3 * i), x1 = __ldg(x + 3 * i + 1),
+                x2 = __ldg(x + 3 * i + 2);
+    const int* ci = qidx + (size_t)c * q;
+    const float* cp = qpos + (size_t)c * 3 * q;
+    // the list is packed front-first: the lane's first empty slot ends it
+    for (int t = gl; t < q; t += G) {
+      const int id = __ldg(ci + t);
+      const float p0 = __ldg(cp + t), p1 = __ldg(cp + q + t),
+                  p2 = __ldg(cp + 2 * q + t);
+      if (id < 0) break;
+      const float d = dist2(x0, x1, x2, p0, p1, p2);
+      if (!(d <= radius2)) continue;
+      const T key = Key::make(d, id);
+      if (key < best[K - 1]) {
+        best[K - 1] = key;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = lane + 32 * h;
-        start[h] = __ballot_sync(
-            0xffffffffu, t < kQ && cell_s[t] >= 0 &&
-                             (t == 0 || cell_s[t] != cell_s[t - 1]));
-      }
-      const unsigned upto = (2u << lane) - 1u;   // lanes 0 .. lane
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = lane + 32 * h;
-        if (t < kQ) {
-          const int run = (h ? __popc(start[0]) : 0) +
-                          __popc(start[h] & upto) - 1;
-          const bool staged = cell_s[t] >= 0 && run < kRuns;
-          run_s[t] = staged ? run : -1;
-          if (staged && ((start[h] >> lane) & 1u)) run_cell_s[run] = cell_s[t];
+        for (int j = K - 1; j > 0; --j) {
+          const T lo = best[j] < best[j - 1] ? best[j] : best[j - 1];
+          const T hi = best[j] < best[j - 1] ? best[j - 1] : best[j];
+          best[j - 1] = lo;
+          best[j] = hi;
         }
       }
-      if (lane == 0)
-        n_runs_s = min(__popc(start[0]) + __popc(start[1]), kRuns);
-    }
-    __syncthreads();
-    const int nr = n_runs_s;
-    for (int e = threadIdx.x; e < nr * q; e += kThreads) {
-      const int r = e / q, t = e - r * q;
-      stage[r * 4 * qpad + t] = __ldg(qidx + (size_t)run_cell_s[r] * q + t);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < nr * 3 * q; e += kThreads) {
-      const int r = e / (3 * q), w = e - r * 3 * q, d = w / q, t = w - d * q;
-      if (stage[r * 4 * qpad + t] >= 0)
-        stage[(r * 4 + 1 + d) * qpad + t] = __float_as_int(
-            __ldg(qpos + ((size_t)run_cell_s[r] * 3 + d) * q + t));
-    }
-    __syncthreads();
-    const int run = run_s[qb];
-    if (run >= 0) {
-      const int* ci = stage + run * 4 * qpad;
-      walk<Key, K, G>(best, Lds{}, ci,
-                      reinterpret_cast<const float*>(ci + qpad), qpad, q, gl,
-                      x0, x1, x2, radius2);
-      global = false;
     }
   }
-  if (global)
-    walk<Key, K, G>(best, Ldg{}, qidx + (size_t)c * q,
-                    qpos + (size_t)c * 3 * q, q, q, gl, x0, x1, x2, radius2);
   // K rounds: the group's smallest head is the query's next neighbour
   // (keys are distinct: ids are unique within a list); round r's key goes
   // to lane r / kSlots, its slot r % kSlots.  The warp stops once no group
@@ -267,23 +179,14 @@ select_kernel(const float* __restrict__ x, const int* __restrict__ cid,
   }
 }
 
-template <class Key, int K, int G, bool kStage>
+template <class Key, int K, int G>
 void launch_group(const float* x, const int* cid, const int* qidx,
                   const float* qpos, int m, int n_cells, int q, float radius2,
                   int* out_idx, float* out_d2, cudaStream_t stream) {
-  constexpr int kQ = kThreads / G;
-  const int qpad = q + ((8 - q) & 31);   // a run's planes 8 banks apart
-  const size_t bytes = kStage ? (size_t)(kQ / 4) * 4 * qpad * sizeof(int) : 0;
-  const long long blocks = ((long long)m + kQ - 1) / kQ;
-  if (bytes > kStageBytes) {             // a qcap this large reads the table
-    select_kernel<Key, K, G, false><<<static_cast<unsigned>(blocks),
-                                      kThreads, 0, stream>>>(
-        x, cid, qidx, qpos, m, n_cells, q, qpad, radius2, out_idx, out_d2);
-    return;
-  }
-  select_kernel<Key, K, G, kStage><<<static_cast<unsigned>(blocks), kThreads,
-                                     bytes, stream>>>(
-      x, cid, qidx, qpos, m, n_cells, q, qpad, radius2, out_idx, out_d2);
+  const long long blocks = ((long long)m * G + kThreads - 1) / kThreads;
+  select_kernel<Key, K, G><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             stream>>>(x, cid, qidx, qpos, m, n_cells, q,
+                                       radius2, out_idx, out_d2);
 }
 
 template <int K>
@@ -291,11 +194,12 @@ void launch(bool packed, const float* x, const int* cid, const int* qidx,
             const float* qpos, int m, int n_cells, int q, float radius2,
             int* out_idx, float* out_d2, cudaStream_t stream) {
   if (packed)
-    launch_group<PackedKey, K, kPackedGroup, false>(
-        x, cid, qidx, qpos, m, n_cells, q, radius2, out_idx, out_d2, stream);
+    launch_group<PackedKey, K, kPackedGroup>(x, cid, qidx, qpos, m, n_cells,
+                                             q, radius2, out_idx, out_d2,
+                                             stream);
   else
-    launch_group<ExactKey, K, kExactGroup, kExactStaged>(
-        x, cid, qidx, qpos, m, n_cells, q, radius2, out_idx, out_d2, stream);
+    launch_group<ExactKey, K, kExactGroup>(x, cid, qidx, qpos, m, n_cells, q,
+                                           radius2, out_idx, out_d2, stream);
 }
 
 }  // namespace

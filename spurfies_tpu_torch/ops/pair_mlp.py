@@ -375,20 +375,30 @@ def pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n: int):
 
 
 def _check_bwd_inputs(num_bar, w, r_lat, idx_ext, n: int) -> bool:
-    """K4's input checks; True when the tensors lie on the CPU."""
+    """K4's input checks; True when the tensors lie on the CPU.  They run
+    on every training step's host path, so they read the cheapest
+    attributes (``get_device`` is an int, ``device`` a new object)."""
     p, k = idx_ext.shape
-    dev = w.device
-    if num_bar.device != dev or r_lat.device != dev or idx_ext.device != dev:
-        raise ValueError("pair_sdf_aggregate_bwd: inputs on different "
-                         "devices")
     if num_bar.shape != (p,) or w.shape != (p * k,) or \
             r_lat.shape != (p * k, LAT):
         raise ValueError("pair_sdf_aggregate_bwd: num_bar [P], w [P*k] and "
                          f"r_lat [P*k, {LAT}] for idx_ext [P, k]")
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"pair_sdf_aggregate_bwd: unsupported device {dev}")
+    if w.is_cuda:
+        d = w.get_device()
+        same = num_bar.get_device() == d and r_lat.get_device() == d and \
+            idx_ext.get_device() == d
+    else:
+        dev = w.device
+        same = num_bar.device == dev and r_lat.device == dev and \
+            idx_ext.device == dev
+    if not same:
+        raise ValueError("pair_sdf_aggregate_bwd: inputs on different "
+                         "devices")
+    if not w.is_cuda:
+        if w.device.type == "cpu":
+            return True
+        raise ValueError(f"pair_sdf_aggregate_bwd: unsupported device "
+                         f"{w.device}")
     if (num_bar.dtype, w.dtype, r_lat.dtype, idx_ext.dtype) != \
             (torch.float32, torch.float32, torch.bfloat16, torch.int32):
         raise ValueError("pair_sdf_aggregate_bwd: num_bar and w f32, r_lat "
@@ -414,12 +424,11 @@ def pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n: int):
     if _check_bwd_inputs(num_bar, w, r_lat, idx_ext, n):
         return pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n)
     p, k = idx_ext.shape
-    dev = w.device
-    out = torch.empty((n, LAT), dtype=torch.float32, device=dev)
+    out = w.new_empty((n, LAT))
     err = cuda_build.load("agg_bwd", _SIG_BWD).pair_sdf_aggregate_bwd_launch(
         num_bar.data_ptr(), w.data_ptr(), r_lat.data_ptr(),
         idx_ext.data_ptr(), p * k, k, n, out.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(dev.index))
+        torch._C._cuda_getCurrentRawStream(w.get_device()))
     cuda_build.check(err, "pair_sdf_aggregate_bwd")
     LAUNCHES["pair_sdf_aggregate_bwd"] += 1
     return out
