@@ -1203,16 +1203,15 @@ def k4_host_ms(args, reps):
 
     num_bar, w, r_lat, idx_ext, n = args
     p, k = idx_ext.shape
-    dev = w.device
-    out = torch.zeros((n, 32), device=dev)
+    out = w.new_empty((n, 32))
     lib = cuda_build.load("agg_bwd", pair_mlp._SIG_BWD)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(w.device).cuda_stream
     parts = {
         "wrapper": lambda: pair_mlp.pair_sdf_aggregate_bwd(*args),
         "checks": lambda: pair_mlp._check_bwd_inputs(*args),
-        "alloc": lambda: torch.empty((n, 32), dtype=torch.float32,
-                                     device=dev),
-        "stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "alloc": lambda: w.new_empty((n, 32)),
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(
+            w.get_device()),
         "ctypes_call": lambda: lib.pair_sdf_aggregate_bwd_launch(
             num_bar.data_ptr(), w.data_ptr(), r_lat.data_ptr(),
             idx_ext.data_ptr(), p * k, k, n, out.data_ptr(), stream)}
