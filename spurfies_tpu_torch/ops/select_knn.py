@@ -32,8 +32,8 @@ ID_BITS = 15
 _ID_MASK = (1 << ID_BITS) - 1
 _SENTINEL = 1 << 30            # > every packed key (d2 < 2)
 SUPPORTED_K = (1, 2, 4, 8, 16)
-GROUP = 4                      # the packed kernel's lanes a query (kPackedGroup)
-EXACT_GROUP = 8                # the exact kernel's (kExactGroup)
+GROUP = 4                      # kPackedGroup: lanes a query, packed
+EXACT_GROUP = 8                # kExactGroup: lanes a query, exact
 
 LAUNCHES = {"select_knn_packed": 0, "select_knn_exact": 0}
 
