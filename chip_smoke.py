@@ -1195,8 +1195,8 @@ def k4_host_ms(args, reps):
     """The host time of one K4 wrapper call (the host clock over ``reps``
     calls with no synchronise between them, as :func:`k1_host_ms`), and of
     each of its parts alone: the input checks, the output's allocation, the
-    stream lookup and the ``ctypes`` call (into one output; the C entry
-    zeroes it and launches the kernel)."""
+    stream lookup and the ``ctypes`` call (into one output; one
+    cooperative launch zeroes it and adds)."""
     import torch
 
     from spurfies_tpu_torch.ops import cuda_build, pair_mlp
@@ -1228,8 +1228,8 @@ def k4_host_ms(args, reps):
 
 
 def k4_kernel_ms(num_bar, w, r_lat, idx_ext, n, reps):
-    """K4's own device time on these inputs: its C entry (which zeroes the
-    output, then launches the kernel) called ``reps`` times into one output
+    """K4's own device time on these inputs: its C entry (one launch that
+    zeroes the output, then adds) called ``reps`` times into one output
     (CUDA events), as :func:`k5_kernel_ms` times K5."""
     import torch
 

@@ -25,7 +25,7 @@
 // (no same-address chains) took no less.
 //
 // Design:
-//   * a grid of at most a few blocks an SM walks the rows 32 at a time, a
+//   * a grid of at most 8 blocks an SM walks the rows 32 at a time, a
 //     warp a window: lane l reads idx and w of row 32 j + l (coalesced), and
 //     a ballot marks the kept rows, so a dropped row costs 8 bytes and no
 //     lane's time after that, and leaves before any load of r_lat;
@@ -35,10 +35,15 @@
 //     atomicAdd(float4 *, float4)), 8 atomics a row instead of 32;
 //   * the product is rounded as the TPU kernel's (num_bar * w) * r, with
 //     __fmul_rn so that nothing is contracted;
-//   * the C entry zeroes the output on the given stream before the kernel.
+//   * the kernel zeroes the output itself, and a grid barrier separates
+//     that from the adds: one cooperative launch (its grid capped at the
+//     blocks that fit on the card at once), where a memset and a kernel
+//     made two driver calls. At a training step's small launch (8,192
+//     rows) the host's time per call is the kernel's cost.
 // The order of the atomic adds changes from run to run: sums agree with a
 // sequential sum up to f32 reordering, never bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,6 +60,16 @@ agg_bwd_kernel(const float* __restrict__ num_bar, const float* __restrict__ w,
                const __nv_bfloat16* __restrict__ r_lat,
                const int* __restrict__ idx, int rows, int k, int n,
                float* __restrict__ out) {
+  // zero the output, then wait for the whole grid: any row may be added
+  // to by any block
+  const long long threads = static_cast<long long>(gridDim.x) * kThreads;
+  float4* out4 = reinterpret_cast<float4*>(out);
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       e < static_cast<long long>(n) * (kLat / 4); e += threads)
+    out4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  cooperative_groups::this_grid().sync();
+
   const int lane = threadIdx.x & 31;
   const int group = lane >> 3;        // which of the 4 rows a pass takes
   const int col = (lane & 7) * 4;     // the group lane's 4 columns
@@ -106,33 +121,37 @@ agg_bwd_kernel(const float* __restrict__ num_bar, const float* __restrict__ w,
 }  // namespace
 
 // num_bar [rows / k] f32, w [rows] f32, r_lat [rows, 32] bf16, idx [rows]
-// i32 (point-major pair rows, k per point), out [n, 32] f32, zeroed here on
-// the stream before the kernel. Returns the first CUDA error code.
+// i32 (point-major pair rows, k per point), out [n, 32] f32, zeroed by the
+// kernel itself (one cooperative launch: a grid barrier between the zero
+// fill and the adds). Returns the first CUDA error code.
 extern "C" int pair_sdf_aggregate_bwd_launch(const float* num_bar,
                                              const float* w, const void* r_lat,
                                              const int* idx, int rows, int k,
                                              int n, float* out, void* stream) {
   if (rows < 0 || k <= 0 || rows % k != 0 || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      out, 0, static_cast<size_t>(n) * kLat * sizeof(float), s);
-  if (err != cudaSuccess || rows == 0) return static_cast<int>(err);
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
+  static int max_blocks = 0;   // co-resident blocks: the grid barrier's cap
+  if (max_blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, agg_bwd_kernel, kThreads, 0)) != cudaSuccess)
       return static_cast<int>(err);
+    max_blocks = sms * (per_sm < kBlocksPerSm ? per_sm : kBlocksPerSm);
   }
+  // a warp a window of 32 rows, and at most 4 float4 of zeros a thread
   const long long windows = (rows + 31LL) / 32;
-  const long long need = (windows + kWarps - 1) / kWarps;
-  const int blocks = static_cast<int>(
-      need < static_cast<long long>(sms) * kBlocksPerSm
-          ? need : static_cast<long long>(sms) * kBlocksPerSm);
-  agg_bwd_kernel<<<blocks, kThreads, 0, s>>>(
-      num_bar, w, static_cast<const __nv_bfloat16*>(r_lat), idx, rows, k, n,
-      out);
-  return static_cast<int>(cudaGetLastError());
+  long long need = (windows + kWarps - 1) / kWarps;
+  const long long zero = (static_cast<long long>(n) * (kLat / 4) +
+                          4 * kThreads - 1) / (4 * kThreads);
+  if (need < zero) need = zero;
+  const int blocks = static_cast<int>(need < max_blocks ? need : max_blocks);
+  const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(r_lat);
+  void* args[] = {&num_bar, &w, &r, &idx, &rows, &k, &n, &out};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(agg_bwd_kernel), blocks, kThreads, args, 0,
+      static_cast<cudaStream_t>(stream)));
 }
