@@ -38,7 +38,7 @@
 //   * the kernel zeroes the output itself, and a grid barrier separates
 //     that from the adds: one cooperative launch (its grid capped at the
 //     blocks that fit on the card at once), where a memset and a kernel
-//     made two driver calls. At a training step's small launch (8,192
+//     made two CUDA calls. At a training step's small launch (8,192
 //     rows) the host's time per call is the kernel's cost.
 // The order of the atomic adds changes from run to run: sums agree with a
 // sequential sum up to f32 reordering, never bit for bit.

@@ -47,8 +47,7 @@
 //     on the render's shading query (chip_k1_parts.py). There it scans
 //     candidates at the packed variant's rate, about one an SM clock:
 //     the walk's instructions hold it, not its bytes, and staging a
-//     block's lists in shared memory was slower (PERF.md, section 6,
-//     PR 11).
+//     block's lists in shared memory was slower (PERF.md, section 6).
 // The [Q, T] transposes of the TPU kernel exist only for its vector layout
 // and are gone. Distances use __fmul_rn/__fadd_rn so that nvcc does not
 // contract them into FMAs: the plain PyTorch version gives the same bits.

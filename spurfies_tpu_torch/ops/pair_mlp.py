@@ -418,7 +418,7 @@ def pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n: int):
     the card) are K3's residuals; idx_ext ``[P, k]`` int32.  CPU tensors run
     :func:`pair_sdf_aggregate_bwd_ref`; CUDA tensors launch the kernel.
     Its wrapper is on every training step's host path, so it does the least
-    host work it can: one driver call (the kernel zeroes its output), and
+    host work it can: one CUDA launch (the kernel zeroes its output), and
     the stream read as its raw handle.
     """
     if _check_bwd_inputs(num_bar, w, r_lat, idx_ext, n):
