@@ -662,6 +662,47 @@ def check_rows(name, fn, ref, args, prior, prior_f32, reps, radius,
             "bound_all_rows_ms": b_all, "rows": rows, "rows_needed": n_real}
 
 
+def k7b_step0(u, prior, reps):
+    """Step 0 of K7b's redesign: what holds it on ``u``.  Its time through
+    the wrapper and by its C entry alone (CUDA events, one output), the
+    TFLOP/s that executes, its blocks and the bf16 weight bytes each one
+    reads (from L2: the weights fit there) and their sum over a launch.
+    The ``K7b step 0`` line; returns its numbers."""
+    import torch
+
+    from spurfies_tpu_torch.ops import cuda_build, pair_mlp
+
+    m = u.shape[0]
+    out = torch.empty((m,), dtype=torch.float32, device=u.device)
+    # csrc/pair_mlp.cu: one block a 128-row tile, every layer's weights
+    # loaded by each block, one layer at a time
+    wbuf, bbuf = prior.kernel_buffers()
+    lib = cuda_build.load("pair_mlp", pair_mlp._SIG)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+
+    def run():
+        cuda_build.check(lib.pair_sdf_value_launch(
+            u.data_ptr(), m, wbuf.data_ptr(), bbuf.data_ptr(),
+            out.data_ptr(), stream), "pair_sdf_value")
+    with torch.no_grad():
+        wrapper_ms = cuda_ms(lambda: pair_mlp.pair_sdf_value(u, prior), reps)
+    kernel_ms = cuda_ms(run, reps)
+    tiles = -(-m // 128)
+    blocks = tiles
+    tile_bytes = wbuf.numel() * 2
+    flops = 2.0 * (32 * 256 + 3 * 256 + 3 * 256 * 256 + 256) * m
+    launch_bytes = tile_bytes * tiles
+    log(f"K7b step 0: M={m}; wrapper {wrapper_ms:.4f} ms, C entry "
+        f"{kernel_ms:.4f} ms, {flops / kernel_ms / 1e9:.1f} TFLOP/s "
+        f"executed; {blocks} blocks, {tiles} tiles of 128 rows, "
+        f"{tile_bytes} weight bytes a tile ({launch_bytes / 1e9:.3f} GB a "
+        f"launch from L2, {launch_bytes / kernel_ms / 1e6:.0f} GB/s)")
+    return {"wrapper_ms": wrapper_ms, "kernel_ms": kernel_ms,
+            "tflops": flops / kernel_ms / 1e9, "blocks": blocks,
+            "tiles": tiles, "weight_bytes_a_tile": tile_bytes,
+            "weight_bytes_a_launch": launch_bytes}
+
+
 def within(what, out, ref, hold=True, keep=None):
     """|out - ref| <= 2**-6 |ref| + 1e-3 scale for 99.9% of the entries and
     <= 0.05 scale for all, per column (scale: the column's max |ref|; the
@@ -2163,6 +2204,9 @@ def main():
         f"K7b pair_sdf_value (microbench, {MICRO_PAIRS} pairs)",
         pair_mlp.pair_sdf_value, pair_mlp.pair_sdf_value_ref, (u,), prior,
         prior_f32, 20, math.inf)
+    step0 = k7b_step0(u, prior, 20)
+    results["K7b pair_sdf_value"].update(kernel_ms=step0["kernel_ms"],
+                                         step0=step0)
     check_rows(
         f"K7a pair_sdf_value_and_input_grad (microbench, {MICRO_PAIRS} "
         "pairs)", pair_mlp.pair_sdf_value_and_input_grad,
