@@ -86,7 +86,7 @@ def main():
     dev = torch.device("cuda")
     table, idx, x, prior = _mixed_pairs(dev, 327680)
     p, k = idx.shape
-    wbuf, bbuf = prior.k3_buffer(), prior.kernel_buffers()[1]
+    wbuf, bbuf = prior.k3_buffer(), prior.bias_buffer()
     pt = torch.empty((p, 5), device=dev)
     w = torch.empty(p * k, device=dev)
     r = torch.empty((p * k, 32), dtype=torch.bfloat16, device=dev)

@@ -12,8 +12,8 @@ failure exits non-zero before the last line):
   2. build: every kernel of ``spurfies_tpu_torch/csrc`` with nvcc for
      sm_90a, one process per source, all at once (seconds, and each entry
      function's registers and spills); the HGMMA and HMMA counts of the
-     SASS of the wgmma kernels (WGMMA_KERNELS: K3, K2, K6a, K6b, K7a and
-     the colour stack's), each of which must hold HGMMA;
+     SASS of the wgmma kernels (WGMMA_KERNELS: K3, K2, K6a, K6b, K7a, K7b
+     and the colour stack's), each of which must hold HGMMA;
   3. scenes: the DUSt3R-like cloud of ``make_dust3r_like_scene`` (the
      JAX package's bench scene, 192x256 views; ~6k points -> the packed K1
      variant) and a dense 40k-point sphere (>2**15 points -> the exact K1
@@ -85,7 +85,10 @@ failure exits non-zero before the last line):
      model.color_pair_frac=0.75`` (K7a, and K5 behind ``gather_latents``);
  13. pair-MLP microbenchmark (``scripts/microbench.py:88-104``): K7b and
      K7a on MICRO_PAIRS random pairs, counters read on their own, each
-     timed and held against its plain version;
+     timed and held against its plain version; the ``K7b step 0`` line
+     (K7b through its wrapper and by its C entry, the TFLOP/s it executes,
+     its blocks and the weight bytes they read); K7b's s bit-equal to
+     K7a's on the same pairs;
  14. the fused colour (``field.FUSED_COLOR``, set and restored around each
      use), in three places: after phase 5, view 0 of dust3r_like rendered
      in full with its launch counts (the pack and K8a once per chunk), and
@@ -157,6 +160,10 @@ OPTION_STEPS = 50
 FUSED_COLOR_STEP = dict(PER_STEP, pack_color_weights=1, fused_color_fwd=1,
                         fused_color_bwd=1)
 MICRO_PAIRS = 655360
+# bf16 weights that the value-only kernels (K2, K6b, K7b) stream from
+# PriorLayers.k3_buffer: its 13 up-sweep chunks of [256, 64], and w_v
+UP_SWEEP_CHUNKS = 13
+UP_SWEEP_WEIGHTS = UP_SWEEP_CHUNKS * 256 * 64 + 256
 # device-kernel names of the port's kernels, by the kernels line's label
 # (a label may have several: K8a and K8b launch one kernel per piece; K1's
 # two variants are one template, select_kernel<PackedKey or ExactKey, ...>)
@@ -169,7 +176,7 @@ KERNEL_NAMES = (("K1 select_knn packed", "PackedKey"),
                 ("K6a pair_sdf_rows_grad", "rows_grad_kernel"),
                 ("K6b pair_sdf_rows_value", "rows_value_kernel"),
                 ("K7a pair_sdf_value_and_input_grad", "rows_pre_grad_kernel"),
-                ("K7b pair_sdf_value", "pair_value_kernel"),
+                ("K7b pair_sdf_value", "rows_pre_value_kernel"),
                 ("K8p pack_color_weights", "color_pack_kernel"),
                 ("K8a fused_color_fwd", "color_pair_fwd_kernel"),
                 ("K8a fused_color_fwd", "color_point_fwd_kernel"),
@@ -184,6 +191,7 @@ WGMMA_KERNELS = (("K3", "sdf_agg", "sdf_agg_kernel"),
                  ("K6a", "sdf_agg", "rows_grad_kernel"),
                  ("K6b", "sdf_agg", "rows_value_kernel"),
                  ("K7a", "sdf_agg", "rows_pre_grad_kernel"),
+                 ("K7b", "sdf_agg", "rows_pre_value_kernel"),
                  ("K8a pair", "color_mlp", "color_pair_fwd_kernel"),
                  ("K8a point", "color_mlp", "color_point_fwd_kernel"),
                  ("K8b pair recompute", "color_mlp",
@@ -645,12 +653,12 @@ def check_rows(name, fn, ref, args, prior, prior_f32, reps, radius,
     down = 3 * 256 * 256 + 256 * 35
     per_row = 2.0 * (up + (down if grad else 0))
     # bytes: every input row read once, every output written once, and the
-    # packed bf16 weights (K7b's layout, or sdf_agg.cu's) and f32 biases
-    wbuf, bbuf = prior.kernel_buffers()
-    if fn.__name__ != "pair_sdf_value":
-        wbuf = prior.k3_buffer()
+    # packed bf16 weights that the kernel streams (all of k3_buffer; without
+    # the down sweep its 13 up-sweep chunks and w_v) and the f32 biases
+    w_elems = prior.k3_buffer().numel() if grad else UP_SWEEP_WEIGHTS
     n_bytes = sum(t.numel() * 4 for t in args) + \
-        sum(o.numel() * 4 for o in outs) + wbuf.numel() * 2 + bbuf.numel() * 4
+        sum(o.numel() * 4 for o in outs) + w_elems * 2 + \
+        prior.bias_buffer().numel() * 4
     b_ms, b_by = bound_ms(n_bytes, per_row * n_real, PEAK_BF16_FLOPS)
     b_all, _ = bound_ms(n_bytes, per_row * rows, PEAK_BF16_FLOPS)
     log(f"{name}: M={rows}{needed}; kernel {ms:.4f} ms "
@@ -665,31 +673,32 @@ def check_rows(name, fn, ref, args, prior, prior_f32, reps, radius,
 def k7b_step0(u, prior, reps):
     """Step 0 of K7b's redesign: what holds it on ``u``.  Its time through
     the wrapper and by its C entry alone (CUDA events, one output), the
-    TFLOP/s that executes, its blocks and the bf16 weight bytes each one
-    reads (from L2: the weights fit there) and their sum over a launch.
-    The ``K7b step 0`` line; returns its numbers."""
+    TFLOP/s that executes, its blocks and the bf16 weight bytes they read
+    a 128-row tile (from L2: the weights fit there) and their sum over a
+    launch.  The ``K7b step 0`` line; returns its numbers."""
     import torch
 
     from spurfies_tpu_torch.ops import cuda_build, pair_mlp
 
     m = u.shape[0]
     out = torch.empty((m,), dtype=torch.float32, device=u.device)
-    # csrc/pair_mlp.cu: one block a 128-row tile, every layer's weights
-    # loaded by each block, one layer at a time
-    wbuf, bbuf = prior.kernel_buffers()
-    lib = cuda_build.load("pair_mlp", pair_mlp._SIG)
+    # csrc/sdf_agg.cu: a persistent grid, one block an SM, each streaming
+    # the 13 up-sweep chunks of k3_buffer a tile
+    wbuf, bbuf = prior.k3_buffer(), prior.bias_buffer()
+    lib = cuda_build.load("sdf_agg", pair_mlp._SIG_SDF_AGG)
     stream = torch.cuda.current_stream(u.device).cuda_stream
 
     def run():
-        cuda_build.check(lib.pair_sdf_value_launch(
+        cuda_build.check(lib.pair_sdf_pre_value_launch(
             u.data_ptr(), m, wbuf.data_ptr(), bbuf.data_ptr(),
             out.data_ptr(), stream), "pair_sdf_value")
     with torch.no_grad():
         wrapper_ms = cuda_ms(lambda: pair_mlp.pair_sdf_value(u, prior), reps)
     kernel_ms = cuda_ms(run, reps)
     tiles = -(-m // 128)
-    blocks = tiles
-    tile_bytes = wbuf.numel() * 2
+    blocks = min(tiles, torch.cuda.get_device_properties(
+        u.device).multi_processor_count)
+    tile_bytes = UP_SWEEP_CHUNKS * 256 * 64 * 2
     flops = 2.0 * (32 * 256 + 3 * 256 + 3 * 256 * 256 + 256) * m
     launch_bytes = tile_bytes * tiles
     log(f"K7b step 0: M={m}; wrapper {wrapper_ms:.4f} ms, C entry "
@@ -2207,6 +2216,14 @@ def main():
     step0 = k7b_step0(u, prior, 20)
     results["K7b pair_sdf_value"].update(kernel_ms=step0["kernel_ms"],
                                          step0=step0)
+    # K7b is K7a without the down sweep: on the same pairs its s is K7a's
+    with torch.no_grad():
+        same = torch.equal(pair_mlp.pair_sdf_value(u, prior),
+                           pair_mlp.pair_sdf_value_and_input_grad(u, prior)[0])
+    log(f"K7b s vs K7a s on the {MICRO_PAIRS} pairs: "
+        f"{'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        fail("K7b and K7a disagree on the same pairs")
     check_rows(
         f"K7a pair_sdf_value_and_input_grad (microbench, {MICRO_PAIRS} "
         "pairs)", pair_mlp.pair_sdf_value_and_input_grad,
@@ -2287,7 +2304,7 @@ def main():
             "spurfies_tpu_torch/csrc/sdf_agg.cu",
             "spurfies_tpu/ops/pallas_mlp.py:51"),
         "K7b pair_sdf_value": ("pair_sdf_value",
-                               "spurfies_tpu_torch/csrc/pair_mlp.cu",
+                               "spurfies_tpu_torch/csrc/sdf_agg.cu",
                                "spurfies_tpu/ops/pallas_mlp.py:146"),
         "K8p pack_color_weights": ("pack_color_weights",
                                    "spurfies_tpu_torch/csrc/color_mlp.cu",

@@ -1,5 +1,5 @@
-// K3, K2, K6a, K6b and K7a -- the frozen prior's pair MLP on Hopper (sm_90a),
-// on one pipeline: a persistent grid, a producer warp that streams the
+// K3, K2, K6a, K6b, K7a and K7b -- the frozen prior's pair MLP on Hopper
+// (sm_90a), on one pipeline: a persistent grid, a producer warp that streams the
 // weights into a shared-memory ring by cp.async.bulk, and two consumer
 // warpgroups that run the products on wgmma.
 //
@@ -18,30 +18,34 @@
 //     the down sweep;
 //   * K7a (rows_pre_grad_kernel): _fused_mlp_call -> _mlp_kernel (call
 //     :126, body :51): model.pair_budget_frac's pair-compacted SDF, K6a on
-//     pre-assembled rows u = [lat | x_pi].
+//     pre-assembled rows u = [lat | x_pi];
+//   * K7b (rows_pre_value_kernel): _fused_value_call -> _value_kernel (call
+//     :182, body :146): the prior's value on pre-assembled rows (the
+//     pair-MLP microbenchmark), K7a without the down sweep.
 //
 // What they compute, per pair row t = (point p, neighbour j) with table row
 // g = table[idx[p, j]] = [lat (32) | pos (3)] (K6a: g and the query x given
-// per row; K7a: u = [lat | x_pi] given per row):
+// per row; K7a and K7b: u = [lat | x_pi] given per row):
 //   x_pi = x[p] - pos;  w = exp(-rbf^2 |x_pi|^2)
 //   a0 = [lat | x_pi] @ W0 + b0; then 3 x (LeakyReLU(0.01), 256x256)
 //   s  = LeakyReLU(a3) @ w_v + b_v   (F_geometry[4] and T pre-fused, f32)
 //   r  = ds/du by the down sweep, gates (a > 0 ? 1 : 0.01)   (K3, K6a)
 //   K3: per point (sum w s, sum w, sum w r_pos); per pair w (f32), r_lat
 //   (bf16).  K2: per point (sum w s, sum w).  K6a: per row s, r [35] and
-//   x_pi, all f32.  K6b: per row s and x_pi.  K7a: per row s and r.
+//   x_pi, all f32.  K6b: per row s and x_pi.  K7a: per row s and r.  K7b:
+//   per row s.
 // Rounding follows _mlp_kernel_agg: bf16 operands, f32 accumulation, bias
 // added in f32, activations rounded to bf16 after each LeakyReLU, the
 // down-sweep delta rounded to bf16 after each product and after each gate.
 // The up sweep's first product is one 48-deep product over
 // [bf16(lat) | bf16(x_pi) | 0], equal to the TPU body's
-// g_lat @ W_lat + x_pi @ W_pos (K7a's: bf16(u) @ W0) up to f32 summation
-// order.
+// g_lat @ W_lat + x_pi @ W_pos (K7a's and K7b's: bf16(u) @ W0) up to f32
+// summation order.
 //
 // What bounds them on an H100: operations.  0.82 MFLOP per real pair or
-// row for K3 and K6a (up and down sweep 0.21 MMACs each), 0.41 for K2 and
-// K6b, against ~110 (K3), ~50 (K2), ~310 (K6a) and ~170 (K6b) bytes of
-// input and output:
+// row for K3, K6a and K7a (up and down sweep 0.21 MMACs each), 0.41 for
+// K2, K6b and K7b, against ~110 (K3), ~50 (K2), ~310 (K6a), ~170 (K6b),
+// ~284 (K7a) and ~144 (K7b) bytes of input and output:
 // far above the card's ~295 FLOP/byte ridge.  What a block reads most is
 // the weights: 820 KB per tile of 128 rows (K2: the up sweep's 410 KB),
 // from L2.
@@ -70,7 +74,8 @@
 //     row 0 and the caller masks them, as the TPU kernel has them).  K7a is
 //     K6a whose gather reads x_pi from u instead of forming it (no query
 //     read, no x_pi written): given u = [g_lat | K6a's x_pi], its s and r
-//     are K6a's bit for bit.  Its
+//     are K6a's bit for bit.  K6b and K7b are K6a and K7a without the down
+//     sweep (rows_body<false, kPre>), so all four give the same s.  Their
 //     tiles are 128 contiguous rows, block b taking tiles b, b + G, ...;
 //     each warpgroup reads its 64 rows itself (the ragged last tile reads
 //     zeros and writes nothing past m).  Once a warpgroup's last product
@@ -83,7 +88,7 @@
 //     over 384 threads, so the 128 accumulators leave little room and the
 //     gate bits are kept in shared memory).  The producer fills the next
 //     tile's row list (K3, K2: a two-slot ring of tile descriptors) and
-//     streams the weight chunks of every tile (26; K2 and K6b 13) into a
+//     streams the weight chunks of every tile (26; K2, K6b and K7b 13) into a
 //     four-stage ring of 32 KB shared-memory stages: one cp.async.bulk per
 //     chunk, completed on the stage's mbarrier, so the next chunk (or the
 //     next layer's first one) loads while the current one is multiplied.
@@ -903,8 +908,9 @@ value_agg_kernel(const float* __restrict__ table, int n_rows,
 // in f32; K6a only: out_r [m, 35] = r = ds/du, the bf16 delta of the down
 // sweep, as f32.  K6b streams the up sweep's 13 weight chunks a tile and
 // keeps no gate bits; its s and x_pi are K6a's bit for bit.  With kPre
-// (K7a), g is u [m, 35] = [lat | x_pi]: the gather rounds its columns as
-// they are, and xq and out_xpi are neither read nor written.
+// (K7a, and K7b without the down sweep), g is u [m, 35] = [lat | x_pi]:
+// the gather rounds its columns as they are, and xq and out_xpi are
+// neither read nor written.
 template <bool kGrad, bool kPre = false>
 __device__ __forceinline__ void rows_body(
     const float* __restrict__ g_in, const float* __restrict__ xq,
@@ -1050,6 +1056,14 @@ rows_pre_grad_kernel(const float* __restrict__ u, long long m,
   rows_body<true, true>(u, nullptr, m, wbuf, bbuf, out_s, out_r, nullptr);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+rows_pre_value_kernel(const float* __restrict__ u, long long m,
+                      const __nv_bfloat16* __restrict__ wbuf,
+                      const float* __restrict__ bbuf,
+                      float* __restrict__ out_s) {
+  rows_body<false, true>(u, nullptr, m, wbuf, bbuf, out_s, nullptr, nullptr);
+}
+
 // One block per SM, at most one per unit of work (`units` > 0); the
 // kernel's shared memory allowed.
 cudaError_t grid_for(const void* kernel, long long units, int* grid) {
@@ -1158,4 +1172,12 @@ extern "C" int pair_sdf_pre_grad_launch(const float* u, long long m,
   return launch_rows(rows_pre_grad_kernel, m, stream, u, m,
                      static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s,
                      out_r);
+}
+
+// K7b: the same input -> out_s [m].
+extern "C" int pair_sdf_pre_value_launch(const float* u, long long m,
+                                         const void* wbuf, const float* bbuf,
+                                         float* out_s, void* stream) {
+  return launch_rows(rows_pre_value_kernel, m, stream, u, m,
+                     static_cast<const __nv_bfloat16*>(wbuf), bbuf, out_s);
 }

@@ -157,7 +157,8 @@ def compact_pair_slots(valid_flat: torch.Tensor, budget: int):
 
 def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
               budget_frac: float | None = 0.25, need_grad: bool = True,
-              return_overflow: bool = False, fused_agg: bool = True):
+              return_overflow: bool = False, fused_agg: bool = True,
+              live: torch.Tensor | None = None):
     """SDF at arbitrary world points (filler 1000 in empty space).
 
     budget_frac: a fine-occupancy lookup prunes empty-space probe points
@@ -166,6 +167,9 @@ def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
     run, masked).  ``r`` must match the radius of the scene's table.
     return_overflow: also return a ``[]`` bool -- occupied probe points
     were dropped by the budget.  fused_agg: as :func:`aggregate_sdf`.
+    live: ``[M]`` bool or None -- under a budget, only these points may take
+    a slot; the others read as empty space and never raise the flag (the
+    ray budget's spare slots, whose outputs are cut away).
     """
     m = x.shape[0]
     budget = (max(int(m * budget_frac) // 128 * 128, 128)
@@ -180,6 +184,8 @@ def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
         return sdf
 
     occ = fine_occupancy(x, scene.occ_fine, scene.spec)
+    if live is not None:
+        occ = occ & live
     sel, sel_ok, overflowed = compact_pair_slots(occ, budget)
     x_c = x[sel]
     idx_c, _ = query_grid(x_c, scene.table, scene.spec, k=k)

@@ -107,7 +107,7 @@ def render_rays(params, scene, inputs, cfg: ModelConfig, *, train: bool,
             slot, ok, overflowed = field.compact_pair_slots(ray_occ, budget)
             out = _render_body(params["frozen"], params["train"], scene,
                                cam_loc[slot], ray_dirs[slot],
-                               depth_scale[slot], **body)
+                               depth_scale[slot], ray_ok=ok, **body)
             probe_ovf = out.pop("probe_budget_overflow")
             dense = _scatter_rays_back(out, slot, ok, n_rays,
                                        cfg.ray_sampler.far)
@@ -160,7 +160,14 @@ def coarse_ray_occupancy(cam_loc, ray_dirs, scene, scfg):
 
 def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
                  depth_scale, cfg: ModelConfig, *, train: bool, iters: int,
-                 generator=None, draws=None):
+                 generator=None, draws=None, ray_ok=None):
+    """The render of ``[R]`` rays.  ``ray_ok`` ``[R]`` bool: the ray
+    budget's live slots (:func:`field.compact_pair_slots`' ok, a prefix);
+    the spare slots repeat the batch's last ray and their outputs are cut
+    away, so their probe points take no probe-budget slot and read as
+    empty space.  The live points keep their ranks (every spare point
+    comes after them), so every output of a live ray is what it was, and
+    ``probe_budget_overflow`` counts only a live ray's dropped probe."""
     scfg = cfg.ray_sampler
     S = cfg.max_shading_pts
     K = cfg.k
@@ -179,11 +186,14 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
     geo = tp["feats_geometry"].detach()
 
     def sdf_probe_fn(x, first=False):
+        # the sampler's probe points are ray-major [R * Z]
+        live = None if ray_ok is None else ray_ok[:, None].expand(
+            n_rays, x.shape[0] // n_rays).reshape(-1)
         return field.sdf_probe(prior, geo, scene, x, cfg.probe_k or cfg.k,
                                cfg.r, cfg.rbf,
                                budget_frac=pf_first if first else pf_rest,
                                need_grad=False, return_overflow=True,
-                               fused_agg=cfg.fused_agg)
+                               fused_agg=cfg.fused_agg, live=live)
 
     z_all, probe_overflow = error_bound_z_vals(
         sdf_probe_fn, cam_loc, ray_dirs, scfg, beta0, iters, train=train,

@@ -25,9 +25,8 @@ backward together, as the custom VJP of ``spurfies_tpu/model/field.py``'s
 ``spurfies_tpu/ops/pallas_mlp.py:458-533``, whose backwards are
 elementwise (no kernel, as in the JAX package).
 
-The CUDA kernels are ``csrc/sdf_agg.cu`` (K2, K3, K6a, K6b, K7a: one
-``wgmma`` pipeline), ``csrc/pair_mlp.cu`` (K7b) and ``csrc/agg_bwd.cu``
-(K4);
+The CUDA kernels are ``csrc/sdf_agg.cu`` (K2, K3, K6a, K6b, K7a, K7b: one
+``wgmma`` pipeline) and ``csrc/agg_bwd.cu`` (K4);
 ``*_ref`` are their plain PyTorch versions (CPU tensors, and the kernels'
 yardstick on the card).  The pair-MLP kernels
 follow the TPU kernels' rounding points: operands in the compute dtype,
@@ -53,7 +52,7 @@ from spurfies_tpu_torch.ops import cuda_build
 DUMP_POS = 1.0e9        # dump-row position: w = exp(-rbf^2 * ~1e18) == 0
 HID = 256
 LAT = 32
-_IN0, _OUT0 = 48, 40    # padded first-layer depth / last down-sweep width
+_OUT0 = 40              # the last down-sweep width, padded to 8s
 
 LAUNCHES = {"pair_sdf_value_agg": 0, "pair_sdf_aggregate": 0,
             "pair_sdf_aggregate_bwd": 0, "pair_sdf_rows_grad": 0,
@@ -65,15 +64,13 @@ _LL = ctypes.c_longlong
 _AGG_IN = [_P, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
            ctypes.c_float]          # table, n_rows, idx, x, P, k, wbuf, bbuf, rbf2
 # the per-row kernels: inputs, m, wbuf, bbuf, outputs, stream
-_SIG = {                            # csrc/pair_mlp.cu: K7b
-    "pair_sdf_value_launch": [_P, _LL, _P, _P, _P, _P],
-}
-_SIG_SDF_AGG = {                    # csrc/sdf_agg.cu: K3, K2, K6a, K6b, K7a
+_SIG_SDF_AGG = {            # csrc/sdf_agg.cu: K3, K2, K6a, K6b, K7a, K7b
     "pair_sdf_aggregate_launch": _AGG_IN + [_P, _P, _P, _P],
     "pair_sdf_value_agg_launch": _AGG_IN + [_P, _P],
     "pair_sdf_rows_grad_launch": [_P, _P, _LL, _P, _P, _P, _P, _P, _P],
     "pair_sdf_rows_value_launch": [_P, _P, _LL, _P, _P, _P, _P, _P],
     "pair_sdf_pre_grad_launch": [_P, _LL, _P, _P, _P, _P, _P],
+    "pair_sdf_pre_value_launch": [_P, _LL, _P, _P, _P, _P],
 }
 _SIG_BWD = {"pair_sdf_aggregate_bwd_launch": [_P, _P, _P, _P, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int, _P,
@@ -86,20 +83,20 @@ class PriorLayers:
 
     ws: weights ``[in, out]`` in the compute dtype (the last one the fused
     256->1 tail); bs: biases in f32 ``[1, out]``; n_act: layers with a
-    LeakyReLU.  The kernel's packed buffers are made on first use.
+    LeakyReLU.  The kernels' buffers are made on first use.
     """
     ws: list
     bs: list
     n_act: int
     compute_dtype: torch.dtype
-    _packed: tuple = None
+    _bias: torch.Tensor = None
     _packed_k3: torch.Tensor = None
 
-    def kernel_buffers(self):
-        """(bf16 weights, f32 biases) in the layout of csrc/pair_mlp.cu
-        (K7b): W0^T ``[256, 48]`` (k >= 35 zero), W_l^T for l = 1, 2, 3 and
-        w_v; the biases serve csrc/sdf_agg.cu too."""
-        if self._packed is None:
+    def bias_buffer(self):
+        """The f32 biases of ``csrc/sdf_agg.cu``: b0..b3 ``[4, 256]``, then
+        b_v (1,025 floats).  Raises unless the prior is the kernels':
+        bf16, 35->256x4->1."""
+        if self._bias is None:
             if self.compute_dtype != torch.bfloat16:
                 raise ValueError("the pair-MLP kernels run in bf16 only; "
                                  f"got compute dtype {self.compute_dtype}")
@@ -107,30 +104,22 @@ class PriorLayers:
                     tuple(self.ws[0].shape) != (LAT + 3, HID):
                 raise ValueError("the pair-MLP kernels take the 35->256x4->1 "
                                  "prior of ModelConfig's defaults")
-            w0 = self.ws[0]
-            up0 = torch.zeros(HID, _IN0, dtype=torch.bfloat16,
-                              device=w0.device)
-            up0[:, :LAT + 3] = w0.t()
-            parts = [up0.reshape(-1)]
-            parts += [w.t().contiguous().reshape(-1) for w in self.ws[1:4]]
-            parts += [self.ws[4].reshape(-1)]
-            wbuf = torch.cat(parts).contiguous()
-            bbuf = torch.cat([b.reshape(-1).float() for b in self.bs])
-            self._packed = (wbuf, bbuf.contiguous())
-        return self._packed
+            self._bias = torch.cat([b.reshape(-1).float()
+                                    for b in self.bs]).contiguous()
+        return self._bias
 
     def k3_buffer(self):
-        """The bf16 weights of ``csrc/sdf_agg.cu`` (K3, K2, K6a, K6b, K7a),
+        """The bf16 weights of ``csrc/sdf_agg.cu`` (every pair-MLP kernel),
         packed once in the byte layout of its shared-memory stages, so that
         each of the 26 chunks is one contiguous bulk copy: chunk 0 is W0^T
         ``[256, 64]`` (k >= 35 zero); chunks 1-12 W_l^T for l = 1, 2, 3 (the
-        up sweep ends here: K2 and K6b stream chunks 0-12 only) and chunks
+        up sweep ends here: K2, K6b and K7b stream chunks 0-12 only) and chunks
         13-24 W_l for l = 3, 2, 1, each layer as four ``[256, 64]`` column
         blocks; then W0 ``[40, 256]`` (rows >= 35 zero) as four ``[40, 64]``
         blocks, and w_v ``[256]``.  Every block is :func:`_swizzle128`'d.
-        The biases are :meth:`kernel_buffers`' f32 buffer."""
+        The biases are :meth:`bias_buffer`."""
         if self._packed_k3 is None:
-            self.kernel_buffers()                   # dtype and shape checks
+            self.bias_buffer()                      # dtype and shape checks
             w0 = self.ws[0]
             up0 = w0.new_zeros(HID, 64)
             up0[:, :LAT + 3] = w0.t()
@@ -304,7 +293,7 @@ def _launch_agg(name, table, idx_ext, x, layers: PriorLayers, rbf: float,
     """Run K3 or K2 (the C entry ``{name}_launch`` of ``csrc/sdf_agg.cu``)
     into the new tensors ``outs``."""
     p, k = idx_ext.shape
-    bbuf = layers.kernel_buffers()[1]
+    bbuf = layers.bias_buffer()
     wbuf = layers.k3_buffer()
     idx_ext, x, table = (t.contiguous() for t in (idx_ext, x, table))
     lib = cuda_build.load("sdf_agg", _SIG_SDF_AGG)
@@ -529,20 +518,17 @@ def _check_rows(name, *ins):
 def _launch_rows(name, entry, ins, layers: PriorLayers, out_cols):
     """Run the C entry ``entry`` on ``ins`` into new f32 outputs of
     ``[M, c]`` for each c of ``out_cols`` (0: ``[M]``), counted under
-    ``name``: K6a's, K6b's and K7a's in ``csrc/sdf_agg.cu`` on
-    :meth:`PriorLayers.k3_buffer`, K7b's in ``csrc/pair_mlp.cu``."""
+    ``name``: K6a, K6b, K7a and K7b, in ``csrc/sdf_agg.cu`` on
+    :meth:`PriorLayers.k3_buffer`."""
     m = ins[0].shape[0]
     dev = ins[0].device
     outs = [torch.empty((m, c) if c else (m,), dtype=torch.float32,
                         device=dev) for c in out_cols]
     if m == 0:
         return outs
-    wbuf, bbuf = layers.kernel_buffers()
-    if entry in _SIG_SDF_AGG:
-        wbuf = layers.k3_buffer()
-        lib = cuda_build.load("sdf_agg", _SIG_SDF_AGG)
-    else:
-        lib = cuda_build.load("pair_mlp", _SIG)
+    bbuf = layers.bias_buffer()
+    wbuf = layers.k3_buffer()
+    lib = cuda_build.load("sdf_agg", _SIG_SDF_AGG)
     err = getattr(lib, entry)(
         *(t.data_ptr() for t in ins), m, wbuf.data_ptr(), bbuf.data_ptr(),
         *(t.data_ptr() for t in outs),
@@ -555,10 +541,11 @@ def _launch_rows(name, entry, ins, layers: PriorLayers, out_cols):
 @torch.no_grad()
 def pair_sdf_value(u, layers: PriorLayers):
     """K7b: ``s [M]`` from ``u [M, 35]`` (no gradient).  CPU tensors run
-    :func:`pair_sdf_value_ref`; CUDA tensors launch the kernel (bf16)."""
+    :func:`pair_sdf_value_ref`; CUDA tensors launch the kernel (bf16).  The
+    kernel is K7a without the down sweep: its ``s`` is K7a's bit for bit."""
     if _check_rows("pair_sdf_value", u):
         return pair_sdf_value_ref(u, layers)
-    return _launch_rows("pair_sdf_value", "pair_sdf_value_launch", (u,),
+    return _launch_rows("pair_sdf_value", "pair_sdf_pre_value_launch", (u,),
                         layers, (0,))[0]
 
 

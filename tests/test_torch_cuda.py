@@ -349,7 +349,8 @@ _ROWS = ("pair_sdf_rows_grad", "pair_sdf_rows_value",
 def _rows_kernel_matches_plain(dev, kernel, m):
     """One per-row kernel against its plain version on m seeded rows: the
     launch counter +1, x_pi bit-equal (the same f32 subtraction), s and r
-    by ``_within``."""
+    by ``_within``; K7b's s also bit-equal to K7a's on the same u (one
+    kernel body, K7a's without the down sweep)."""
     rng = np.random.default_rng(m)
     lat = rng.normal(0, 0.3, (m, 32))
     xpi = rng.normal(0, 0.03, (m, 3))
@@ -376,6 +377,10 @@ def _rows_kernel_matches_plain(dev, kernel, m):
             assert torch.equal(a, b)
         else:
             _within(a, b, 1e-3)
+    if kernel == "pair_sdf_value":
+        with torch.no_grad():
+            s7a = pair_mlp.pair_sdf_value_and_input_grad(*args, prior)[0]
+        assert torch.equal(outs[0], s7a)
 
 
 @pytest.mark.cuda
@@ -409,6 +414,14 @@ def test_pair_sdf_rows_value_tile_edges(cuda, m):
 def test_pair_sdf_value_and_input_grad_tile_edges(cuda, m):
     """K7a on K6a's tiles of 128 contiguous rows, at the same edges."""
     _rows_kernel_matches_plain(cuda, "pair_sdf_value_and_input_grad", m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [127, 128, 129, 40000])
+def test_pair_sdf_value_tile_edges(cuda, m):
+    """K7b on K6a's tiles of 128 contiguous rows, at the same edges, its s
+    bit-equal to K7a's."""
+    _rows_kernel_matches_plain(cuda, "pair_sdf_value", m)
 
 
 @pytest.mark.cuda

@@ -214,12 +214,19 @@ def test_aggregate_is_forward_only(setup):
 
 
 def test_kernel_buffers_need_bf16(setup):
+    """The kernels' buffers: both refuse an f32 prior; ``k3_buffer()`` is
+    bf16, 25 chunks of [256, 64], W0 [40, 256] and w_v; ``bias_buffer()``
+    is b0..b3 and b_v in f32, 1,025 floats."""
     prior = _torch_inputs(setup, torch.float32)[0]
-    with pytest.raises(ValueError, match="bf16"):
-        prior.kernel_buffers()
-    wbuf, bbuf = _torch_inputs(setup, torch.bfloat16)[0].kernel_buffers()
-    assert wbuf.dtype == torch.bfloat16 and wbuf.numel() == 209152
-    assert bbuf.numel() == 4 * 256 + 1
+    for buffer in (prior.bias_buffer, prior.k3_buffer):
+        with pytest.raises(ValueError, match="bf16"):
+            buffer()
+    prior = _torch_inputs(setup, torch.bfloat16)[0]
+    wbuf, bbuf = prior.k3_buffer(), prior.bias_buffer()
+    assert wbuf.dtype == torch.bfloat16
+    assert wbuf.numel() == 25 * 256 * 64 + 40 * 256 + 256
+    assert bbuf.dtype == torch.float32 and bbuf.numel() == 4 * 256 + 1
+    assert torch.equal(bbuf, torch.cat([b.reshape(-1) for b in prior.bs]))
 
 
 @pytest.mark.parametrize("kernel", ["value_agg", "aggregate"])
@@ -342,12 +349,12 @@ def test_k3_buffer_unpacks_to_the_prior_layers(setup):
 
 def test_k3_buffer_up_sweep_gives_the_value_agg(setup):
     """K2's kernel reads only chunks 0-12 of ``k3_buffer()`` (W0^T, then
-    W1-3^T) and w_v at its offset, with ``kernel_buffers()``' f32 biases:
+    W1-3^T) and w_v at its offset, with ``bias_buffer()``'s f32 biases:
     the prior rebuilt from exactly those bytes, unswizzled with the
     kernel's address formula, gives plain K2's pt bit for bit."""
     prior, table, idx_ext, x = _torch_inputs(setup, torch.bfloat16)
     buf = prior.k3_buffer()
-    bbuf = prior.kernel_buffers()[1]
+    bbuf = prior.bias_buffer()
     ch = 256 * 64
     wv_off = 25 * ch + 40 * 256                    # kWvOff, in elements
     ws = [_unswizzle(buf[:ch], 256, 64)[:, :35].t()]
