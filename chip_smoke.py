@@ -675,7 +675,7 @@ def k7b_step0(u, prior, reps):
     the wrapper and by its C entry alone (CUDA events, one output), the
     TFLOP/s that executes, its blocks and the bf16 weight bytes they read
     a 128-row tile (from L2: the weights fit there) and their sum over a
-    launch.  The ``K7b step 0`` line; returns its numbers."""
+    launch.  The ``K7b step 0`` line; returns the C entry's ms."""
     import torch
 
     from spurfies_tpu_torch.ops import cuda_build, pair_mlp
@@ -706,10 +706,7 @@ def k7b_step0(u, prior, reps):
         f"executed; {blocks} blocks, {tiles} tiles of 128 rows, "
         f"{tile_bytes} weight bytes a tile ({launch_bytes / 1e9:.3f} GB a "
         f"launch from L2, {launch_bytes / kernel_ms / 1e6:.0f} GB/s)")
-    return {"wrapper_ms": wrapper_ms, "kernel_ms": kernel_ms,
-            "tflops": flops / kernel_ms / 1e9, "blocks": blocks,
-            "tiles": tiles, "weight_bytes_a_tile": tile_bytes,
-            "weight_bytes_a_launch": launch_bytes}
+    return kernel_ms
 
 
 def within(what, out, ref, hold=True, keep=None):
@@ -2213,9 +2210,7 @@ def main():
         f"K7b pair_sdf_value (microbench, {MICRO_PAIRS} pairs)",
         pair_mlp.pair_sdf_value, pair_mlp.pair_sdf_value_ref, (u,), prior,
         prior_f32, 20, math.inf)
-    step0 = k7b_step0(u, prior, 20)
-    results["K7b pair_sdf_value"].update(kernel_ms=step0["kernel_ms"],
-                                         step0=step0)
+    results["K7b pair_sdf_value"]["kernel_ms"] = k7b_step0(u, prior, 20)
     # K7b is K7a without the down sweep: on the same pairs its s is K7a's
     with torch.no_grad():
         same = torch.equal(pair_mlp.pair_sdf_value(u, prior),
