@@ -105,7 +105,25 @@ failure exits non-zero before the last line):
      ``compare_grads``' 1e-2 relative L2 and bit-equal over two
      launches), OPTION_WARMUP + OPTION_STEPS
      steps, and the colour path timed at one step's shapes;
- 15. the ``kernels`` JSON line, the ``redesign_order`` line (the kernels
+ 15. the training CLI at the reference DTU config: a synthetic DTU scan
+     (CLI_VIEWS views of 576x768, phase 3's dense sphere: the exact K1)
+     written by ``export_synthetic_dtu`` into a temporary directory, the
+     PNG decode times (the fixture's own file and Paeth-filtered 576x768
+     and 1200x1600 images), then ``cli.train.main`` with ``--config
+     configs/dtu_pn.yaml --scans scan24`` for CLI_STEPS steps and again
+     with ``--resume`` to CLI_STEPS + CLI_RESUME_STEPS, a validation
+     render (144x192) and a checkpoint every CLI_EVERY steps; counters set
+     to 0 just before the two calls.  It fails unless the trainer's
+     tensors are on the card, the resumed run restored step CLI_STEPS with
+     params bit-equal to the saved ``latest``, the launches equal steps x
+     the per-step counts plus each validation render's (its chunking's)
+     counts, ``metrics.jsonl`` holds finite losses with rgb_loss falling
+     and a ``val`` PSNR row at every render, the checkpoints are there,
+     every launch of one captured step of the CLI's trainer holds against
+     its plain version and two steps make no host sync.  It prints the
+     export and load seconds, the decode times, train rays/s and ms/step
+     and the validation render's ms;
+ 16. the ``kernels`` JSON line, the ``redesign_order`` line (the kernels
      ranked by launches x (ms - bound_ms) in this run) and the
      ``redesign_order_kernel_ms`` line (the same with the C entry's time
      where a kernel has one), the ``nvidia-smi`` line, then the device
@@ -160,6 +178,15 @@ OPTION_STEPS = 50
 FUSED_COLOR_STEP = dict(PER_STEP, pack_color_weights=1, fused_color_fwd=1,
                         fused_color_bwd=1)
 MICRO_PAIRS = 655360
+# the training CLI at configs/dtu_pn.yaml (576x768 views, 1024 rays a
+# step): a synthetic DTU scan of CLI_VIEWS views with phase 3's dense
+# sphere, CLI_STEPS steps, then --resume to CLI_STEPS + CLI_RESUME_STEPS;
+# a validation render and a checkpoint every CLI_EVERY steps
+CLI_VIEWS = 49
+CLI_RES = (576, 768)
+CLI_STEPS = 200
+CLI_RESUME_STEPS = 100
+CLI_EVERY = 100
 # bf16 weights that the value-only kernels (K2, K6b, K7b) stream from
 # PriorLayers.k3_buffer: its 13 up-sweep chunks of [256, 64], and w_v
 UP_SWEEP_CHUNKS = 13
@@ -1743,6 +1770,280 @@ def masked_psnr(trainer, view):
                       torch.as_tensor(view["mask"])))
 
 
+def best_s(fn, reps=3):
+    """The least host wall time of ``reps`` calls of ``fn``, in seconds."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return min(walls)
+
+
+def png_decode_times(image_path, tmp, smi):
+    """Decode times of the fixture's own PNG (Sub rows: the row path) and
+    of Paeth-filtered 576x768 and 1200x1600 images (the anti-diagonal
+    path), each read back bit-equal."""
+    from spurfies_tpu_torch.data.png import read_png, write_png
+    from spurfies_tpu_torch.data.scene_data import resize_nearest
+
+    import numpy as np
+
+    img = read_png(image_path)
+    times = {f"{img.shape[0]}x{img.shape[1]} Sub (fixture)":
+             best_s(lambda: read_png(image_path))}
+    for res in ((576, 768), (1200, 1600)):
+        path = os.path.join(tmp, f"paeth_{res[0]}x{res[1]}.png")
+        big = resize_nearest(img, res)
+        write_png(path, big, 4)
+        if not np.array_equal(read_png(path), big):
+            fail(f"PNG decode of the Paeth-filtered {res} image")
+        times[f"{res[0]}x{res[1]} Paeth"] = best_s(lambda: read_png(path))
+    log("cli: PNG decode s (host, best of 3): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()) + f" [{smi}]")
+    return times
+
+
+def cli_phase(smi):
+    """Phase 15: ``cli.train.main`` at ``configs/dtu_pn.yaml`` on a synthetic
+    DTU scan, then ``--resume``.  Returns the launches of the two calls."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.cli import train as cli_train
+    from spurfies_tpu_torch.data.synthetic import export_synthetic_dtu
+    from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rec = {"run": [], "render": [], "init": [], "load": [], "restore": []}
+
+    def spy_init(init):
+        def f(self, *a, **k):
+            before = read_counts()
+            init(self, *a, **k)
+            torch.cuda.synchronize()
+            after = read_counts()
+            rec["init"].append({k_: after[k_] - before[k_] for k_ in after})
+        return f
+
+    def spy_run(run):
+        def f(self, n_steps, window=100, callback=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(self, n_steps, window=window, callback=callback)
+            torch.cuda.synchronize()
+            rec["run"].append((n_steps, time.perf_counter() - t0,
+                               self.cfg.train.num_pixels))
+            return out
+        return f
+
+    def spy_render(render):
+        def f(self, uv, pose, intrinsics):
+            torch.cuda.synchronize()
+            before = read_counts()
+            t0 = time.perf_counter()
+            out = render(self, uv, pose, intrinsics)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = read_counts()
+            rec["render"].append((self, np.asarray(uv), pose, intrinsics,
+                                  wall, {k: after[k] - before[k]
+                                         for k in after}))
+            return out
+        return f
+
+    def spy_load(load):
+        def f(cfg, scan):
+            t0 = time.perf_counter()
+            sd = load(cfg, scan)
+            rec["load"].append(time.perf_counter() - t0)
+            return sd
+        return f
+
+    def spy_restore(restore):
+        def f(self, path):
+            restore(self, path)
+            rec["restore"].append((int(self.state.step), {
+                k: (v.detach().clone() if torch.is_tensor(v) else
+                    [{kk: t.detach().clone() for kk, t in layer.items()}
+                     for layer in v])
+                for k, v in self.state.params.items()}))
+        return f
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        export_synthetic_dtu(data, scan_id=24, n_views=CLI_VIEWS,
+                             img_res=CLI_RES, n_points=40000, radius=0.8,
+                             cam_dist=2.4, seed=1)
+        t_export = time.perf_counter() - t0
+        log(f"cli: export_synthetic_dtu of {CLI_VIEWS} views at "
+            f"{CLI_RES[0]}x{CLI_RES[1]} (40,000 raw points) in "
+            f"{t_export:.2f} s [{smi}]")
+        png_decode_times(os.path.join(data, "dtu", "scan24", "image",
+                                      "000000.png"), tmp, smi)
+
+        args = ["--config", os.path.join(here, "configs", "dtu_pn.yaml"),
+                "--scans", "scan24"]
+        ov = [f"dataset.data_dir_root={data}",
+              f"exps_folder={os.path.join(tmp, 'exps')}",
+              f"train.render_freq={CLI_EVERY}",
+              f"train.checkpoint_freq={CLI_EVERY}"]
+        total = CLI_STEPS + CLI_RESUME_STEPS
+        spies = {"__init__": spy_init, "run": spy_run,
+                 "render_image": spy_render,
+                 "restore_checkpoint": spy_restore,
+                 "load_scene_data": spy_load}
+        sites = [(Trainer, name, None) for name in list(spies)[:4]]
+        with substituted(lambda fn, _: spies[fn.__name__](fn),
+                         sites + [(cli_train, "load_scene_data", None)]):
+            zero_counts()
+            [(first, exp)] = cli_train.main(
+                args + ov + [f"train.opt_steps={CLI_STEPS}"])
+            torch.cuda.synchronize()
+            launches_first = read_counts()
+            saved = torch.load(exp.checkpoint_path("latest"),
+                               map_location=first.device, weights_only=True)
+            del first
+            torch.cuda.empty_cache()
+            zero_counts()
+            [(trainer, exp2)] = cli_train.main(
+                ["--resume"] + args + ov + [f"train.opt_steps={total}"])
+            torch.cuda.synchronize()
+            launches_resume = read_counts()
+        launches = {k: launches_first[k] + launches_resume[k]
+                    for k in launches_first}
+
+        # where everything lives, and what was restored
+        n_pts = trainer.scene.points.shape[0]
+        knn = ("select_knn_packed" if 0 < trainer.scene.table.n_points
+               <= 2 ** 15 else "select_knn_exact")
+        log(f"cli: scan24 {n_pts} points after subsampling (K1 "
+            f"{knn.split('_')[-1]}), auto budgets ray "
+            f"{trainer.cfg.model.ray_budget_frac:.4f} probe "
+            f"{trainer.cfg.model.probe_budget_frac:.4f}; load_scene_data "
+            + ", ".join(f"{t:.2f}" for t in rec["load"]) + f" s [{smi}]")
+        if knn != "select_knn_exact":
+            fail("cli: the DTU scan does not select the exact K1")
+        tensors = [trainer.scene.points, trainer.scene.table.idx,
+                   trainer.state.step, *trainer.views.values()]
+        tensors += [t for v in trainer.state.params.values()
+                    for t in ([v] if torch.is_tensor(v) else
+                              [x for layer in v for x in layer.values()])]
+        tensors += [t for v in trainer.frozen.values() for layer in v
+                    for t in layer.values()]
+        if not all(t.is_cuda for t in tensors):
+            fail("cli: a trainer tensor is not on the card")
+        if exp2.dir != exp.dir or int(trainer.state.step) != total:
+            fail(f"cli: resumed into {exp2.dir} at step "
+                 f"{int(trainer.state.step)}, expected {exp.dir} at {total}")
+        if len(rec["restore"]) != 1 or rec["restore"][0][0] != CLI_STEPS:
+            fail(f"cli: restores {[r[0] for r in rec['restore']]}, expected "
+                 f"one at step {CLI_STEPS}")
+        restored = rec["restore"][0][1]
+        same = all(
+            torch.equal(restored[k], v) if torch.is_tensor(v) else
+            all(torch.equal(a[kk], b[kk]) for a, b in zip(restored[k], v)
+                for kk in b)
+            for k, v in saved["params"].items())
+        log(f"cli: --resume restored step {rec['restore'][0][0]}, params "
+            f"{'bit-equal to' if same else 'DIFFERENT from'} the saved latest")
+        if not same or saved["step"] != CLI_STEPS:
+            fail("cli: the resumed params are not the saved checkpoint's")
+
+        # launches: steps x the per-step counts, plus each validation
+        # render's, which its chunking fixes, plus one K1 launch in each
+        # scene build (the TV neighbours)
+        steps = sum(r[0] for r in rec["run"])
+        if steps != total or len(rec["render"]) != total // CLI_EVERY:
+            fail(f"cli: {steps} steps and {len(rec['render'])} renders, "
+                 f"expected {total} and {total // CLI_EVERY}")
+        for delta in rec["init"]:
+            if delta != expected_counts(delta, {"select_knn": 1}, 1, knn):
+                fail(f"cli: a Trainer's build launched {delta}")
+        render_sum = {k: len(rec["init"]) * (k == knn) for k in launches}
+        for tr, uv, pose, K, wall, delta in rec["render"]:
+            view = {"uv": uv, "pose": pose, "intrinsics": K}
+            _, _, n_occ, _ = first_chunk(tr.scene, view, tr.cfg, tr.device)
+            eff = min(tr.cfg.train.render_chunk,
+                      -(-len(uv) // 128) * 128)
+            chunks = -(-n_occ // eff)
+            iters = (tr.cfg.train.eval_iters
+                     or tr.cfg.model.ray_sampler.max_total_iters)
+            expect = expected_counts(delta, {"select_knn": iters + 1,
+                                             "pair_sdf_value_agg": iters,
+                                             "pair_sdf_aggregate": 1},
+                                     chunks, knn)
+            if delta != expect:
+                fail(f"cli: a validation render launched {delta}, expected "
+                     f"{expect}")
+            for k in render_sum:
+                render_sum[k] += delta[k]
+        train_launches = {k: launches[k] - render_sum[k] for k in launches}
+        expect = expected_counts(launches, PER_STEP, total, knn)
+        if train_launches != expect:
+            fail(f"cli: training launches {train_launches} != {expect}")
+        wall = sum(r[1] for r in rec["run"])
+        rays = sum(r[0] * r[2] for r in rec["run"])
+        log(f"cli: train {total} steps x {rec['run'][0][2]} rays in "
+            f"{wall:.3f} s = {rays / wall:.1f} train rays/s "
+            f"({wall / total * 1e3:.2f} ms/step) [{smi}]; launches "
+            f"{launches} (validation renders and scene builds: "
+            f"{render_sum})")
+        log(f"cli: validation render ms at {-(-CLI_RES[0] // 4)}x"
+            f"{-(-CLI_RES[1] // 4)} ({len(rec['render'][0][1])} rays): "
+            + ", ".join(
+                f"{r[4] * 1e3:.1f}" for r in rec["render"]) + f" [{smi}]")
+
+        # metrics.jsonl, the val rows and the checkpoints
+        with open(os.path.join(exp.plots_dir, "logs", "metrics.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f]
+        train_rows = [r for r in rows if "rgb_loss" in r]
+        val_rows = [r for r in rows if "rgb_loss" not in r]
+        for r in train_rows:
+            log(f"  cli step {r['step']}: " + ", ".join(
+                f"{k} {r[k]:.5g}" for k in ("loss", "rgb_loss", "eikonal_loss",
+                                            "mask_loss", "psnr",
+                                            "ray_overflow", "probe_overflow",
+                                            "notfinite")))
+        log("cli: val psnr " + ", ".join(
+            f"step {r['step']} {r['psnr']:.2f} dB" for r in val_rows))
+        every = list(range(CLI_EVERY, total + 1, CLI_EVERY))
+        if [r["step"] for r in train_rows] != every or [
+                r["step"] for r in val_rows] != every:
+            fail(f"cli: metrics.jsonl rows at {[r['step'] for r in rows]}")
+        if not all(np.isfinite(r["loss"]) and r["notfinite"] == 0
+                   for r in train_rows) or not all(
+                np.isfinite(r["psnr"]) for r in val_rows):
+            fail("cli: a non-finite loss or PSNR, or a skipped step")
+        if not train_rows[-1]["rgb_loss"] < train_rows[0]["rgb_loss"]:
+            fail("cli: rgb_loss did not fall across the windows")
+        ckpts = sorted(os.listdir(exp.ckpt_dir))
+        if ckpts != sorted([str(s_) for s_ in every] + ["latest"]):
+            fail(f"cli: checkpoints {ckpts}")
+
+        # one captured step of the CLI's trainer against the plain versions
+        seen = capture_step(trainer)
+        got = {k: len(v) for k, v in seen.items()}
+        if got != PER_STEP:
+            fail(f"cli: one step launched {got}, expected {PER_STEP}")
+        check_step("dtu_cli", seen, _prep_layers(trainer.frozen,
+                                                 torch.float32),
+                   trainer.scene.spec.radius(trainer.scene.table.r))
+        del seen
+        n_sync, first_sync = count_host_syncs(trainer, 2)
+        log(f"cli: host syncs in 2 training steps: {n_sync}"
+            + (f" (first: {first_sync})" if n_sync else ""))
+        if n_sync:
+            fail("cli: a training step waits on the card")
+        del trainer, saved, rec
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2242,10 +2543,13 @@ def main():
         del seen, tr
     torch.cuda.empty_cache()
 
-    # --- 15. report ---
+    # --- 15. the training CLI at configs/dtu_pn.yaml ---
+    launches_cli = cli_phase(smi)
+
+    # --- 16. report ---
     render_runs = (launches_render, launches_unfused, launches_colour_render)
     train_runs = (launches_train, launches_dense, *launches_options,
-                  launches_colour_train)
+                  launches_colour_train, launches_cli)
     results["K8b fused_color_bwd"] = colour_best["fused_color_bwd"]
     results["K8p pack_color_weights"] = colour_best["pack_color_weights"]
 
@@ -2339,7 +2643,8 @@ def main():
                 c[key] // per[key] for c, per in (
                     (launches_train, PER_STEP), (launches_dense, PER_STEP),
                     (launches_options[1], OPTIONS["pairs"][1]),
-                    (launches_colour_train, FUSED_COLOR_STEP)))
+                    (launches_colour_train, FUSED_COLOR_STEP),
+                    (launches_cli, PER_STEP)))
         if label.startswith("K8"):
             row["colour_path_ms"] = colour_path
         for k in ("scratch_bytes", "kernel_ms", "library_zeroed_ms"):

@@ -18,6 +18,7 @@ Knob provenance: ``config/ours.yaml``, ``config/base.yaml``,
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -357,10 +358,192 @@ def config_from_dict(d: dict) -> Config:
 
 
 def load_yaml(path: str) -> Config:
-    import yaml
     with open(path) as f:
-        d = yaml.safe_load(f) or {}
+        d = parse_yaml(f.read()) or {}
     return config_from_dict(d)
+
+
+# ---------------------------------------------------------------------------
+# The YAML that the repo's configs use, read as ``yaml.safe_load`` reads it
+# (PyYAML's YAML 1.1 rules), without PyYAML: nested block mappings, flow
+# lists, quoted and plain strings, ints, floats, bools, null and comments.
+# Anything else raises.
+# ---------------------------------------------------------------------------
+
+_YAML_BOOLS = {v: b for w, b in (("yes", True), ("no", False),
+                                 ("true", True), ("false", False),
+                                 ("on", True), ("off", False))
+               for v in (w, w.capitalize(), w.upper())}
+_YAML_NULLS = ("", "~", "null", "Null", "NULL")
+_YAML_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
+_YAML_FLOAT = re.compile(r"[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?")
+_YAML_INF = re.compile(r"([-+]?)\.(?:inf|Inf|INF)")
+_YAML_NAN = re.compile(r"\.(?:nan|NaN|NAN)")
+# plain scalars that PyYAML resolves to something outside the subset:
+# binary, octal, hex and base-60 numbers, timestamps, merge and value keys
+_YAML_OUTSIDE = re.compile(
+    r"[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?0x[0-9a-fA-F_]+"
+    r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+    r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*|<<|=")
+_YAML_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_-]*")
+
+
+def _yaml_error(msg, line=None):
+    where = f" (line {line})" if line is not None else ""
+    return ValueError(f"YAML outside the subset this reader takes{where}: "
+                      f"{msg}")
+
+
+def _yaml_scalar(text: str):
+    """A plain scalar by PyYAML's implicit resolvers."""
+    if text in _YAML_BOOLS:
+        return _YAML_BOOLS[text]
+    if text in _YAML_NULLS:
+        return None
+    if _YAML_INT.fullmatch(text):
+        return int(text.replace("_", ""))
+    if _YAML_FLOAT.fullmatch(text):
+        return float(text.replace("_", ""))
+    m = _YAML_INF.fullmatch(text)
+    if m:
+        return float(m.group(1) + "inf")
+    if _YAML_NAN.fullmatch(text):
+        return float("nan")
+    if (_YAML_OUTSIDE.fullmatch(text) or text[0] in "&*!|>%@`{}[]'\"?"
+            or text == "-" or text.startswith("- ")):
+        raise _yaml_error(f"scalar {text!r}")
+    return text
+
+
+def _yaml_quoted(s: str, i: int):
+    """The quoted string starting at ``s[i]``; returns (value, next index)."""
+    q, out, i = s[i], [], i + 1
+    while i < len(s):
+        ch = s[i]
+        if ch == q:
+            if q == "'" and s[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), i + 1
+        if q == '"' and ch == "\\":
+            esc = {"\\": "\\", '"': '"', "/": "/", "n": "\n",
+                   "t": "\t"}.get(s[i + 1:i + 2])
+            if esc is None:
+                raise _yaml_error(f"escape in {s!r}")
+            out.append(esc)
+            i += 2
+            continue
+        out.append(ch)
+        i += 1
+    raise _yaml_error(f"unterminated string in {s!r}")
+
+
+def _yaml_flow_list(s: str, i: int):
+    """The flow list starting at ``s[i] == "["``; returns (list, next
+    index)."""
+    items, i = [], i + 1
+
+    def skip(i):
+        while i < len(s) and s[i] in " \t":
+            i += 1
+        return i
+
+    i = skip(i)
+    if s[i:i + 1] == "]":
+        return items, i + 1
+    while i < len(s):
+        if s[i] == "[":
+            item, i = _yaml_flow_list(s, i)
+        elif s[i] in "'\"":
+            item, i = _yaml_quoted(s, i)
+        else:
+            j = i
+            while j < len(s) and s[j] not in ",[]{}":
+                j += 1
+            token = s[i:j].strip()
+            if not token or re.search(r":(\s|$)", token):
+                raise _yaml_error(f"flow list {s!r}")
+            item, i = _yaml_scalar(token), j
+        items.append(item)
+        i = skip(i)
+        if s[i:i + 1] == ",":
+            i = skip(i + 1)
+            if s[i:i + 1] == "]":
+                return items, i + 1
+        elif s[i:i + 1] == "]":
+            return items, i + 1
+        else:
+            raise _yaml_error(f"flow list {s!r}")
+    raise _yaml_error(f"unterminated flow list {s!r}")
+
+
+def _yaml_value(text: str):
+    if text[0] == "[":
+        value, end = _yaml_flow_list(text, 0)
+    elif text[0] in "'\"":
+        value, end = _yaml_quoted(text, 0)
+    else:
+        return _yaml_scalar(text)
+    if text[end:].strip():
+        raise _yaml_error(f"text after the value in {text!r}")
+    return value
+
+
+def _yaml_strip_comment(line: str) -> str:
+    """``line`` without its comment: a ``#`` at the start or after white
+    space, outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"" and (i == 0 or line[i - 1] in " \t[,:"):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_yaml(text: str):
+    """``yaml.safe_load(text)`` for the subset of YAML that the repo's
+    configs use: a dict (``None`` for an empty document)."""
+    root, stack, pending = None, [], None
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _yaml_strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        body = line.lstrip(" ")
+        indent = len(line) - len(body)
+        if "\t" in line[:indent + 1] or body.startswith(("- ", "---", "...")) \
+                or body == "-":
+            raise _yaml_error("tabs, sequences or document markers", n)
+        key, sep, value = body.partition(":")
+        if not sep or not _YAML_KEY.fullmatch(key) or (
+                value and value[0] != " "):
+            raise _yaml_error(f"{body!r} is not 'key: value'", n)
+        if root is None:
+            root = {}
+            stack = [(indent, root)]
+        if pending is not None:
+            parent, pkey, pindent = pending
+            if indent > pindent:
+                parent[pkey] = {}
+                stack.append((indent, parent[pkey]))
+            pending = None
+        while indent < stack[-1][0]:
+            stack.pop()
+        if indent != stack[-1][0]:
+            raise _yaml_error("indentation", n)
+        mapping = stack[-1][1]
+        value = value.strip()
+        if value:
+            mapping[key] = _yaml_value(value)
+        else:
+            mapping[key] = None
+            pending = (mapping, key, indent)
+    return root
 
 
 # Named override bundles ("preset=<name>" on any CLI).  The default config

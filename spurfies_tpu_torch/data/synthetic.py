@@ -1,5 +1,9 @@
 """Synthetic sphere scenes (numpy copy of ``spurfies_tpu/data/synthetic.py``).
 
+The exports write the scene to disk in the own-data and DTU layouts, with
+PNGs through ``data.png``: the same files and pixel values as the JAX
+package's exports.
+
 A colored sphere with analytically rendered ground-truth views, and a cloud
 with DUSt3R output statistics around it (``make_dust3r_like_scene``, the
 scene the JAX package's bench.py times).  Same seeds, same arrays as the
@@ -147,3 +151,129 @@ def make_dust3r_like_scene(n_points=8000, n_views=3, img_res=(192, 256),
 
     cols = (_sphere_color(v) * 255.0).astype(np.float32)
     return pts.astype(np.float32), cols, views
+
+
+def export_synthetic_own_data(root, scan="sphere", **scene_kwargs):
+    """Write the synthetic scene to disk in own-data layout
+    (``<root>/own_data/<scan>/{image/, <scan>.json, <scan>.ply}`` — the
+    format of reference dust3r_inference_own.py:161-181,262-267) so the
+    full CLI chain (train -> evaluate) can be exercised without real data.
+
+    Returns (pts, cols, views) like make_synthetic_scene.
+    """
+    import json
+    import os
+
+    from spurfies_tpu_torch.data.ply import save_ply
+    from spurfies_tpu_torch.data.png import write_png
+
+    pts, cols, views = make_synthetic_scene(**scene_kwargs)
+    h, w = views["rgb"].shape[1:2][0], None
+    n_views = views["rgb"].shape[0]
+    # recover img_res from uv grid extents
+    uv = views["uv"]
+    w = int(uv[:, 0].max()) + 1
+    h = int(uv[:, 1].max()) + 1
+
+    inst = os.path.join(root, "own_data", scan)
+    img_dir = os.path.join(inst, "image")
+    os.makedirs(img_dir, exist_ok=True)
+
+    K = views["intrinsics"][0]
+    meta = {
+        "fl_x": float(K[0, 0]), "fl_y": float(K[1, 1]),
+        "cx": float(K[0, 2]), "cy": float(K[1, 2]),
+        "h": h, "w": w,
+        "frames": [
+            {"file_path": f"image/{i:03d}.png",
+             "transform_matrix": views["pose"][i].tolist()}
+            for i in range(n_views)
+        ],
+    }
+    with open(os.path.join(inst, f"{scan}.json"), "w") as f:
+        json.dump(meta, f)
+
+    for i in range(n_views):
+        img = views["rgb"][i].reshape(h, w, 3)
+        write_png(
+            os.path.join(img_dir, f"{i:03d}.png"),
+            (np.clip(img, 0, 1) * 255).astype(np.uint8),
+        )
+
+    save_ply(os.path.join(inst, f"{scan}.ply"), pts,
+             cols.astype(np.uint8))
+    return pts, cols, views
+
+
+def export_synthetic_dtu(root, scan_id=24, n_views=49, img_res=(48, 64),
+                         gt_root=None, **scene_kwargs):
+    """Write the synthetic scene to disk in the DTU layout so the full DTU
+    CLI chain (train -> evaluate --mesh --rendering -> eval_dtu) can be
+    dress-rehearsed without real data (reference layouts:
+    spurfies/datasets/dtu.py:59-145, eval_spurfies.py:140-157,
+    evals/eval_dtu.py:64).
+
+    Produces: scan{id}/{image/, cameras.npz, {id}.ply},
+    eval_mask/scan{id}/mask/*.png, bbs.npz, and (when gt_root is given)
+    Points/stl/stl{id:03d}_total.ply ground truth in world frame.
+
+    cameras.npz uses a non-trivial scale_mat (scale 2, offset x 0.05) so
+    the P = world_mat @ scale_mat decomposition path is exercised.
+    """
+    import os
+
+    from spurfies_tpu_torch.data.ply import save_ply
+    from spurfies_tpu_torch.data.png import write_png
+
+    pts, cols, views = make_synthetic_scene(
+        n_views=n_views, img_res=img_res, **scene_kwargs
+    )
+    h, w = img_res
+
+    inst = os.path.join(root, "dtu", f"scan{scan_id}")
+    img_dir = os.path.join(inst, "image")
+    mask_dir = os.path.join(root, "dtu", "eval_mask", f"scan{scan_id}",
+                            "mask")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(mask_dir, exist_ok=True)
+
+    scale_mat = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float64)
+    scale_mat[0, 3] = 0.05
+
+    K = views["intrinsics"][0].astype(np.float64)
+    cam_arrays = {}
+    for i in range(n_views):
+        c2w = views["pose"][i].astype(np.float64)
+        w2c = np.linalg.inv(c2w)
+        P = K @ w2c                       # normalized-frame projection
+        world_mat = P @ np.linalg.inv(scale_mat)
+        cam_arrays[f"world_mat_{i}"] = world_mat
+        cam_arrays[f"scale_mat_{i}"] = scale_mat
+
+        img = views["rgb"][i].reshape(h, w, 3)
+        write_png(os.path.join(img_dir, f"{i:06d}.png"),
+                        (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        m = views["mask"][i].reshape(h, w, 1)
+        write_png(os.path.join(mask_dir, f"{i:03d}.png"),
+                        np.repeat((m * 255).astype(np.uint8), 3, axis=-1))
+
+    np.savez(os.path.join(inst, "cameras.npz"), **cam_arrays)
+    save_ply(os.path.join(inst, f"{scan_id}.ply"), pts,
+             cols.astype(np.uint8))
+
+    # world-frame bounding box of the (scaled) sphere for mesh extraction
+    radius = scene_kwargs.get("radius", 0.5)
+    c = scale_mat[:3, 3]
+    half = radius * 2.0 * 1.2
+    bb = np.stack([c - half, c + half]).astype(np.float64)
+    np.savez(os.path.join(root, "dtu", "bbs.npz"),
+             **{str(scan_id): bb.reshape(2, 3)})
+
+    if gt_root is not None:
+        stl_dir = os.path.join(gt_root, "Points", "stl")
+        os.makedirs(stl_dir, exist_ok=True)
+        gt_world = (pts @ scale_mat[:3, :3].T + scale_mat[:3, 3]).astype(
+            np.float32)
+        save_ply(os.path.join(stl_dir, f"stl{scan_id:03d}_total.ply"),
+                 gt_world, None)
+    return pts, cols, views

@@ -1,7 +1,11 @@
 """The port stands alone: no module of spurfies_tpu_torch, nor
 chip_smoke.py, chip_k3_parts.py, chip_k8_parts.py or the card-only tests,
 imports JAX, optax, orbax or anything of spurfies_tpu, and every port
-module imports with JAX made unimportable."""
+module imports with JAX made unimportable.  Nor do they import the
+libraries that the card's machine lacks (imageio, cv2, matplotlib, yaml,
+tensorboardX); Pillow only in the JPEG branch of
+``data.scene_data.read_image``.  A DTU scene exported by the port loads,
+and ``configs/dtu_pn.yaml`` reads, with all of them unimportable."""
 
 import ast
 import os
@@ -15,6 +19,12 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "spurfies_tpu_torch"
 FORBIDDEN = re.compile(r"^(jax|jaxlib|optax|orbax|flax|spurfies_tpu)(\.|$)")
+# what the card's machine does not install
+ABSENT = re.compile(r"^(imageio|cv2|matplotlib|yaml|tensorboardX|PIL)(\.|$)")
+BLOCKED = ("jax", "jaxlib", "optax", "orbax", "spurfies_tpu", "imageio", "cv2",
+           "matplotlib", "yaml", "tensorboardX", "PIL")
+# the one place that may import Pillow: the JPEG branch
+JPEG_BRANCH = ("data/scene_data.py", "read_image")
 
 
 def _port_modules():
@@ -32,14 +42,26 @@ def _sources():
                               ROOT / "tests" / "test_torch_cuda.py"]
 
 
-def _imported(path):
+def _imported(path, with_function=False):
+    """The modules ``path`` imports; with ``with_function``, (module, name
+    of the function the import sits in, or None)."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for a in node.names:
-                yield a.name
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                yield from walk(child, child.name)
+                continue
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                names = [child.module]
+            for name in names:
+                yield (name, func) if with_function else name
+            yield from walk(child, func)
+
+    yield from walk(tree, None)
 
 
 def _module_names():
@@ -61,6 +83,25 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_absent_pattern():
+    assert ABSENT.match("imageio.v2") and ABSENT.match("cv2")
+    assert ABSENT.match("PIL.Image") and ABSENT.match("yaml")
+    assert not ABSENT.match("cv2x") and not ABSENT.match("torch.utils")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_absent_library_imports(path):
+    """imageio, cv2, matplotlib, yaml and tensorboardX nowhere; Pillow only
+    in the JPEG branch of ``read_image``."""
+    rel = path.relative_to(ROOT).as_posix()
+    bad = [(m, fn) for m, fn in _imported(path, with_function=True)
+           if m and ABSENT.match(m)
+           and not (m.split(".")[0] == "PIL"
+                    and (rel, fn) == ("spurfies_tpu_torch/" + JPEG_BRANCH[0],
+                                      JPEG_BRANCH[1]))]
+    assert not bad, f"{rel} imports {bad}"
+
+
 def test_every_module_imports_without_jax():
     names = list(_module_names())
     assert len(names) > 20
@@ -71,11 +112,37 @@ def test_every_module_imports_without_jax():
             "spurfies_tpu_torch.ops.scatter_rows"} <= set(names)
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'optax', 'orbax', 'spurfies_tpu'):\n"
+        f"for m in {BLOCKED!r}:\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr
+
+
+def test_scene_loads_without_the_absent_libraries(tmp_path):
+    """In a process where JAX, imageio, cv2, matplotlib, yaml, tensorboardX
+    and Pillow cannot be imported: the port exports the tiny DTU fixture,
+    loads it through ``data/dtu.py`` (PNG images and masks) and reads
+    ``configs/dtu_pn.yaml``."""
+    code = (
+        "import sys\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "from spurfies_tpu_torch.config import load_yaml\n"
+        "from spurfies_tpu_torch.data.dtu import load_dtu\n"
+        "from spurfies_tpu_torch.data.synthetic import export_synthetic_dtu\n"
+        "cfg = load_yaml('configs/dtu_pn.yaml')\n"
+        "assert cfg.dataset.img_res == (576, 768), cfg.dataset.img_res\n"
+        f"export_synthetic_dtu({str(tmp_path)!r}, scan_id=24, n_views=30,\n"
+        "                     img_res=(24, 32), n_points=500)\n"
+        f"sd = load_dtu({str(tmp_path)!r}, 24, (24, 32), 3)\n"
+        "assert sd.train.rgb.shape == (3, 24 * 32, 3)\n"
+        "assert 0 < sd.train.mask.mean() < 1\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
