@@ -1806,7 +1806,10 @@ def png_decode_times(image_path, tmp, smi):
 
 def cli_phase(smi):
     """Phase 15: ``cli.train.main`` at ``configs/dtu_pn.yaml`` on a synthetic
-    DTU scan, then ``--resume``.  Returns the launches of the two calls."""
+    DTU scan, then ``--resume``.  Returns the launches of the two calls as
+    ``(train, render)``: the training steps with the one K1 launch of each
+    Trainer's build (its TV neighbours, a training input), and the
+    validation renders."""
     import tempfile
 
     import numpy as np
@@ -1818,7 +1821,8 @@ def cli_phase(smi):
     from spurfies_tpu_torch.train.trainer import Trainer
 
     here = os.path.dirname(os.path.abspath(__file__))
-    rec = {"run": [], "render": [], "init": [], "load": [], "restore": []}
+    rec = {"run": [], "render": [], "render_ms": [], "init": [], "load": [],
+           "restore": []}
 
     def spy_init(init):
         def f(self, *a, **k):
@@ -1852,6 +1856,7 @@ def cli_phase(smi):
             rec["render"].append((self, np.asarray(uv), pose, intrinsics,
                                   wall, {k: after[k] - before[k]
                                          for k in after}))
+            rec["render_ms"].append(wall * 1e3)
             return out
         return f
 
@@ -1872,6 +1877,33 @@ def cli_phase(smi):
                      for layer in v])
                 for k, v in self.state.params.items()}))
         return f
+
+    render_sum = dict.fromkeys(read_counts(), 0)
+    n_renders = [0, 0]                  # renders, rays of each
+
+    def check_renders(knn):
+        """Hold each validation render's launches, which its chunking
+        fixes, and add them to ``render_sum``.  Run after each CLI call, so
+        that no trainer outlives the call that made it."""
+        for tr, uv, pose, K, _, delta in rec["render"]:
+            view = {"uv": uv, "pose": pose, "intrinsics": K}
+            _, _, n_occ, _ = first_chunk(tr.scene, view, tr.cfg, tr.device)
+            eff = min(tr.cfg.train.render_chunk,
+                      -(-len(uv) // 128) * 128)
+            chunks = -(-n_occ // eff)
+            iters = (tr.cfg.train.eval_iters
+                     or tr.cfg.model.ray_sampler.max_total_iters)
+            expect = expected_counts(delta, {"select_knn": iters + 1,
+                                             "pair_sdf_value_agg": iters,
+                                             "pair_sdf_aggregate": 1},
+                                     chunks, knn)
+            if delta != expect:
+                fail(f"cli: a validation render launched {delta}, expected "
+                     f"{expect}")
+            for k in render_sum:
+                render_sum[k] += delta[k]
+            n_renders[:] = n_renders[0] + 1, len(uv)
+        rec["render"].clear()
 
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
@@ -1905,6 +1937,9 @@ def cli_phase(smi):
                 args + ov + [f"train.opt_steps={CLI_STEPS}"])
             torch.cuda.synchronize()
             launches_first = read_counts()
+            knn = ("select_knn_packed" if 0 < first.scene.table.n_points
+                   <= 2 ** 15 else "select_knn_exact")
+            check_renders(knn)
             saved = torch.load(exp.checkpoint_path("latest"),
                                map_location=first.device, weights_only=True)
             del first
@@ -1914,13 +1949,12 @@ def cli_phase(smi):
                 ["--resume"] + args + ov + [f"train.opt_steps={total}"])
             torch.cuda.synchronize()
             launches_resume = read_counts()
+            check_renders(knn)
         launches = {k: launches_first[k] + launches_resume[k]
                     for k in launches_first}
 
         # where everything lives, and what was restored
         n_pts = trainer.scene.points.shape[0]
-        knn = ("select_knn_packed" if 0 < trainer.scene.table.n_points
-               <= 2 ** 15 else "select_knn_exact")
         log(f"cli: scan24 {n_pts} points after subsampling (K1 "
             f"{knn.split('_')[-1]}), auto budgets ray "
             f"{trainer.cfg.model.ray_budget_frac:.4f} probe "
@@ -1954,49 +1988,31 @@ def cli_phase(smi):
         if not same or saved["step"] != CLI_STEPS:
             fail("cli: the resumed params are not the saved checkpoint's")
 
-        # launches: steps x the per-step counts, plus each validation
-        # render's, which its chunking fixes, plus one K1 launch in each
-        # scene build (the TV neighbours)
+        # launches: steps x the per-step counts, plus one K1 launch in each
+        # scene build (the TV neighbours), plus the validation renders'
         steps = sum(r[0] for r in rec["run"])
-        if steps != total or len(rec["render"]) != total // CLI_EVERY:
-            fail(f"cli: {steps} steps and {len(rec['render'])} renders, "
+        if steps != total or n_renders[0] != total // CLI_EVERY:
+            fail(f"cli: {steps} steps and {n_renders[0]} renders, "
                  f"expected {total} and {total // CLI_EVERY}")
         for delta in rec["init"]:
             if delta != expected_counts(delta, {"select_knn": 1}, 1, knn):
                 fail(f"cli: a Trainer's build launched {delta}")
-        render_sum = {k: len(rec["init"]) * (k == knn) for k in launches}
-        for tr, uv, pose, K, wall, delta in rec["render"]:
-            view = {"uv": uv, "pose": pose, "intrinsics": K}
-            _, _, n_occ, _ = first_chunk(tr.scene, view, tr.cfg, tr.device)
-            eff = min(tr.cfg.train.render_chunk,
-                      -(-len(uv) // 128) * 128)
-            chunks = -(-n_occ // eff)
-            iters = (tr.cfg.train.eval_iters
-                     or tr.cfg.model.ray_sampler.max_total_iters)
-            expect = expected_counts(delta, {"select_knn": iters + 1,
-                                             "pair_sdf_value_agg": iters,
-                                             "pair_sdf_aggregate": 1},
-                                     chunks, knn)
-            if delta != expect:
-                fail(f"cli: a validation render launched {delta}, expected "
-                     f"{expect}")
-            for k in render_sum:
-                render_sum[k] += delta[k]
+        build_sum = {k: len(rec["init"]) * (k == knn) for k in launches}
         train_launches = {k: launches[k] - render_sum[k] for k in launches}
         expect = expected_counts(launches, PER_STEP, total, knn)
-        if train_launches != expect:
-            fail(f"cli: training launches {train_launches} != {expect}")
+        if {k: train_launches[k] - build_sum[k] for k in launches} != expect:
+            fail(f"cli: training launches {train_launches} - builds "
+                 f"{build_sum} != {expect}")
         wall = sum(r[1] for r in rec["run"])
         rays = sum(r[0] * r[2] for r in rec["run"])
         log(f"cli: train {total} steps x {rec['run'][0][2]} rays in "
             f"{wall:.3f} s = {rays / wall:.1f} train rays/s "
             f"({wall / total * 1e3:.2f} ms/step) [{smi}]; launches "
-            f"{launches} (validation renders and scene builds: "
-            f"{render_sum})")
+            f"{launches} (validation renders: {render_sum}; scene builds: "
+            f"{build_sum})")
         log(f"cli: validation render ms at {-(-CLI_RES[0] // 4)}x"
-            f"{-(-CLI_RES[1] // 4)} ({len(rec['render'][0][1])} rays): "
-            + ", ".join(
-                f"{r[4] * 1e3:.1f}" for r in rec["render"]) + f" [{smi}]")
+            f"{-(-CLI_RES[1] // 4)} ({n_renders[1]} rays): "
+            + ", ".join(f"{t:.1f}" for t in rec["render_ms"]) + f" [{smi}]")
 
         # metrics.jsonl, the val rows and the checkpoints
         with open(os.path.join(exp.plots_dir, "logs", "metrics.jsonl")) as f:
@@ -2041,7 +2057,7 @@ def cli_phase(smi):
             fail("cli: a training step waits on the card")
         del trainer, saved, rec
     torch.cuda.empty_cache()
-    return launches
+    return train_launches, render_sum
 
 
 def main():
@@ -2544,10 +2560,11 @@ def main():
     torch.cuda.empty_cache()
 
     # --- 15. the training CLI at configs/dtu_pn.yaml ---
-    launches_cli = cli_phase(smi)
+    launches_cli, launches_cli_render = cli_phase(smi)
 
     # --- 16. report ---
-    render_runs = (launches_render, launches_unfused, launches_colour_render)
+    render_runs = (launches_render, launches_unfused, launches_colour_render,
+                   launches_cli_render)
     train_runs = (launches_train, launches_dense, *launches_options,
                   launches_colour_train, launches_cli)
     results["K8b fused_color_bwd"] = colour_best["fused_color_bwd"]

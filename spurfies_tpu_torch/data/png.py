@@ -136,7 +136,7 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def encode_png(img, filter_type=1, level: int = 6) -> bytes:
+def encode_png(img, filter_type=1) -> bytes:
     """PNG bytes of ``img``: uint8 or uint16, ``[H, W]`` or ``[H, W, C]``
     with C in 1..4 (gray, gray+alpha, RGB, RGBA).  ``filter_type``: the row
     filter (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth) of every row, or a
@@ -175,11 +175,11 @@ def encode_png(img, filter_type=1, level: int = 6) -> bytes:
 
     ihdr = struct.pack(">IIBBBBB", w, h, depth, _COLOR_TYPE[ch], 0, 0, 0)
     return (_SIGNATURE + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + chunk(b"IEND", b""))
 
 
-def write_png(path, img, filter_type=1, level: int = 6):
+def write_png(path, img, filter_type=1):
     """Write :func:`encode_png`'s bytes to ``path``."""
     with open(path, "wb") as f:
-        f.write(encode_png(img, filter_type, level))
+        f.write(encode_png(img, filter_type))

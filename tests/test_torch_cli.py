@@ -9,8 +9,10 @@
 * the experiment directory, the metric writer without TensorBoard;
 * ``cli.train.main`` with ``--device cpu`` on the tiny DTU fixture of
   ``tests/test_cli_chain.py``: 20 steps rendering and saving every 10, then
-  ``--resume`` to 30; and its refusal to train a DTU scene without the
-  local loss when ``ckpt/vismvsnet.pt`` is there.
+  ``--resume`` to 30; the same beside the JAX package's CLI (rows,
+  checkpoints, run.json, prior, validation pixels and PSNR); and its
+  refusal to train a DTU scene without the local loss when
+  ``ckpt/vismvsnet.pt`` is there.
 """
 
 import dataclasses
@@ -234,6 +236,107 @@ def test_cli_trains_and_resumes_on_the_cpu(dtu_fixture, tmp_path,
     assert sorted(os.listdir(exp.ckpt_dir)) == ["10", "20", "30", "latest"]
     with open(os.path.join(exp.dir, "run.json")) as f:
         assert json.load(f)["train"]["opt_steps"] == 30
+
+
+def _params_np(tree):
+    """A params or frozen tree (either package) as numpy leaves, in order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, (list, tuple)):
+            out += [np.asarray(layer[kk].detach().cpu() if torch.is_tensor(
+                layer[kk]) else layer[kk]) for layer in v for kk in ("w", "b")]
+        else:
+            out.append(np.asarray(v.detach().cpu() if torch.is_tensor(v)
+                                  else v))
+    return out
+
+
+def test_cli_matches_jax_train_scene(dtu_fixture, tmp_path, monkeypatch,
+                                     no_tensorboard):
+    """The JAX package's CLI and the port's on the same fixture and
+    overrides, 20 steps rendering and saving every 10, then ``--resume`` to
+    30, each in a directory of its own that holds the repo's ``artifacts``.
+    Equal: the metrics.jsonl rows (steps and keys, train and val), the
+    checkpoint names, run.json, the frozen prior, the validation pixels
+    (``uv`` of each render, bit-equal), and the validation PSNR of the
+    same render: the port's render call returns JAX's render of that step,
+    so the port's logged PSNR must be JAX's to 1e-5 dB (JAX takes the
+    squared error in its own float32 ops) -- which holds the 1/4-resolution
+    ``val_gt`` and ``val_mask`` and the PSNR formula.  The two runs' own
+    PSNRs are not compared: each trainer draws its rays and initialises its
+    fields from its own generator (JAX's PRNG keys, torch's), so after 10
+    steps they are two different fits of the scene."""
+    from spurfies_tpu.cli import train as j_train
+    from spurfies_tpu.train.trainer import Trainer as JTrainer
+
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)
+    args = ["--scans", "scan24"] + TINY_OVERRIDES + [
+        f"dataset.data_dir_root={dtu_fixture / 'data'}", "exps_folder=exps",
+        "train.render_freq=10", "train.checkpoint_freq=10"]
+    runs = {"jax": {"uv": [], "out": [], "trainer": None},
+            "torch": {"uv": [], "real": []}}
+    j_render = JTrainer.render_image
+
+    def jax_spy(self, tp, uv, pose, intrinsics, key):
+        out = j_render(self, tp, uv, pose, intrinsics, key)
+        runs["jax"]["uv"].append(np.array(uv))
+        runs["jax"]["out"].append({k: np.array(v) for k, v in out.items()})
+        runs["jax"]["trainer"] = self
+        return out
+
+    t_render = cli_train.Trainer.render_image
+
+    def torch_spy(self, uv, pose, intrinsics):
+        real = t_render(self, uv, pose, intrinsics)
+        i = len(runs["torch"]["uv"])
+        runs["torch"]["uv"].append(np.array(uv))
+        runs["torch"]["real"].append(real)
+        return runs["jax"]["out"][i]
+
+    monkeypatch.setattr(JTrainer, "render_image", jax_spy)
+    monkeypatch.setattr(cli_train.Trainer, "render_image", torch_spy)
+    dirs = {}
+    for name, main in (("jax", j_train.main), ("torch", cli_train.main)):
+        d = tmp_path / name
+        d.mkdir()
+        (d / "artifacts").symlink_to(ROOT / "artifacts")
+        monkeypatch.chdir(d)
+        extra = ["--device", "cpu"] if name == "torch" else []
+        main(extra + args + ["train.opt_steps=20"])
+        got = main(["--resume"] + extra + args + ["train.opt_steps=30"])
+        if name == "torch":
+            [(runs["torch"]["trainer"], _)] = got
+        [stamp] = os.listdir(d / "exps" / "dtu_pn_scan24")
+        dirs[name] = d / "exps" / "dtu_pn_scan24" / stamp
+
+    rows = {}
+    for name, d in dirs.items():
+        with open(d / "plots" / "logs" / "metrics.jsonl") as f:
+            rows[name] = [json.loads(ln) for ln in f]
+    assert ([(r["step"], sorted(r)) for r in rows["torch"]]
+            == [(r["step"], sorted(r)) for r in rows["jax"]])
+    val = {name: [r["psnr"] for r in rs if "rgb_loss" not in r]
+           for name, rs in rows.items()}
+    assert len(val["jax"]) == 3
+    np.testing.assert_allclose(val["torch"], val["jax"], rtol=0, atol=1e-5)
+    assert (sorted(os.listdir(dirs["torch"] / "checkpoints"))
+            == sorted(os.listdir(dirs["jax"] / "checkpoints"))
+            == ["10", "20", "30", "latest"])
+    with open(dirs["torch"] / "run.json") as f, \
+            open(dirs["jax"] / "run.json") as g:
+        assert json.load(f) == json.load(g)
+
+    assert len(runs["torch"]["uv"]) == len(runs["jax"]["uv"]) == 3
+    for a, b in zip(runs["torch"]["uv"], runs["jax"]["uv"]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for real, ref in zip(runs["torch"]["real"], runs["jax"]["out"]):
+        for k in ("rgb_values", "depth_values", "normal_map"):
+            assert real[k].shape == ref[k].shape, k
+            assert np.isfinite(real[k]).all(), k
+    for a, b in zip(_params_np(runs["torch"]["trainer"].frozen),
+                    _params_np(runs["jax"]["trainer"].frozen)):
+        assert a.shape == b.shape and np.array_equal(a, b)
 
 
 def test_cli_prefers_the_reference_prior_checkpoint(dtu_fixture, tmp_path,

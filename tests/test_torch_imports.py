@@ -1,6 +1,6 @@
-"""The port stands alone: no module of spurfies_tpu_torch, nor
-chip_smoke.py, chip_k3_parts.py, chip_k8_parts.py or the card-only tests,
-imports JAX, optax, orbax or anything of spurfies_tpu, and every port
+"""The port stands alone: no module of spurfies_tpu_torch, nor the
+scripts ``chip_*.py`` or the card-only tests, imports JAX, optax, orbax
+or anything of spurfies_tpu, and every port
 module imports with JAX made unimportable.  Nor do they import the
 libraries that the card's machine lacks (imageio, cv2, matplotlib, yaml,
 tensorboardX); Pillow only in the JPEG branch of
@@ -36,10 +36,8 @@ def _port_modules():
 
 def _sources():
     # test_torch_cuda.py runs on the card's machine, which has no JAX
-    return _port_modules() + [ROOT / "chip_smoke.py",
-                              ROOT / "chip_k3_parts.py",
-                              ROOT / "chip_k8_parts.py",
-                              ROOT / "tests" / "test_torch_cuda.py"]
+    return _port_modules() + sorted(ROOT.glob("chip_*.py")) + [
+        ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def _imported(path, with_function=False):
