@@ -16,13 +16,17 @@ then takes STEPS (100) more training steps and, in each, holds K3's
               same function, its f32 sums in another order.
 
 Per launch it reads the largest ``|err| / column scale`` of the kernel and
-of ``plain_perm`` against ``plain`` (``check_pair`` fails a launch above
-0.05).  For the kernel's worst entry of each launch above 0.02 it prints
-the pair's smallest kink margin ``|a| / sum|terms|`` over the
-pre-activations of the four LeakyReLU layers, and the worst error of that
-pair's row against the plain version of the row recomputed alone, as it is
-and with the gate of one of its eight units nearest the kink flipped (the
-best of the eight).  Then the ``nvidia-smi`` name and power limit.
+of ``plain_perm`` against ``plain``, and holds the kernel by
+``check_pair``'s rule (``chip_smoke.explain_kinks``): every row above 0.05
+of scale must be its plain row recomputed alone with one of its eight
+nearest-kink gates flipped (within 0.02 of scale, the unit's margin
+``|a| / sum|terms|`` below 2**-5), and such rows at most 0.1 % of the real
+pairs.  For the kernel's worst entry of each launch above 0.02 it prints
+``chip_smoke.kink``'s reading of that row (its smallest margin, its error
+against the row recomputed as it is and with the best of the eight gates
+flipped).  It ends with the launches that passed the rule, the rows it
+explained and their worst margin and residual, then the ``nvidia-smi``
+name and power limit; it exits non-zero if a launch failed the rule.
 """
 
 import json
@@ -55,55 +59,6 @@ def worst(out, ref):
     ratio = (out - ref).abs() / scale
     flat = int(ratio.argmax())
     return float(ratio.max()), divmod(flat, ratio.shape[1]), scale
-
-
-def kink(table, idx_ext, x, layers, rbf, row, kernel_row, scale):
-    """The pair ``row``'s smallest kink margin, and the worst error of
-    ``kernel_row`` against the plain version of this one row recomputed
-    (its products in another order than the batch's), as it is
-    (``recomputed``) and with the gate of one of its eight nearest-kink
-    units flipped (``flipped``, the best of them)."""
-    import torch
-
-    from spurfies_tpu_torch.ops import pair_mlp as pm
-
-    g, xpi, _ = pm._gather(table, idx_ext, x, rbf)
-    g, xpi = g[row:row + 1], xpi[row:row + 1]
-    d = g.shape[1] - 3
-    cd = layers.compute_dtype
-    lat, pos = g[:, :d].to(cd).float(), xpi.to(cd).float()
-    w0 = layers.ws[0].float()
-    a = pm._first_split(layers, g[:, :d], xpi)
-    terms = lat.abs() @ w0[:d].abs() + pos.abs() @ w0[d:].abs() \
-        + layers.bs[0].abs()
-    pre, margins = [], []
-    for i in range(layers.n_act):
-        if i > 0:
-            a = pm._mm(h, layers.ws[i]) + layers.bs[i]
-            terms = h.float().abs() @ layers.ws[i].float().abs() \
-                + layers.bs[i].abs()
-        pre.append(a)
-        margins.append(a.abs() / (terms + 1e-30))
-        h = torch.maximum(a, 0.01 * a).to(cd)
-    m = torch.cat(margins, 1)[0]
-    near = torch.argsort(m)[:8]
-    gates = [p > 0 for p in pre]
-
-    def err(gs):
-        r = pm._down_sweep(layers, gs, 1, x.device)[:, :d].to(cd).float()
-        return float(((kernel_row - r).abs() / scale[0]).max())
-
-    best = None
-    for j in near.tolist():
-        layer, unit = divmod(j, pre[0].shape[1])
-        gs = [gt.clone() for gt in gates]
-        gs[layer][0, unit] = ~gs[layer][0, unit]
-        e = err(gs)
-        if best is None or e < best[0]:
-            best = (e, layer, unit, float(m[j]))
-    return {"min_margin": float(m.min()), "recomputed": err(gates),
-            "flipped": best[0], "flip_layer": best[1], "flip_unit": best[2],
-            "flip_margin": best[3]}
 
 
 def main():
@@ -155,11 +110,21 @@ def main():
                 p_err, _, _ = worst(alt[real].float(), ref[real].float())
                 row = {"step": step, "launch": i, "pairs": int(real.sum()),
                        "kernel": k_err, "plain_perm": p_err}
-                if k_err > 0.02:
-                    with torch.no_grad():
-                        row.update(kink(table, idx_ext, x, layers, rbf,
-                                        int(where[r]),
-                                        out[where[r]].float()[None], scale))
+                rows_of = cs.pair_inputs(table, idx_ext, x)
+                with torch.no_grad():
+                    if k_err > 0.02:
+                        lat, xpi = rows_of(where[r:r + 1])
+                        row.update(cs.kink(lat, xpi, layers,
+                                           out[where[r]].float()[None],
+                                           scale))
+                    try:
+                        row["rule"] = cs.explain_kinks(
+                            f"K3 r_lat, step {step} launch {i}",
+                            out[real].float(), ref[real].float(), scale,
+                            layers, lambda rr: rows_of(where[rr])) \
+                            if k_err > 0.05 else {"rows": 0}
+                    except SystemExit as e:
+                        row["rule"] = {"failed": str(e)}
                 rows.append(row)
                 print(json.dumps(row), flush=True)
             del seen
@@ -174,10 +139,19 @@ def main():
               f"of the recomputed row with one gate flipped: "
               f"{sum(r['flipped'] < 0.01 for r in flips)}, without: "
               f"{sum(r['recomputed'] < 0.01 for r in flips)}")
+    failed = [r for r in rows if "failed" in r["rule"]]
+    held = [r["rule"] for r in rows if "failed" not in r["rule"]]
+    print(f"check_pair's rule: {len(held)} of {len(rows)} launches pass; "
+          f"{sum(h['rows'] for h in held)} rows explained as kink flips "
+          f"(at most {max((h.get('share', 0.0) for h in held), default=0):.2e}"
+          " of a launch's real pairs), worst margin "
+          f"{max((h.get('worst_margin', 0.0) for h in held), default=0):.4f},"
+          " worst residual "
+          f"{max((h.get('worst_residual', 0.0) for h in held), default=0):.4f}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

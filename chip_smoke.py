@@ -10,7 +10,8 @@ failure exits non-zero before the last line):
 
   1. device: the card's name and ``nvidia-smi`` name / power limit;
   2. build: every kernel of ``spurfies_tpu_torch/csrc`` with nvcc for
-     sm_90a, one process per source, all at once (seconds, and each entry
+     sm_90a and its host routine (``host_dedup.cpp``) with the host
+     compiler, one process per source, all at once (seconds, and each entry
      function's registers and spills); the HGMMA and HMMA counts of the
      SASS of the wgmma kernels (WGMMA_KERNELS: K3, K2, K6a, K6b, K7a, K7b
      and the colour stack's), each of which must hold HGMMA;
@@ -122,8 +123,30 @@ failure exits non-zero before the last line):
      every launch of one captured step of the CLI's trainer holds against
      its plain version and two steps make no host sync.  It prints the
      export and load seconds, the decode times, train rays/s and ms/step
-     and the validation render's ms;
- 16. the ``kernels`` JSON line, the ``redesign_order`` line (the kernels
+     and the validation render's ms.  Every K3 ``r_lat`` check (here and
+     in phases 4 and 8) and every K6a/K7a ``r`` check holds a row above
+     0.05 of its column's scale as a LeakyReLU gate flipped on its kink
+     (``explain_kinks``), or fails;
+ 16. the evaluation CLIs on phase 15's trained scan (``eval_phase``):
+     ``cli.evaluate.main`` with ``--mesh --rendering --resolution 512
+     --max-views 2`` (counters set to 0 just before it), then
+     ``calibrate_iso_level`` and ``cli.eval_dtu.main`` on the mesh and the
+     export's GT cloud, each part timed (grid, probe by wall and CUDA
+     events, device marching, ``largest_component``, PLY write, each NVS
+     render, SSIM, PNG writes; the cleaning's passes, sampling, dedup and
+     KD queries).  It holds the probe's K1 and K2 at its busiest chunk
+     against their plain versions, the grid of its 8 busiest chunks
+     against the plain versions' (phase 4's limits, the same points at
+     1000), the device marching against the CPU's on a 128**3 block
+     (faces equal), the launches (chunks x (K1 + K2) in the probe, each
+     render's chunking, one K1 a scene build), 0 host syncs in the probe
+     loop, LPIPS card against CPU (random weights) and ``chamfer.json``;
+     it prints the probe budget's busiest chunk;
+ 17. K9 (``ops/gather_rows.py``): the port's ``micro_gather`` script
+     (counters set to 0 just before it), then K9 bit-equal to
+     ``table[idx]`` at 655,360 x 40, timed beside it;
+ 18. the ``kernels`` JSON line (launches by render, training, evaluation
+     and microbenchmark runs), the ``redesign_order`` line (the kernels
      ranked by launches x (ms - bound_ms) in this run) and the
      ``redesign_order_kernel_ms`` line (the same with the C entry's time
      where a kernel has one), the ``nvidia-smi`` line, then the device
@@ -137,6 +160,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 # peak rates of one H100 SXM (NVIDIA data sheet; dense, at 700 W)
@@ -178,6 +202,17 @@ OPTION_STEPS = 50
 FUSED_COLOR_STEP = dict(PER_STEP, pack_color_weights=1, fused_color_fwd=1,
                         fused_color_bwd=1)
 MICRO_PAIRS = 655360
+# phase 16: cli.evaluate on phase 15's trained scan, the mesh at EVAL_RES
+# (the reference's 512) and EVAL_VIEWS novel views; the probe's chunk and
+# budget are eval/mesh_extract.py's and model/field.sdf_probe's defaults
+EVAL_RES = 512
+EVAL_VIEWS = 2
+EVAL_CHUNK = 262144
+PROBE_BUDGET = 0.25
+EVAL_HELD_CHUNKS = 8
+MARCH_BLOCK = 128
+# phase 17: K9 at scripts/micro_gather.py's default shape
+GATHER_ROWS, GATHER_N, GATHER_D = 655360, 6144, 40
 # the training CLI at configs/dtu_pn.yaml (576x768 views, 1024 rays a
 # step): a synthetic DTU scan of CLI_VIEWS views with phase 3's dense
 # sphere, CLI_STEPS steps, then --resume to CLI_STEPS + CLI_RESUME_STEPS;
@@ -562,8 +597,11 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
         if bool((outs[1][~real] != 0).any()) or \
                 bool((outs[2][~real] != 0).any()):
             fail(f"{name}: w or r_lat not exactly 0 on a dump pair")
+        where = real.nonzero()[:, 0]
+        rows_of = pair_inputs(table, idx_ext, x)
         within(f"{name} r_lat (real pairs)", outs[2][real].float(),
-               refs[2][real].float())
+               refs[2][real].float(),
+               kink=(prior, lambda rows: rows_of(where[rows])))
         within(f"{name} r_lat, control f32 plain", ctrl[2][real].float(),
                refs[2][real].float(), hold=False)
     del ctrl
@@ -589,7 +627,8 @@ def check_pair(name, fn, ref, args, prior, prior_f32, rbf, reps):
         "pair), "
         f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "max_abs_err": err}
+            "bound_by": b_by, "library_ms": None, "max_abs_err": err,
+            "rows": p}
 
 
 def dump_cost(name, fn, args, prior, rbf, reps, limit):
@@ -640,13 +679,17 @@ def check_rows(name, fn, ref, args, prior, prior_f32, reps, radius,
     """A per-row pair-MLP kernel (K6a/K6b on (g, x), K7a/K7b on (u,))
     against its plain version: x_pi bit-equal (the same f32 subtraction),
     s and r by the limits of phase 4 (the 0.05 rule on the rows whose x_pi
-    lies in the query ``radius``: no RBF weight reads the others), with
-    the f32 control beside them.  ``n_real``: the rows this data needs
+    lies in the query ``radius``: no RBF weight reads the others; r's rows
+    above it held as kink flips, ``explain_kinks``), with the f32 control
+    beside them.  ``n_real``: the rows this data needs
     (valid pairs; default all)."""
     import torch
 
     xpi = args[1] - args[0][:, 32:] if len(args) == 2 else args[0][:, 32:]
     keep = (xpi * xpi).sum(1) <= radius * radius
+
+    def rows_of(rows):
+        return args[0][rows, :32], xpi[rows]
 
     with torch.no_grad():
         outs = fn(*args, prior)
@@ -665,7 +708,10 @@ def check_rows(name, fn, ref, args, prior, prior_f32, reps, radius,
             if not torch.equal(o, r):
                 fail(f"{name}: x_pi differs from x - pos")
             continue
-        err = max(err, within(f"{name} {label}", o, r, keep=keep))
+        # r (K6a, K7a): a row above 0.05 must be a kink flip
+        err = max(err, within(f"{name} {label}", o, r, keep=keep,
+                              kink=(prior, rows_of) if label == "r"
+                              else None))
         within(f"{name} {label}, control f32 plain", c, r, hold=False,
                keep=keep)
     del ctrl
@@ -736,14 +782,17 @@ def k7b_step0(u, prior, reps):
     return kernel_ms
 
 
-def within(what, out, ref, hold=True, keep=None):
+def within(what, out, ref, hold=True, keep=None, kink=None):
     """|out - ref| <= 2**-6 |ref| + 1e-3 scale for 99.9% of the entries and
     <= 0.05 scale for all, per column (scale: the column's max |ref|; the
     0.1% allows a LeakyReLU gate that flips on a kink).  ``keep`` (bool per
     row): the rows the data can use; the 0.05 rule is then held on them,
     with their own scale, and the reading over every row is printed beside
     it (a per-pair kernel also runs masked slots, whose gate flips no
-    output reads).  Returns the max abs error; fails on a breach when
+    output reads).  ``kink``: for a pair-MLP gradient (K3's r_lat, K6a's and
+    K7a's r), ``(layers, row_inputs)``: a row above 0.05 then passes only
+    when :func:`explain_kinks` shows it is the plain row with one gate
+    flipped on its kink.  Returns the max abs error; fails on a breach when
     ``hold``."""
     out = out.reshape(out.shape[0], -1)
     ref = ref.reshape(ref.shape[0], -1)
@@ -751,6 +800,7 @@ def within(what, out, ref, hold=True, keep=None):
     d = (out - ref).abs()
     beyond = (d > 2.0 ** -6 * ref.abs() + 1e-3 * scale).float().mean()
     worst = every = float((d / scale).max())
+    kept = scale
     if keep is not None:
         kept = ref[keep].abs().amax(0, keepdim=True) + 1e-30
         worst = float((d[keep] / kept).max()) if bool(keep.any()) else 0.0
@@ -760,9 +810,147 @@ def within(what, out, ref, hold=True, keep=None):
                           f" on the {int(keep.sum())} rows in the query "
                           f"radius ({every:.3e} on every row)")
         + f", share beyond 2^-6 rel {float(beyond):.2e}")
+    if hold and worst > 0.05 and kink is not None:
+        explain_kinks(what, out, ref, kept, *kink, keep=keep)
+        worst = 0.0                  # every row above 0.05 is a kink flip
     if hold and (float(beyond) > 1e-3 or worst > 0.05):
         fail(f"{what}: kernel and plain version disagree")
     return err
+
+
+# a pair-MLP gradient row above 0.05 of scale (within) passes as a kink
+# flip when the plain row recomputed with one of its KINK_UNITS nearest-
+# kink gates flipped lies within KINK_RESIDUAL of scale of the kernel's row
+# and that unit's margin |a| / sum|terms| is below KINK_MARGIN; such rows
+# may be at most KINK_SHARE of the rows (measured on the H100 over 100
+# trained dtu_cli steps: residual <= 0.0094, margin <= 0.0145; PERF.md 6)
+KINK_UNITS = 8
+KINK_RESIDUAL = 0.02
+KINK_MARGIN = 2.0 ** -5
+KINK_SHARE = 1e-3
+
+
+def gate_margins(lat, xpi, layers):
+    """One pair row (``lat [1, d]``, ``xpi [1, 3]``) through the plain up
+    sweep: its LeakyReLU gates (a > 0, per layer) and each unit's kink
+    margin ``|a| / sum|terms|`` over the terms of its pre-activation,
+    ``[n_act * H]`` (layer-major)."""
+    import torch
+
+    from spurfies_tpu_torch.ops import pair_mlp as pm
+
+    d = lat.shape[1]
+    cd = layers.compute_dtype
+    w0 = layers.ws[0].float()
+    a = pm._first_split(layers, lat, xpi)
+    terms = lat.to(cd).float().abs() @ w0[:d].abs() \
+        + xpi.to(cd).float().abs() @ w0[d:].abs() + layers.bs[0].abs()
+    gates, margins = [], []
+    for i in range(layers.n_act):
+        if i > 0:
+            a = pm._mm(h, layers.ws[i]) + layers.bs[i]
+            terms = h.float().abs() @ layers.ws[i].float().abs() \
+                + layers.bs[i].abs()
+        gates.append(a > 0)
+        margins.append(a.abs() / (terms + 1e-30))
+        h = torch.maximum(a, 0.01 * a).to(cd)
+    return gates, torch.cat(margins, 1)[0]
+
+
+def flipped_r(layers, gates, unit=None):
+    """The row's ``r [1, d + 3]`` by the plain down sweep on ``gates``,
+    with the gate of ``unit`` (``layer * H + j``; None: none) flipped."""
+    from spurfies_tpu_torch.ops import pair_mlp as pm
+
+    gs = [g.clone() for g in gates]
+    if unit is not None:
+        layer, j = divmod(int(unit), gs[0].shape[1])
+        gs[layer][0, j] = ~gs[layer][0, j]
+    return pm._down_sweep(layers, gs, 1, gs[0].device)
+
+
+def kink(lat, xpi, layers, kernel_row, scale):
+    """The pair row's smallest kink margin, and the worst error (of the
+    column ``scale``) of ``kernel_row [1, c]`` against the plain version of
+    this one row recomputed alone (its first c columns in the compute
+    dtype), as it is (``recomputed``) and with the gate of one of its
+    KINK_UNITS nearest-kink units flipped (``flipped``, the best of them,
+    at ``flip_layer`` / ``flip_unit`` with margin ``flip_margin``)."""
+    import torch
+
+    gates, m = gate_margins(lat, xpi, layers)
+    c = kernel_row.shape[1]
+
+    def err(unit):
+        r = flipped_r(layers, gates, unit)[:, :c].to(
+            layers.compute_dtype).float()
+        return float(((kernel_row - r).abs() / scale).max())
+
+    best = None
+    for j in torch.argsort(m)[:KINK_UNITS].tolist():
+        e = err(j)
+        if best is None or e < best[0]:
+            best = (e, j)
+    layer, unit = divmod(best[1], gates[0].shape[1])
+    return {"min_margin": float(m.min()), "recomputed": err(None),
+            "flipped": best[0], "flip_layer": layer, "flip_unit": unit,
+            "flip_margin": float(m[best[1]])}
+
+
+def explain_kinks(what, out, ref, scale, layers, row_inputs, keep=None):
+    """Hold the rows of a pair-MLP gradient (``out``/``ref`` ``[R, c]``)
+    whose worst entry is above 0.05 of its column ``scale`` (among the
+    ``keep`` rows, if given) by what they are: each must be its plain row
+    recomputed alone with one gate flipped on its kink (:func:`kink`:
+    within KINK_RESIDUAL of scale, the unit's margin below KINK_MARGIN),
+    and they may be at most KINK_SHARE of the rows.  ``row_inputs(rows)``
+    gives the rows' ``(lat [n, d], xpi [n, 3])``.  Prints the explained
+    rows, their worst margin and worst residual; fails otherwise.  Returns
+    ``{"rows", "share", "worst_margin", "worst_residual"}``."""
+    import torch
+
+    above = (out - ref).abs().div(scale).amax(1) > 0.05
+    if keep is not None:
+        above &= keep
+    rows = torch.nonzero(above)[:, 0]
+    n = int(keep.sum()) if keep is not None else out.shape[0]
+    share = rows.numel() / max(n, 1)
+    if share > KINK_SHARE:
+        fail(f"{what}: {rows.numel()} rows above 0.05 of scale, "
+             f"{share:.2e} of {n}; kink flips may be at most {KINK_SHARE}")
+    lat, xpi = row_inputs(rows)
+    found = [kink(lat[i:i + 1], xpi[i:i + 1], layers,
+                  out[r:r + 1].float(), scale)
+             for i, r in enumerate(rows.tolist())]
+    stats = {"rows": len(found), "share": share,
+             "worst_margin": max((f["flip_margin"] for f in found),
+                                 default=0.0),
+             "worst_residual": max((f["flipped"] for f in found),
+                                   default=0.0)}
+    log(f"  {what}: {stats['rows']} rows above 0.05 of scale explained by "
+        f"one gate flipped on its kink ({share:.2e} of {n} rows); worst "
+        f"margin {stats['worst_margin']:.4f} (< {KINK_MARGIN}), worst "
+        f"residual {stats['worst_residual']:.4f} (<= {KINK_RESIDUAL})")
+    bad = [(r, f) for r, f in zip(rows.tolist(), found)
+           if not (f["flipped"] <= KINK_RESIDUAL
+                   and f["flip_margin"] < KINK_MARGIN)]
+    if bad:
+        fail(f"{what}: row {bad[0][0]} is not one gate flipped on its kink: "
+             f"{json.dumps(bad[0][1])}")
+    return stats
+
+
+def pair_inputs(table, idx_ext, x):
+    """``pairs`` (flat indices of ``idx_ext``'s pairs) -> their ``(lat,
+    xpi)`` rows, as the plain pair-MLP versions gather them."""
+    import torch
+
+    def rows_of(pairs):
+        n, k = table.shape[0], idx_ext.shape[1]
+        idx = idx_ext.reshape(-1)[pairs].long()
+        g = table[torch.where((idx >= 0) & (idx < n), idx, n - 1)]
+        return g[:, :-3], x[pairs // k] - g[:, -3:]
+    return rows_of
 
 
 def compare_chunk(a, b):
@@ -951,10 +1139,15 @@ def fused_color_set(on):
 
 
 def counters():
-    from spurfies_tpu_torch.ops import fused_color, pair_mlp, scatter_rows
+    from spurfies_tpu_torch.ops import (
+        fused_color,
+        gather_rows,
+        pair_mlp,
+        scatter_rows,
+    )
     from spurfies_tpu_torch.ops import select_knn as sk
     return (sk.LAUNCHES, pair_mlp.LAUNCHES, scatter_rows.LAUNCHES,
-            fused_color.LAUNCHES)
+            fused_color.LAUNCHES, gather_rows.LAUNCHES)
 
 
 def zero_counts():
@@ -1647,21 +1840,26 @@ def colour_paths(args, reps):
 def redesign_order(rows, key="ms"):
     """The kernels line's rows ranked by the time this run spent above
     their bounds: launches x (ms - bound_ms), the render and microbenchmark
-    launches at the row's own shape and the training launches at its
-    ``train_shape`` where it has one (else the row's shape is the training
-    one).  ``key="kernel_ms"`` takes the C entry's time where a row has
-    one (K1, K4, K5), else ``ms``.  A row's ``launch_2`` (K4's second,
-    smaller launch of a step) counts its ``launches`` at its own shape.
-    Returns [(label, excess ms)], largest first."""
+    launches at the row's own shape, the training launches at its
+    ``train_shape`` and the evaluation's at its ``eval_shape`` where it has
+    them (else at the row's shape).  ``key="kernel_ms"`` takes the C
+    entry's time where a row has one (K1, K4, K5), else ``ms``.  A row's
+    ``launch_2`` (K4's second, smaller launch of a step) counts its
+    ``launches`` at its own shape.  Returns [(label, excess ms)], largest
+    first."""
+    def over(shape, n):
+        return n * (shape.get(key, shape["ms"]) - shape["bound_ms"])
+
     order = []
     for row in rows:
-        t = row.get("train_shape", row)
         l2 = row.get("launch_2", {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
-        excess = ((row["launches_render"] + row["launches_microbench"])
-                  * (row.get(key, row["ms"]) - row["bound_ms"])
-                  + (row["launches_train"] - l2["launches"])
-                  * (t.get(key, t["ms"]) - t["bound_ms"])
-                  + l2["launches"] * (l2.get(key, l2["ms"]) - l2["bound_ms"]))
+        excess = (over(row, row["launches_render"]
+                       + row["launches_microbench"])
+                  + over(row.get("train_shape", row),
+                         row["launches_train"] - l2["launches"])
+                  + over(row.get("eval_shape", row),
+                         row.get("launches_eval", 0))
+                  + over(l2, l2["launches"]))
         order.append((row["name"], excess))
     return sorted(order, key=lambda kv: -kv[1])
 
@@ -1804,14 +2002,30 @@ def png_decode_times(image_path, tmp, smi):
     return times
 
 
-def cli_phase(smi):
-    """Phase 15: ``cli.train.main`` at ``configs/dtu_pn.yaml`` on a synthetic
-    DTU scan, then ``--resume``.  Returns the launches of the two calls as
-    ``(train, render)``: the training steps with the one K1 launch of each
-    Trainer's build (its TV neighbours, a training input), and the
-    validation renders."""
-    import tempfile
+def render_counts(trainer, uv, pose, intrinsics, keys, knn):
+    """The launches of ``trainer.render_image(uv, pose, intrinsics)``,
+    which its chunking fixes: per chunk of occupied rays, K1 (variant
+    ``knn``) once a sampler round and once for shading, K2 once a round and
+    K3 once; ``keys``: the counters."""
+    view = {"uv": uv, "pose": pose, "intrinsics": intrinsics}
+    _, _, n_occ, _ = first_chunk(trainer.scene, view, trainer.cfg,
+                                 trainer.device)
+    eff = min(trainer.cfg.train.render_chunk, -(-len(uv) // 128) * 128)
+    iters = (trainer.cfg.train.eval_iters
+             or trainer.cfg.model.ray_sampler.max_total_iters)
+    return expected_counts(keys, {"select_knn": iters + 1,
+                                  "pair_sdf_value_agg": iters,
+                                  "pair_sdf_aggregate": 1},
+                           -(-n_occ // eff), knn)
 
+
+def cli_phase(smi, tmp):
+    """Phase 15: ``cli.train.main`` at ``configs/dtu_pn.yaml`` on a synthetic
+    DTU scan (with its GT cloud) written under ``tmp``, then ``--resume``;
+    the scan and the experiment stay there for phase 16.  Returns the
+    launches of the two calls as ``(train, render)``: the training steps
+    with the one K1 launch of each Trainer's build (its TV neighbours, a
+    training input), and the validation renders."""
     import numpy as np
     import torch
 
@@ -1886,17 +2100,7 @@ def cli_phase(smi):
         fixes, and add them to ``render_sum``.  Run after each CLI call, so
         that no trainer outlives the call that made it."""
         for tr, uv, pose, K, _, delta in rec["render"]:
-            view = {"uv": uv, "pose": pose, "intrinsics": K}
-            _, _, n_occ, _ = first_chunk(tr.scene, view, tr.cfg, tr.device)
-            eff = min(tr.cfg.train.render_chunk,
-                      -(-len(uv) // 128) * 128)
-            chunks = -(-n_occ // eff)
-            iters = (tr.cfg.train.eval_iters
-                     or tr.cfg.model.ray_sampler.max_total_iters)
-            expect = expected_counts(delta, {"select_knn": iters + 1,
-                                             "pair_sdf_value_agg": iters,
-                                             "pair_sdf_aggregate": 1},
-                                     chunks, knn)
+            expect = render_counts(tr, uv, pose, K, delta, knn)
             if delta != expect:
                 fail(f"cli: a validation render launched {delta}, expected "
                      f"{expect}")
@@ -1905,159 +2109,566 @@ def cli_phase(smi):
             n_renders[:] = n_renders[0] + 1, len(uv)
         rec["render"].clear()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        export_synthetic_dtu(data, scan_id=24, n_views=CLI_VIEWS,
-                             img_res=CLI_RES, n_points=40000, radius=0.8,
-                             cam_dist=2.4, seed=1)
-        t_export = time.perf_counter() - t0
-        log(f"cli: export_synthetic_dtu of {CLI_VIEWS} views at "
-            f"{CLI_RES[0]}x{CLI_RES[1]} (40,000 raw points) in "
-            f"{t_export:.2f} s [{smi}]")
-        png_decode_times(os.path.join(data, "dtu", "scan24", "image",
-                                      "000000.png"), tmp, smi)
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    export_synthetic_dtu(data, scan_id=24, n_views=CLI_VIEWS,
+                         img_res=CLI_RES, n_points=40000, radius=0.8,
+                         cam_dist=2.4, seed=1,
+                         gt_root=os.path.join(data, "dtu_eval"))
+    t_export = time.perf_counter() - t0
+    log(f"cli: export_synthetic_dtu of {CLI_VIEWS} views at "
+        f"{CLI_RES[0]}x{CLI_RES[1]} (40,000 raw points) in "
+        f"{t_export:.2f} s [{smi}]")
+    png_decode_times(os.path.join(data, "dtu", "scan24", "image",
+                                  "000000.png"), tmp, smi)
 
-        args = ["--config", os.path.join(here, "configs", "dtu_pn.yaml"),
-                "--scans", "scan24"]
-        ov = [f"dataset.data_dir_root={data}",
-              f"exps_folder={os.path.join(tmp, 'exps')}",
-              f"train.render_freq={CLI_EVERY}",
-              f"train.checkpoint_freq={CLI_EVERY}"]
-        total = CLI_STEPS + CLI_RESUME_STEPS
-        spies = {"__init__": spy_init, "run": spy_run,
-                 "render_image": spy_render,
-                 "restore_checkpoint": spy_restore,
-                 "load_scene_data": spy_load}
-        sites = [(Trainer, name, None) for name in list(spies)[:4]]
-        with substituted(lambda fn, _: spies[fn.__name__](fn),
-                         sites + [(cli_train, "load_scene_data", None)]):
-            zero_counts()
-            [(first, exp)] = cli_train.main(
-                args + ov + [f"train.opt_steps={CLI_STEPS}"])
-            torch.cuda.synchronize()
-            launches_first = read_counts()
-            knn = ("select_knn_packed" if 0 < first.scene.table.n_points
-                   <= 2 ** 15 else "select_knn_exact")
-            check_renders(knn)
-            saved = torch.load(exp.checkpoint_path("latest"),
-                               map_location=first.device, weights_only=True)
-            del first
-            torch.cuda.empty_cache()
-            zero_counts()
-            [(trainer, exp2)] = cli_train.main(
-                ["--resume"] + args + ov + [f"train.opt_steps={total}"])
-            torch.cuda.synchronize()
-            launches_resume = read_counts()
-            check_renders(knn)
-        launches = {k: launches_first[k] + launches_resume[k]
-                    for k in launches_first}
+    args = ["--config", os.path.join(here, "configs", "dtu_pn.yaml"),
+            "--scans", "scan24"]
+    ov = [f"dataset.data_dir_root={data}",
+          f"exps_folder={os.path.join(tmp, 'exps')}",
+          f"train.render_freq={CLI_EVERY}",
+          f"train.checkpoint_freq={CLI_EVERY}"]
+    total = CLI_STEPS + CLI_RESUME_STEPS
+    spies = {"__init__": spy_init, "run": spy_run,
+             "render_image": spy_render,
+             "restore_checkpoint": spy_restore,
+             "load_scene_data": spy_load}
+    sites = [(Trainer, name, None) for name in list(spies)[:4]]
+    with substituted(lambda fn, _: spies[fn.__name__](fn),
+                     sites + [(cli_train, "load_scene_data", None)]):
+        zero_counts()
+        [(first, exp)] = cli_train.main(
+            args + ov + [f"train.opt_steps={CLI_STEPS}"])
+        torch.cuda.synchronize()
+        launches_first = read_counts()
+        knn = ("select_knn_packed" if 0 < first.scene.table.n_points
+               <= 2 ** 15 else "select_knn_exact")
+        check_renders(knn)
+        saved = torch.load(exp.checkpoint_path("latest"),
+                           map_location=first.device, weights_only=True)
+        del first
+        torch.cuda.empty_cache()
+        zero_counts()
+        [(trainer, exp2)] = cli_train.main(
+            ["--resume"] + args + ov + [f"train.opt_steps={total}"])
+        torch.cuda.synchronize()
+        launches_resume = read_counts()
+        check_renders(knn)
+    launches = {k: launches_first[k] + launches_resume[k]
+                for k in launches_first}
 
-        # where everything lives, and what was restored
-        n_pts = trainer.scene.points.shape[0]
-        log(f"cli: scan24 {n_pts} points after subsampling (K1 "
-            f"{knn.split('_')[-1]}), auto budgets ray "
-            f"{trainer.cfg.model.ray_budget_frac:.4f} probe "
-            f"{trainer.cfg.model.probe_budget_frac:.4f}; load_scene_data "
-            + ", ".join(f"{t:.2f}" for t in rec["load"]) + f" s [{smi}]")
-        if knn != "select_knn_exact":
-            fail("cli: the DTU scan does not select the exact K1")
-        tensors = [trainer.scene.points, trainer.scene.table.idx,
-                   trainer.state.step, *trainer.views.values()]
-        tensors += [t for v in trainer.state.params.values()
-                    for t in ([v] if torch.is_tensor(v) else
-                              [x for layer in v for x in layer.values()])]
-        tensors += [t for v in trainer.frozen.values() for layer in v
-                    for t in layer.values()]
-        if not all(t.is_cuda for t in tensors):
-            fail("cli: a trainer tensor is not on the card")
-        if exp2.dir != exp.dir or int(trainer.state.step) != total:
-            fail(f"cli: resumed into {exp2.dir} at step "
-                 f"{int(trainer.state.step)}, expected {exp.dir} at {total}")
-        if len(rec["restore"]) != 1 or rec["restore"][0][0] != CLI_STEPS:
-            fail(f"cli: restores {[r[0] for r in rec['restore']]}, expected "
-                 f"one at step {CLI_STEPS}")
-        restored = rec["restore"][0][1]
-        same = all(
-            torch.equal(restored[k], v) if torch.is_tensor(v) else
-            all(torch.equal(a[kk], b[kk]) for a, b in zip(restored[k], v)
-                for kk in b)
-            for k, v in saved["params"].items())
-        log(f"cli: --resume restored step {rec['restore'][0][0]}, params "
-            f"{'bit-equal to' if same else 'DIFFERENT from'} the saved latest")
-        if not same or saved["step"] != CLI_STEPS:
-            fail("cli: the resumed params are not the saved checkpoint's")
+    # where everything lives, and what was restored
+    n_pts = trainer.scene.points.shape[0]
+    log(f"cli: scan24 {n_pts} points after subsampling (K1 "
+        f"{knn.split('_')[-1]}), auto budgets ray "
+        f"{trainer.cfg.model.ray_budget_frac:.4f} probe "
+        f"{trainer.cfg.model.probe_budget_frac:.4f}; load_scene_data "
+        + ", ".join(f"{t:.2f}" for t in rec["load"]) + f" s [{smi}]")
+    if knn != "select_knn_exact":
+        fail("cli: the DTU scan does not select the exact K1")
+    tensors = [trainer.scene.points, trainer.scene.table.idx,
+               trainer.state.step, *trainer.views.values()]
+    tensors += [t for v in trainer.state.params.values()
+                for t in ([v] if torch.is_tensor(v) else
+                          [x for layer in v for x in layer.values()])]
+    tensors += [t for v in trainer.frozen.values() for layer in v
+                for t in layer.values()]
+    if not all(t.is_cuda for t in tensors):
+        fail("cli: a trainer tensor is not on the card")
+    if exp2.dir != exp.dir or int(trainer.state.step) != total:
+        fail(f"cli: resumed into {exp2.dir} at step "
+             f"{int(trainer.state.step)}, expected {exp.dir} at {total}")
+    if len(rec["restore"]) != 1 or rec["restore"][0][0] != CLI_STEPS:
+        fail(f"cli: restores {[r[0] for r in rec['restore']]}, expected "
+             f"one at step {CLI_STEPS}")
+    restored = rec["restore"][0][1]
+    same = all(
+        torch.equal(restored[k], v) if torch.is_tensor(v) else
+        all(torch.equal(a[kk], b[kk]) for a, b in zip(restored[k], v)
+            for kk in b)
+        for k, v in saved["params"].items())
+    log(f"cli: --resume restored step {rec['restore'][0][0]}, params "
+        f"{'bit-equal to' if same else 'DIFFERENT from'} the saved latest")
+    if not same or saved["step"] != CLI_STEPS:
+        fail("cli: the resumed params are not the saved checkpoint's")
 
-        # launches: steps x the per-step counts, plus one K1 launch in each
-        # scene build (the TV neighbours), plus the validation renders'
-        steps = sum(r[0] for r in rec["run"])
-        if steps != total or n_renders[0] != total // CLI_EVERY:
-            fail(f"cli: {steps} steps and {n_renders[0]} renders, "
-                 f"expected {total} and {total // CLI_EVERY}")
-        for delta in rec["init"]:
-            if delta != expected_counts(delta, {"select_knn": 1}, 1, knn):
-                fail(f"cli: a Trainer's build launched {delta}")
-        build_sum = {k: len(rec["init"]) * (k == knn) for k in launches}
-        train_launches = {k: launches[k] - render_sum[k] for k in launches}
-        expect = expected_counts(launches, PER_STEP, total, knn)
-        if {k: train_launches[k] - build_sum[k] for k in launches} != expect:
-            fail(f"cli: training launches {train_launches} - builds "
-                 f"{build_sum} != {expect}")
-        wall = sum(r[1] for r in rec["run"])
-        rays = sum(r[0] * r[2] for r in rec["run"])
-        log(f"cli: train {total} steps x {rec['run'][0][2]} rays in "
-            f"{wall:.3f} s = {rays / wall:.1f} train rays/s "
-            f"({wall / total * 1e3:.2f} ms/step) [{smi}]; launches "
-            f"{launches} (validation renders: {render_sum}; scene builds: "
-            f"{build_sum})")
-        log(f"cli: validation render ms at {-(-CLI_RES[0] // 4)}x"
-            f"{-(-CLI_RES[1] // 4)} ({n_renders[1]} rays): "
-            + ", ".join(f"{t:.1f}" for t in rec["render_ms"]) + f" [{smi}]")
+    # launches: steps x the per-step counts, plus one K1 launch in each
+    # scene build (the TV neighbours), plus the validation renders'
+    steps = sum(r[0] for r in rec["run"])
+    if steps != total or n_renders[0] != total // CLI_EVERY:
+        fail(f"cli: {steps} steps and {n_renders[0]} renders, "
+             f"expected {total} and {total // CLI_EVERY}")
+    for delta in rec["init"]:
+        if delta != expected_counts(delta, {"select_knn": 1}, 1, knn):
+            fail(f"cli: a Trainer's build launched {delta}")
+    build_sum = {k: len(rec["init"]) * (k == knn) for k in launches}
+    train_launches = {k: launches[k] - render_sum[k] for k in launches}
+    expect = expected_counts(launches, PER_STEP, total, knn)
+    if {k: train_launches[k] - build_sum[k] for k in launches} != expect:
+        fail(f"cli: training launches {train_launches} - builds "
+             f"{build_sum} != {expect}")
+    wall = sum(r[1] for r in rec["run"])
+    rays = sum(r[0] * r[2] for r in rec["run"])
+    log(f"cli: train {total} steps x {rec['run'][0][2]} rays in "
+        f"{wall:.3f} s = {rays / wall:.1f} train rays/s "
+        f"({wall / total * 1e3:.2f} ms/step) [{smi}]; launches "
+        f"{launches} (validation renders: {render_sum}; scene builds: "
+        f"{build_sum})")
+    log(f"cli: validation render ms at {-(-CLI_RES[0] // 4)}x"
+        f"{-(-CLI_RES[1] // 4)} ({n_renders[1]} rays): "
+        + ", ".join(f"{t:.1f}" for t in rec["render_ms"]) + f" [{smi}]")
 
-        # metrics.jsonl, the val rows and the checkpoints
-        with open(os.path.join(exp.plots_dir, "logs", "metrics.jsonl")) as f:
-            rows = [json.loads(ln) for ln in f]
-        train_rows = [r for r in rows if "rgb_loss" in r]
-        val_rows = [r for r in rows if "rgb_loss" not in r]
-        for r in train_rows:
-            log(f"  cli step {r['step']}: " + ", ".join(
-                f"{k} {r[k]:.5g}" for k in ("loss", "rgb_loss", "eikonal_loss",
-                                            "mask_loss", "psnr",
-                                            "ray_overflow", "probe_overflow",
-                                            "notfinite")))
-        log("cli: val psnr " + ", ".join(
-            f"step {r['step']} {r['psnr']:.2f} dB" for r in val_rows))
-        every = list(range(CLI_EVERY, total + 1, CLI_EVERY))
-        if [r["step"] for r in train_rows] != every or [
-                r["step"] for r in val_rows] != every:
-            fail(f"cli: metrics.jsonl rows at {[r['step'] for r in rows]}")
-        if not all(np.isfinite(r["loss"]) and r["notfinite"] == 0
-                   for r in train_rows) or not all(
-                np.isfinite(r["psnr"]) for r in val_rows):
-            fail("cli: a non-finite loss or PSNR, or a skipped step")
-        if not train_rows[-1]["rgb_loss"] < train_rows[0]["rgb_loss"]:
-            fail("cli: rgb_loss did not fall across the windows")
-        ckpts = sorted(os.listdir(exp.ckpt_dir))
-        if ckpts != sorted([str(s_) for s_ in every] + ["latest"]):
-            fail(f"cli: checkpoints {ckpts}")
+    # metrics.jsonl, the val rows and the checkpoints
+    with open(os.path.join(exp.plots_dir, "logs", "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    train_rows = [r for r in rows if "rgb_loss" in r]
+    val_rows = [r for r in rows if "rgb_loss" not in r]
+    for r in train_rows:
+        log(f"  cli step {r['step']}: " + ", ".join(
+            f"{k} {r[k]:.5g}" for k in ("loss", "rgb_loss", "eikonal_loss",
+                                        "mask_loss", "psnr",
+                                        "ray_overflow", "probe_overflow",
+                                        "notfinite")))
+    log("cli: val psnr " + ", ".join(
+        f"step {r['step']} {r['psnr']:.2f} dB" for r in val_rows))
+    every = list(range(CLI_EVERY, total + 1, CLI_EVERY))
+    if [r["step"] for r in train_rows] != every or [
+            r["step"] for r in val_rows] != every:
+        fail(f"cli: metrics.jsonl rows at {[r['step'] for r in rows]}")
+    if not all(np.isfinite(r["loss"]) and r["notfinite"] == 0
+               for r in train_rows) or not all(
+            np.isfinite(r["psnr"]) for r in val_rows):
+        fail("cli: a non-finite loss or PSNR, or a skipped step")
+    if not train_rows[-1]["rgb_loss"] < train_rows[0]["rgb_loss"]:
+        fail("cli: rgb_loss did not fall across the windows")
+    ckpts = sorted(os.listdir(exp.ckpt_dir))
+    if ckpts != sorted([str(s_) for s_ in every] + ["latest"]):
+        fail(f"cli: checkpoints {ckpts}")
 
-        # one captured step of the CLI's trainer against the plain versions
-        seen = capture_step(trainer)
-        got = {k: len(v) for k, v in seen.items()}
-        if got != PER_STEP:
-            fail(f"cli: one step launched {got}, expected {PER_STEP}")
-        check_step("dtu_cli", seen, _prep_layers(trainer.frozen,
-                                                 torch.float32),
-                   trainer.scene.spec.radius(trainer.scene.table.r))
-        del seen
-        n_sync, first_sync = count_host_syncs(trainer, 2)
-        log(f"cli: host syncs in 2 training steps: {n_sync}"
-            + (f" (first: {first_sync})" if n_sync else ""))
-        if n_sync:
-            fail("cli: a training step waits on the card")
-        del trainer, saved, rec
+    # one captured step of the CLI's trainer against the plain versions
+    seen = capture_step(trainer)
+    got = {k: len(v) for k, v in seen.items()}
+    if got != PER_STEP:
+        fail(f"cli: one step launched {got}, expected {PER_STEP}")
+    check_step("dtu_cli", seen, _prep_layers(trainer.frozen,
+                                             torch.float32),
+               trainer.scene.spec.radius(trainer.scene.table.r))
+    del seen
+    n_sync, first_sync = count_host_syncs(trainer, 2)
+    log(f"cli: host syncs in 2 training steps: {n_sync}"
+        + (f" (first: {first_sync})" if n_sync else ""))
+    if n_sync:
+        fail("cli: a training step waits on the card")
+    del trainer, saved, rec
     torch.cuda.empty_cache()
     return train_launches, render_sum
+
+
+def random_vgg_state(seed):
+    """Seeded random torchvision-VGG16 and LPIPS-linear state dicts (the
+    weights are not in the repository): He-scaled convolutions, small
+    positive heads."""
+    import torch
+
+    from spurfies_tpu_torch.eval import lpips
+
+    gen = torch.Generator().manual_seed(seed)
+    vgg, c = {}, 3
+    outs = [64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512]
+    for i, o in zip(lpips.CONV_IDX, outs):
+        vgg[f"features.{i}.weight"] = torch.randn(
+            o, c, 3, 3, generator=gen) * math.sqrt(2.0 / (9 * c))
+        vgg[f"features.{i}.bias"] = torch.randn(o, generator=gen) * 0.01
+        c = o
+    lin = {f"lin{i}.model.1.weight": torch.rand(1, ch, 1, 1, generator=gen)
+           * 0.1 for i, ch in enumerate(lpips.CHANNELS)}
+    return vgg, lin
+
+
+def eval_phase(smi, tmp):
+    """Phase 16: ``cli.evaluate.main`` (the mesh at EVAL_RES, EVAL_VIEWS
+    novel views) on phase 15's trained scan under ``tmp``, counters set to
+    0 just before it, then ``calibrate_iso_level`` and ``cli.eval_dtu.main``
+    on its mesh and the export's GT, every part timed.  It holds the
+    probe's K1 and K2 at its busiest chunk against their plain versions,
+    the grid of the EVAL_HELD_CHUNKS busiest chunks against the plain
+    versions' (phase 4's limits; the same points read 1000), the device
+    marching against the CPU's on a MARCH_BLOCK**3 block holding the
+    surface (faces equal, vertices within 1e-12 relative), the launches
+    (chunks x (K1 + K2) in the probe, each render's chunking, one K1 in the
+    scene build), 0 host syncs in the probe loop, LPIPS on the card against
+    the CPU (random weights, 1e-4 relative) and ``chamfer.json``.  Prints
+    the probe budget's busiest chunk.  Returns (the launches, {wrapper:
+    result} of the busiest chunk's K1 and K2)."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.cli import eval_dtu as cli_eval_dtu
+    from spurfies_tpu_torch.cli import evaluate as cli_eval
+    from spurfies_tpu_torch.data.png import read_png
+    from spurfies_tpu_torch.eval import (
+        chamfer,
+        clean_mesh,
+        lpips,
+        marching,
+        mesh_extract,
+        nvs,
+    )
+    from spurfies_tpu_torch.model.field import SDF_FILLER
+    from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
+    from spurfies_tpu_torch.ops.voxel_grid import fine_occupancy
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "data")
+    out = os.path.join(tmp, "results")
+    rec = {"render": []}
+
+    def timed(key):
+        def make(fn):
+            def f(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*a, **k)
+                torch.cuda.synchronize()
+                rec.setdefault(key, []).append(time.perf_counter() - t0)
+                return res
+            return f
+        return make
+
+    def spy_probe(fn):
+        def f(sdf_fn, axes, chunk=EVAL_CHUNK):
+            got = {}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+            def run():
+                ev[0].record()
+                got["vals"] = fn(sdf_fn, axes, chunk)
+                ev[1].record()
+            before = read_counts()
+            t0 = time.perf_counter()
+            msgs = syncs_in(run)
+            wall = time.perf_counter() - t0
+            after = read_counts()
+            rec["probe"] = {"wall_s": wall,
+                            "device_ms": ev[0].elapsed_time(ev[1]),
+                            "syncs": msgs, "axes": axes, "chunk": chunk,
+                            "vals": got["vals"], "sdf_fn": sdf_fn,
+                            "launches": {k: after[k] - before[k]
+                                         for k in after}}
+            return got["vals"]
+        return f
+
+    def spy_march(fn):
+        def f(sdf, level=0.0, spacing=(1.0, 1.0, 1.0),
+              origin=(0.0, 0.0, 0.0)):
+            rec["march_args"] = (level, spacing, origin)
+            return timed("marching")(fn)(sdf, level, spacing, origin)
+        return f
+
+    def spy_render(fn):
+        def f(self, uv, pose, intrinsics):
+            torch.cuda.synchronize()
+            before = read_counts()
+            t0 = time.perf_counter()
+            res = fn(self, uv, pose, intrinsics)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = read_counts()
+            rec["render"].append((self, np.asarray(uv), pose, intrinsics,
+                                  wall, {k: after[k] - before[k]
+                                         for k in after}))
+            return res
+        return f
+
+    def spy_sdf_fn(fn):
+        def f(trainer):
+            rec["trainer"] = trainer
+            return fn(trainer)
+        return f
+
+    def spy_dedup(fn):
+        def f(pts, *a, **k):
+            kept = timed("dedup")(fn)(pts, *a, **k)
+            rec["dedup_points"] = (len(pts), len(kept))
+            return kept
+        return f
+
+    # spies by the name of the function they wrap (nvs.ssim_fn is ssim)
+    spies = {"grid_axes": timed("grid"), "probe_grid": spy_probe,
+             "marching_tetrahedra": spy_march,
+             "largest_component": timed("largest_component"),
+             "save_mesh_ply": timed("ply_write"),
+             "render_image": spy_render, "ssim": timed("ssim"),
+             "write_png": timed("png_write"), "make_sdf_fn": spy_sdf_fn,
+             "clean_mesh_by_masks": timed("clean_mask"),
+             "clean_mesh_by_visibility": timed("clean_visibility"),
+             "clean_mesh_by_frustum": timed("clean_frustum"),
+             "chamfer_dtu": timed("chamfer_dtu"),
+             "sample_triangles": timed("sample"),
+             "radius_downsample": spy_dedup}
+    sites = [(mesh_extract, name, None) for name in (
+        "grid_axes", "probe_grid", "marching_tetrahedra",
+        "largest_component", "save_mesh_ply")]
+    sites += [(Trainer, "render_image", None), (nvs, "ssim_fn", None),
+              (nvs, "write_png", None), (cli_eval, "make_sdf_fn", None)]
+    sites += [(clean_mesh, f"clean_mesh_by_{p}", None)
+              for p in ("masks", "visibility", "frustum")]
+    sites += [(chamfer, name, None) for name in (
+        "chamfer_dtu", "sample_triangles", "radius_downsample")]
+    ov = [f"dataset.data_dir_root={data}",
+          f"exps_folder={os.path.join(tmp, 'exps')}"]
+    with substituted(lambda fn, _: spies[fn.__name__](fn), sites):
+        zero_counts()
+        t0 = time.perf_counter()
+        [summary] = cli_eval.main(
+            ["--config", os.path.join(here, "configs", "dtu_pn.yaml"),
+             "--scans", "scan24", "--mesh", "--rendering", "--resolution",
+             str(EVAL_RES), "--max-views", str(EVAL_VIEWS), "--out", out]
+            + ov)
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t0
+        launches = read_counts()
+        t0 = time.perf_counter()
+        scores = cli_eval_dtu.main(
+            ["--scans", "24", "--meshes", out, "--data-root", data,
+             "--gt-root", os.path.join(data, "dtu_eval"), "--out",
+             os.path.join(out, "chamfer.json")])
+        t_dtu = time.perf_counter() - t0
+
+    trainer = rec["trainer"]
+    scene = trainer.scene
+    knn = ("select_knn_packed" if 0 < scene.table.n_points <= 2 ** 15
+           else "select_knn_exact")
+    if knn != "select_knn_exact":
+        fail("eval: the DTU scan does not select the exact K1")
+    mesh = summary.get("mesh", {})
+    log(f"eval: cli.evaluate {t_eval:.2f} s: mesh {mesh.get('n_verts')} "
+        f"verts / {mesh.get('n_faces')} faces at resolution {EVAL_RES}; NVS "
+        f"PSNR {summary['nvs']['psnr']}, SSIM {summary['nvs']['ssim']}; "
+        f"lpips {summary['nvs']['lpips']} ({summary['nvs'].get('lpips_skipped_reason')}) [{smi}]")
+    if not mesh.get("n_faces"):
+        fail("eval: an empty mesh")
+    if len(summary["nvs"]["psnr"]) != EVAL_VIEWS or not all(
+            np.isfinite(v) for v in summary["nvs"]["psnr"]
+            + summary["nvs"]["ssim"]):
+        fail(f"eval: NVS scores {summary['nvs']}")
+
+    # the probe: chunks x (K1 + K2), no host sync in the loop
+    probe = rec["probe"]
+    axes, chunk, vals = probe["axes"], probe["chunk"], probe["vals"]
+    steps = [int(a.shape[0]) for a in axes]
+    n = steps[0] * steps[1] * steps[2]
+    chunks = -(-n // chunk)
+    want = expected_counts(probe["launches"], {"select_knn": 1,
+                                               "pair_sdf_value_agg": 1},
+                           chunks, knn)
+    log(f"eval: probe grid {steps} = {n} points in {chunks} chunks of "
+        f"{chunk}: wall {probe['wall_s']:.3f} s, device (CUDA events) "
+        f"{probe['device_ms']:.1f} ms ({probe['device_ms'] / chunks:.2f} ms "
+        f"a chunk), host syncs {len(probe['syncs'])}, launches "
+        f"{probe['launches']} [{smi}]")
+    if probe["launches"] != want:
+        fail(f"eval: the probe launched {probe['launches']}, expected {want}")
+    if probe["syncs"]:
+        fail(f"eval: the probe loop waits on the card: {probe['syncs'][0]}")
+    render_sum = dict.fromkeys(launches, 0)
+    for tr, uv, pose, K, wall, delta in rec["render"]:
+        want = render_counts(tr, uv, pose, K, delta, knn)
+        if delta != want:
+            fail(f"eval: an NVS render launched {delta}, expected {want}")
+        for k in render_sum:
+            render_sum[k] += delta[k]
+    build = {k: int(k == knn) for k in launches}
+    total = {k: probe["launches"][k] + render_sum[k] + build[k]
+             for k in launches}
+    if launches != total:
+        fail(f"eval: cli.evaluate launched {launches}, expected probe + "
+             f"renders + one K1 in the scene build = {total}")
+    log(f"eval: NVS renders at {CLI_RES[0]}x{CLI_RES[1]}: "
+        + ", ".join(f"{r[4] * 1e3:.1f} ms" for r in rec["render"])
+        + f"; launches {render_sum} [{smi}]")
+    log("eval: parts s (host, synchronized): "
+        + ", ".join(f"{k} {sum(rec.get(k, [0.0])):.4f}" for k in (
+            "grid", "marching", "largest_component", "ply_write", "ssim",
+            "png_write")) + f" [{smi}]")
+
+    # the probe budget: each chunk's occupied points against its slots
+    occ = torch.stack([
+        fine_occupancy(mesh_extract.grid_points(axes, i, min(i + chunk, n)),
+                       scene.occ_fine, scene.spec).sum()
+        for i in range(0, n, chunk)]).cpu()
+    sizes = torch.tensor([min(chunk, n - i) for i in range(0, n, chunk)])
+    budget = torch.tensor([max(int(m * PROBE_BUDGET) // 128 * 128, 128)
+                           for m in sizes.tolist()])
+    share = occ.double() / sizes
+    top = int(share.argmax())
+    log(f"eval: probe budget {PROBE_BUDGET}: busiest chunk {top} holds "
+        f"{int(occ[top])} occupied of {int(sizes[top])} points (share "
+        f"{float(share[top]):.4f}); chunks over their {int(budget[0])} "
+        f"slots: {int((occ > budget).sum())} of {chunks} (occupied points "
+        f"dropped: {int((occ - budget).clamp(min=0).sum())})")
+
+    # K1 and K2 at the busiest chunk, against their plain versions
+    sdf_fn = probe["sdf_fn"]
+
+    def chunk_pts(i):
+        return mesh_extract.grid_points(axes, i * chunk,
+                                        min((i + 1) * chunk, n))
+    seen = capture(lambda: sdf_fn(chunk_pts(top)))
+    prior_f32 = _prep_layers(trainer.frozen, torch.float32)
+    best = check_step("eval probe", seen, prior_f32,
+                      scene.spec.radius(scene.table.r))
+    del seen
+
+    # the grid of the busiest chunks against the plain versions'
+    for i in torch.argsort(occ, descending=True)[:EVAL_HELD_CHUNKS].tolist():
+        got = vals[i * chunk:min((i + 1) * chunk, n)]
+        with plain_versions():
+            ref = sdf_fn(chunk_pts(i))
+        empty = ref == SDF_FILLER
+        if not torch.equal(got == SDF_FILLER, empty):
+            fail(f"eval: grid chunk {i}: {int(((got == SDF_FILLER) != empty).sum())} "
+                 "points read empty space in one version only")
+        within(f"eval grid chunk {i} ({int((~empty).sum())} probed points)",
+               got[~empty][:, None], ref[~empty][:, None])
+
+    # the device marching against the CPU's on a block holding the surface
+    level, spacing, origin = rec["march_args"]
+    grid = vals.reshape(steps)
+    first = torch.nonzero(grid < level)[0].tolist()
+    lo = [min(max(c - MARCH_BLOCK // 2, 0), max(s_ - MARCH_BLOCK, 0))
+          for c, s_ in zip(first, steps)]
+    block = grid[lo[0]:lo[0] + MARCH_BLOCK, lo[1]:lo[1] + MARCH_BLOCK,
+                 lo[2]:lo[2] + MARCH_BLOCK].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vd, fd = marching.marching_tetrahedra(block, level, spacing, origin)
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vc, fc = marching.marching_tetrahedra(block.cpu(), level, spacing, origin)
+    t_cpu = time.perf_counter() - t0
+    rel = float(np.abs(vd - vc).max() / max(np.abs(vc).max(), 1e-30)) \
+        if len(vc) else 0.0
+    log(f"eval: marching on a {list(block.shape)} block at {lo}: {len(fc)} "
+        f"faces, device {t_dev:.3f} s, CPU {t_cpu:.3f} s, faces "
+        f"{'equal' if np.array_equal(fd, fc) else 'DIFFERENT'}, vertices "
+        f"within {rel:.2e} relative")
+    if not len(fc) or not np.array_equal(fd, fc) or rel > 1e-12:
+        fail("eval: the device marching differs from the CPU's")
+    del grid, block, vals
+
+    # calibrate_iso_level once: one probe of its 16,384 points
+    zero_counts()
+    t0 = time.perf_counter()
+    iso = mesh_extract.calibrate_iso_level(scene.points, sdf_fn)
+    t_iso = time.perf_counter() - t0
+    iso_launches = read_counts()
+    want = expected_counts(iso_launches, {"select_knn": 1,
+                                          "pair_sdf_value_agg": 1}, 1, knn)
+    log(f"eval: calibrate_iso_level {iso:+.5f} in {t_iso:.3f} s, launches "
+        f"{iso_launches} [{smi}]")
+    if iso_launches != want:
+        fail(f"eval: calibrate_iso_level launched {iso_launches}")
+    launches = {k: launches[k] + iso_launches[k] for k in launches}
+
+    # LPIPS with random weights on the two rendered views: card and CPU
+    vgg, lin = random_vgg_state(0)
+    imgs = [(read_png(os.path.join(out, "dtu_pn_scan24",
+                                   f"eval_{vid:03d}.png")) / 255.0,
+             read_png(os.path.join(data, "dtu", "scan24", "image",
+                                   f"{vid:06d}.png")) / 255.0)
+            for vid in summary["eval_ids"]]
+    lp = {}
+    for dev in ("cuda", "cpu"):
+        convs = lpips.convert_vgg16_features(vgg, dev)
+        lins = lpips.convert_lpips_linear(lin, dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp[dev] = [float(lpips.lpips(convs, lins, a, b)) for a, b in imgs]
+        lp[dev + "_s"] = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lp["cuda"],
+                                                   lp["cpu"]))
+    log(f"eval: LPIPS (random weights) card {lp['cuda']} in "
+        f"{lp['cuda_s']:.3f} s, CPU {lp['cpu']} in "
+        f"{lp['cpu_s']:.3f} s; relative difference {rel:.2e} [{smi}]")
+    if rel > 1e-4:
+        fail("eval: LPIPS on the card differs from the CPU's")
+
+    # the Chamfer protocol
+    parts = {k: sum(rec.get(k, [])) for k in (
+        "clean_mask", "clean_visibility", "clean_frustum", "sample",
+        "dedup")}
+    parts["kd_and_filters"] = sum(rec.get("chamfer_dtu", [])) \
+        - parts["sample"] - parts["dedup"]
+    log(f"eval: cli.eval_dtu {t_dtu:.2f} s: {scores.get(24)}; parts s "
+        + json.dumps(parts) + f"; dedup {rec['dedup_points'][0]} samples "
+        f"-> {rec['dedup_points'][1]} [{smi}]")
+    path = os.path.join(out, "chamfer.json")
+    if not os.path.exists(path):
+        fail("eval: cli.eval_dtu wrote no chamfer.json")
+    with open(path) as f:
+        per_scan = json.load(f)["per_scan"]
+    if "24" not in per_scan or not all(
+            np.isfinite(per_scan["24"][k]) for k in ("acc", "comp",
+                                                      "overall")):
+        fail(f"eval: chamfer.json holds {per_scan}")
+    log(f"eval: phase 16 wall {time.perf_counter() - t_phase:.2f} s")
+    del trainer, rec
+    torch.cuda.empty_cache()
+    return launches, best
+
+
+def k9_phase(smi):
+    """Phase 17: the port's ``micro_gather`` script (K9 at the shapes of
+    ``scripts/micro_gather.py``, each rows-per-block setting), counters set
+    to 0 just before it; then K9 bit-equal to ``table[idx]`` at GATHER_ROWS
+    x GATHER_D (n GATHER_N), timed beside its plain version and
+    ``table[idx]`` (``aten::index``).  Returns (the script's launches, the
+    kernels-line result)."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.ops import gather_rows as gr
+    from spurfies_tpu_torch.scripts import micro_gather
+
+    zero_counts()
+    rc = micro_gather.main(["--rows", str(GATHER_ROWS), "--n",
+                            str(GATHER_N), "--d", str(GATHER_D)])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if rc != 0:
+        fail(f"micro_gather exited with {rc}")
+    m, n, d = GATHER_ROWS, GATHER_N, GATHER_D
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    table = torch.as_tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                            device=dev)
+    idx = torch.as_tensor(rng.integers(0, n, m), dtype=torch.int32,
+                          device=dev)
+    got = gr.gather_rows(table, idx)
+    # tolerance: bit-equal (a gather moves bits)
+    if not torch.equal(got, gr.gather_rows_ref(table, idx)):
+        fail("K9 gather_rows differs from table[idx]")
+    ms = cuda_ms(lambda: gr.gather_rows(table, idx), 50)
+    plain_ms = cuda_ms(lambda: gr.gather_rows_ref(table, idx), 50)
+    lib_ms = cuda_ms(lambda: table[idx], 50)
+    # bound: the output written and the indices read once, the table read
+    # from HBM once; the gathered reads hit the L2-resident table (983 KB)
+    n_bytes = m * d * 4 + m * 4 + n * d * 4
+    b_ms, b_by = bound_ms(n_bytes, 0.0, PEAK_F32_FLOPS)
+    b_all = (n_bytes + m * d * 4) / PEAK_BYTES * 1e3
+    log(f"K9 gather_rows: [{m}, {d}] from [{n}, {d}], bit-equal; kernel "
+        f"{ms:.4f} ms ({n_bytes / ms / 1e6:.0f} GB/s), plain "
+        f"{plain_ms:.4f} ms, table[idx] {lib_ms:.4f} ms, bound {b_ms:.4f} "
+        f"ms ({b_by}; {b_all:.4f} ms with every gathered read from HBM); "
+        f"micro_gather launches {launches['gather_rows']} [{smi}]")
+    return launches, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib_ms,
+                      "max_abs_err": 0.0, "bound_gathered_reads_ms": b_all,
+                      "rows": m}
 
 
 def main():
@@ -2559,22 +3170,29 @@ def main():
         del seen, tr
     torch.cuda.empty_cache()
 
-    # --- 15. the training CLI at configs/dtu_pn.yaml ---
-    launches_cli, launches_cli_render = cli_phase(smi)
+    # --- 15. the training CLI at configs/dtu_pn.yaml; 16. the evaluation
+    # CLIs on its trained scan ---
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_cli, launches_cli_render = cli_phase(smi, tmp)
+        launches_eval, eval_best = eval_phase(smi, tmp)
 
-    # --- 16. report ---
+    # --- 17. K9 through the port's micro_gather ---
+    launches_k9, results["K9 gather_rows"] = k9_phase(smi)
+
+    # --- 18. report ---
     render_runs = (launches_render, launches_unfused, launches_colour_render,
                    launches_cli_render)
     train_runs = (launches_train, launches_dense, *launches_options,
                   launches_colour_train, launches_cli)
+    micro_runs = (launches_micro, launches_k9)
     results["K8b fused_color_bwd"] = colour_best["fused_color_bwd"]
     results["K8p pack_color_weights"] = colour_best["pack_color_weights"]
 
     def total(runs, key):
         return sum(c[key] for c in runs)
 
-    launches = {k: total(render_runs + train_runs, k) + launches_micro[k]
-                for k in launches_render}
+    launches = {k: total(render_runs + train_runs + micro_runs, k)
+                + launches_eval[k] for k in launches_render}
     # the training shapes' times, beside phase 4's eval-chunk times
     train_shape = {"K1 select_knn packed": default_best["select_knn"],
                    "K1 select_knn exact": dense_best["select_knn"],
@@ -2631,16 +3249,24 @@ def main():
         "K8b fused_color_bwd": ("fused_color_bwd",
                                 "spurfies_tpu_torch/csrc/color_mlp.cu",
                                 "spurfies_tpu/ops/pallas_color.py:108"),
+        "K9 gather_rows": ("gather_rows",
+                           "spurfies_tpu_torch/csrc/gather_rows.cu",
+                           "scripts/micro_gather.py:44"),
     }
-    # launches: the render paths', the training paths' and the
-    # microbenchmark's runs, each with the counters set to 0 just before it
+    # the evaluation's probe shape (phase 16's busiest chunk)
+    eval_shape = {"K1 select_knn exact": eval_best["select_knn"],
+                  "K2 pair_sdf_value_agg": eval_best["pair_sdf_value_agg"]}
+    # launches: the render paths', the training paths', the evaluation's
+    # and the microbenchmarks' runs, each with the counters set to 0 just
+    # before it
     for label, (key, src, rep) in meta.items():
         r = results[label]
         row = {"name": label, "route": "cuda", "source": src,
                "replaces": rep, "launches": launches[key],
                "launches_render": total(render_runs, key),
                "launches_train": total(train_runs, key),
-               "launches_microbench": launches_micro[key],
+               "launches_eval": launches_eval[key],
+               "launches_microbench": total(micro_runs, key),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -2649,6 +3275,11 @@ def main():
             row["train_shape"] = {k: t[k] for k in (
                 "rows", "ms", "kernel_ms", "plain_ms", "bound_ms",
                 "bound_all_rows_ms", "max_abs_err") if k in t}
+        if label in eval_shape:
+            e = eval_shape[label]
+            row["eval_shape"] = {k: e[k] for k in (
+                "rows", "ms", "kernel_ms", "plain_ms", "bound_ms",
+                "library_ms", "max_abs_err") if k in e}
         if label.startswith("K4"):
             # the step's second, pseudo-SDF launch: one a step on every
             # path that runs K4

@@ -1,7 +1,9 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) and its host
+routines (``csrc/*.cpp``).
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes``.  Libraries go to
+Each CUDA source is compiled by ``nvcc`` for ``sm_90a``, each host source by
+the host's C++ compiler, into a shared library with a plain C interface,
+loaded with ``ctypes``.  Libraries go to
 ``spurfies_tpu_torch/build/`` (listed in ``.gitignore``) under a name that
 carries a hash of the source and the flags, so an edited source is rebuilt
 and a current one is reused.  :func:`build` starts one ``nvcc`` per source,
@@ -20,9 +22,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("select_knn", "sdf_agg", "agg_bwd", "scatter_rows", "color_mlp")
+SOURCES = ("select_knn", "sdf_agg", "agg_bwd", "scatter_rows", "color_mlp",
+           "gather_rows")
+HOST_SOURCES = ("host_dedup",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# IEEE order as written: no FMA contraction
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
 
 _LIBS: dict = {}
 
@@ -36,15 +42,33 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def host_compiler() -> str:
+    """``$CXX``, else ``g++`` or ``c++`` on ``PATH``."""
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if not cxx:
+        raise RuntimeError("no host C++ compiler ($CXX, g++ or c++)")
+    return cxx
+
+
+def _host(name: str) -> bool:
+    return name in HOST_SOURCES
+
+
+def source_path(name: str) -> Path:
+    return CSRC_DIR / f"{name}.{'cpp' if _host(name) else 'cu'}"
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = source_path(name).read_bytes()
+    flags = HOST_FLAGS if _host(name) else NVCC_FLAGS
+    digest = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names=SOURCES) -> dict:
+def build(names=SOURCES + HOST_SOURCES) -> dict:
     """Compile every library of ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together.
+    compiler process per source (``nvcc`` for a ``.cu``, the host's for a
+    ``.cpp``), all started together.
 
     Returns ``{name: seconds}`` (0.0 for a library that was already built).
     Raises ``RuntimeError`` with the compiler's output if a build fails.
@@ -52,7 +76,6 @@ def build(names=SOURCES) -> dict:
     kept in ``build/<name>.log``.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     procs = {}
     seconds = {}
     for name in names:
@@ -61,7 +84,11 @@ def build(names=SOURCES) -> dict:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        if _host(name):
+            cmd = [host_compiler(), *HOST_FLAGS]
+        else:
+            cmd = [nvcc_path(), *NVCC_FLAGS]
+        cmd += ["-o", str(tmp), str(source_path(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -71,7 +98,8 @@ def build(names=SOURCES) -> dict:
         seconds[name] = time.perf_counter() - t0
         (BUILD_DIR / f"{name}.log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            failed.append(f"building {source_path(name).name} failed "
+                          f"({proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)

@@ -810,3 +810,46 @@ def test_train_steps_under_fused_color_through_kernels(cuda):
     assert after["scatter_add_rows"] == before["scatter_add_rows"] + 4
     assert all(np.isfinite(m["loss"]) and m["notfinite"] == 0
                for m in metrics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d,rpb", [(655360, 6144, 40, 32), (1, 7, 40, 8),
+                                       (1001, 300, 40, 64), (999, 50, 7, 16),
+                                       (0, 5, 4, 32)])
+def test_gather_rows_matches_plain(cuda, m, n, d, rpb):
+    """K9 bit-equal to ``table[idx]`` (float4 rows and scalar rows, a
+    ragged last block, no row), one launch a call."""
+    from spurfies_tpu_torch.ops import gather_rows as gr
+
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) \
+        .to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n, m).astype(np.int32)).to(cuda)
+    before = gr.LAUNCHES["gather_rows"]
+    got = gr.gather_rows(table, idx, rows_per_block=rpb)
+    torch.cuda.synchronize()
+    assert gr.LAUNCHES["gather_rows"] == before + 1
+    assert torch.equal(got, gr.gather_rows_ref(table, idx))
+
+
+@pytest.mark.cuda
+def test_marching_on_the_card_is_the_cpus(cuda):
+    """The device marching gives the CPU's faces and vertices bit for bit
+    (float64 vertex ops one at a time), with slabs smaller than the grid."""
+    from spurfies_tpu_torch.eval.marching import marching_tetrahedra
+
+    rng = np.random.default_rng(2)
+    g = np.linspace(-1, 1, 41)
+    X, Y, Z = np.meshgrid(g, g[:33], g[:29], indexing="ij")
+    sdf = (np.sqrt(X ** 2 + Y ** 2 + Z ** 2) - 0.6
+           + 0.01 * rng.normal(size=X.shape)).astype(np.float32)
+    for level in (0.0, 0.05):
+        vc, fc = marching_tetrahedra(torch.from_numpy(sdf), level,
+                                     (0.05, 0.05, 0.05), (-1.0, -1.0, -1.0),
+                                     slab_cubes=4000)
+        vd, fd = marching_tetrahedra(torch.from_numpy(sdf).to(cuda), level,
+                                     (0.05, 0.05, 0.05), (-1.0, -1.0, -1.0),
+                                     slab_cubes=4000)
+        assert len(fc) > 0
+        np.testing.assert_array_equal(fd, fc)
+        np.testing.assert_array_equal(vd, vc)

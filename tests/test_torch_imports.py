@@ -1,10 +1,10 @@
 """The port stands alone: no module of spurfies_tpu_torch, nor the
 scripts ``chip_*.py`` or the card-only tests, imports JAX, optax, orbax
 or anything of spurfies_tpu, and every port
-module imports with JAX made unimportable.  Nor do they import the
-libraries that the card's machine lacks (imageio, cv2, matplotlib, yaml,
-tensorboardX); Pillow only in the JPEG branch of
-``data.scene_data.read_image``.  A DTU scene exported by the port loads,
+module (``scripts/`` and ``eval/`` too) imports with JAX made
+unimportable.  Nor do they import the libraries that the card's machine
+lacks (imageio, cv2, matplotlib, yaml, tensorboardX, sklearn); Pillow only
+in the JPEG branch of ``data.scene_data.read_image``.  A DTU scene exported by the port loads,
 and ``configs/dtu_pn.yaml`` reads, with all of them unimportable."""
 
 import ast
@@ -20,9 +20,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "spurfies_tpu_torch"
 FORBIDDEN = re.compile(r"^(jax|jaxlib|optax|orbax|flax|spurfies_tpu)(\.|$)")
 # what the card's machine does not install
-ABSENT = re.compile(r"^(imageio|cv2|matplotlib|yaml|tensorboardX|PIL)(\.|$)")
+ABSENT = re.compile(
+    r"^(imageio|cv2|matplotlib|yaml|tensorboardX|PIL|sklearn)(\.|$)")
 BLOCKED = ("jax", "jaxlib", "optax", "orbax", "spurfies_tpu", "imageio", "cv2",
-           "matplotlib", "yaml", "tensorboardX", "PIL")
+           "matplotlib", "yaml", "tensorboardX", "PIL", "sklearn")
 # the one place that may import Pillow: the JPEG branch
 JPEG_BRANCH = ("data/scene_data.py", "read_image")
 
@@ -84,13 +85,14 @@ def test_no_forbidden_imports(path):
 def test_absent_pattern():
     assert ABSENT.match("imageio.v2") and ABSENT.match("cv2")
     assert ABSENT.match("PIL.Image") and ABSENT.match("yaml")
+    assert ABSENT.match("sklearn.neighbors")
     assert not ABSENT.match("cv2x") and not ABSENT.match("torch.utils")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_absent_library_imports(path):
-    """imageio, cv2, matplotlib, yaml and tensorboardX nowhere; Pillow only
-    in the JPEG branch of ``read_image``."""
+    """imageio, cv2, matplotlib, yaml, tensorboardX and sklearn nowhere;
+    Pillow only in the JPEG branch of ``read_image``."""
     rel = path.relative_to(ROOT).as_posix()
     bad = [(m, fn) for m, fn in _imported(path, with_function=True)
            if m and ABSENT.match(m)
@@ -103,11 +105,23 @@ def test_no_absent_library_imports(path):
 def test_every_module_imports_without_jax():
     names = list(_module_names())
     assert len(names) > 20
-    # the training slice's modules are among them
+    # the training slice's, the evaluation's and the scripts' modules are
+    # among them
     assert {"spurfies_tpu_torch.model.losses",
             "spurfies_tpu_torch.train.optim",
             "spurfies_tpu_torch.train.trainer",
-            "spurfies_tpu_torch.ops.scatter_rows"} <= set(names)
+            "spurfies_tpu_torch.ops.scatter_rows",
+            "spurfies_tpu_torch.ops.gather_rows",
+            "spurfies_tpu_torch.cli.evaluate",
+            "spurfies_tpu_torch.cli.eval_dtu",
+            "spurfies_tpu_torch.eval.chamfer",
+            "spurfies_tpu_torch.eval.clean_mesh",
+            "spurfies_tpu_torch.eval.lpips",
+            "spurfies_tpu_torch.eval.marching",
+            "spurfies_tpu_torch.eval.mesh_extract",
+            "spurfies_tpu_torch.eval.nvs",
+            "spurfies_tpu_torch.eval.ssim",
+            "spurfies_tpu_torch.scripts.micro_gather"} <= set(names)
     code = (
         "import sys\n"
         f"for m in {BLOCKED!r}:\n"

@@ -265,20 +265,105 @@ def test_k1_inputs_study_counts_what_k1_depends_on():
 @pytest.mark.parametrize("key,first", [("ms", "K1"), ("kernel_ms", "K3")])
 def test_redesign_order_ranks_by_the_chosen_time(key, first):
     """``redesign_order`` scores launches x (time - bound) with the render
-    and microbenchmark launches at the row's shape and the training ones at
-    its ``train_shape``; ``key="kernel_ms"`` takes the C entry's time where
-    a row has one (here K1: its wrapper's host time drops out)."""
+    and microbenchmark launches at the row's shape, the training ones at
+    its ``train_shape`` and the evaluation's at its ``eval_shape``;
+    ``key="kernel_ms"`` takes the C entry's time where a row has one (here
+    K1: its wrapper's host time drops out)."""
     rows = [{"name": "K1", "launches_render": 10, "launches_microbench": 0,
-             "launches_train": 100, "ms": 0.06, "kernel_ms": 0.02,
-             "bound_ms": 0.01,
+             "launches_train": 100, "launches_eval": 5, "ms": 0.06,
+             "kernel_ms": 0.02, "bound_ms": 0.01,
              "train_shape": {"ms": 0.05, "kernel_ms": 0.006,
-                             "bound_ms": 0.004}},
+                             "bound_ms": 0.004},
+             "eval_shape": {"ms": 0.04, "kernel_ms": 0.01,
+                            "bound_ms": 0.005}},
             {"name": "K3", "launches_render": 10, "launches_microbench": 0,
              "launches_train": 0, "ms": 0.5, "bound_ms": 0.2}]
     order = smoke.redesign_order(rows, key)
     assert order[0][0] == first
     scores = dict(order)
     assert scores["K3"] == pytest.approx(3.0)
-    want = (10 * 0.05 + 100 * 0.046) if key == "ms" else \
-        (10 * 0.01 + 100 * 0.002)
+    want = (10 * 0.05 + 100 * 0.046 + 5 * 0.035) if key == "ms" else \
+        (10 * 0.01 + 100 * 0.002 + 5 * 0.005)
     assert scores["K1"] == pytest.approx(want)
+
+
+def _kink_case(m=2000, seed=0):
+    """A small random prior (35 -> 16 x 4 -> 1, bf16), ``m`` random pair
+    rows u and their plain r; and rows whose plain r, recomputed alone with
+    the gate of their nearest-kink unit flipped (a unit with margin below
+    2**-5), moves some entry by more than 0.05 of its column's scale."""
+    from spurfies_tpu_torch.ops import pair_mlp as pm
+
+    rng = np.random.default_rng(seed)
+    widths = [35, 16, 16, 16, 16, 1]
+    ws = [torch.as_tensor(rng.normal(size=(a, b)) / np.sqrt(a),
+                          dtype=torch.bfloat16)
+          for a, b in zip(widths[:-1], widths[1:])]
+    bs = [torch.as_tensor(rng.normal(size=(1, b)) * 0.1, dtype=torch.float32)
+          for b in widths[1:]]
+    layers = pm.PriorLayers(ws, bs, 4, torch.bfloat16)
+    u = torch.as_tensor(rng.normal(size=(m, 35)), dtype=torch.float32)
+    ref = pm.pair_sdf_value_and_input_grad_ref(u, layers)[1]
+    scale = ref.abs().amax(0, keepdim=True) + 1e-30
+    flips = []
+    for row in range(m):
+        gates, margins = smoke.gate_margins(u[row:row + 1, :32],
+                                            u[row:row + 1, 32:], layers)
+        unit = int(margins.argmin())
+        if float(margins[unit]) >= smoke.KINK_MARGIN:
+            continue
+        r = smoke.flipped_r(layers, gates, unit)
+        if float(((r - ref[row]).abs() / scale).max()) > 0.1:
+            flips.append((row, r[0]))
+        if len(flips) == 4:
+            break
+    assert len(flips) == 4
+    return layers, u, ref, scale, flips
+
+
+def _rows_of(u):
+    return lambda rows: (u[rows, :32], u[rows, 32:])
+
+
+def test_within_passes_a_row_flipped_on_its_kink():
+    """A row of r that is its plain row with one near-kink gate flipped
+    breaches the 0.05 rule alone, and passes as a kink flip."""
+    layers, u, ref, _, flips = _kink_case()
+    out = ref.clone()
+    out[flips[0][0]] = flips[0][1]
+    with pytest.raises(SystemExit):
+        smoke.within("no kink rule", out, ref)
+    assert smoke.within("one kink flip", out, ref,
+                        kink=(layers, _rows_of(u))) > 0
+    stats = smoke.explain_kinks("stats", out, ref,
+                                ref.abs().amax(0, keepdim=True) + 1e-30,
+                                layers, _rows_of(u))
+    assert stats["rows"] == 1 and stats["worst_residual"] == 0.0
+    assert stats["worst_margin"] < smoke.KINK_MARGIN
+
+
+def test_within_rejects_a_kink_row_off_by_a_tenth():
+    """The same flipped row with one entry moved by 0.1 of its column's
+    scale is no kink flip: it fails."""
+    layers, u, ref, scale, flips = _kink_case()
+    out = ref.clone()
+    out[flips[0][0]] = flips[0][1]
+    out[flips[0][0], 3] += 0.1 * float(scale[0, 3])
+    with pytest.raises(SystemExit, match="not one gate flipped"):
+        smoke.within("kink row + 0.1", out, ref, kink=(layers, _rows_of(u)))
+
+
+def test_within_rejects_kink_flips_above_their_share():
+    """More flipped rows than 0.1 % of the rows fail, each one explained or
+    not (2,000 rows: at most 2)."""
+    layers, u, ref, _, flips = _kink_case()
+    out = ref.clone()
+    for row, r in flips[:2]:
+        out[row] = r
+    assert smoke.within("two kink flips", out, ref,
+                        kink=(layers, _rows_of(u))) > 0
+    for row, r in flips[2:3]:
+        out[row] = r
+    with pytest.raises(SystemExit, match="kink flips may be at most"):
+        smoke.within("three kink flips", out, ref,
+                     kink=(layers, _rows_of(u)))
