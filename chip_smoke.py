@@ -145,7 +145,33 @@ failure exits non-zero before the last line):
  17. K9 (``ops/gather_rows.py``): the port's ``micro_gather`` script
      (counters set to 0 just before it), then K9 bit-equal to
      ``table[idx]`` at 655,360 x 40, timed beside it;
- 18. the ``kernels`` JSON line (launches by render, training, evaluation
+ 18. ``model.occ_compact`` in training (``option_phase``, the OPTIONS
+     entry ``occ_compact``: ``model.ray_budget_frac=0``, the option's
+     only active setting): phase 12's path on dust3r_like -- one captured
+     step held launch by launch, a batch's loss and gradients against the
+     plain versions, 0 host syncs, OPTION_WARMUP + OPTION_STEPS steps with
+     launches = steps x PER_STEP and rgb_loss falling -- and a profile;
+ 19. the legacy entangled model (``entangled_phase``,
+     ``model.entangled=true`` on dust3r_like): a full 192x256 render (K1
+     once a chunk, nothing else), a batch's loss and gradients through K1
+     and its plain version, 0 host syncs, OPTION_WARMUP + OPTION_STEPS
+     steps (K1 once a step, nothing else), their ms a step and the peak
+     device memory;
+ 20. the local (Vis-MVSNet) feature loss through the training CLI
+     (``local_phase``): a random-weight ``ckpt/vismvsnet.pt`` in the
+     reference's key layout and the ``cam4feat`` / ``image`` fixtures
+     written from phase 15's scan; the extractor on the card against the
+     CPU; ``cli.train.main`` at ``configs/dtu_pn.yaml`` with
+     ``loss.local_weight=0.5`` for LOCAL_STEPS steps (the bundle on the
+     card, local_loss finite and non-zero, the launches, one captured step
+     against the plain versions, 0 host syncs), the bundle's build time
+     and ms/step beside phase 15's;
+ 21. prior pretraining (``pretrain_phase``): ``cli.pretrain_prior.main``
+     at ``PriorConfig``'s widths for PRIOR_STEPS of its 20,000 steps (K1
+     once a step, sdf_l1 falling, steps/s), one step through K1 against
+     its plain version, and the saved npz in a ``Trainer``
+     (``load_frozen``) rendering a chunk;
+ 22. the ``kernels`` JSON line (launches by render, training, evaluation
      and microbenchmark runs), the ``redesign_order`` line (the kernels
      ranked by launches x (ms - bound_ms) in this run) and the
      ``redesign_order_kernel_ms`` line (the same with the C entry's time
@@ -196,6 +222,18 @@ OPTIONS = {
 }
 OPTION_WARMUP = 20
 OPTION_STEPS = 50
+# phase 18: occ_compact in training (active only without the ray budget)
+OPTIONS["occ_compact"] = (["model.ray_budget_frac=0",
+                           "model.occ_compact=true"], PER_STEP)
+# phase 19: the legacy entangled model, whose training step runs K1 once
+# (the shading query: uniform z-values, no probe, no TV or pseudo-SDF)
+ENTANGLED_STEP = {"select_knn": 1}
+ENTANGLED_TRAINED = ("feats", "F", "T", "R", "beta")
+# phase 20: the local (Vis-MVSNet) loss through the CLI on phase 15's scan
+LOCAL_STEPS = 100
+# phase 21: prior pretraining at PriorConfig's widths, cut to PRIOR_STEPS
+# of its 20,000 steps; K1 once a step
+PRIOR_STEPS = 500
 # the fused colour path's training step: the default's launches, with the
 # colour stack through the pack (once a step), K8a forward and K8b backward
 # (its latents' K5 stays)
@@ -1267,7 +1305,7 @@ def expected_counts(keys, per_step, steps, knn):
     return expect
 
 
-def train_path(tag, trainer, per_step, warmup, steps, window):
+def train_path(tag, trainer, per_step, warmup, steps, window, smi=None):
     """Phases 8-10 for one ``Trainer`` on dust3r_like: one captured step
     with every launch against its plain version, one batch's loss and
     gradients through the kernels and through the plain versions, host
@@ -1323,7 +1361,8 @@ def train_path(tag, trainer, per_step, warmup, steps, window):
     n_pix = trainer.cfg.train.num_pixels
     log(f"train {tag}: {steps} steps x {n_pix} rays in {wall:.3f} s = "
         f"{steps * n_pix / wall:.1f} train rays/s "
-        f"({wall / steps * 1e3:.2f} ms/step); launches {launches}")
+        f"({wall / steps * 1e3:.2f} ms/step); launches {launches}"
+        + (f" [{smi}]" if smi else ""))
     for step, m in history:
         log(f"  step {step}: " + ", ".join(
             f"{k} {m[k]:.5g}" for k in ("loss", "rgb_loss", "eikonal_loss",
@@ -1864,20 +1903,20 @@ def redesign_order(rows, key="ms"):
     return sorted(order, key=lambda kv: -kv[1])
 
 
-def loss_and_grads(trainer, batch, seed):
-    """Loss parts and the gradient of every trained tensor of one batch,
-    the draws from a generator seeded ``seed`` (no update)."""
+def loss_and_grads(trainer, batch, seed, trained=TRAINED):
+    """Loss parts and the gradient of every ``trained`` tensor of one
+    batch, the draws from a generator seeded ``seed`` (no update)."""
     import torch
 
     from spurfies_tpu_torch.train.optim import flatten
 
     gen = torch.Generator(device=trainer.device).manual_seed(seed)
     tp = trainer.state.params
-    leaves = flatten({k: tp[k] for k in TRAINED})
+    leaves = flatten({k: tp[k] for k in trained})
     loss, parts = trainer.loss_fn(tp, trainer.bundle, batch,
                                   trainer.state.step, gen)
     grads = torch.autograd.grad(loss, leaves)
-    names = [f"{k}[{i}]" for k in TRAINED for i in range(len(flatten(tp[k])))]
+    names = [f"{k}[{i}]" for k in trained for i in range(len(flatten(tp[k])))]
     return ({k: float(v.detach()) for k, v in parts.items()},
             dict(zip(names, grads)))
 
@@ -2019,24 +2058,13 @@ def render_counts(trainer, uv, pose, intrinsics, keys, knn):
                            -(-n_occ // eff), knn)
 
 
-def cli_phase(smi, tmp):
-    """Phase 15: ``cli.train.main`` at ``configs/dtu_pn.yaml`` on a synthetic
-    DTU scan (with its GT cloud) written under ``tmp``, then ``--resume``;
-    the scan and the experiment stay there for phase 16.  Returns the
-    launches of the two calls as ``(train, render)``: the training steps
-    with the one K1 launch of each Trainer's build (its TV neighbours, a
-    training input), and the validation renders."""
+def trainer_spies(rec):
+    """Spies on ``Trainer.__init__``, ``run`` and ``render_image`` (by name,
+    for :class:`substituted`) that append to ``rec``: ``"init"`` each
+    build's launches, ``"run"`` (steps, wall s, rays a step), ``"render"``
+    (trainer, uv, pose, intrinsics, wall s, launches) and ``"render_ms"``."""
     import numpy as np
     import torch
-
-    from spurfies_tpu_torch.cli import train as cli_train
-    from spurfies_tpu_torch.data.synthetic import export_synthetic_dtu
-    from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
-    from spurfies_tpu_torch.train.trainer import Trainer
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    rec = {"run": [], "render": [], "render_ms": [], "init": [], "load": [],
-           "restore": []}
 
     def spy_init(init):
         def f(self, *a, **k):
@@ -2073,6 +2101,29 @@ def cli_phase(smi, tmp):
             rec["render_ms"].append(wall * 1e3)
             return out
         return f
+
+    return {"__init__": spy_init, "run": spy_run, "render_image": spy_render}
+
+
+def cli_phase(smi, tmp):
+    """Phase 15: ``cli.train.main`` at ``configs/dtu_pn.yaml`` on a synthetic
+    DTU scan (with its GT cloud) written under ``tmp``, then ``--resume``;
+    the scan and the experiment stay there for phase 16.  Returns the
+    launches of the two calls as ``(train, render, ms/step)``: the
+    training steps with the one K1 launch of each Trainer's build (its TV
+    neighbours, a training input), the validation renders, and the
+    training's ms a step."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.cli import train as cli_train
+    from spurfies_tpu_torch.data.synthetic import export_synthetic_dtu
+    from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rec = {"run": [], "render": [], "render_ms": [], "init": [], "load": [],
+           "restore": []}
 
     def spy_load(load):
         def f(cfg, scan):
@@ -2129,10 +2180,8 @@ def cli_phase(smi, tmp):
           f"train.render_freq={CLI_EVERY}",
           f"train.checkpoint_freq={CLI_EVERY}"]
     total = CLI_STEPS + CLI_RESUME_STEPS
-    spies = {"__init__": spy_init, "run": spy_run,
-             "render_image": spy_render,
-             "restore_checkpoint": spy_restore,
-             "load_scene_data": spy_load}
+    spies = dict(trainer_spies(rec), restore_checkpoint=spy_restore,
+                 load_scene_data=spy_load)
     sites = [(Trainer, name, None) for name in list(spies)[:4]]
     with substituted(lambda fn, _: spies[fn.__name__](fn),
                      sites + [(cli_train, "load_scene_data", None)]):
@@ -2261,7 +2310,7 @@ def cli_phase(smi, tmp):
         fail("cli: a training step waits on the card")
     del trainer, saved, rec
     torch.cuda.empty_cache()
-    return train_launches, render_sum
+    return train_launches, render_sum, wall / total * 1e3
 
 
 def random_vgg_state(seed):
@@ -2669,6 +2718,457 @@ def k9_phase(smi):
                       "bound_by": b_by, "library_ms": lib_ms,
                       "max_abs_err": 0.0, "bound_gathered_reads_ms": b_all,
                       "rows": m}
+
+
+def option_phase(tag, cfg, pts, cols, views, prior, smi=None):
+    """One option path of OPTIONS on dust3r_like (phases 12 and 18):
+    :func:`train_path` (one captured step against the plain versions, a
+    batch's loss and gradients, host syncs, OPTION_WARMUP + OPTION_STEPS
+    steps with their launches), then PROFILE_STEPS steps profiled.
+    Returns (results by wrapper name, launches)."""
+    import torch
+
+    from spurfies_tpu_torch.config import apply_overrides
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    ov, per_step = OPTIONS[tag]
+    tr = Trainer(apply_overrides(cfg, ov), pts, cols, views, device="cuda")
+    tr.load_frozen(prior)
+    best, counts, _ = train_path(f"dust3r_like {tag}", tr, per_step,
+                                 OPTION_WARMUP, OPTION_STEPS, OPTION_STEPS,
+                                 smi)
+    prof = profiled(lambda: tr.run(PROFILE_STEPS, window=PROFILE_STEPS))
+    prof["ms_per_step"] = prof["profiled_wall_ms"] / PROFILE_STEPS
+    log(f"train profile {tag}: {json.dumps(prof)}")
+    del tr
+    torch.cuda.empty_cache()
+    return best, counts
+
+
+def entangled_phase(smi, cfg, pts, cols, views, view):
+    """Phase 19: the legacy entangled model (``model.entangled=true``) on
+    dust3r_like: one full render of ``view`` (its launches: K1 once a
+    chunk of occupied rays), a batch's loss and gradients through K1 and
+    through its plain version, host syncs in two steps (0), then
+    OPTION_WARMUP + OPTION_STEPS steps (K1 once a step, nothing else; the
+    loss finite, rgb_loss falling), their ms a step and the peak device
+    memory.  Returns (render launches, training launches)."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.config import apply_overrides
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    cfg_e = apply_overrides(cfg, ["model.entangled=true"])
+    tr = Trainer(cfg_e, pts, cols, views, device="cuda")
+    if tr.prior is not None or set(tr.state.params) != set(
+            ENTANGLED_TRAINED):
+        fail(f"entangled: trainer holds {sorted(tr.state.params)}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tr.render_image(view["uv"], view["pose"], view["intrinsics"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_render = read_counts()
+    _, _, n_occ, _ = first_chunk(tr.scene, view, cfg_e, tr.device)
+    eff = min(cfg_e.train.render_chunk, -(-len(view["uv"]) // 128) * 128)
+    expect = expected_counts(launches_render, ENTANGLED_STEP, -(-n_occ // eff),
+                             "select_knn_packed")
+    if launches_render != expect:
+        fail(f"entangled render launches {launches_render} != {expect}")
+    n = len(view["uv"])
+    for key, v in out.items():
+        if v.shape[0] != n or not np.isfinite(v.astype(np.float64)).all():
+            fail(f"entangled render: output {key} not finite / wrong shape")
+    if out["ray_mask"].sum() < 0.1 * n:
+        fail("entangled render: almost no ray hit the cloud")
+    log(f"entangled: render {n} rays ({n_occ} occupied) in {wall:.3f} s = "
+        f"{n / wall:.1f} rays/s, {cfg_e.model.ray_sampler.n_samples} "
+        f"uniform samples a ray; launches {launches_render} [{smi}]")
+
+    batch = tr.sample_batch(tr.views,
+                            torch.Generator(device=tr.device).manual_seed(7))
+    parts_k, grads_k = loss_and_grads(tr, batch, 8, ENTANGLED_TRAINED)
+    with plain_versions():
+        parts_p, grads_p = loss_and_grads(tr, batch, 8, ENTANGLED_TRAINED)
+    log("entangled step, K1 vs its plain version (same batch and draws):")
+    compare_grads(parts_k, grads_k, parts_p, grads_p)
+    del grads_k, grads_p
+    n_sync, first_sync = count_host_syncs(tr, 2)
+    log(f"entangled: host syncs in 2 training steps: {n_sync}"
+        + (f" (first: {first_sync})" if n_sync else ""))
+    if n_sync:
+        fail("entangled: a training step waits on the card")
+
+    history = []
+    tr.run(OPTION_WARMUP, window=OPTION_WARMUP,
+           callback=lambda s_, m: history.append((s_, m)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    tr.run(OPTION_STEPS, window=OPTION_STEPS // 2,
+           callback=lambda s_, m: history.append((s_, m)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = expected_counts(launches, ENTANGLED_STEP, OPTION_STEPS,
+                             "select_knn_packed")
+    if launches != expect:
+        fail(f"entangled training launches {launches} != {expect}")
+    for step, m in history:
+        log(f"  entangled step {step}: " + ", ".join(
+            f"{k} {m[k]:.5g}" for k in ("loss", "rgb_loss", "eikonal_loss",
+                                        "mask_loss", "psnr", "notfinite")))
+    if not all(np.isfinite(m["loss"]) and m["notfinite"] == 0
+               for _, m in history):
+        fail("entangled: a non-finite loss or a skipped step")
+    if not history[-1][1]["rgb_loss"] < history[0][1]["rgb_loss"]:
+        fail("entangled: rgb_loss did not fall")
+    n_pix = cfg_e.train.num_pixels
+    log(f"entangled: train {OPTION_STEPS} steps x {n_pix} rays in "
+        f"{wall:.3f} s = {wall / OPTION_STEPS * 1e3:.2f} ms/step "
+        f"({OPTION_STEPS * n_pix / wall:.1f} train rays/s), peak device "
+        f"memory {peak:.2f} GiB; launches {launches} [{smi}]")
+    eprof = profiled(lambda: tr.run(3, window=3))
+    eprof["ms_per_step"] = eprof["profiled_wall_ms"] / 3
+    log(f"train profile entangled: {json.dumps(eprof)} [{smi}]")
+    del tr
+    torch.cuda.empty_cache()
+    return launches_render, launches
+
+
+def local_phase(smi, tmp, cli_ms):
+    """Phase 20: the local (Vis-MVSNet) feature loss through the training
+    CLI on phase 15's scan under ``tmp``.  A random-weight
+    ``ckpt/vismvsnet.pt`` in the reference's key layout goes into a
+    working directory, the ``cam4feat`` and ``image`` fixtures are written
+    from the export's cameras and train views (``export_synthetic_mvs``);
+    the extractor's features on the card are held against the CPU's on
+    the fixture's three 768x1024 images (1e-4 of the scale: f32, TF32
+    off); then ``cli.train.main`` at ``configs/dtu_pn.yaml`` with
+    ``loss.local_weight=0.5`` runs LOCAL_STEPS steps from that directory
+    (counters set to 0 just before it).  It fails unless the bundle is on
+    the card, every step's local_loss is finite and some non-zero, no
+    step is skipped, the launches are steps x PER_STEP plus the scene
+    build's and the validation render's, one captured step holds against
+    the plain versions and two steps make no host sync.  It prints the
+    bundle's build time and ms/step beside phase 15's ``cli_ms``.
+    Returns (training launches, render launches)."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.cli import train as cli_train
+    from spurfies_tpu_torch.convert.torch_ckpt import convert_vismvsnet
+    from spurfies_tpu_torch.data.mvs_local import feature_images
+    from spurfies_tpu_torch.data.scene_data import glob_images
+    from spurfies_tpu_torch.data.synthetic import (
+        export_synthetic_mvs,
+        random_vismvsnet_state,
+    )
+    from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
+    from spurfies_tpu_torch.train import trainer as ttrainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(tmp, "data")
+    work = os.path.join(tmp, "local")
+    os.makedirs(os.path.join(work, "ckpt"))
+    state = random_vismvsnet_state(0)
+    torch.save(state, os.path.join(work, "ckpt", "vismvsnet.pt"))
+    t0 = time.perf_counter()
+    ids = export_synthetic_mvs(data, scan_id=24)
+    log(f"local: cam4feat and image fixtures of views {ids} written in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the extractor on the card against the CPU, same weights and images
+    paths = glob_images(os.path.join(data, "dtu", "DTU_pixelnerf",
+                                     "dtu_scan24", "image"))[:3]
+    batch = torch.from_numpy(feature_images(paths))
+    fx = convert_vismvsnet(state, "cuda")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        f_cpu = convert_vismvsnet(state, "cpu")(batch)[2]
+        cpu_s = time.perf_counter() - t0
+        xb = batch.cuda()
+        f_dev = fx(xb)[2]
+        dev_ms = cuda_ms(lambda: fx(xb), 3)
+    scale = float(f_cpu.abs().max())
+    err = float((f_dev.cpu() - f_cpu).abs().max())
+    log(f"local: featext {tuple(batch.shape)} -> f3 {tuple(f_dev.shape)}: "
+        f"card {dev_ms:.2f} ms, CPU {cpu_s:.3f} s; max abs err "
+        f"{err:.3e} ({err / scale:.2e} of the scale {scale:.3g}; f32, TF32 "
+        f"off) [{smi}]")
+    # tolerance: f32 convolutions in cuDNN's sum order against the CPU's
+    if not err <= 1e-4 * scale:
+        fail("local: the extractor's features on the card differ from the "
+             "CPU's")
+    del fx, f_cpu, f_dev, xb
+
+    rec = {"bundle_s": [], "run": [], "render": [], "render_ms": [],
+           "parts": [], "init": []}
+
+    def spy_bundle(build):
+        def f(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = build(*a, **k)
+            torch.cuda.synchronize()
+            rec["bundle_s"].append(time.perf_counter() - t0)
+            return out
+        return f
+
+    def spy_step(make):
+        def f(*a, **k):
+            loss_fn, sample_batch, step = make(*a, **k)
+
+            def g(*a2, **k2):
+                parts = step(*a2, **k2)
+                rec["parts"].append(parts)
+                return parts
+            return loss_fn, sample_batch, g
+        return f
+
+    args = ["--config", os.path.join(here, "configs", "dtu_pn.yaml"),
+            "--scans", "scan24", f"dataset.data_dir_root={data}",
+            f"exps_folder={os.path.join(tmp, 'exps_local')}",
+            "loss.local_weight=0.5", f"train.opt_steps={LOCAL_STEPS}",
+            f"train.render_freq={LOCAL_STEPS}",
+            f"train.checkpoint_freq={LOCAL_STEPS}"]
+    wrap = dict(trainer_spies(rec), build_local_bundle=spy_bundle,
+                make_train_step=spy_step)
+    sites = [(ttrainer.Trainer, name, None) for name in list(wrap)[:3]]
+    sites += [(cli_train, "build_local_bundle", None),
+              (ttrainer, "make_train_step", None)]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with substituted(lambda fn, _: wrap[fn.__name__](fn), sites):
+            zero_counts()
+            [(trainer, _)] = cli_train.main(args)
+            torch.cuda.synchronize()
+            launches = read_counts()
+    finally:
+        os.chdir(cwd)
+
+    ctx = trainer.local_ctx
+    if ctx is None or not ctx["feats"].is_cuda or tuple(
+            ctx["feats"].shape) != (3, 384, 512, 32):
+        fail("local: the trainer holds no bundle on the card")
+    knn = "select_knn_exact"
+    render_sum = dict.fromkeys(launches, 0)
+    for tr, uv, pose, K, _, delta in rec["render"]:
+        if delta != render_counts(tr, uv, pose, K, delta, knn):
+            fail(f"local: a validation render launched {delta}")
+        for k in render_sum:
+            render_sum[k] += delta[k]
+    for delta in rec["init"]:
+        if delta != expected_counts(delta, {"select_knn": 1}, 1, knn):
+            fail(f"local: the Trainer's build launched {delta}")
+    train_launches = {k: launches[k] - render_sum[k] for k in launches}
+    expect = expected_counts(launches, PER_STEP, LOCAL_STEPS, knn)
+    expect[knn] += len(rec["init"])
+    if train_launches != expect:
+        fail(f"local: training launches {train_launches} != {expect}")
+    steps = rec["parts"][:LOCAL_STEPS]
+    vals = torch.stack([p["local_loss"] for p in steps]).cpu().numpy()
+    skipped = torch.stack([p["notfinite"] for p in steps]).cpu().numpy()
+    rgb = torch.stack([p["rgb_loss"] for p in steps]).cpu().numpy()
+    if not np.isfinite(vals).all() or skipped.any():
+        fail("local: a non-finite local_loss or a skipped step")
+    if not (vals > 0).any():
+        fail("local: local_loss is 0 on every step")
+    wall = sum(r[1] for r in rec["run"])
+    log(f"local: bundle built in {rec['bundle_s'][0]:.3f} s (3 images at "
+        f"768x1024 through the extractor on the card) [{smi}]")
+    log(f"local: local_loss over {len(vals)} steps: first {vals[0]:.5g}, "
+        f"last {vals[-1]:.5g}, mean {vals.mean():.5g}, non-zero on "
+        f"{int((vals > 0).sum())}; rgb_loss {rgb[:10].mean():.5g} -> "
+        f"{rgb[-10:].mean():.5g} (first and last 10 steps)")
+    log(f"local: train {LOCAL_STEPS} steps in {wall:.3f} s = "
+        f"{wall / LOCAL_STEPS * 1e3:.2f} ms/step (phase 15 without the "
+        f"local loss: {cli_ms:.2f} ms/step); launches {train_launches} "
+        f"(validation render {render_sum}) [{smi}]")
+    del rec["parts"][:]
+
+    seen = capture_step(trainer)
+    got = {k: len(v) for k, v in seen.items()}
+    if got != PER_STEP:
+        fail(f"local: one step launched {got}, expected {PER_STEP}")
+    check_step("dtu_local", seen, _prep_layers(trainer.frozen, torch.float32),
+               trainer.scene.spec.radius(trainer.scene.table.r))
+    del seen
+    n_sync, first_sync = count_host_syncs(trainer, 2)
+    log(f"local: host syncs in 2 training steps: {n_sync}"
+        + (f" (first: {first_sync})" if n_sync else ""))
+    if n_sync:
+        fail("local: a training step waits on the card")
+    lprof = profiled(lambda: trainer.run(PROFILE_STEPS, window=PROFILE_STEPS))
+    lprof["ms_per_step"] = lprof["profiled_wall_ms"] / PROFILE_STEPS
+    log(f"train profile local loss: {json.dumps(lprof)} [{smi}]")
+    del trainer, rec
+    torch.cuda.empty_cache()
+    return train_launches, render_sum
+
+
+def pretrain_phase(smi, tmp, cfg, pts, cols, views, view):
+    """Phase 21: prior pretraining through ``cli.pretrain_prior.main`` at
+    ``PriorConfig``'s widths (32 shapes, 4,096 points, 8,192 queries,
+    batches of 4,096), cut to PRIOR_STEPS of its 20,000 steps, in a
+    working directory under ``tmp`` (counters set to 0 just before it).
+    It fails unless K1 (packed) ran once a step and nothing else, the mean
+    sdf_l1 of the last 50 steps is below the first 50's, one step of the
+    trained parameters through K1 and through its plain version gives the
+    same loss and decoder and latent gradients (1e-6 relative; 1e-5
+    relative L2: the latents' gather adds in another order), and the
+    saved npz loads into a ``Trainer`` (``load_frozen``) that renders a
+    chunk of ``view`` with its launches.  It prints the corpus build time
+    and steps/s.  Returns (pretraining launches, render launches)."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.cli import pretrain_prior as cli_pretrain
+    from spurfies_tpu_torch.prior import pretrain as tpre
+    from spurfies_tpu_torch.train.optim import flatten
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    work = os.path.join(tmp, "prior")
+    os.makedirs(work)
+    rec = {"aux": []}
+
+    def spy_corpus(build):
+        def f(*a, **k):
+            t0 = time.perf_counter()
+            out = build(*a, **k)
+            torch.cuda.synchronize()
+            rec["corpus_s"] = time.perf_counter() - t0
+            rec["corpus"] = out
+            return out
+        return f
+
+    def spy_step(make):
+        def f(*a, **k):
+            step = make(*a, **k)
+
+            def g(*a2, **k2):
+                if not rec["aux"]:
+                    torch.cuda.synchronize()
+                    rec["t0"] = time.perf_counter()
+                aux = step(*a2, **k2)
+                rec["aux"].append(aux)
+                return aux
+            return g
+        return f
+
+    def spy_save(save):
+        def f(*a, **k):
+            torch.cuda.synchronize()
+            rec["t1"] = time.perf_counter()
+            return save(*a, **k)
+        return f
+
+    spies = [((tpre, "build_corpus", None), spy_corpus),
+             ((tpre, "make_prior_train_step", None), spy_step),
+             ((cli_pretrain, "save_prior", None), spy_save)]
+    wrap = {name: spy for (_, name, _), spy in spies}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with substituted(lambda fn, _: wrap[fn.__name__](fn),
+                         [site for site, _ in spies]):
+            zero_counts()
+            params, history = cli_pretrain.main(
+                ["--steps", str(PRIOR_STEPS)])
+            torch.cuda.synchronize()
+            launches = read_counts()
+    finally:
+        os.chdir(cwd)
+    pcfg = tpre.PriorConfig(steps=PRIOR_STEPS)
+    expect = expected_counts(launches, {"select_knn": 1}, PRIOR_STEPS,
+                             "select_knn_packed")
+    if launches != expect or len(rec["aux"]) != PRIOR_STEPS:
+        fail(f"pretrain: launches {launches} != {expect} over "
+             f"{len(rec['aux'])} steps")
+    sdf = torch.stack([a["sdf_l1"] for a in rec["aux"]]).cpu().numpy()
+    loss = torch.stack([a["loss"] for a in rec["aux"]]).cpu().numpy()
+    cov = torch.stack([a["coverage"] for a in rec["aux"]]).cpu().numpy()
+    if not np.isfinite(loss).all():
+        fail("pretrain: a non-finite loss")
+    if not sdf[-50:].mean() < sdf[:50].mean():
+        fail("pretrain: sdf_l1 did not fall")
+    steps_s = PRIOR_STEPS / (rec["t1"] - rec["t0"])
+    log(f"pretrain: {pcfg.n_shapes} shapes x {pcfg.n_surface_cap} points, "
+        f"{pcfg.n_query} queries, batches of {pcfg.batch_queries}; corpus "
+        f"built in {rec['corpus_s']:.2f} s; {PRIOR_STEPS} of {20000} steps "
+        f"at {steps_s:.2f} steps/s ({1e3 / steps_s:.2f} ms/step); sdf_l1 "
+        f"{sdf[:50].mean():.5f} -> {sdf[-50:].mean():.5f} (first and last "
+        f"50 steps), coverage {cov[-50:].mean():.3f}; history {history}; "
+        f"launches {launches} [{smi}]")
+
+    # one step of the trained parameters, K1 against its plain version
+    corpus, spec = rec["corpus"]
+    qidx = torch.randperm(pcfg.n_query, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(3))[:pcfg.batch_queries]
+
+    def one():
+        lo, aux = tpre.prior_loss(params, corpus, spec, pcfg, 1, qidx)
+        return lo, torch.autograd.grad(lo, flatten(params))
+
+    lk, gk = one()
+    with plain_versions():
+        lp, gp = one()
+    lk, lp = float(lk.detach()), float(lp.detach())
+    rel = max(float(torch.linalg.vector_norm(a - b)
+                    / (torch.linalg.vector_norm(b) + 1e-30))
+              for a, b in zip(gk, gp))
+    dl = abs(lk - lp) / abs(lp)
+    log(f"pretrain step, K1 vs its plain version: loss {lk:.6g} "
+        f"(relative difference {dl:.2e}), gradients (decoder, latents) "
+        f"relative L2 at most {rel:.2e}")
+    if not all(bool(torch.isfinite(g).all()) for g in gk):
+        fail("pretrain: a gradient through K1 is not finite")
+    # tolerance: the same ids (K1 bit-equal); the latents' gather backward
+    # adds in another order on the card
+    if dl > 1e-6 or rel > 1e-5:
+        fail("pretrain: the step through K1 differs from the plain step")
+    del gk, gp, rec
+
+    # the saved prior in a Trainer, one chunk rendered
+    out = os.path.join(work, cli_pretrain.DEFAULT_OUT + ".npz")
+    tr = Trainer(cfg, pts, cols, views, device="cuda")
+    tr.load_frozen(tpre.load_prior(out, "cuda"))
+    if not all(torch.equal(a, b.detach()) for a, b in zip(
+            flatten(tr.frozen), flatten(tpre.frozen_params(params)))):
+        fail("pretrain: the saved prior does not load back bit-equal")
+    _, _, _, sel = first_chunk(tr.scene, view, cfg, tr.device)
+    uv = np.asarray(view["uv"])[sel.cpu().numpy()]
+    zero_counts()
+    img = tr.render_image(uv, view["pose"], view["intrinsics"])
+    torch.cuda.synchronize()
+    launches_render = read_counts()
+    expect = render_counts(tr, uv, view["pose"], view["intrinsics"],
+                           launches_render, "select_knn_packed")
+    if launches_render != expect:
+        fail(f"pretrain: the chunk render launched {launches_render}, "
+             f"expected {expect}")
+    if not all(np.isfinite(v.astype(np.float64)).all()
+               for v in img.values()):
+        fail("pretrain: the chunk rendered with the pretrained prior is "
+             "not finite")
+    log(f"pretrain: the saved prior rendered {len(uv)} rays (hit "
+        f"{int(img['ray_mask'].sum())}); launches {launches_render}")
+    opt = tpre.PriorOptimizer(pcfg)
+    step = tpre.make_prior_train_step(pcfg, spec, opt, device="cuda")
+    state = opt.init(params)
+    pprof = profiled(lambda: [step(params, state, corpus)
+                              for _ in range(PROFILE_STEPS)])
+    pprof["ms_per_step"] = pprof["profiled_wall_ms"] / PROFILE_STEPS
+    log(f"train profile pretrain: {json.dumps(pprof)} [{smi}]")
+    del tr, params
+    torch.cuda.empty_cache()
+    return launches, launches_render
 
 
 def main():
@@ -3099,20 +3599,11 @@ def main():
 
     # --- 12. the two option paths ---
     option_best, launches_options = {}, []
-    for tag, (ov, per_step) in OPTIONS.items():
-        tr = Trainer(apply_overrides(cfg, ov), pts_a, cols_a, views_a,
-                     device="cuda")
-        tr.load_frozen(prior_a)
-        best, counts, _ = train_path(f"dust3r_like {tag}", tr, per_step,
-                                     OPTION_WARMUP, OPTION_STEPS,
-                                     OPTION_STEPS)
+    for tag in ("unfused", "pairs"):
+        best, counts = option_phase(tag, cfg, pts_a, cols_a, views_a,
+                                    prior_a)
         option_best.update(best)
         launches_options.append(counts)
-        oprof = profiled(lambda: tr.run(PROFILE_STEPS, window=PROFILE_STEPS))
-        oprof["ms_per_step"] = oprof["profiled_wall_ms"] / PROFILE_STEPS
-        log(f"train profile {tag}: {json.dumps(oprof)}")
-        del tr
-        torch.cuda.empty_cache()
 
     # --- 13. pair-MLP microbenchmark: K7b's path ---
     rng = np.random.default_rng(0)
@@ -3171,19 +3662,29 @@ def main():
     torch.cuda.empty_cache()
 
     # --- 15. the training CLI at configs/dtu_pn.yaml; 16. the evaluation
-    # CLIs on its trained scan ---
+    # CLIs on its trained scan; 17. K9 through the port's micro_gather;
+    # 18. occ_compact in training; 19. the entangled model; 20. the local
+    # loss through the CLI on phase 15's scan; 21. prior pretraining ---
     with tempfile.TemporaryDirectory() as tmp:
-        launches_cli, launches_cli_render = cli_phase(smi, tmp)
+        launches_cli, launches_cli_render, cli_ms = cli_phase(smi, tmp)
         launches_eval, eval_best = eval_phase(smi, tmp)
+        launches_k9, results["K9 gather_rows"] = k9_phase(smi)
+        _, launches_occ = option_phase("occ_compact", cfg, pts_a, cols_a,
+                                       views_a, prior_a, smi)
+        launches_ent_render, launches_ent = entangled_phase(
+            smi, cfg, pts_a, cols_a, views_a, view_a)
+        launches_local, launches_local_render = local_phase(smi, tmp,
+                                                            cli_ms)
+        launches_prior, launches_prior_render = pretrain_phase(
+            smi, tmp, cfg, pts_a, cols_a, views_a, view_a)
 
-    # --- 17. K9 through the port's micro_gather ---
-    launches_k9, results["K9 gather_rows"] = k9_phase(smi)
-
-    # --- 18. report ---
+    # --- 22. report ---
     render_runs = (launches_render, launches_unfused, launches_colour_render,
-                   launches_cli_render)
+                   launches_cli_render, launches_ent_render,
+                   launches_local_render, launches_prior_render)
     train_runs = (launches_train, launches_dense, *launches_options,
-                  launches_colour_train, launches_cli)
+                  launches_colour_train, launches_cli, launches_occ,
+                  launches_ent, launches_local, launches_prior)
     micro_runs = (launches_micro, launches_k9)
     results["K8b fused_color_bwd"] = colour_best["fused_color_bwd"]
     results["K8p pack_color_weights"] = colour_best["pack_color_weights"]
@@ -3292,7 +3793,8 @@ def main():
                     (launches_train, PER_STEP), (launches_dense, PER_STEP),
                     (launches_options[1], OPTIONS["pairs"][1]),
                     (launches_colour_train, FUSED_COLOR_STEP),
-                    (launches_cli, PER_STEP)))
+                    (launches_cli, PER_STEP), (launches_occ, PER_STEP),
+                    (launches_local, PER_STEP)))
         if label.startswith("K8"):
             row["colour_path_ms"] = colour_path
         for k in ("scratch_bytes", "kernel_ms", "library_zeroed_ms"):

@@ -20,10 +20,15 @@ import numpy as np
 import torch
 
 from spurfies_tpu_torch.config import Config, apply_overrides, load_yaml
+from spurfies_tpu_torch.cli.pretrain_prior import DEFAULT_OUT as PRETRAINED
 from spurfies_tpu_torch.convert.from_jax import PRIOR_ASSET, load_prior_npz
-from spurfies_tpu_torch.convert.torch_ckpt import convert_local_prior
+from spurfies_tpu_torch.convert.torch_ckpt import (
+    convert_local_prior,
+    convert_vismvsnet,
+)
 from spurfies_tpu_torch.data.dtu import load_dtu
 from spurfies_tpu_torch.data.mip_nerf import load_mipnerf, model_overrides
+from spurfies_tpu_torch.data.mvs_local import build_local_bundle
 from spurfies_tpu_torch.data.own_data import load_own_data
 from spurfies_tpu_torch.device import resolve_device
 from spurfies_tpu_torch.eval.plots import triptych
@@ -70,25 +75,34 @@ def train_scene(cfg: Config, scan: str, resume: bool = False,
     log.info(f"scene {scan}: {len(sd.train.ids)} train views, "
              f"{len(sd.points)} raw points, img_res={sd.img_res}")
 
-    # the MVS feature-consistency loss (reference dtu.py:228-239) turns on
-    # for DTU when the frozen Vis-MVSNet checkpoint is there; the port has
-    # none yet, and never trains quietly without it
+    # the MVS feature-consistency bundle (the DTU local loss) when the
+    # frozen Vis-MVSNet checkpoint is there (reference dtu.py:228-239); its
+    # features are extracted on the trainer's device
+    local_bundle = None
+    vismvs_ckpt = os.path.join("ckpt", "vismvsnet.pt")
     if (cfg.dataset.data_dir == "dtu" and cfg.loss.local_weight > 0
-            and os.path.exists(os.path.join("ckpt", "vismvsnet.pt"))):
-        raise NotImplementedError(
-            "the local (Vis-MVSNet) feature loss: ROADMAP.md Queue 1 item 14 "
-            "(ckpt/vismvsnet.pt is present and loss.local_weight > 0)")
+            and os.path.exists(vismvs_ckpt)):
+        local_bundle = build_local_bundle(
+            cfg.dataset.data_dir_root, int(scan.replace("scan", "")),
+            convert_vismvsnet(vismvs_ckpt, dev), sd.scale_mat, device=dev)
+        log.info("local (Vis-MVSNet) feature loss enabled")
 
     trainer = Trainer(cfg, sd.points, sd.colors, sd.train_views(),
-                      device=dev, compute_dtype=compute_dtype)
+                      local_bundle=local_bundle, device=dev,
+                      compute_dtype=compute_dtype)
 
     # frozen local-geometry prior (reference train.py:124-157): prefer the
-    # reference's torch checkpoint, else the repo's pretrained prior; else
-    # warn (tests / smoke runs only)
+    # reference's torch checkpoint, else a prior pretrained here
+    # (cli/pretrain_prior.py's default output), else the repo's pretrained
+    # prior; else warn (tests / smoke runs only)
     prior_ckpt = os.path.join("ckpt", "local_prior.pt")
+    own_prior = os.path.abspath(PRETRAINED + ".npz")
     if os.path.exists(prior_ckpt):
         trainer.load_frozen(convert_local_prior(prior_ckpt, dev))
         log.info("loaded frozen local-geometry prior (torch ckpt)")
+    elif os.path.exists(own_prior):
+        trainer.load_frozen(load_prior_npz(own_prior, dev))
+        log.info("loaded frozen local-geometry prior (pretrained here)")
     elif PRIOR_ASSET.exists():
         trainer.load_frozen(load_prior_npz(PRIOR_ASSET, dev))
         log.info("loaded frozen local-geometry prior (the repo's "

@@ -6,6 +6,12 @@ The JAX package's parameter tree
 becomes the same tree of tensors.  Both packages store a Linear's weight as
 ``[in, out]`` (``x @ w``), so no array is transposed here; the pair-MLP
 kernels make their own transposed copies (``ops.pair_mlp``).
+
+The Vis-MVSNet extractor's tree (``spurfies_tpu/model/featext.py``) is the
+exception: JAX keeps its conv kernels HWIO, the port PyTorch's OIHW, and
+the transposed convolutions as the flipped dilated-conv kernel
+(``torch2jax._deconv_w``), the port as ``F.conv_transpose2d``'s IOHW
+(:func:`featext_from_jax`).
 """
 
 from pathlib import Path
@@ -89,3 +95,37 @@ def load_prior_npz(path=PRIOR_ASSET, device="cuda"):
         tree[name] = [{"w": arrs[f"{name}.{i}.w"], "b": arrs[f"{name}.{i}.b"]}
                       for i in range(n)]
     return params_from_numpy(tree, device)
+
+
+def featext_from_jax(tree):
+    """The JAX package's featext parameter tree (numpy or jax arrays) as
+    the port's numpy tree (``model.featext``): conv kernels HWIO -> OIHW,
+    the transposed convolutions' flipped HWIO kernels -> IOHW unflipped,
+    the folded BN scale/shift and the strides as they are."""
+    def conv(p):
+        return {"w": np.ascontiguousarray(
+            np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1))}
+
+    def deconv(p):
+        w = np.asarray(p["w"], np.float32).transpose(2, 3, 0, 1)
+        return {"w": np.ascontiguousarray(w[:, :, ::-1, ::-1])}
+
+    def bn(p):
+        return {k: np.asarray(p[k], np.float32) for k in ("scale", "shift")}
+
+    def block(p):
+        out = {"conv1": conv(p["conv1"]), "bn1": bn(p["bn1"]),
+               "conv2": conv(p["conv2"]), "bn2": bn(p["bn2"]),
+               "stride": int(p["stride"])}
+        if "downsample" in p:
+            out["downsample"] = conv(p["downsample"])
+            out["downsample_bn"] = bn(p["downsample_bn"])
+        return out
+
+    return {"init_conv": conv(tree["init_conv"]),
+            "init_bn": bn(tree["init_bn"]),
+            "enc": [[block(b) for b in stage] for stage in tree["enc"]],
+            "dec": [{"deconv": deconv(d["deconv"]), "post": conv(d["post"]),
+                     "res": [block(b) for b in d["res"]]}
+                    for d in tree["dec"]],
+            **{f"head{i}": conv(tree[f"head{i}"]) for i in (1, 2, 3)}}

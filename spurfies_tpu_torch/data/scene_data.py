@@ -6,8 +6,8 @@ rgb/mask ``[H*W, 3]`` (SURVEY §2 L5).  The trainer wants all train views
 stacked, so loaders produce a SceneData with stacked train/eval stacks.
 
 Images are read without imageio or cv2: PNG through ``data.png``, JPEG
-through Pillow, the cubic resize through ``F.interpolate`` and the nearest
-one by cv2's own index rule.
+through Pillow, the cubic and bilinear resizes through ``F.interpolate``
+and the nearest one by cv2's own index rule.
 """
 
 import glob
@@ -102,6 +102,18 @@ def resize_cubic(img: np.ndarray, img_res) -> np.ndarray:
     t = t.permute(2, 0, 1)[None]
     out = F.interpolate(t, size=tuple(img_res), mode="bicubic",
                         align_corners=False)
+    return out[0].permute(1, 2, 0).contiguous().numpy()
+
+
+def resize_linear(img: np.ndarray, img_res) -> np.ndarray:
+    """Bilinear resize of a float32 ``[H, W, C]`` image to ``img_res``
+    (H, W) by ``F.interpolate`` (pixel centres aligned, the border
+    replicated, no antialiasing), as ``cv2.resize(INTER_LINEAR)`` resizes
+    float input (held to cv2 in ``tests/test_torch_local_loss.py``)."""
+    t = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+    t = t.permute(2, 0, 1)[None]
+    out = F.interpolate(t, size=tuple(img_res), mode="bilinear",
+                        align_corners=False, antialias=False)
     return out[0].permute(1, 2, 0).contiguous().numpy()
 
 

@@ -277,3 +277,105 @@ def export_synthetic_dtu(root, scan_id=24, n_views=49, img_res=(48, 64),
         save_ply(os.path.join(stl_dir, f"stl{scan_id:03d}_total.ply"),
                  gt_world, None)
     return pts, cols, views
+
+
+def export_synthetic_mvs(root, scan_id=24, depth_res=(384, 512)):
+    """Write the Vis-MVSNet fixtures of a scene that
+    :func:`export_synthetic_dtu` wrote under ``root``: the MVS cameras of
+    its three train views (``DTU_pixelnerf/dtu_scan24/cam4feat``: pair.txt
+    and ``cam_XXXXXXXX_flow3.txt``, the world-frame w2c and the intrinsics
+    at ``depth_res``, the depth cameras' resolution) and the same views'
+    images (``DTU_pixelnerf/dtu_scan{id}/image``), in the train order, so
+    that ``data.mvs_local.build_local_bundle`` pairs each train view with
+    its own camera.  The real dataset's cameras sit under scan24 for every
+    scan (reference dtu.py:163-183); so do these."""
+    import os
+    import shutil
+
+    from spurfies_tpu_torch.core.cameras import load_K_Rt_from_P
+    from spurfies_tpu_torch.data.dtu import get_train_ids
+    from spurfies_tpu_torch.data.png import read_png
+    from spurfies_tpu_torch.data.scene_data import glob_images
+
+    inst = os.path.join(root, "dtu", f"scan{scan_id}")
+    cams = np.load(os.path.join(inst, "cameras.npz"))
+    images = glob_images(os.path.join(inst, "image"))
+    h = read_png(images[0]).shape[0]
+    ids = get_train_ids(3)
+    base = os.path.join(root, "dtu", "DTU_pixelnerf")
+    cam_dir = os.path.join(base, "dtu_scan24", "cam4feat")
+    img_dir = os.path.join(base, f"dtu_scan{scan_id}", "image")
+    os.makedirs(cam_dir, exist_ok=True)
+    os.makedirs(img_dir, exist_ok=True)
+    with open(os.path.join(cam_dir, "pair.txt"), "w") as f:
+        f.write(f"{len(ids)}\n")
+        for i in ids:
+            src = [j for j in ids if j != i]
+            f.write(f"{i}\n{len(src)} " + " ".join(f"{j} 1.0" for j in src)
+                    + "\n")
+    for n, i in enumerate(ids):
+        K, pose = load_K_Rt_from_P(cams[f"world_mat_{i}"][:3, :4])
+        w2c = np.linalg.inv(pose.astype(np.float64))
+        k3 = K[:3, :3].copy()
+        k3[:2] *= depth_res[0] / h
+        lines = ["extrinsic"] + [" ".join(f"{v:.9g}" for v in row)
+                                 for row in w2c]
+        lines += ["", "intrinsic"] + [" ".join(f"{v:.9g}" for v in row)
+                                      for row in k3]
+        lines += ["", "425.0 2.5 192 935.0"]
+        with open(os.path.join(cam_dir, f"cam_{i:08d}_flow3.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        shutil.copyfile(images[i], os.path.join(img_dir, f"{n:06d}.png"))
+    return ids
+
+
+def random_vismvsnet_state(seed=0):
+    """A Vis-MVSNet checkpoint of random weights in the reference's key
+    layout, ``{"state_dict": {"module.feat_ext.<key>": tensor}}`` (the keys
+    that ``convert.torch_ckpt.convert_vismvsnet`` reads; stage names as
+    ``scripts/validate_checkpoints.py:150-165``): He-scaled convolutions and
+    BatchNorms with random affine parameters and running statistics.  The
+    real checkpoint is not in the repository."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(key, c_out, c_in, k):
+        sd[key] = rng.normal(0, np.sqrt(2.0 / (c_in * k * k)),
+                             (c_out, c_in, k, k))
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = rng.uniform(0.5, 1.5, c)
+        sd[f"{prefix}.bias"] = rng.uniform(-0.2, 0.2, c)
+        sd[f"{prefix}.running_mean"] = rng.normal(0, 0.1, c)
+        sd[f"{prefix}.running_var"] = rng.uniform(0.5, 2.0, c)
+
+    def block(prefix, c_in, c_out):
+        conv(f"{prefix}.conv1.weight", c_out, c_in, 3)
+        bn(f"{prefix}.bn1", c_out)
+        conv(f"{prefix}.conv2.weight", c_out, c_out, 3)
+        bn(f"{prefix}.bn2", c_out)
+        if c_in != c_out:
+            conv(f"{prefix}.downsample.0.weight", c_out, c_in, 1)
+            bn(f"{prefix}.downsample.1", c_out)
+
+    conv("init_conv.0.weight", 16, 3, 5)
+    bn("init_conv.1", 16)
+    c = 16
+    for name, f in (("2d2_0", 32), ("2d4_1", 64), ("2d8_2", 128)):
+        block(f"unet.enc_blocks.{name}.0", c, f)
+        block(f"unet.enc_blocks.{name}.1", f, f)
+        c = f
+    for name, f in (("2d16_3", 64), ("2d8_4", 32)):
+        # ConvTranspose2d(c -> f): torch's weight is [in, out, kh, kw]
+        sd[f"unet.dec_blocks.{name}.0.weight"] = rng.normal(
+            0, np.sqrt(2.0 / (c * 9)), (c, f, 3, 3))
+        conv(f"unet.dec_blocks.{name}.1.weight", f, 2 * f, 3)
+        block(f"unet.dec_blocks.{name}.2.0", f, f)
+        c = f
+    for i, c_in in ((1, 128), (2, 64), (3, 32)):
+        conv(f"final_conv_{i}.weight", 32, c_in, 3)
+    return {"state_dict": {
+        f"module.feat_ext.{k}": torch.from_numpy(v.astype(np.float32))
+        for k, v in sd.items()}}

@@ -28,6 +28,13 @@ tensor).  The fused-colour switch is the module flag :data:`FUSED_COLOR`
 (off, as in the JAX package): on, :func:`aggregate_color` runs K8a/K8b
 (``ops.fused_color``) in the prior's compute dtype; off, the colour MLPs
 are PyTorch products.
+
+The legacy entangled model (``model.entangled``; reference
+``pointneus.py``) has no frozen prior and no kernel of its own: one
+trainable trunk F([posenc4(x - p), latent64]) feeds T (the SDF) and the R
+colour head, its neighbours 1/d-weighted (:func:`entangled_sdf_feat`).
+Its products are f32 ``torch.matmul`` (TF32 off, PyTorch's default), as
+the JAX package leaves them to XLA in f32.
 """
 
 import torch
@@ -201,6 +208,72 @@ def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
     if return_overflow:
         return out, overflowed
     return out
+
+
+def select_rows(table, idx):
+    """``table[idx]`` by ``index_select``, whose backward is an
+    ``index_add_``: indexing's would be a sorted ``index_put_``, which took
+    85 % of an entangled training step on an H100 (PERF.md)."""
+    return torch.index_select(table, 0, idx.reshape(-1)).view(
+        *idx.shape, table.shape[1])
+
+
+def inverse_distance_weights(x_pi: torch.Tensor, valid: torch.Tensor):
+    """The legacy model's 1/d weights (reference pointneus.py:184-190):
+    (w ``[M, K]``, invalid -> 0; norm ``[M, 1]``).  NOT detached, unlike
+    the RBF weights."""
+    dist = torch.clamp(torch.linalg.norm(x_pi, dim=-1), min=1e-12)
+    w = (1.0 / dist) * valid.to(x_pi.dtype)
+    return w, torch.sum(w, dim=-1, keepdim=True)
+
+
+def entangled_sdf_feat(train_params, feats, points, idx, valid, x,
+                       pos_multires: int = 4):
+    """The legacy entangled field (``field.py:319-345``; reference
+    pointneus.py:260-310): per pair the trunk F([posenc(x - p), latent]),
+    T on it for the SDF; both 1/d-weighted over the neighbours.
+
+    Returns (sdf ``[M]``, filler 1000 where no neighbour; the aggregated
+    trunk features ``[M, 256]``; has ``[M]`` bool).
+    """
+    safe_idx = torch.clamp(idx, min=0).long()
+    x_pi = x[:, None, :] - points[safe_idx]
+    lat = select_rows(feats, safe_idx)                      # [M, K, 64]
+    w, norm = inverse_distance_weights(x_pi, valid)
+    pos_enc = positional_encoding(x_pi, pos_multires)
+    h = mlp_apply(train_params["F"], torch.cat([pos_enc, lat], -1))
+    sdf_k = torch.where(valid, mlp_apply(train_params["T"], h)[..., 0], 0.0)
+    h = torch.where(valid[..., None], h, 0.0)
+    has = norm[..., 0] > 0
+    denom = torch.where(has, norm[..., 0], 1.0)
+    sdf = torch.where(has, torch.sum(w * sdf_k, -1) / denom, SDF_FILLER)
+    feat = torch.sum(w[..., None] * h, -2) / denom[..., None]
+    return sdf, feat, has
+
+
+def entangled_sdf_grad_color(train_params, feats, points, idx, valid, x,
+                             ray_dirs, view_multires: int = 6):
+    """SDF, its spatial gradient and the colour of the legacy model
+    (``field.py:348-362``).
+
+    JAX takes the gradient per point (``vmap(value_and_grad)``); each
+    point's SDF depends on its own x only, so the gradient of the sum in
+    x is the same.  With autograd on, the gradient stays differentiable
+    in the parameters (double backward, for the eikonal term); without it
+    (an eval render) only the gradient's value is taken.
+    """
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        sdf, feat, _ = entangled_sdf_feat(train_params, feats, points, idx,
+                                          valid, xg)
+        grad, = torch.autograd.grad(sdf.sum(), xg, create_graph=create)
+    if not create:
+        sdf, feat = sdf.detach(), feat.detach()
+    dir_enc = positional_encoding(ray_dirs, view_multires)
+    rgb = mlp_apply(train_params["R"], torch.cat([dir_enc, feat], -1),
+                    final_act="sigmoid")
+    return sdf, grad, rgb
 
 
 def sdf_and_grad(prior: PriorLayers, geo_latents, points, idx, valid, x,

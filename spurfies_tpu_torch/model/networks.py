@@ -96,13 +96,22 @@ def init_model_params(cfg: ModelConfig, generator: torch.Generator,
                       device="cuda"):
     """``{"frozen": {F_geometry, T}, "train": {F_color, R, beta}}`` with the
     dims of ``spurfies_tpu/model/networks.py:101-114``; per-scene latents
-    are added by ``neural_points.build_scene``."""
+    are added by ``neural_points.build_scene``.
+
+    Entangled (the legacy ablation, reference pointneus.py:51-69;
+    ``networks.py:90-99``): one trunk F([posenc4(x_pi), latent64]) feeding
+    T (the SDF) and R (the colour), all trainable, so frozen is empty."""
     device = resolve_device(device)
-    if cfg.entangled:
-        raise NotImplementedError(
-            "entangled model: ROADMAP.md Queue 1 item 'Legacy entangled "
-            "model'")
     fdim = cfg.feature_vector_size
+    if cfg.entangled:
+        return {"frozen": {}, "train": {
+            "F": mlp_init([fdim + encoding_dim(4, 3), 256, 256, 256, 256],
+                          generator, device),
+            "T": mlp_init([256, 1], generator, device),
+            "R": mlp_init([256 + encoding_dim(6, 3), 256, 256, 3], generator,
+                          device),
+            "beta": torch.tensor(cfg.density.beta_init, dtype=torch.float32,
+                                 device=device)}}
     geo_in = fdim // 2 + 3
     color_in = fdim + encoding_dim(cfg.pos_multires, 3)
     r_in = 256 + encoding_dim(cfg.view_multires, 3)

@@ -93,12 +93,10 @@ def build_scene(raw_points: np.ndarray, cfg: ModelConfig,
 
     Returns:
       (scene: SceneState, latents: {'feats_color' [N,64],
-       'feats_geometry' [N,32]} -- they go into params['train']).
+       'feats_geometry' [N,32]} -- they go into params['train']; the
+       entangled model's single latent {'feats' [N, 64]}, drawn as
+       feats_color is, reference pointneus.py:95-111).
     """
-    if cfg.entangled:
-        raise NotImplementedError(
-            "entangled model: ROADMAP.md Queue 1 item 'Legacy entangled "
-            "model'")
     dev = resolve_device(device)
     generator = generator if generator is not None else torch.Generator()
     pts, cols, _ = voxel_downsample(np.asarray(raw_points), cfg.vox_res,
@@ -119,6 +117,8 @@ def build_scene(raw_points: np.ndarray, cfg: ModelConfig,
     if cfg.initialize_colors and cols is not None:
         feats_color[:, :3] = torch.as_tensor(
             cols[:, :3], dtype=torch.float32) * 2.0 / 255.0 - 1.0
+    if cfg.entangled:
+        return scene, {"feats": feats_color.to(dev)}
     feats_geometry = 0.01 * torch.randn(n, fdim // 2, generator=generator)
     norms = torch.linalg.norm(feats_geometry, dim=-1, keepdim=True)
     feats_geometry = feats_geometry * torch.clamp(norms, max=1.0) / (

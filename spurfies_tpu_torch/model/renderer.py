@@ -11,12 +11,13 @@ Both branches are ported: the eval render (``train=False``) and the
 training render (``train=True``: stratified sampling, the ray budget, the
 probe budget's first/rest split, a differentiable ``grad_theta``), with
 ``model.fused_agg`` passed to every SDF call, the point budget
-(``render_budget_frac``), the pair-compacted SDF (``pair_budget_frac``)
-and the pair-compacted colour (``color_pair_frac``).  ``entangled`` and
-the training ``occ_compact`` raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.  Nothing here waits on the card:
-masks become spare-slot scatters and compactions sorts or cumsums, never
-boolean indexing.
+(``render_budget_frac``), the pair-compacted SDF (``pair_budget_frac``),
+the pair-compacted colour (``color_pair_frac``), the training
+``occ_compact`` (the S columns picked by fine occupancy before the kNN
+query) and the legacy ``entangled`` model (uniform z-values, one trunk for
+SDF and colour, no ray budget).  Nothing here waits on the card: masks
+become spare-slot scatters and compactions sorts or cumsums, never boolean
+indexing.
 """
 
 import torch
@@ -27,24 +28,17 @@ from spurfies_tpu_torch.core.density import get_beta, laplace_density
 from spurfies_tpu_torch.core.quadrature import render_weights
 from spurfies_tpu_torch.device import constant
 from spurfies_tpu_torch.model import field
-from spurfies_tpu_torch.model.sampler import error_bound_z_vals, linspace
+from spurfies_tpu_torch.model.sampler import (
+    error_bound_z_vals,
+    linspace,
+    uniform_z_vals,
+)
 from spurfies_tpu_torch.ops.pair_mlp import PriorLayers
 from spurfies_tpu_torch.ops.voxel_grid import (
     compact_rays,
     fine_occupancy,
     query_grid,
 )
-
-
-def _check_supported(cfg: ModelConfig, train: bool):
-    for name, on, item in (
-            ("entangled", cfg.entangled, "15 (legacy entangled model)"),
-            ("occ_compact", cfg.occ_compact and train
-             and not 0 < cfg.ray_budget_frac < 1,
-             "9 (occ_compact, left open by the training slice)")):
-        if on:
-            raise NotImplementedError(
-                f"model.{name}: ROADMAP.md Queue 1 item {item}")
 
 
 def _take(vals: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -68,18 +62,21 @@ def render_rays(params, scene, inputs, cfg: ModelConfig, *, train: bool,
       scene: SceneState.
       inputs: ``uv [1, R, 2]``, ``pose [1, 4, 4]``, ``intrinsics [1, 4, 4]``.
       train: stratified sampling, the ray budget, differentiable
-        ``grad_theta``; eval adds ``normal_map``.
+        ``grad_theta``; eval adds ``normal_map``.  ``model.occ_compact``
+        acts on a training render without the ray budget only, as in the
+        JAX package (``renderer.py:229-230``).
       iters: sampler iterations.
       generator: ``torch.Generator`` on the rays' device for the training
         draws that ``draws`` does not give.
       draws: optional training draws of the sampler
         (:func:`model.sampler.error_bound_z_vals`), shaped for the rays the
-        body renders: the ray budget's width when it is active.
+        body renders: the ray budget's width when it is active.  The
+        entangled model draws only ``"u_z"``, its stratified jitter
+        ``[R, n_samples]`` (``sampler.py:35``).
 
     Returns a dict of dense ``[R, ...]`` outputs + ``ray_mask``, with the
     ``[]`` bool flags ``ray_budget_overflow`` and ``probe_budget_overflow``.
     """
-    _check_supported(cfg, train)
     uv, pose, intrinsics = inputs["uv"], inputs["pose"], inputs["intrinsics"]
     ray_dirs_b, cam_loc_b = get_camera_params(uv, pose, intrinsics)
     ray_dirs = ray_dirs_b.reshape(-1, 3)
@@ -94,7 +91,7 @@ def render_rays(params, scene, inputs, cfg: ModelConfig, *, train: bool,
     body = dict(cfg=cfg, train=train, iters=iters, generator=generator,
                 draws=draws)
 
-    if train and 0 < cfg.ray_budget_frac < 1:
+    if train and 0 < cfg.ray_budget_frac < 1 and not cfg.entangled:
         # the training ray budget: a coarse occupancy test over the uniform
         # grid picks the candidate rays first, the whole render runs at the
         # budget's width, and the outputs scatter back dense; overflow rays
@@ -158,25 +155,15 @@ def coarse_ray_occupancy(cam_loc, ray_dirs, scene, scfg):
     return torch.any(occ.reshape(pts.shape[0], -1), dim=-1)
 
 
-def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
-                 depth_scale, cfg: ModelConfig, *, train: bool, iters: int,
-                 generator=None, draws=None, ray_ok=None):
-    """The render of ``[R]`` rays.  ``ray_ok`` ``[R]`` bool: the ray
-    budget's live slots (:func:`field.compact_pair_slots`' ok, a prefix);
-    the spare slots repeat the batch's last ray and their outputs are cut
-    away, so their probe points take no probe-budget slot and read as
-    empty space.  The live points keep their ranks (every spare point
-    comes after them), so every output of a live ray is what it was, and
-    ``probe_budget_overflow`` counts only a live ray's dropped probe."""
-    scfg = cfg.ray_sampler
-    S = cfg.max_shading_pts
-    K = cfg.k
+def _sample_z(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
+              cfg: ModelConfig, train: bool, iters: int, beta0, generator,
+              draws, ray_ok):
+    """The error-bounded z-values of the disentangled model and the probe
+    budget's overflow flag.  Probe budgets (renderer.py:205-211): dense at
+    >= 1; a training render's calibrated fraction applies to the first,
+    uniform-z probe only, the later surface-concentrated probes keep the
+    gated 0.25."""
     n_rays = ray_dirs.shape[0]
-
-    beta0 = get_beta(tp["beta"], cfg.density.beta_min).detach()
-    # probe budgets (renderer.py:205-211): dense at >= 1; a training
-    # render's calibrated fraction applies to the first, uniform-z probe
-    # only, the later surface-concentrated probes keep the gated 0.25
     if cfg.probe_budget_frac >= 1:
         pf_first = pf_rest = None
     elif train and 0 < cfg.probe_budget_frac < 1:
@@ -195,34 +182,104 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
                                need_grad=False, return_overflow=True,
                                fused_agg=cfg.fused_agg, live=live)
 
-    z_all, probe_overflow = error_bound_z_vals(
-        sdf_probe_fn, cam_loc, ray_dirs, scfg, beta0, iters, train=train,
-        generator=generator, draws=draws)
+    return error_bound_z_vals(sdf_probe_fn, cam_loc, ray_dirs,
+                              cfg.ray_sampler, beta0, iters, train=train,
+                              generator=generator, draws=draws)
+
+
+def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
+                 depth_scale, cfg: ModelConfig, *, train: bool, iters: int,
+                 generator=None, draws=None, ray_ok=None):
+    """The render of ``[R]`` rays.  ``ray_ok`` ``[R]`` bool: the ray
+    budget's live slots (:func:`field.compact_pair_slots`' ok, a prefix);
+    the spare slots repeat the batch's last ray and their outputs are cut
+    away, so their probe points take no probe-budget slot and read as
+    empty space.  The live points keep their ranks (every spare point
+    comes after them), so every output of a live ray is what it was, and
+    ``probe_budget_overflow`` counts only a live ray's dropped probe.
+    ``prior`` is None for the entangled model, which has no frozen
+    prior."""
+    scfg = cfg.ray_sampler
+    S = cfg.max_shading_pts
+    K = cfg.k
+    n_rays = ray_dirs.shape[0]
+
+    beta0 = get_beta(tp["beta"], cfg.density.beta_min).detach()
+    if cfg.entangled:
+        # the legacy model samples uniformly only (reference
+        # pointneus.py:73-75)
+        draws = draws or {}
+        z_all = uniform_z_vals(n_rays, scfg.near, scfg.far, scfg.n_samples,
+                               train, cam_loc.device, u=draws.get("u_z"),
+                               generator=generator)
+        probe_overflow = torch.zeros((), dtype=torch.bool,
+                                     device=cam_loc.device)
+    else:
+        z_all, probe_overflow = _sample_z(prior, tp, scene, cam_loc,
+                                          ray_dirs, cfg, train, iters,
+                                          beta0, generator, draws, ray_ok)
     z_all = z_all.detach()
+    # at most max_shading_pts of a ray's samples are shaded; the entangled
+    # model's uniform grid has fewer than that at the default config (64 <
+    # 80), where the JAX package's compaction keeps 64 columns and its
+    # shading fails on the mismatch (tests/test_torch_entangled.py)
+    S = min(S, z_all.shape[1])
     points = cam_loc[:, None, :] + z_all[..., None] * ray_dirs[:, None, :]
+    flat_pts = points.reshape(-1, 3)
 
-    # query all samples, then first-S compaction by has-neighbour
-    idx_all, _ = query_grid(points.reshape(-1, 3), scene.table, scene.spec,
-                            k=K)
-    idx_all = idx_all.reshape(n_rays, -1, K)
-    has_any = torch.any(idx_all >= 0, dim=-1)               # [R, Z]
-    sel, sel_valid = compact_rays(has_any, S)               # [R, S]
-    z_sel = torch.where(sel_valid, _take(z_all, sel), 0.0)
-    nbr_idx = _take(idx_all, sel)                           # [R, S, K]
-    nbr_valid = (nbr_idx >= 0) & sel_valid[..., None]
+    if cfg.occ_compact and train and not 0 < cfg.ray_budget_frac < 1:
+        # the training occ_compact (renderer.py:231-267): fine occupancy
+        # picks the S columns first and only those run the kNN query.
+        # Occupancy over-selects; a column with no neighbour renders as
+        # empty space (its -1 ids reach the kernels as dump pairs), and
+        # each valid column's delta spans to the next VALID column's z (a
+        # reverse cummin), as the reference's compacted deltas do
+        occ = fine_occupancy(flat_pts, scene.occ_fine, scene.spec)
+        sel, sel_col = compact_rays(occ.reshape(n_rays, -1), S)
+        z_sel = torch.where(sel_col, _take(z_all, sel), 0.0)
+        q_pts = cam_loc[:, None, :] + z_sel[..., None] * ray_dirs[:, None, :]
+        nbr_idx, _ = query_grid(q_pts.reshape(-1, 3), scene.table,
+                                scene.spec, k=K)
+        nbr_idx = torch.where(sel_col[..., None],
+                              nbr_idx.reshape(n_rays, S, K), -1)
+        nbr_valid = nbr_idx >= 0
+        sel_valid = torch.any(nbr_valid, dim=-1)            # [R, S]
+        z_v = torch.where(sel_valid, z_sel, torch.inf)
+        nxt = torch.flip(torch.cummin(torch.flip(z_v, (-1,)), -1).values,
+                         (-1,))
+        nxt = torch.cat([nxt[..., 1:], torch.full_like(nxt[..., :1],
+                                                       torch.inf)], -1)
+        deltas = torch.where(sel_valid & torch.isfinite(nxt), nxt - z_sel,
+                             0.0)
+        deltas = torch.clamp(deltas, min=0.0)
+    else:
+        # query all samples, then first-S compaction by has-neighbour
+        idx_all, _ = query_grid(flat_pts, scene.table, scene.spec, k=K)
+        idx_all = idx_all.reshape(n_rays, -1, K)
+        has_any = torch.any(idx_all >= 0, dim=-1)           # [R, Z]
+        sel, sel_valid = compact_rays(has_any, S)           # [R, S]
+        z_sel = torch.where(sel_valid, _take(z_all, sel), 0.0)
+        nbr_idx = _take(idx_all, sel)                       # [R, S, K]
+        nbr_valid = (nbr_idx >= 0) & sel_valid[..., None]
 
-    # deltas over the compacted grid (reference filter_points :226-232)
-    z_pad = torch.cat([z_sel, torch.zeros_like(z_sel[..., :1])], -1)
-    deltas = z_pad[..., 1:] - z_pad[..., :-1]
-    deltas = torch.clamp(torch.where(sel_valid, deltas, 0.0), min=0.0)
+        # deltas over the compacted grid (reference filter_points :226-232)
+        z_pad = torch.cat([z_sel, torch.zeros_like(z_sel[..., :1])], -1)
+        deltas = z_pad[..., 1:] - z_pad[..., :-1]
+        deltas = torch.clamp(torch.where(sel_valid, deltas, 0.0), min=0.0)
 
     shading_pts = cam_loc[:, None, :] + z_sel[..., None] * ray_dirs[:, None, :]
     flat_x = shading_pts.reshape(-1, 3)
     flat_idx = nbr_idx.reshape(-1, K)
     flat_valid = nbr_valid.reshape(-1, K)
 
-    geo_t = tp["feats_geometry"]
-    if cfg.render_budget_frac > 0:
+    colors = None
+    if cfg.entangled:
+        flat_dirs = ray_dirs[:, None, :].expand(n_rays, S, 3).reshape(-1, 3)
+        sdf_flat, grad_flat, colors_flat = field.entangled_sdf_grad_color(
+            tp, tp["feats"], scene.points, flat_idx, flat_valid, flat_x,
+            flat_dirs)
+        colors = colors_flat.reshape(n_rays, S, 3)
+    elif cfg.render_budget_frac > 0:
         # the first `budget` valid shading points of the flat [R*S] grid
         # (a sort, renderer.py:302-329); dropped points render as empty
         # space
@@ -234,7 +291,7 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
         bsel_ok = order < m
         bsel = torch.clamp(order, max=m - 1)
         s_c, g_c = field.sdf_and_grad(
-            prior, geo_t, scene.points, flat_idx[bsel],
+            prior, tp["feats_geometry"], scene.points, flat_idx[bsel],
             flat_valid[bsel] & bsel_ok[:, None], flat_x[bsel], cfg.rbf,
             fused_agg=cfg.fused_agg)
         to = (torch.where(bsel_ok, bsel, m),)
@@ -251,12 +308,12 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
         budget = max(int(n_rays * S * K * cfg.pair_budget_frac) // 256 * 256,
                      256)
         sdf_flat, grad_flat = field.sdf_and_grad_pairs(
-            prior, geo_t, scene.points, flat_idx, flat_valid, flat_x,
-            cfg.rbf, budget)
+            prior, tp["feats_geometry"], scene.points, flat_idx, flat_valid,
+            flat_x, cfg.rbf, budget)
     else:
         sdf_flat, grad_flat = field.sdf_and_grad(
-            prior, geo_t, scene.points, flat_idx, flat_valid, flat_x,
-            cfg.rbf, fused_agg=cfg.fused_agg)
+            prior, tp["feats_geometry"], scene.points, flat_idx, flat_valid,
+            flat_x, cfg.rbf, fused_agg=cfg.fused_agg)
     sdf = sdf_flat.reshape(n_rays, S)
     gradients = grad_flat.reshape(n_rays, S, 3)
 
@@ -267,7 +324,10 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
     acc = torch.sum(weights, -1, keepdim=True)
 
     W = cfg.color_top_samples
-    if 0 < W < S:
+    if colors is not None:
+        colors = torch.where(valid_pt[..., None], colors, 0.0)
+        rgb = torch.sum(weights[..., None] * colors, dim=1)
+    elif 0 < W < S:
         # colour only the top-W samples per ray by rendering weight,
         # rescaled to the total weight mass.  A stable descending sort
         # breaks ties by the lower index, as lax.top_k does.

@@ -4,9 +4,10 @@
   * ``make_train_step`` builds ``loss_fn``, ``sample_batch`` and
     ``train_step``: one step samples a view and its pixels on the card,
     renders them (``render_rays(train=True)``), adds the TV and pseudo-SDF
-    terms, takes the gradient of every trained tensor and applies the
-    guarded two-group Adam (``train.optim``).  Nothing in a step waits on
-    the card, so the host runs ahead of it.
+    terms (not for the entangled model) and, with a local bundle, the
+    Vis-MVSNet feature loss, takes the gradient of every trained tensor
+    and applies the guarded two-group Adam (``train.optim``).  Nothing in
+    a step waits on the card, so the host runs ahead of it.
   * ``Trainer`` owns the scene, the parameters and the optimizer state,
     calibrates the auto ray/probe budgets on the host, and runs windows of
     steps, reading their metrics back once per window.
@@ -26,6 +27,11 @@ from spurfies_tpu_torch.config import Config
 from spurfies_tpu_torch.core.cameras import get_camera_params
 from spurfies_tpu_torch.core.metrics import psnr as psnr_fn
 from spurfies_tpu_torch.device import resolve_device
+from spurfies_tpu_torch.data.mvs_local import SRC_MAP
+from spurfies_tpu_torch.model.local_loss import (
+    find_surface_depth,
+    local_feature_loss,
+)
 from spurfies_tpu_torch.model.losses import total_loss
 from spurfies_tpu_torch.model.networks import init_model_params
 from spurfies_tpu_torch.model.neural_points import build_scene
@@ -57,8 +63,9 @@ def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16):
     only those are rendered, the rest get the exact miss defaults.
 
     ``compute_dtype`` is the frozen prior's matmul dtype (bf16, as the JAX
-    package's ``FUSED_MLP_DTYPE``); the colour MLPs run in bf16.  Eval draws
-    no random numbers.
+    package's ``FUSED_MLP_DTYPE``); the colour MLPs run in bf16.  The
+    entangled model (``frozen`` empty) runs its MLPs in f32.  Eval draws no
+    random numbers.
     """
     mcfg = cfg.model
     dev = resolve_device(device)
@@ -93,7 +100,7 @@ def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16):
         pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
         intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32,
                                      device=dev)
-        params = {"frozen": _prep_layers(frozen, compute_dtype), "train": tp}
+        params = {"frozen": _prior(frozen, compute_dtype), "train": tp}
         uv = np.asarray(uv, dtype=np.float32)
         n = uv.shape[0]
         eff = min(chunk, -(-n // align) * align)
@@ -136,6 +143,12 @@ def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16):
                 for k in _KEEP}
 
     return render_image
+
+
+def _prior(frozen, compute_dtype):
+    """The prepared frozen prior, or None for the entangled model (its
+    frozen tree is empty)."""
+    return _prep_layers(frozen, compute_dtype) if frozen else None
 
 
 def _calibrate_ray_budget(scene, views, cfg: Config):
@@ -223,13 +236,16 @@ class TrainState:
 _SUM_KEYS = ("ray_overflow", "probe_overflow")
 
 
-def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda"):
+def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda",
+                    use_local: bool = False):
     """``(loss_fn, sample_batch, train_step)`` for ``cfg`` on ``device``
     (``spurfies_tpu/train/trainer.py:147-275``).
 
     * ``loss_fn(tp, bundle, batch, step, generator=None, draws=None)`` ->
       ``(loss, parts)``.  bundle: ``{"scene", "prior", "views"}`` with the
-      prior prepared by ``ops.pair_mlp._prep_layers``.  draws: optional
+      prior prepared by ``ops.pair_mlp._prep_layers`` (None for the
+      entangled model), and ``"local"`` (:meth:`Trainer.bundle`'s local
+      context) when ``use_local``.  draws: optional
       tensors for the random numbers of the step -- the sampler's
       (``model.sampler.error_bound_z_vals``), ``"cloud_sel"`` and
       ``"fd_sel"``/``"fd_u"``; absent ones come from ``generator``.
@@ -240,8 +256,9 @@ def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda"):
       step in place on ``state``; returns its metrics as 0-d tensors on
       the card.  ``batch`` defaults to ``sample_batch``'s draw.
 
-    ``loss.local_weight > 0`` with a local bundle has no port yet
-    (``Trainer`` raises).
+    ``use_local``: add the local feature loss (``trainer.py:209-227``) at
+    the first backward-facing SDF crossing of each ray, against the
+    batch's view and its two sources.
     """
     mcfg, lcfg = cfg.model, cfg.loss
     n_pix = cfg.train.num_pixels
@@ -254,17 +271,31 @@ def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda"):
         params = {"frozen": bundle["prior"], "train": tp}
         out = render_rays(params, scene, batch["inputs"], mcfg, train=True,
                           iters=fast, generator=generator, draws=draws)
-        out["tv_loss"] = tv_loss(params, scene)
-        out["pseudo_pts_loss"] = pseudo_sdf_loss(params, scene, out, mcfg)
-        if lcfg.cloud_anchor_weight > 0:
-            out["cloud_anchor_loss"] = cloud_anchor_loss(
-                params, scene, mcfg, generator=generator,
-                sel=draws.get("cloud_sel"))
-        if lcfg.fd_eikonal_weight > 0:
-            out["fd_eikonal_loss"] = fd_eikonal_loss(
-                params, scene, out, mcfg, n_sub=lcfg.fd_eikonal_points,
-                generator=generator, sel=draws.get("fd_sel"),
-                u=draws.get("fd_u"))
+        if not mcfg.entangled:  # the legacy model: rgb, eikonal, mask only
+            out["tv_loss"] = tv_loss(params, scene)
+            out["pseudo_pts_loss"] = pseudo_sdf_loss(params, scene, out,
+                                                     mcfg)
+            if lcfg.cloud_anchor_weight > 0:
+                out["cloud_anchor_loss"] = cloud_anchor_loss(
+                    params, scene, mcfg, generator=generator,
+                    sel=draws.get("cloud_sel"))
+            if lcfg.fd_eikonal_weight > 0:
+                out["fd_eikonal_loss"] = fd_eikonal_loss(
+                    params, scene, out, mcfg, n_sub=lcfg.fd_eikonal_points,
+                    generator=generator, sel=draws.get("fd_sel"),
+                    u=draws.get("fd_u"))
+        if use_local:
+            ctx = bundle["local"]
+            d_surf, surf_mask = find_surface_depth(out["sdf"], out["z_sel"],
+                                                   out["valid_pt"])
+            surface = out["cam_loc"] + out["ray_dirs"] * d_surf[:, None]
+            # the view as a [1] index: nothing is read back
+            v = batch["view"]
+            src = ctx["src"][v][0]
+            out["local_loss"] = local_feature_loss(
+                surface, surf_mask & out["ray_mask"], ctx["feats"][v][0],
+                ctx["feats"][src], ctx["cams"][v][0], ctx["cams"][src],
+                ctx["size"], ctx["center"])
         loss, parts = total_loss(out, batch["gt"], lcfg, step=step)
         parts["psnr"] = psnr_fn(out["rgb_values"],
                                 batch["gt"]["rgb"].reshape(-1, 3))
@@ -327,14 +358,15 @@ class Trainer:
       device: where everything runs (the card unless ``"cpu"``).
       compute_dtype: the frozen prior's matmul dtype (bf16, the kernels'
         dtype; f32 only on the CPU).
+      local_bundle: a :class:`data.mvs_local.LocalBundle`; with
+        ``loss.local_weight > 0`` its features, hd cameras, the source map
+        of the train views and the world denormalization go to the device
+        (``self.local_ctx``) and every step adds the local feature loss.
     """
 
     def __init__(self, cfg: Config, point_cloud, colors, views,
                  local_bundle=None, device="cuda",
                  compute_dtype=torch.bfloat16):
-        if local_bundle is not None and cfg.loss.local_weight > 0:
-            raise NotImplementedError(
-                "the local feature loss: ROADMAP.md Queue 1 item 14")
         if cfg.train.data_parallel > 1:
             raise NotImplementedError(
                 "train.data_parallel > 1: ROADMAP.md Queue 1 item 19")
@@ -368,22 +400,38 @@ class Trainer:
             torch.zeros((), dtype=torch.int32, device=self.device))
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed + 1)
+        self.local_ctx = None
+        if local_bundle is not None and cfg.loss.local_weight > 0:
+            dev = self.device
+            self.local_ctx = {
+                "feats": torch.as_tensor(local_bundle.feats, device=dev),
+                "cams": torch.as_tensor(local_bundle.cams_hd, device=dev),
+                "src": torch.tensor(
+                    [SRC_MAP[i] for i in range(self.views["rgb"].shape[0])],
+                    dtype=torch.int64, device=dev),
+                "size": torch.tensor(float(local_bundle.size), device=dev),
+                "center": torch.as_tensor(local_bundle.center,
+                                          dtype=torch.float32, device=dev)}
         self.loss_fn, self.sample_batch, self.train_step = make_train_step(
-            cfg, self.optimizer, self.device)
+            cfg, self.optimizer, self.device,
+            use_local=self.local_ctx is not None)
         self._render = make_render_fn(cfg, self.device, compute_dtype)
 
     @property
     def bundle(self):
-        return {"scene": self.scene, "prior": self.prior,
-                "views": self.views}
+        b = {"scene": self.scene, "prior": self.prior, "views": self.views}
+        if self.local_ctx is not None:
+            b["local"] = self.local_ctx
+        return b
 
     def load_frozen(self, frozen_params):
         """Install the frozen prior (reference train.py:124-143): a tree of
-        tensors ``{"F_geometry": [...], "T": [...]}``."""
+        tensors ``{"F_geometry": [...], "T": [...]}`` (empty for the
+        entangled model)."""
         self.frozen = {k: [{kk: t.to(self.device) for kk, t in layer.items()}
                            for layer in v]
                        for k, v in frozen_params.items()}
-        self.prior = _prep_layers(self.frozen, self.compute_dtype)
+        self.prior = _prior(self.frozen, self.compute_dtype)
 
     def render_image(self, uv, pose, intrinsics):
         """A full image through ``make_render_fn`` with the current

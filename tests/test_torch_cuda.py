@@ -853,3 +853,56 @@ def test_marching_on_the_card_is_the_cpus(cuda):
         assert len(fc) > 0
         np.testing.assert_array_equal(fd, fc)
         np.testing.assert_array_equal(vd, vc)
+
+
+@pytest.mark.cuda
+def test_featext_on_the_card_is_the_cpus(cuda):
+    """The Vis-MVSNet extractor (random weights in the reference's key
+    layout) on the card against the CPU on the same 2x3x192x256 batch:
+    f32 with TF32 off on both, so every head within 1e-4 of its scale
+    (cuDNN's sum order), and the same on a second call."""
+    from spurfies_tpu_torch.convert.torch_ckpt import convert_vismvsnet
+    from spurfies_tpu_torch.data.synthetic import random_vismvsnet_state
+
+    state = random_vismvsnet_state(0)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 3, 192, 256)).astype(np.float32))
+    with torch.no_grad():
+        cpu = convert_vismvsnet(state, "cpu")(x)
+        fx = convert_vismvsnet(state, cuda)
+        dev = fx(x.to(cuda))
+        again = fx(x.to(cuda))
+    for a, b, c in zip(dev, cpu, again):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+        assert float((a - c).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_pretraining_step_on_the_card(cuda, monkeypatch):
+    """One pretraining step on the card (K1 packed on a shape's table, the
+    decoder's double backward in f32) against the same step with K1's
+    plain version: the same ids, so the loss within 1e-6 relative and
+    every gradient within 1e-5 relative L2 (the latents' gather adds in
+    another order on the card); K1 launched once."""
+    from spurfies_tpu_torch.prior import pretrain as tpre
+    from spurfies_tpu_torch.train.optim import flatten
+
+    cfg = tpre.PriorConfig(n_shapes=2, n_surface_cap=4096, n_query=8192,
+                           batch_queries=4096)
+    corpus, spec = tpre.build_corpus(cfg, device=cuda)
+    params = tpre.init_prior_params(cfg, torch.Generator().manual_seed(0),
+                                    cuda)
+    qidx = torch.randperm(cfg.n_query, device=cuda)[:cfg.batch_queries]
+    before = sk.LAUNCHES["select_knn_packed"]
+    loss, _ = tpre.prior_loss(params, corpus, spec, cfg, 1, qidx)
+    grads = torch.autograd.grad(loss, flatten(params))
+    assert sk.LAUNCHES["select_knn_packed"] == before + 1
+    monkeypatch.setattr(vg, "select_knn", sk.select_knn_ref)
+    loss_p, _ = tpre.prior_loss(params, corpus, spec, cfg, 1, qidx)
+    grads_p = torch.autograd.grad(loss_p, flatten(params))
+    assert abs(float(loss) - float(loss_p)) <= 1e-6 * abs(float(loss_p))
+    for a, b in zip(grads, grads_p):
+        assert torch.isfinite(a).all()
+        assert float(torch.linalg.vector_norm(a - b)) <= 1e-5 * float(
+            torch.linalg.vector_norm(b)) + 1e-30

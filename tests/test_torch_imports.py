@@ -4,8 +4,10 @@ or anything of spurfies_tpu, and every port
 module (``scripts/`` and ``eval/`` too) imports with JAX made
 unimportable.  Nor do they import the libraries that the card's machine
 lacks (imageio, cv2, matplotlib, yaml, tensorboardX, sklearn); Pillow only
-in the JPEG branch of ``data.scene_data.read_image``.  A DTU scene exported by the port loads,
-and ``configs/dtu_pn.yaml`` reads, with all of them unimportable."""
+in the JPEG branch of ``data.scene_data.read_image``.  A DTU scene
+exported by the port loads, ``configs/dtu_pn.yaml`` reads, the local
+loss's bundle builds and the prior pretrains with all of them
+unimportable."""
 
 import ast
 import os
@@ -121,7 +123,14 @@ def test_every_module_imports_without_jax():
             "spurfies_tpu_torch.eval.mesh_extract",
             "spurfies_tpu_torch.eval.nvs",
             "spurfies_tpu_torch.eval.ssim",
-            "spurfies_tpu_torch.scripts.micro_gather"} <= set(names)
+            "spurfies_tpu_torch.scripts.micro_gather",
+            "spurfies_tpu_torch.model.local_loss",
+            "spurfies_tpu_torch.model.featext",
+            "spurfies_tpu_torch.data.mvs_local",
+            "spurfies_tpu_torch.prior.shapes",
+            "spurfies_tpu_torch.prior.mesh_corpus",
+            "spurfies_tpu_torch.prior.pretrain",
+            "spurfies_tpu_torch.cli.pretrain_prior"} <= set(names)
     code = (
         "import sys\n"
         f"for m in {BLOCKED!r}:\n"
@@ -159,6 +168,43 @@ def test_scene_loads_without_the_absent_libraries(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr
+
+
+def test_local_loss_and_pretraining_without_the_absent_libraries(tmp_path):
+    """In a process where JAX, cv2, imageio, Pillow and the others cannot be
+    imported: the Vis-MVSNet fixtures of an exported DTU scene are
+    written, a random-weight checkpoint converted, the local bundle built
+    (PNG read as BGR, the bilinear resize, the extractor; 384x512
+    images), and two pretraining steps run on a two-shape corpus."""
+    code = (
+        "import sys\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from spurfies_tpu_torch.convert.torch_ckpt import "
+        "convert_vismvsnet\n"
+        "from spurfies_tpu_torch.data.mvs_local import build_local_bundle\n"
+        "from spurfies_tpu_torch.data.synthetic import (\n"
+        "    export_synthetic_dtu, export_synthetic_mvs,\n"
+        "    random_vismvsnet_state)\n"
+        "from spurfies_tpu_torch.prior import pretrain as p\n"
+        f"root = {str(tmp_path)!r}\n"
+        "export_synthetic_dtu(root, scan_id=24, n_views=30,\n"
+        "                     img_res=(24, 32), n_points=500)\n"
+        "export_synthetic_mvs(root, scan_id=24)\n"
+        "fx = convert_vismvsnet(random_vismvsnet_state(0), 'cpu')\n"
+        "b = build_local_bundle(root, 24, fx, np.eye(4, dtype=np.float32),\n"
+        "                       feat_img_scale=1, device='cpu')\n"
+        "assert b.feats.shape == (3, 192, 256, 32), b.feats.shape\n"
+        "cfg = p.PriorConfig(n_shapes=2, n_surface_cap=512, n_query=256,\n"
+        "                    batch_queries=128, spacing=0.05, steps=2)\n"
+        "params, hist = p.pretrain(cfg, log_every=1, device='cpu')\n"
+        "assert len(hist) == 2 and np.isfinite(hist[-1]['loss'])\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr
 
 
