@@ -171,7 +171,19 @@ failure exits non-zero before the last line):
      once a step, sdf_l1 falling, steps/s), one step through K1 against
      its plain version, and the saved npz in a ``Trainer``
      (``load_frozen``) rendering a chunk;
- 22. the ``kernels`` JSON line (launches by render, training, evaluation
+ 22. point-cloud prep (``prep_phase``) at ``Dust3rConfig()``'s full width
+     (ViT-L encoder, two ViT-B decoders, 384x512 images): a random-weight
+     checkpoint in the upstream key layout, written as f16; one pair
+     through the network on the card against the CPU (PREP_TOL of each
+     output's scale); then ``cli.prep_pointcloud.main`` on the first three
+     images of phase 15's scan (``--device cuda --conf PREP_CONF``): the
+     weights' load and convert time, each pair's ms, the alignment's
+     seconds and first and last loss, the points kept by the confidence
+     filter and by the subsample, peak device memory, 0 launches of the
+     TPU-kernel counterparts (this path has none), the alignment loop run
+     again on the CLI's pointmaps with 0 host syncs, and the ``.ply`` and
+     ``.json`` read back;
+ 23. the ``kernels`` JSON line (launches by render, training, evaluation
      and microbenchmark runs), the ``redesign_order`` line (the kernels
      ranked by launches x (ms - bound_ms) in this run) and the
      ``redesign_order_kernel_ms`` line (the same with the C entry's time
@@ -234,6 +246,14 @@ LOCAL_STEPS = 100
 # phase 21: prior pretraining at PriorConfig's widths, cut to PRIOR_STEPS
 # of its 20,000 steps; K1 once a step
 PRIOR_STEPS = 500
+# phase 22: point-cloud prep at Dust3rConfig()'s full width, random weights;
+# with them the head's c is about N(0, 0.58) (a LayerNorm'd token through a
+# +-1/sqrt(768) uniform linear), so conf = 1 + exp(c) >= PREP_CONF keeps
+# about a quarter of the 3 x 384 x 512 points (the CLI's default, 10, would
+# keep almost none); the card's pair against the CPU's within PREP_TOL of
+# each output's scale (f32, TF32 off on both: only the sum order differs)
+PREP_CONF = 2.5
+PREP_TOL = 1e-4
 # the fused colour path's training step: the default's launches, with the
 # colour stack through the pack (once a step), K8a forward and K8b backward
 # (its latents' K5 stays)
@@ -3171,6 +3191,236 @@ def pretrain_phase(smi, tmp, cfg, pts, cols, views, view):
     return launches, launches_render
 
 
+def dust3r_pair_flops(cfg):
+    """Products of one DUSt3R pair (two encodes, both decoders, both
+    heads): 2 flops a multiply-add, attention's two products included."""
+    n = cfg.n_tokens
+    de, dd = cfg.enc_dim, cfg.dec_dim
+    enc = (2 * n * 3 * cfg.patch ** 2 * de
+           + cfg.enc_depth * (24 * n * de * de + 4 * n * n * de))
+    dec = cfg.dec_depth * (32 * n * dd * dd + 8 * n * n * dd)
+    heads = 2 * n * dd * cfg.patch ** 2 * 4
+    return 2 * enc + 2 * (2 * n * de * dd) + 2 * dec + 2 * heads
+
+
+def prep_profile(fn):
+    """:func:`profiled` without the port's kernels' groups (the prep path
+    launches none)."""
+    prof = profiled(fn)
+    return {k: v for k, v in prof.items()
+            if k not in ("kernel_ms", "kernel_parts_ms")}
+
+
+def prep_phase(smi, tmp):
+    """Phase 22: point-cloud prep through ``cli.prep_pointcloud.main`` at
+    ``Dust3rConfig()``'s full width on the first three images of phase
+    15's scan under ``tmp`` (576x768 PNGs, resized to 384x512 by the
+    CLI).  A checkpoint of random weights in the upstream key layout
+    (``prep.dust3r_net.random_dust3r_state``, seeded) is written as f16.
+    First one pair through the network on the card against the CPU (each
+    output within PREP_TOL of its scale); then the CLI with ``--device cuda
+    --conf PREP_CONF`` (counters set to 0 just before it), its parts timed
+    by spies.  It fails unless every output is finite, the three pairs ran,
+    the alignment's losses are finite, points survive the filter and the
+    subsample, no TPU-kernel counterpart was launched (this path has
+    none), the alignment loop run again on the CLI's pointmaps makes no
+    host sync, and the ``.ply`` and ``.json`` read back with the counts
+    printed."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.cli import prep_pointcloud as cli_prep
+    from spurfies_tpu_torch.data.ply import load_ply
+    from spurfies_tpu_torch.data.scene_data import glob_images, load_image
+    from spurfies_tpu_torch.prep import alignment, pointcloud
+    from spurfies_tpu_torch.prep import dust3r_net as dn
+
+    t_phase = time.perf_counter()
+    cfg = dn.Dust3rConfig()
+    work = os.path.join(tmp, "prep")
+    os.makedirs(work)
+    ckpt = os.path.join(work, "dust3r.pth")
+    t0 = time.perf_counter()
+    state = dn.random_dust3r_state(cfg, seed=0, dtype=torch.float16)
+    n_params = sum(v.numel() for v in state["model"].values())
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.save(state, ckpt)
+    save_s = time.perf_counter() - t0
+    del state
+    log(f"prep: random DUSt3R checkpoint at Dust3rConfig() (encoder "
+        f"{cfg.enc_depth} x {cfg.enc_dim}, decoders 2 x {cfg.dec_depth} x "
+        f"{cfg.dec_dim}, images {cfg.img_size}): {n_params:,} parameters, "
+        f"drawn in {make_s:.2f} s, written as f16 "
+        f"({os.path.getsize(ckpt) / 2 ** 30:.3f} GiB) in {save_s:.2f} s")
+
+    images = os.path.join(tmp, "data", "dtu", "scan24", "image")
+    paths = glob_images(images)[:3]
+    imgs = [torch.from_numpy(load_image(p, cfg.img_size) * 2.0 - 1.0)
+            for p in paths]
+
+    # one pair on the card against the CPU, the same weights and images
+    net_cpu = dn.convert_dust3r(ckpt, cfg)
+    net = dn.Dust3rNet(net_cpu.params, cfg).to("cuda")
+    a, b = imgs[0].cuda(), imgs[1].cuda()
+    out_dev = net(a, b)
+    pair_ms = cuda_ms(lambda: net(a, b), 3)
+    t0 = time.perf_counter()
+    out_cpu = net_cpu(imgs[0], imgs[1])
+    cpu_s = time.perf_counter() - t0
+    flops = dust3r_pair_flops(cfg)
+    errs = {}
+    for k, ref in out_cpu.items():
+        scale = float(ref.abs().max())
+        errs[k] = float((out_dev[k].cpu() - ref).abs().max()) / scale
+    log(f"prep: pair (0, 1) on the card {pair_ms:.2f} ms "
+        f"({flops / 1e12:.3f} TFLOP, {flops / pair_ms / 1e9:.1f} TFLOP/s; "
+        f"f32 bound {flops / PEAK_F32_FLOPS * 1e3:.2f} ms), on the CPU "
+        f"{cpu_s:.2f} s; max abs err by output, over its scale: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (limit {PREP_TOL:g}: f32, TF32 off) [{smi}]")
+    if not all(bool(torch.isfinite(v).all()) for v in out_dev.values()):
+        fail("prep: the network's outputs on the card are not finite")
+    if not max(errs.values()) <= PREP_TOL:
+        fail("prep: the network on the card differs from the CPU")
+    log(f"profile prep pair: {json.dumps(prep_profile(lambda: net(a, b)))} "
+        f"[{smi}]")
+    del net, net_cpu, out_dev, out_cpu, a, b
+    torch.cuda.empty_cache()
+
+    rec = {"convert_s": [], "pair_ms": [], "filter": [], "subsample": []}
+
+    def spy_convert(fn):
+        def f(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            rec["convert_s"].append(time.perf_counter() - t0)
+            return out
+        return f
+
+    def spy_pair(fn):
+        def f(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec["pair_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return f
+
+    def spy_align(fn):
+        def f(*a, **k):
+            rec["align_in"] = (a, k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            rec["align_s"] = time.perf_counter() - t0
+            rec["align"] = out
+            return out
+        return f
+
+    def spy_filter(fn):
+        def f(points, *a, **k):
+            out = fn(points, *a, **k)
+            rec["filter"].append((len(points), len(out[0])))
+            return out
+        return f
+
+    def spy_subsample(fn):
+        def f(points, *a, **k):
+            t0 = time.perf_counter()
+            keep = fn(points, *a, **k)
+            rec["subsample"].append((len(points), len(keep),
+                                     time.perf_counter() - t0))
+            return keep
+        return f
+
+    wrap = {"convert_dust3r": spy_convert, "infer_pair": spy_pair,
+            "align_pointmaps": spy_align,
+            "filter_by_confidence": spy_filter,
+            "radius_dedup": spy_subsample}
+    sites = [(cli_prep, "convert_dust3r", None), (dn, "infer_pair", None),
+             (cli_prep, "align_pointmaps", None),
+             (pointcloud, "filter_by_confidence", None),
+             (pointcloud, "radius_dedup", None)]
+    out_root = os.path.join(work, "out")
+    args = ["--scan", "prep24", "--images", images, "--ckpt", ckpt,
+            "--out-root", out_root, "--conf", str(PREP_CONF),
+            "--device", "cuda"]
+    base = torch.cuda.memory_allocated()
+    with substituted(lambda fn, _: wrap[fn.__name__](fn), sites):
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = cli_prep.main(args)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_pts = 3 * cfg.img_size[0] * cfg.img_size[1]
+    losses = rec["align"]["losses"]
+    [(n_in, n_conf)] = rec["filter"]
+    [(n_sub_in, n_kept, sub_s)] = rec["subsample"]
+    log(f"prep: CLI end to end {cli_s:.2f} s: weights loaded and converted "
+        f"in {rec['convert_s'][0]:.2f} s; pairs "
+        + ", ".join(f"{ms:.2f}" for ms in rec["pair_ms"])
+        + f" ms; alignment {rec['align_s']:.3f} s "
+        f"({len(losses)} iterations, loss {losses[0]:.6g} -> "
+        f"{losses[-1]:.6g}); confidence filter (>= {PREP_CONF}) kept "
+        f"{n_conf:,} of {n_in:,} points ({n_conf / n_in:.4f}); subsample "
+        f"(0.025) kept {n_kept:,} in {sub_s:.3f} s; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB ({base / 2 ** 30:.3f} allocated before "
+        f"the CLI) [{smi}]")
+    if any(launches.values()):
+        fail(f"prep: the prep path launched TPU-kernel counterparts "
+             f"{launches}")
+    log(f"prep: launches of the TPU-kernel counterparts {launches} (this "
+        f"path runs none of them)")
+    if len(rec["pair_ms"]) != 3 or n_in != n_pts:
+        fail(f"prep: {len(rec['pair_ms'])} pairs, {n_in} points")
+    if not np.isfinite(losses).all():
+        fail("prep: an alignment loss is not finite")
+    if not (0 < n_kept <= n_conf == n_sub_in):
+        fail("prep: no point survived the filter and the subsample")
+
+    # the alignment loop again on the CLI's pointmaps: no host sync in it
+    a, k = rec["align_in"]
+    st = alignment.init_alignment(a[0], *a[1:5], k["n_views"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    syncs = syncs_in(lambda: alignment.run_alignment(st, k["cfg"]))
+    loop_s = time.perf_counter() - t0
+    log(f"prep: host syncs in the alignment loop ({k['cfg'].iters} "
+        f"iterations, {loop_s:.3f} s alone): {len(syncs)}"
+        + (f" (first: {syncs[0]})" if syncs else ""))
+    if syncs:
+        fail("prep: the alignment loop waits on the card")
+    st = alignment.init_alignment(a[0], *a[1:5], k["n_views"])
+    aprof = prep_profile(lambda: alignment.run_alignment(
+        st, alignment.AlignConfig(iters=20)))
+    log(f"profile prep alignment (20 iterations): {json.dumps(aprof)} "
+        f"[{smi}]")
+    del st, rec
+
+    # the exported scene read back
+    out_dir = res["out_dir"]
+    pts, cols = load_ply(os.path.join(out_dir, "prep24.ply"))
+    with open(os.path.join(out_dir, "prep24.json")) as f:
+        meta = json.load(f)
+    mats = np.asarray([fr["transform_matrix"] for fr in meta["frames"]])
+    if (len(pts) != n_kept or cols is not None
+            or not np.isfinite(pts).all() or mats.shape != (3, 4, 4)
+            or not np.isfinite(mats).all()
+            or (meta["w"], meta["h"]) != (512, 384)):
+        fail(f"prep: the exported scene reads back wrong ({len(pts)} "
+             f"points, frames {mats.shape})")
+    log(f"prep: read back {len(pts):,} points (range "
+        f"{pts.min():.4f} .. {pts.max():.4f}) and {len(mats)} cameras; "
+        f"phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -3664,7 +3914,8 @@ def main():
     # --- 15. the training CLI at configs/dtu_pn.yaml; 16. the evaluation
     # CLIs on its trained scan; 17. K9 through the port's micro_gather;
     # 18. occ_compact in training; 19. the entangled model; 20. the local
-    # loss through the CLI on phase 15's scan; 21. prior pretraining ---
+    # loss through the CLI on phase 15's scan; 21. prior pretraining;
+    # 22. point-cloud prep on phase 15's images ---
     with tempfile.TemporaryDirectory() as tmp:
         launches_cli, launches_cli_render, cli_ms = cli_phase(smi, tmp)
         launches_eval, eval_best = eval_phase(smi, tmp)
@@ -3677,8 +3928,9 @@ def main():
                                                             cli_ms)
         launches_prior, launches_prior_render = pretrain_phase(
             smi, tmp, cfg, pts_a, cols_a, views_a, view_a)
+        prep_phase(smi, tmp)
 
-    # --- 22. report ---
+    # --- 23. report ---
     render_runs = (launches_render, launches_unfused, launches_colour_render,
                    launches_cli_render, launches_ent_render,
                    launches_local_render, launches_prior_render)

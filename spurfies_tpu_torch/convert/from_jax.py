@@ -129,3 +129,29 @@ def featext_from_jax(tree):
                      "res": [block(b) for b in d["res"]]}
                     for d in tree["dec"]],
             **{f"head{i}": conv(tree[f"head{i}"]) for i in (1, 2, 3)}}
+
+
+def dust3r_from_jax(tree):
+    """The JAX package's DUSt3R parameter tree (numpy or jax arrays) as the
+    port's numpy tree (``prep.dust3r_net.Dust3rNet``): each Linear's
+    ``[in, out]`` weight -> ``[out, in]``, the patch kernel HWIO -> OIHW,
+    biases and LayerNorms as they are."""
+    def arr(a):
+        return np.asarray(a, np.float32)
+
+    def conv(tree):
+        if isinstance(tree, list):
+            return [conv(v) for v in tree]
+        if "w" in tree and not isinstance(tree["w"], dict):
+            return {"w": np.ascontiguousarray(arr(tree["w"]).T),
+                    "b": arr(tree["b"])}
+        if "g" in tree:
+            return {"g": arr(tree["g"]), "b": arr(tree["b"])}
+        return {k: conv(v) for k, v in tree.items()}
+
+    out = {k: conv(v) for k, v in tree.items() if k != "patch_embed"}
+    out["patch_embed"] = {
+        "w": np.ascontiguousarray(
+            arr(tree["patch_embed"]["w"]).transpose(3, 2, 0, 1)),
+        "b": arr(tree["patch_embed"]["b"])}
+    return out

@@ -24,10 +24,10 @@ forward), so the card's features are the CPU's up to the sum order; the
 extractor runs once per scene (3 images), where the f32 cost is small.
 """
 
-import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
+
+from spurfies_tpu_torch.model.networks import ParamTree
 
 
 def _conv(x, w, stride=1):
@@ -87,7 +87,7 @@ def featext_apply(params, x, return_stages: bool = False):
     return f1, f2, f3
 
 
-class FeatExt(nn.Module):
+class FeatExt(ParamTree):
     """The frozen extractor as a module: its parameter tree's tensors are
     buffers (``.to(device)`` moves them); ``forward`` runs
     :func:`featext_apply` in f32 with TF32 off."""
@@ -95,35 +95,7 @@ class FeatExt(nn.Module):
     def __init__(self, params):
         """``params``: the tree of arrays or tensors (a block's
         ``"stride"`` an int or a 0-d array)."""
-        super().__init__()
-
-        def register(tree, prefix):
-            if isinstance(tree, dict):
-                return {k: (int(v) if k == "stride" else
-                            register(v, f"{prefix}{k}_"))
-                        for k, v in tree.items()}
-            if isinstance(tree, (list, tuple)):
-                return [register(v, f"{prefix}{i}_") for i, v in
-                        enumerate(tree)]
-            name = prefix[:-1]
-            self.register_buffer(name, tree.detach().float()
-                                 if torch.is_tensor(tree) else
-                                 torch.from_numpy(np.array(tree, np.float32)))
-            return name
-
-        self._layout = register(params, "")
-
-    @property
-    def params(self):
-        """The parameter tree, its tensors the module's buffers."""
-        def build(tree):
-            if isinstance(tree, dict):
-                return {k: (v if k == "stride" else build(v))
-                        for k, v in tree.items()}
-            if isinstance(tree, list):
-                return [build(v) for v in tree]
-            return getattr(self, tree)
-        return build(self._layout)
+        super().__init__(params, ints=("stride",))
 
     def forward(self, x, return_stages: bool = False):
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):

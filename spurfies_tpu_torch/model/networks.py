@@ -17,7 +17,9 @@ for W and b, drawn from an explicit ``torch.Generator``.
 
 import math
 
+import numpy as np
 import torch
+from torch import nn
 
 from spurfies_tpu_torch.config import ModelConfig
 from spurfies_tpu_torch.core.embedder import encoding_dim
@@ -127,3 +129,42 @@ def init_model_params(cfg: ModelConfig, generator: torch.Generator,
                              device=device),
     }
     return {"frozen": frozen, "train": train}
+
+
+class ParamTree(nn.Module):
+    """A frozen network's parameter tree (nested dicts and lists of arrays
+    or tensors) held as the module's buffers, so that ``.to(device)``
+    moves it; :attr:`params` gives the tree back, its leaves the buffers.
+    Leaves under a key of ``ints`` stay Python ints (e.g. a stride)."""
+
+    def __init__(self, params, ints=()):
+        super().__init__()
+
+        def register(tree, prefix):
+            if isinstance(tree, dict):
+                return {k: (int(v) if k in ints else
+                            register(v, f"{prefix}{k}_"))
+                        for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return [register(v, f"{prefix}{i}_") for i, v in
+                        enumerate(tree)]
+            name = prefix[:-1]
+            self.register_buffer(name, tree.detach().float()
+                                 if torch.is_tensor(tree) else
+                                 torch.from_numpy(np.array(tree, np.float32)))
+            return name
+
+        self._ints = tuple(ints)
+        self._layout = register(params, "")
+
+    @property
+    def params(self):
+        """The parameter tree, its tensors the module's buffers."""
+        def build(tree):
+            if isinstance(tree, dict):
+                return {k: (v if k in self._ints else build(v))
+                        for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [build(v) for v in tree]
+            return getattr(self, tree)
+        return build(self._layout)

@@ -1,1 +1,2 @@
-"""Point-cloud preparation (the spacing subsample the synthetic scene uses)."""
+"""Point-cloud preparation: the DUSt3R network, global alignment, the
+post-processing and the COLMAP converter."""

@@ -15,6 +15,8 @@
   ``ckpt/vismvsnet.pt`` is there.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import dataclasses
 import json
 import os

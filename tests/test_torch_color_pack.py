@@ -10,6 +10,8 @@ nets (F_color 103 -> 256 x 4, R 277 -> 256 -> 256 -> 3), 128 points of 8
 pair rows, 30 % of the slots invalid (wn = 0).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

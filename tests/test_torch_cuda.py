@@ -9,6 +9,8 @@ that has only PyTorch and a card (``tests/conftest.py`` sets JAX up, and
 Without a card every test skips.  Inputs are made with numpy from a seed.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import importlib.util
 from pathlib import Path
 
@@ -906,3 +908,40 @@ def test_pretraining_step_on_the_card(cuda, monkeypatch):
         assert torch.isfinite(a).all()
         assert float(torch.linalg.vector_norm(a - b)) <= 1e-5 * float(
             torch.linalg.vector_norm(b)) + 1e-30
+
+
+@pytest.mark.cuda
+def test_prep_cli_on_the_card_is_the_cpus(cuda, tmp_path, monkeypatch):
+    """The prep CLI at a tiny DUSt3R (64x64 images, encoder 64 x 2, decoder
+    32 x 2) on three random PNGs, on the card and on the CPU: f32 with TF32
+    off on both, 20 alignment iterations, so the same number of exported
+    points, within 1e-4 of the cloud's scale (the sum orders differ)."""
+    import functools
+
+    from spurfies_tpu_torch.cli import prep_pointcloud as cli
+    from spurfies_tpu_torch.data.ply import load_ply
+    from spurfies_tpu_torch.data.png import write_png
+    from spurfies_tpu_torch.prep import dust3r_net as d
+
+    tiny = d.Dust3rConfig(img_size=(64, 64), enc_dim=64, enc_depth=2,
+                          enc_heads=4, dec_dim=32, dec_depth=2, dec_heads=2)
+    rng = np.random.default_rng(3)
+    (tmp_path / "imgs").mkdir()
+    for i in range(3):
+        write_png(str(tmp_path / "imgs" / f"{i}.png"),
+                  rng.integers(0, 255, (64, 64, 3)).astype(np.uint8))
+    torch.save(d.random_dust3r_state(tiny), str(tmp_path / "d.pth"))
+    monkeypatch.setattr(cli, "Dust3rConfig", lambda img_size: tiny)
+    monkeypatch.setattr(cli, "run_inference", functools.partial(
+        cli.run_inference, img_size=(64, 64)))
+    pts = {}
+    for dev in ("cuda", "cpu"):
+        cli.main(["--scan", "s", "--images", str(tmp_path / "imgs"),
+                  "--ckpt", str(tmp_path / "d.pth"), "--conf", "2.0",
+                  "--align-iters", "20", "--device", dev,
+                  "--out-root", str(tmp_path / dev)])
+        pts[dev], _ = load_ply(str(tmp_path / dev / "own_data" / "s" /
+                                   "s.ply"))
+    assert len(pts["cuda"]) == len(pts["cpu"]) > 0
+    assert np.abs(pts["cuda"] - pts["cpu"]).max() <= 1e-4 * np.abs(
+        pts["cpu"]).max()

@@ -16,6 +16,8 @@ reads through, on the CPU.
   ``get_sphere_intersections`` within 1e-6 of JAX's.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import json
 import os
 import struct

@@ -10,6 +10,8 @@ dtype), so the limits are f32 sum-order ones.  The port's scene gets
 ``n_points=0`` (the exact K1, JAX's CPU ``lax.top_k``).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,8 @@ Each case feeds both packages the same seeded inputs (numpy):
   PSNR/SSIM lists; and its three differences by design.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import struct
 
 import numpy as np

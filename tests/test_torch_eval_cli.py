@@ -17,6 +17,8 @@ tolerance implies (below) and SSIM within 2e-2; ``chamfer.json`` equal to
 runs the port's chain train -> evaluate -> eval_dtu alone.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import json
 import os
 import sys

@@ -10,6 +10,8 @@ rows, 30 % of the slots invalid (wn = 0, x_pi of a far row-0 neighbour)
 and the first 5 points without any valid neighbour.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,8 @@ exported by the port loads, ``configs/dtu_pn.yaml`` reads, the local
 loss's bundle builds and the prior pretrains with all of them
 unimportable."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import ast
 import os
 import re
@@ -130,7 +132,15 @@ def test_every_module_imports_without_jax():
             "spurfies_tpu_torch.prior.shapes",
             "spurfies_tpu_torch.prior.mesh_corpus",
             "spurfies_tpu_torch.prior.pretrain",
-            "spurfies_tpu_torch.cli.pretrain_prior"} <= set(names)
+            "spurfies_tpu_torch.cli.pretrain_prior",
+            "spurfies_tpu_torch.prep.pointcloud",
+            "spurfies_tpu_torch.prep.dust3r_net",
+            "spurfies_tpu_torch.prep.alignment",
+            "spurfies_tpu_torch.prep.colmap",
+            "spurfies_tpu_torch.cli.prep_pointcloud",
+            "spurfies_tpu_torch.utils.profiling",
+            "spurfies_tpu_torch.utils.flops",
+            "spurfies_tpu_torch.cli.fleet"} <= set(names)
     code = (
         "import sys\n"
         f"for m in {BLOCKED!r}:\n"
@@ -205,6 +215,47 @@ def test_local_loss_and_pretraining_without_the_absent_libraries(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr
+
+
+def test_prep_cli_without_the_absent_libraries(tmp_path):
+    """In a process where JAX, imageio, cv2, Pillow and the others cannot be
+    imported: the prep CLI reads three PNGs through the port's codec (one
+    resized to the network's size by the port's cubic resize), converts a
+    synthetic checkpoint, and exports a scene, on the CPU at a tiny
+    network."""
+    code = (
+        "import sys\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import dataclasses, functools, os\n"
+        "import numpy as np, torch\n"
+        "from spurfies_tpu_torch.cli import prep_pointcloud as cli\n"
+        "from spurfies_tpu_torch.data.png import write_png\n"
+        "from spurfies_tpu_torch.prep import dust3r_net as d\n"
+        "tiny = d.Dust3rConfig(img_size=(32, 32), enc_dim=32, enc_depth=1,\n"
+        "                      enc_heads=2, dec_dim=16, dec_depth=1,\n"
+        "                      dec_heads=2)\n"
+        f"root = {str(tmp_path)!r}\n"
+        "os.makedirs(root + '/imgs')\n"
+        "rng = np.random.default_rng(0)\n"
+        "for i, hw in enumerate([(32, 32), (32, 32), (40, 48)]):\n"
+        "    write_png(f'{root}/imgs/{i}.png',\n"
+        "              rng.integers(0, 255, hw + (3,)).astype(np.uint8))\n"
+        "torch.save(d.random_dust3r_state(tiny), root + '/d.pth')\n"
+        "cli.Dust3rConfig = lambda img_size: tiny\n"
+        "cli.run_inference = functools.partial(cli.run_inference,\n"
+        "                                      img_size=(32, 32))\n"
+        "out = cli.main(['--scan', 's', '--images', root + '/imgs',\n"
+        "                '--ckpt', root + '/d.pth', '--out-root', root,\n"
+        "                '--conf', '1.5', '--align-iters', '3',\n"
+        "                '--device', 'cpu'])\n"
+        "assert len(out['points']) > 0\n"
+        "assert os.path.exists(root + '/own_data/s/s.json')\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr
 
 

@@ -23,6 +23,8 @@ interpret mode within the f32 sum-order limit; it adds every column of a
 kept row once and reads nothing of a dropped row's r_lat.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import importlib.util
 from pathlib import Path
 

@@ -17,6 +17,8 @@ of 0, 1, k - 1, k and qcap candidates, a qcap below k, cells outside the
 grid and a query count that is no whole number of blocks.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,8 @@ cameras are not in the repository: the state dict is
 ``export_synthetic_mvs``'s, written from the synthetic DTU export.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import json
 import os
 import sys

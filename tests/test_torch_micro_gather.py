@@ -9,6 +9,8 @@ version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``
 phase 17).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import importlib.util
 from pathlib import Path
 

@@ -2,6 +2,8 @@
 same numpy inputs: networks, encoding, density, quadrature, cameras,
 metrics, pair compaction, the sampler and the colour field."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,8 @@ JAX fused path in interpret mode with f32 matmuls, the port's plain
 versions with an f32 prior, the JAX draws injected.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import numpy as np
 import pytest

@@ -7,6 +7,8 @@ plain-XLA path.  Inputs are made with numpy and handed to both packages.
 module's switches; the other test files import it from here.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import contextlib
 
 import jax

@@ -9,6 +9,8 @@ scene of ``tests/test_model.py:23-35`` with neighbours from the JAX
 ``query_grid``, handed to both packages.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,8 @@ and the port's tables keep ``n_points``, so its K1 takes the packed
 variant, as on the card (JAX's CPU path is the exact ``lax.top_k``).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import dataclasses
 import json
 import os
@@ -355,13 +357,18 @@ def test_cli_pretrains_on_the_cpu_and_the_trainer_renders(tmp_path,
 
 
 def test_pretrain_learns_and_eval_holdout_runs():
-    """``pretrain`` over two windows drives the SDF L1 down (JAX's
-    ``test_pretrain_learns_sdf``, cut to 40 steps), and ``eval_holdout``
-    on an unseen shape returns a finite L1."""
-    cfg = tpre.PriorConfig(**dict(CFG, steps=40))
-    params, history = tpre.pretrain(cfg, log_every=20, device="cpu")
-    assert [r["step"] for r in history] == [20, 40]
-    assert history[-1]["sdf_l1"] < history[0]["sdf_l1"]
+    """``pretrain`` drives the SDF L1 down (JAX's ``test_pretrain_learns_sdf``,
+    cut to 200 steps on two shapes), and ``eval_holdout`` on an unseen
+    shape returns a finite L1.  Every step is logged (``log_every=1``) and
+    the mean ``sdf_l1`` of the last 20 steps must lie below that of the
+    first 20: one batch of 256 queries reads 0.012-0.025 at this size, so
+    two single readings 20 steps apart order by chance."""
+    cfg = tpre.PriorConfig(**dict(CFG, steps=200))
+    params, history = tpre.pretrain(cfg, log_every=1, device="cpu")
+    assert [r["step"] for r in history] == list(range(1, 201))
+    l1 = np.array([r["sdf_l1"] for r in history])
+    assert np.isfinite(l1).all()
+    assert l1[-20:].mean() < l1[:20].mean()
     assert history[-1]["coverage"] > 0.3
     held = [tshapes.sample_shape(np.random.default_rng(3), n_query=512,
                                  spacing=0.04)]

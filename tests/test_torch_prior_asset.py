@@ -6,6 +6,8 @@ The asset was written once from the orbax checkpoint (the command is in
 CHANGES.md); this test holds it to the checkpoint.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import os
 
 import jax

@@ -29,6 +29,8 @@ The JAX side runs its plain XLA field (``fused_agg=False``): the probe
 points and their occupancy depend only on the rays and the draws.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import contextlib
 
 import jax

@@ -9,6 +9,8 @@ scene gets ``n_points=0`` so that its K1 takes the exact variant, which is
 what the JAX package's CPU path (``lax.top_k``) computes.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import os
 
 import jax

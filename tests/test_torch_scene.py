@@ -2,6 +2,8 @@
 package: the same cloud in gives the same points, query table (after the
 qcap shrink), TV graph and occupancy bitmap out."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import numpy as np
 import pytest

@@ -5,6 +5,8 @@ select runs as the JAX package's own tests run it on the CPU
 (``interpret=True``).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

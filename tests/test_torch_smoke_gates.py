@@ -9,6 +9,8 @@ gates pass equal inputs and reject a breach, so that a limit which can
 never fail is caught here.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import importlib.util
 from pathlib import Path
 

@@ -6,6 +6,8 @@ JAX's gradients, the losses, and the guarded two-group Adam against
 both packages.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
