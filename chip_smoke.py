@@ -183,7 +183,24 @@ failure exits non-zero before the last line):
      TPU-kernel counterparts (this path has none), the alignment loop run
      again on the CLI's pointmaps with 0 host syncs, and the ``.ply`` and
      ``.json`` read back;
- 23. the ``kernels`` JSON line (launches by render, training, evaluation
+ 23. ray sharding (``dp_phase``, ``train.data_parallel``) on dust3r_like
+     at the default config: two ranks on the one card through
+     ``parallel.launch`` over gloo (NCCL refuses two ranks on one device):
+     DP_PARITY_STEPS steps, each step's whole-batch loss parts against a
+     dp=1 ``Trainer``'s of the same seed within DP_PARTS_RTOL relative
+     (``tests/test_torch_parallel.py``'s limit) and each leaf after them
+     within DP_LEAF_LR learning rates of its own, the host syncs
+     of two steps, DP_STEPS timed steps (ms/step, loss parts finite,
+     rgb_loss falling, each rank's launches), the ranks' parameters
+     bit-equal; then, on the same two ranks, ``cli.train.main`` at
+     ``train.data_parallel=2`` on phase 15's scan for DP_CLI_STEPS steps
+     (one experiment directory, one checkpoint, written by rank 0) and a
+     ``--resume`` from DP_CLI_STEPS (restored at that step) for
+     DP_CLI_RESUME more, whose gathered validation render is held to a
+     dp=1 render of the same checkpoint by phase 6's limits; and one rank
+     over NCCL (its all-reduce on the card) for DP_NCCL_STEPS steps,
+     ms/step and 0 host syncs, beside phase 10's unsharded ms/step;
+ 24. the ``kernels`` JSON line (launches by render, training, evaluation
      and microbenchmark runs), the ``redesign_order`` line (the kernels
      ranked by launches x (ms - bound_ms) in this run) and the
      ``redesign_order_kernel_ms`` line (the same with the C entry's time
@@ -254,6 +271,25 @@ PRIOR_STEPS = 500
 # each output's scale (f32, TF32 off on both: only the sum order differs)
 PREP_CONF = 2.5
 PREP_TOL = 1e-4
+# phase 23: ray sharding on dust3r_like, two ranks on the one card over
+# gloo and one rank over NCCL; the training CLI on two ranks on phase 15's
+# scan, then a resume
+DP_PARITY_STEPS = 2
+# the parity steps' limits: the loss parts as tests/test_torch_parallel.py
+# holds them; every leaf within half a learning rate (Adam moves an entry
+# by about lr a step whatever its gradient, so 2 lr a step would pass any
+# gradient; the largest leaf difference read on an H100 was 0.35 lr)
+DP_PARTS_RTOL = 1e-5
+DP_LEAF_LR = 0.5
+DP_STEPS = 20
+DP_WINDOW = 5
+DP_NCCL_STEPS = 10
+DP_CLI_STEPS = 20
+DP_CLI_RESUME = 10
+# the prior's dtype of cli.train.train_scene on the card
+CLI_DTYPE = "bfloat16"
+# ms/step of the timed training paths, by tag (train_path)
+TIMED = {}
 # the fused colour path's training step: the default's launches, with the
 # colour stack through the pack (once a step), K8a forward and K8b backward
 # (its latents' K5 stays)
@@ -1379,6 +1415,7 @@ def train_path(tag, trainer, per_step, warmup, steps, window, smi=None):
     wall = time.perf_counter() - t0
     launches = read_counts()
     n_pix = trainer.cfg.train.num_pixels
+    TIMED[tag] = wall / steps * 1e3
     log(f"train {tag}: {steps} steps x {n_pix} rays in {wall:.3f} s = "
         f"{steps * n_pix / wall:.1f} train rays/s "
         f"({wall / steps * 1e3:.2f} ms/step); launches {launches}"
@@ -3421,6 +3458,310 @@ def prep_phase(smi, tmp):
     torch.cuda.empty_cache()
 
 
+def stderr_lines(fn):
+    """``fn()`` with this process's file descriptor 2 sent to a file; the
+    lines written there.  A C++ warning raised on a thread that Python
+    does not run (gloo's workers) goes there, not to ``warnings``."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile(mode="w+") as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            fn()
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+        f.seek(0)
+        return f.read().splitlines()
+
+
+def dp_dust3r(group, steps):
+    """Phase 23 on one rank of ``group`` (a ``parallel.launch`` rank): a
+    ``Trainer`` on dust3r_like at the default config, sharded over the
+    group, with the repo's prior.  Returns its parameters after
+    DP_PARITY_STEPS steps, the host syncs of two more (those ``syncs_in``
+    reads, and those the sync debug mode reports on the collectives' own
+    threads), then ``steps`` timed steps in windows of DP_WINDOW: their
+    ms/step, the whole batch's metrics (the parity steps' first), this
+    rank's launches and the parameters after them; then PROFILE_STEPS
+    steps, under ``torch.profiler`` on rank 0 (its device time, and the
+    host and device time of each collective and copy)."""
+    import torch
+
+    from spurfies_tpu_torch.config import Config, apply_overrides
+    from spurfies_tpu_torch.convert.from_jax import PRIOR_ASSET, load_prior_npz
+    from spurfies_tpu_torch.data.synthetic import make_dust3r_like_scene
+    from spurfies_tpu_torch.train.optim import flatten
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # as the parent's
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = apply_overrides(Config(), [f"train.data_parallel={group.world}"])
+    pts, cols, views = make_dust3r_like_scene()
+    tr = Trainer(cfg, pts, cols, views, group=group)
+    tr.load_frozen(load_prior_npz(PRIOR_ASSET, device=group.device))
+    hist = []
+    tr.run(DP_PARITY_STEPS, window=1,
+           callback=lambda s_, m: hist.append((s_, m)))
+    early = [p.detach().clone() for p in flatten(tr.state.params)]
+    box = []
+    lines = stderr_lines(lambda: box.append(count_host_syncs(tr, 2)))
+    n_sync, first_sync = box[0]
+    threads = sum("called a synchronizing CUDA operation" in ln
+                  for ln in lines)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(steps, window=DP_WINDOW,
+           callback=lambda s_, m: hist.append((s_, m)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    prof = None
+    if group.lead:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as p:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tr.run(PROFILE_STEPS, window=PROFILE_STEPS)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t1) * 1e3
+        prof = profile_summary(p, p_ms)
+        prof["ms_per_step"] = p_ms / PROFILE_STEPS
+        prof["collectives"] = {
+            e.key: {"calls": e.count, "host_ms": e.cpu_time_total / 1e3,
+                    "device_ms": e.device_time_total / 1e3}
+            for e in p.key_averages()
+            if any(t in e.key.lower() for t in (
+                "all_reduce", "allreduce", "gloo", "nccl", "memcpy"))}
+    else:
+        tr.run(PROFILE_STEPS, window=PROFILE_STEPS)
+    mc = tr.cfg.model
+    return {"early": early, "syncs": n_sync, "first_sync": first_sync,
+            "profile": prof,
+            "thread_syncs": threads,
+            "ms": wall / steps * 1e3, "hist": hist, "launches": launches,
+            "params": [p.detach() for p in flatten(tr.state.params)],
+            "budgets": (mc.ray_budget_frac, mc.probe_budget_frac),
+            "backend": group.backend}
+
+
+def dp_val_uv(trainer):
+    """The validation render's rays of ``cli.train.train_scene`` (view 0 at
+    a quarter of CLI_RES)."""
+    h, w = CLI_RES
+    return trainer.views["uv"].cpu().numpy().reshape(h, w, 2)[::4, ::4] \
+        .reshape(-1, 2)
+
+
+def dp_cli(group, args, ov):
+    """Phase 23's training CLI on one rank: ``cli.train.main`` at
+    ``train.data_parallel=2`` (this process is a rank already, so it
+    trains here) for DP_CLI_STEPS steps, then ``--resume`` for
+    DP_CLI_RESUME more, the step each restore starts from recorded; the
+    experiment's directories and checkpoints after each call, the
+    parameters at the end and the gathered validation render of them."""
+    import torch
+
+    from spurfies_tpu_torch.cli import train as cli_train
+    from spurfies_tpu_torch.train.optim import flatten
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    def listing(exp):
+        return (sorted(os.listdir(os.path.dirname(exp.dir))),
+                sorted(os.listdir(exp.ckpt_dir)))
+
+    [(tr, exp)] = cli_train.main(args + ov + [f"train.opt_steps="
+                                              f"{DP_CLI_STEPS}"])
+    first = listing(exp)
+    del tr
+    torch.cuda.empty_cache()
+    restored = []
+
+    def spy(restore):
+        def f(self, path):
+            restore(self, path)
+            restored.append(int(self.state.step))
+        return f
+
+    with substituted(lambda fn, _: spy(fn),
+                     [(Trainer, "restore_checkpoint", None)]):
+        [(tr, exp2)] = cli_train.main(
+            ["--resume"] + args + ov
+            + [f"train.opt_steps={DP_CLI_STEPS + DP_CLI_RESUME}"])
+    render = tr.render_image(dp_val_uv(tr), tr.views["pose"][0],
+                             tr.views["intrinsics"][0])
+    return {"first": first, "resumed": listing(exp2), "restored": restored,
+            "same_dir": exp.dir == exp2.dir, "step": int(tr.state.step),
+            "latest": exp2.checkpoint_path("latest"), "render": render,
+            "params": [p.detach() for p in flatten(tr.state.params)]}
+
+
+def dp_rank(group, args, ov):
+    """Phase 23's two-rank run: :func:`dp_dust3r`, then :func:`dp_cli`."""
+    return {"dust3r": dp_dust3r(group, DP_STEPS),
+            "cli": dp_cli(group, args, ov)}
+
+
+def dp_phase(smi, tmp, cfg, pts, cols, views, prior):
+    """Phase 23 (see the module's docstring).  The ranks are processes of
+    their own; every kernel launch of theirs is counted there, and the
+    kernels line keeps this process's counts."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.cli import train as cli_train
+    from spurfies_tpu_torch.config import apply_overrides, load_yaml
+    from spurfies_tpu_torch.parallel.launch import launch
+    from spurfies_tpu_torch.train.optim import flatten
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = ["--config", os.path.join(here, "configs", "dtu_pn.yaml"),
+            "--scans", "scan24"]
+    ov = [f"dataset.data_dir_root={os.path.join(tmp, 'data')}",
+          f"exps_folder={os.path.join(tmp, 'exps_dp')}",
+          f"train.render_freq={CLI_EVERY}",
+          f"train.checkpoint_freq={CLI_EVERY}"]
+    try:
+        t0 = time.perf_counter()
+        r0, r1 = launch(dp_rank, 2, args, ov + ["train.data_parallel=2"],
+                        devices=("cuda:0", "cuda:0"))
+        wall_gloo = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        [nccl] = launch(dp_dust3r, 1, DP_NCCL_STEPS, devices=("cuda:0",))
+        wall_nccl = time.perf_counter() - t0
+    except RuntimeError as e:
+        fail(f"data_parallel: {e}")
+    d0, d1 = r0["dust3r"], r1["dust3r"]
+    log(f"data_parallel: two ranks on cuda:0 over {d0['backend']} in "
+        f"{wall_gloo:.2f} s (spawn, scene, {DP_PARITY_STEPS} + 2 + "
+        f"{DP_STEPS} steps, the CLI's two calls), one rank over "
+        f"{nccl['backend']} in {wall_nccl:.2f} s [{smi}]")
+    if d0["backend"] != "gloo" or nccl["backend"] != "nccl":
+        fail("data_parallel: the ranks did not get gloo and NCCL")
+
+    # the two ranks against a dp=1 Trainer of the same seed: each parity
+    # step's whole-batch loss parts, and the parameters after them
+    tr = Trainer(cfg, pts, cols, views, device="cuda")
+    tr.load_frozen(prior)
+    one = []
+    tr.run(DP_PARITY_STEPS, window=1,
+           callback=lambda s_, m: one.append((s_, m)))
+    for (step, a), (step_2, b) in zip(one, d0["hist"][:DP_PARITY_STEPS]):
+        rel = {k: abs(a[k] - b.get(k, math.inf)) / max(abs(a[k]), 1e-30)
+               for k in a}
+        log(f"data_parallel: step {step}'s loss parts, dp=2 against dp=1, "
+            f"relative: " + json.dumps({k: float(f"{v:.3g}")
+                                        for k, v in rel.items()}))
+        if step != step_2 or set(a) != set(b) or any(
+                abs(a[k] - b[k]) > DP_PARTS_RTOL * abs(a[k]) + 1e-12
+                for k in a):
+            fail(f"data_parallel: step {step}'s loss parts at dp=2 are not "
+                 f"dp=1's within {DP_PARTS_RTOL} relative")
+    tp = tr.state.params
+    names = [f"{k}[{i}]" for k in tp for i in range(len(flatten(tp[k])))]
+    diff = {n: float(np.abs(p.detach().cpu().numpy() - q).max())
+            for n, p, q in zip(names, flatten(tp), d0["early"])}
+    del tr
+    lr = cfg.train.learning_rate
+    log(f"data_parallel: after {DP_PARITY_STEPS} steps, largest difference "
+        f"of each leaf from dp=1: " + json.dumps(
+            {k: float(f"{v:.3g}") for k, v in diff.items()}))
+    if max(diff.values()) > DP_LEAF_LR * lr:
+        fail(f"data_parallel: a leaf at dp=2 is more than {DP_LEAF_LR} lr "
+             "from dp=1's")
+    rank_diff = max(float(np.abs(p - q).max()) for p, q in zip(
+        d0["early"] + d0["params"], d1["early"] + d1["params"]))
+    log(f"data_parallel: the two ranks' largest parameter difference "
+        f"{rank_diff}")
+    if rank_diff != 0:
+        fail("data_parallel: the ranks' parameters differ")
+
+    # the timed steps
+    for tag, d in (("gloo, 2 ranks", d0), ("nccl, 1 rank", nccl)):
+        for step, m in d["hist"]:
+            log(f"  {tag} step {step}: " + ", ".join(
+                f"{k} {m[k]:.5g}" for k in (
+                    "loss", "rgb_loss", "eikonal_loss", "mask_loss",
+                    "pseudo_loss", "tv_loss", "psnr", "ray_overflow",
+                    "probe_overflow", "notfinite")))
+        hist = [m for _, m in d["hist"]]
+        if not all(np.isfinite(m["loss"]) and m["notfinite"] == 0
+                   for m in hist):
+            fail(f"data_parallel ({tag}): a non-finite loss or a skipped "
+                 "step")
+    if not d0["hist"][-1][1]["rgb_loss"] < d0["hist"][0][1]["rgb_loss"]:
+        fail("data_parallel: rgb_loss did not fall on two ranks")
+    for tag, d, steps in (("rank 0", d0, DP_STEPS),
+                          ("rank 1", d1, DP_STEPS),
+                          ("nccl rank", nccl, DP_NCCL_STEPS)):
+        expect = expected_counts(d["launches"], PER_STEP, steps,
+                                 "select_knn_packed")
+        log(f"data_parallel: {tag} launched {d['launches']} in {steps} "
+            "steps")
+        if d["launches"] != expect:
+            fail(f"data_parallel: {tag} launched {d['launches']}, expected "
+                 f"{expect}")
+    log(f"data_parallel: ms/step {d0['ms']:.2f} (2 ranks on one card, "
+        f"gloo), {nccl['ms']:.2f} (1 rank, NCCL), "
+        f"{TIMED['dust3r_like']:.2f} (phase 10, unsharded); host syncs in 2 "
+        f"steps, on the step's thread and on the collectives' threads: gloo "
+        f"rank 0 {d0['syncs']} and {d0['thread_syncs']}, rank 1 "
+        f"{d1['syncs']} and {d1['thread_syncs']}"
+        + (f" (first: {d0['first_sync']})" if d0["syncs"] else "")
+        + f", NCCL {nccl['syncs']} and {nccl['thread_syncs']}; auto budgets "
+        f"{tuple(float(b) for b in d0['budgets'])} [{smi}]")
+    for tag, d in (("gloo, 2 ranks", d0), ("nccl, 1 rank", nccl)):
+        log(f"data_parallel profile ({tag}, rank 0, {PROFILE_STEPS} "
+            f"steps): {json.dumps(d['profile'])}")
+    if nccl["syncs"] or nccl["thread_syncs"]:
+        fail(f"data_parallel: the NCCL step waits on the card "
+             f"({nccl['first_sync']})")
+
+    # the training CLI on the two ranks
+    c0, c1 = r0["cli"], r1["cli"]
+    log(f"data_parallel: cli first call: experiments {c0['first'][0]}, "
+        f"checkpoints {c0['first'][1]}; resume restored at "
+        f"{c0['restored']}, {c1['restored']}, ended at step {c0['step']}, "
+        f"checkpoints {c0['resumed'][1]}")
+    if (len(c0["first"][0]) != 1 or c0["first"][1] != [str(DP_CLI_STEPS),
+                                                      "latest"]
+            or c0["restored"] != [DP_CLI_STEPS] or c1["restored"]
+            != [DP_CLI_STEPS] or not c0["same_dir"]
+            or c0["step"] != DP_CLI_STEPS + DP_CLI_RESUME
+            or c0["resumed"] != ([c0["first"][0][0]], sorted(
+                [str(DP_CLI_STEPS), str(DP_CLI_STEPS + DP_CLI_RESUME),
+                 "latest"]))):
+        fail("data_parallel: the CLI's experiment, checkpoints or resume "
+             "are not what one dp=1 run writes")
+    rank_diff = max(float(np.abs(p - q).max())
+                    for p, q in zip(c0["params"], c1["params"]))
+    if rank_diff != 0:
+        fail("data_parallel: the CLI ranks' parameters differ")
+    ccfg = apply_overrides(load_yaml(args[1]), ov)
+    sd = cli_train.load_scene_data(ccfg, "scan24")
+    tr = Trainer(ccfg, sd.points, sd.colors, sd.train_views(),
+                 device="cuda", compute_dtype=getattr(torch, CLI_DTYPE))
+    tr.restore_checkpoint(c0["latest"])
+    one = tr.render_image(dp_val_uv(tr), tr.views["pose"][0],
+                          tr.views["intrinsics"][0])
+    del tr, sd
+    torch.cuda.empty_cache()
+    for r, c in ((0, c0), (1, c1)):
+        stats = compare_chunk({k: torch.as_tensor(v) for k, v in
+                               c["render"].items()},
+                              {k: torch.as_tensor(v) for k, v in one.items()})
+        log(f"data_parallel: rank {r}'s gathered validation render of "
+            f"{len(one['ray_mask'])} rays vs dp=1's of the same checkpoint: "
+            f"{json.dumps(stats)}")
+    log(f"data_parallel: phase wall {time.perf_counter() - t_phase:.2f} s "
+        f"[{smi}]")
+
+
 def main():
     try:
         import torch
@@ -3929,8 +4270,9 @@ def main():
         launches_prior, launches_prior_render = pretrain_phase(
             smi, tmp, cfg, pts_a, cols_a, views_a, view_a)
         prep_phase(smi, tmp)
+        dp_phase(smi, tmp, cfg, pts_a, cols_a, views_a, prior_a)
 
-    # --- 23. report ---
+    # --- 24. report ---
     render_runs = (launches_render, launches_unfused, launches_colour_render,
                    launches_cli_render, launches_ent_render,
                    launches_local_render, launches_prior_render)

@@ -5,15 +5,20 @@ The reference optimizes scenes one at a time in a Python loop
 (runner.py:64-65); scenes are fully independent, so the multi-host
 scaling axis for this workload is scene parallelism: every host takes a
 slice of the testlist and runs the normal single-card per-scene
-optimization (``cli.train.train_scene``) on it.  No cross-host
-communication is needed or used.
+optimization (``cli.train.run_scene``) on it.  No cross-host
+communication is needed or used; ``train.data_parallel=N`` shards each
+scene's rays over N ranks of the host, which ``run_scene`` starts.
 
     # host i of n:
     python -m spurfies_tpu_torch.cli.fleet --scans scan21,...,scan118 \
         --num-hosts 4 --host-index $HOST_INDEX --config configs/dtu_pn.yaml
 
 host-index defaults, in order: --host-index flag, $FLEET_HOST_INDEX,
-``torch.distributed.get_rank()`` (when a process group is initialized), 0.
+``torch.distributed.get_rank()`` (when a process group is initialized;
+divided by ``train.data_parallel``, the ranks of one host), 0.  Under
+``train.data_parallel`` every rank of a host runs this CLI's loop
+(``torchrun``), or the host's one process starts them per scene; rank 0
+writes the manifest.
 """
 
 import argparse
@@ -23,8 +28,9 @@ import time
 
 import torch
 
-from spurfies_tpu_torch.cli.train import train_scene
+from spurfies_tpu_torch.cli.train import run_scene
 from spurfies_tpu_torch.config import Config, apply_overrides, load_yaml
+from spurfies_tpu_torch.parallel.mesh import current
 from spurfies_tpu_torch.utils.experiment import get_logger
 
 log = get_logger()
@@ -40,7 +46,7 @@ def shard_scans(scans: list, num_hosts: int, host_index: int) -> list:
     return scans[host_index::num_hosts]
 
 
-def resolve_host_index(flag_value):
+def resolve_host_index(flag_value, ranks_per_host: int = 1):
     if flag_value is not None:
         return int(flag_value)
     env = os.environ.get("FLEET_HOST_INDEX")
@@ -48,7 +54,7 @@ def resolve_host_index(flag_value):
         return int(env)
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
+        return dist.get_rank() // ranks_per_host
     return 0
 
 
@@ -65,22 +71,27 @@ def main(argv=None):
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
 
-    host = resolve_host_index(args.host_index)
-    all_scans = [s.strip() for s in args.scans.split(",") if s.strip()]
-    mine = shard_scans(all_scans, args.num_hosts, host)
-    log.info(f"fleet host {host}/{args.num_hosts}: "
-             f"{len(mine)}/{len(all_scans)} scenes -> {mine}")
-
     cfg = load_yaml(args.config) if args.config else Config()
     cfg = apply_overrides(cfg, args.overrides)
+    lead = current() is None or current().lead
+
+    host = resolve_host_index(args.host_index, cfg.train.data_parallel)
+    all_scans = [s.strip() for s in args.scans.split(",") if s.strip()]
+    mine = shard_scans(all_scans, args.num_hosts, host)
+    if lead:
+        log.info(f"fleet host {host}/{args.num_hosts}: "
+                 f"{len(mine)}/{len(all_scans)} scenes -> {mine}")
 
     results = {}
     for scan in mine:
         t0 = time.perf_counter()
-        train_scene(cfg, scan, resume=args.resume, device=args.device)
+        run_scene(cfg, scan, resume=args.resume, device=args.device)
         results[scan] = round(time.perf_counter() - t0, 1)
-        log.info(f"fleet host {host}: {scan} done in {results[scan]}s")
+        if lead:
+            log.info(f"fleet host {host}: {scan} done in {results[scan]}s")
 
+    if not lead:
+        return
     out = os.path.join(cfg.exps_folder, f"fleet_host{host}.json")
     os.makedirs(cfg.exps_folder, exist_ok=True)
     with open(out, "w") as f:

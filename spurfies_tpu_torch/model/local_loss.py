@@ -22,6 +22,8 @@ equal to ``F.grid_sample`` (``tests/test_torch_local_loss.py``).
 
 import torch
 
+from spurfies_tpu_torch.model.losses import valid_count
+
 
 def find_surface_depth(sdf: torch.Tensor, z_vals: torch.Tensor,
                        valid: torch.Tensor, filler: float = 1000.0):
@@ -104,7 +106,7 @@ def project_mvs(pts_world: torch.Tensor, cam: torch.Tensor):
 
 def local_feature_loss(surface_pts, surf_mask, feat_ref, feats_src,
                        cam_ref, cams_src, size, center,
-                       feat_scale: float = 0.5):
+                       feat_scale: float = 0.5, count_fn=None):
     """The dense local loss.
 
     Args:
@@ -115,6 +117,7 @@ def local_feature_loss(surface_pts, surf_mask, feat_ref, feats_src,
         feature maps are at ``feat_scale`` times their resolution,
         reference grid/2, feat_utils.py:417-420).
       size, center: the world denormalization (dtu.py:225-226).
+      count_fn: as in :func:`model.losses.valid_count`.
 
     Returns the mean of the kept terms over (points x source views).
     """
@@ -144,4 +147,5 @@ def local_feature_loss(surface_pts, surf_mask, feat_ref, feats_src,
         keep = valid & (corr_loss < 0.5)
         # the reference means over all (points x src) elements of the slice
         total = total + torch.sum(torch.where(keep, corr_loss, 0.0))
-    return total / (torch.clamp(torch.sum(surf_mask), min=1) * n_views)
+    return total / (torch.clamp(valid_count(surf_mask, count_fn), min=1)
+                    * n_views)

@@ -12,15 +12,33 @@ from spurfies_tpu_torch.config import LossConfig
 from spurfies_tpu_torch.device import constant
 
 
-def rgb_loss(pred, gt, kind: str = "l1"):
+def share_mean(per, own=None):
+    """The mean of ``per`` over its rows.  With ``own`` (``[R]`` bool, a
+    ray-sharded rank's ``ray_own``): the sum of the own rows' terms over
+    the count of all terms, the rank's share of the whole batch's mean
+    (the shares of the ranks sum to it)."""
+    if own is None:
+        return torch.mean(per)
+    own = own.reshape(own.shape + (1,) * (per.ndim - own.ndim))
+    return torch.sum(torch.where(own, per, 0.0)) / per.numel()
+
+
+def valid_count(valid, count_fn=None):
+    """``valid``'s True count: a masked mean's denominator.  ``count_fn``
+    (``RankGroup.sum``) sums it over the ranks of a ray-sharded step."""
+    n = torch.sum(valid)
+    return n if count_fn is None else count_fn(n)
+
+
+def rgb_loss(pred, gt, kind: str = "l1", own=None):
     if kind == "l1":
-        return torch.mean(torch.abs(pred - gt))
-    return torch.mean((pred - gt) ** 2)
+        return share_mean(torch.abs(pred - gt), own)
+    return share_mean((pred - gt) ** 2, own)
 
 
-def eikonal_loss(grad_theta, valid):
+def eikonal_loss(grad_theta, valid, count_fn=None):
     """``(|grad| - 1)^2``, a masked mean over the valid shading points
-    (reference loss.py:47-49).
+    (reference loss.py:47-49); ``count_fn`` as in :func:`valid_count`.
 
     Invalid rows carry exactly-zero gradients; a unit vector stands in for
     them before the norm, so that the backward pass stays finite (the
@@ -29,15 +47,15 @@ def eikonal_loss(grad_theta, valid):
     safe = torch.where(valid[..., None], grad_theta, unit)
     per = (torch.linalg.norm(safe, dim=-1) - 1.0) ** 2
     per = torch.where(valid, per, 0.0)
-    return torch.sum(per) / torch.clamp(torch.sum(valid), min=1)
+    return torch.sum(per) / torch.clamp(valid_count(valid, count_fn), min=1)
 
 
-def mask_bce_loss(weights_sum, mask_gt):
+def mask_bce_loss(weights_sum, mask_gt, own=None):
     """BCE of the accumulated weights against the foreground mask, clipped
-    (reference loss.py:69-75)."""
+    (reference loss.py:69-75); ``own`` as in :func:`share_mean`."""
     p = torch.clamp(weights_sum, 1e-3, 1.0 - 1e-3)
-    return -torch.mean(mask_gt * torch.log(p)
-                       + (1.0 - mask_gt) * torch.log(1.0 - p))
+    return -share_mean(mask_gt * torch.log(p)
+                       + (1.0 - mask_gt) * torch.log(1.0 - p), own)
 
 
 def fd_eikonal_weight_at(cfg: LossConfig, step=None):
@@ -53,21 +71,27 @@ def fd_eikonal_weight_at(cfg: LossConfig, step=None):
     return w * (cfg.fd_eikonal_anneal_init / w) ** frac
 
 
-def total_loss(outputs, ground_truth, cfg: LossConfig, step=None):
+def total_loss(outputs, ground_truth, cfg: LossConfig, step=None,
+               count_fn=None):
     """Weighted sum; returns (scalar, dict of parts).  Terms the outputs do
-    not hold (tv, local, pseudo, cloud anchor, fd eikonal) count 0."""
+    not hold (tv, local, pseudo, cloud anchor, fd eikonal) count 0.  A
+    ray-sharded rank's outputs hold ``ray_own``, and ``count_fn`` sums its
+    counts over the ranks: its parts are then its shares of the whole
+    batch's, which the ranks' sum to."""
+    own = outputs.get("ray_own")
     gt_rgb = ground_truth["rgb"].reshape(-1, 3)
     mask = ground_truth["mask"]
     gt_mask = mask.reshape(-1, mask.shape[-1])[:, :1]
     zero = torch.zeros((), dtype=gt_rgb.dtype, device=gt_rgb.device)
 
     parts = {
-        "rgb_loss": rgb_loss(outputs["rgb_values"], gt_rgb, cfg.rgb_loss),
+        "rgb_loss": rgb_loss(outputs["rgb_values"], gt_rgb, cfg.rgb_loss,
+                             own),
         "eikonal_loss": eikonal_loss(outputs["grad_theta"],
-                                     outputs["valid_pt"]),
+                                     outputs["valid_pt"], count_fn),
         "tv_loss": outputs.get("tv_loss", zero),
         "mask_loss": mask_bce_loss(
-            torch.sum(outputs["weights"], -1, keepdim=True), gt_mask),
+            torch.sum(outputs["weights"], -1, keepdim=True), gt_mask, own),
         "local_loss": outputs.get("local_loss", zero),
         "pseudo_loss": outputs.get("pseudo_pts_loss", zero),
         "cloud_anchor_loss": outputs.get("cloud_anchor_loss", zero),

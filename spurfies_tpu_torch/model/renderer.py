@@ -28,9 +28,12 @@ from spurfies_tpu_torch.core.density import get_beta, laplace_density
 from spurfies_tpu_torch.core.quadrature import render_weights
 from spurfies_tpu_torch.device import constant
 from spurfies_tpu_torch.model import field
+from spurfies_tpu_torch.model.losses import valid_count
 from spurfies_tpu_torch.model.sampler import (
+    RAY_DRAWS,
     error_bound_z_vals,
     linspace,
+    training_draws,
     uniform_z_vals,
 )
 from spurfies_tpu_torch.ops.pair_mlp import PriorLayers
@@ -52,7 +55,7 @@ def _take(vals: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
 
 
 def render_rays(params, scene, inputs, cfg: ModelConfig, *, train: bool,
-                iters: int, generator=None, draws=None):
+                iters: int, generator=None, draws=None, group=None):
     """Render a batch of rays.
 
     Args:
@@ -69,18 +72,21 @@ def render_rays(params, scene, inputs, cfg: ModelConfig, *, train: bool,
       generator: ``torch.Generator`` on the rays' device for the training
         draws that ``draws`` does not give.
       draws: optional training draws of the sampler
-        (:func:`model.sampler.error_bound_z_vals`), shaped for the rays the
-        body renders: the ray budget's width when it is active.  The
-        entangled model draws only ``"u_z"``, its stratified jitter
-        ``[R, n_samples]`` (``sampler.py:35``).
+        (:func:`model.sampler.training_draws`), shaped for the whole
+        batch's rays the body renders: the ray budget's width when it is
+        active.  The entangled model draws only ``"u_z"``, its stratified
+        jitter ``[R, n_samples]`` (``sampler.py:35``).
+      group: a :class:`parallel.mesh.RankGroup` of a ray-sharded training
+        step (:func:`_render_share`): this rank renders its share of the
+        rays.
 
     Returns a dict of dense ``[R, ...]`` outputs + ``ray_mask``, with the
-    ``[]`` bool flags ``ray_budget_overflow`` and ``probe_budget_overflow``.
+    ``[]`` bool flags ``ray_budget_overflow`` and ``probe_budget_overflow``
+    (under ``group`` also ``ray_own`` and ``ray_rows``).
     """
     uv, pose, intrinsics = inputs["uv"], inputs["pose"], inputs["intrinsics"]
     ray_dirs_b, cam_loc_b = get_camera_params(uv, pose, intrinsics)
     ray_dirs = ray_dirs_b.reshape(-1, 3)
-    n_rays = ray_dirs.shape[0]
     cam_loc = torch.broadcast_to(cam_loc_b[:, None, :],
                                  ray_dirs_b.shape).reshape(-1, 3)
     # depth scale: z-component of the rays in the camera frame
@@ -88,35 +94,109 @@ def render_rays(params, scene, inputs, cfg: ModelConfig, *, train: bool,
         pose.shape)
     dirs_cam, _ = get_camera_params(uv, eye, intrinsics)
     depth_scale = dirs_cam.reshape(-1, 3)[:, 2:]
-    body = dict(cfg=cfg, train=train, iters=iters, generator=generator,
-                draws=draws)
-
-    if train and 0 < cfg.ray_budget_frac < 1 and not cfg.entangled:
-        # the training ray budget: a coarse occupancy test over the uniform
-        # grid picks the candidate rays first, the whole render runs at the
-        # budget's width, and the outputs scatter back dense; overflow rays
-        # drop from the batch like misses (renderer.py:65-94)
-        budget = -(-int(n_rays * cfg.ray_budget_frac) // 64) * 64
-        budget = min(n_rays, max(128, budget))
-        if budget < n_rays:
-            ray_occ = coarse_ray_occupancy(cam_loc, ray_dirs, scene,
-                                           cfg.ray_sampler)
-            slot, ok, overflowed = field.compact_pair_slots(ray_occ, budget)
-            out = _render_body(params["frozen"], params["train"], scene,
-                               cam_loc[slot], ray_dirs[slot],
-                               depth_scale[slot], ray_ok=ok, **body)
-            probe_ovf = out.pop("probe_budget_overflow")
-            dense = _scatter_rays_back(out, slot, ok, n_rays,
-                                       cfg.ray_sampler.far)
-            dense["probe_budget_overflow"] = probe_ovf
-            dense["ray_budget_overflow"] = overflowed
-            return dense
-
+    if train:
+        return _render_share(params, scene, cam_loc, ray_dirs, depth_scale,
+                             cfg, iters, generator, draws, group)
     out = _render_body(params["frozen"], params["train"], scene, cam_loc,
-                       ray_dirs, depth_scale, **body)
+                       ray_dirs, depth_scale, cfg, train=False, iters=iters)
     out["ray_budget_overflow"] = torch.zeros((), dtype=torch.bool,
                                              device=ray_dirs.device)
     return out
+
+
+def ray_budget(n_rays: int, cfg: ModelConfig):
+    """The training ray budget's width for a batch of ``n_rays`` rays, or
+    None when it renders every ray (off, the entangled model, or a budget
+    as wide as the batch)."""
+    if not 0 < cfg.ray_budget_frac < 1 or cfg.entangled:
+        return None
+    budget = -(-int(n_rays * cfg.ray_budget_frac) // 64) * 64
+    budget = min(n_rays, max(128, budget))
+    return budget if budget < n_rays else None
+
+
+def _render_share(params, scene, cam_loc, ray_dirs, depth_scale,
+                  cfg: ModelConfig, iters: int, generator, draws, group):
+    """A training render: the whole batch's, or under ``group`` this rank's
+    share of a ray-sharded step's (one rank of one: the whole batch).
+
+    The training ray budget (renderer.py:65-94): a coarse occupancy test
+    over the uniform grid picks the candidate rays first, the render runs
+    at the budget's width, and the outputs scatter back dense; overflow
+    rays drop from the batch like misses.  Every rank holds the whole
+    batch and computes the whole batch's occupancy and slots; it renders
+    slots ``rank, rank + world, ...`` (the budget's live slots are a
+    prefix, so each rank gets an equal share of them), or without the
+    budget rays ``rank, rank + world, ...``.  The sampler's draws
+    (:func:`model.sampler.training_draws`) are made at the whole width and
+    sliced alike, so every ray gets the draws it gets unsharded.  The
+    budgets inside the body (probe, point and pair) act at the rank's
+    width: the result is the unsharded one whenever no rank overflows one
+    (ROADMAP Queue 3).
+
+    Outputs are dense ``[R, ...]``: the rays the other ranks render keep
+    the defaults of rays that missed, which every masked term ignores.
+    Under ``group`` ``ray_own`` ``[R]`` bool marks the rays whose
+    plain-mean terms (rgb, mask) this rank counts: those it renders, and
+    of the rays nobody renders, every ``world``-th from ``rank``;
+    ``ray_rows`` ``[R / world]`` the rows this rank rendered, -1 for a
+    spare slot.  ``ray_budget_overflow`` is the whole batch's, the same on
+    every rank; ``probe_budget_overflow`` the rank's own."""
+    n_rays = ray_dirs.shape[0]
+    dev = ray_dirs.device
+    world, rank = (1, 0) if group is None else (group.world, group.rank)
+    budget = ray_budget(n_rays, cfg)
+    if budget is not None:
+        ray_occ = coarse_ray_occupancy(cam_loc, ray_dirs, scene,
+                                       cfg.ray_sampler)
+        slot, ok, overflowed = field.compact_pair_slots(ray_occ, budget)
+    else:
+        slot = torch.arange(n_rays, device=dev)
+        ok = torch.ones(n_rays, dtype=torch.bool, device=dev)
+        overflowed = torch.zeros((), dtype=torch.bool, device=dev)
+    width = slot.shape[0]
+    draws = training_draws(cfg.ray_sampler, width, iters, dev, generator,
+                           cfg.entangled, draws)
+    pad = (-width) % world
+    if pad:
+        # spare slots: the last ray again, not live
+        slot = torch.cat([slot, slot.new_full((pad,), n_rays - 1)])
+        ok = torch.cat([ok, ok.new_zeros(pad)])
+        draws = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+                 if k in RAY_DRAWS else v for k, v in draws.items()}
+    body = dict(cfg=cfg, train=True, iters=iters)
+    if budget is None and world == 1:
+        # every ray, in order: nothing to pick or scatter back
+        out = _render_body(params["frozen"], params["train"], scene,
+                           cam_loc, ray_dirs, depth_scale, draws=draws,
+                           **body)
+        out["ray_budget_overflow"] = overflowed
+        return out
+    mine = (slice(None) if world == 1   # a view: no gather on one rank
+            else torch.arange(rank, width + pad, world, device=dev))
+    slot_r, ok_r = slot[mine], ok[mine]
+    out = _render_body(params["frozen"], params["train"], scene,
+                       cam_loc[slot_r], ray_dirs[slot_r], depth_scale[slot_r],
+                       draws={k: v[mine] if k in RAY_DRAWS else v
+                              for k, v in draws.items()},
+                       ray_ok=ok_r if budget is not None or pad else None,
+                       **body)
+    probe_ovf = out.pop("probe_budget_overflow")
+    dense = _scatter_rays_back(out, slot_r, ok_r, n_rays, cfg.ray_sampler.far)
+    dense["probe_budget_overflow"] = probe_ovf
+    dense["ray_budget_overflow"] = overflowed
+    if group is not None:
+
+        def marked(slots, live):
+            buf = torch.zeros(n_rays + 1, dtype=torch.bool, device=dev)
+            return buf.index_put_((torch.where(live, slots, n_rays),),
+                                  live)[:n_rays]
+
+        nobody = ~marked(slot, ok)
+        turn = torch.arange(n_rays, device=dev) % world == rank
+        dense["ray_own"] = marked(slot_r, ok_r) | (nobody & turn)
+        dense["ray_rows"] = torch.where(ok_r, slot_r, -1)
+    return dense
 
 
 _SCATTER_DEFAULTS = {
@@ -156,8 +236,8 @@ def coarse_ray_occupancy(cam_loc, ray_dirs, scene, scfg):
 
 
 def _sample_z(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
-              cfg: ModelConfig, train: bool, iters: int, beta0, generator,
-              draws, ray_ok):
+              cfg: ModelConfig, train: bool, iters: int, beta0, draws,
+              ray_ok):
     """The error-bounded z-values of the disentangled model and the probe
     budget's overflow flag.  Probe budgets (renderer.py:205-211): dense at
     >= 1; a training render's calibrated fraction applies to the first,
@@ -184,14 +264,16 @@ def _sample_z(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
 
     return error_bound_z_vals(sdf_probe_fn, cam_loc, ray_dirs,
                               cfg.ray_sampler, beta0, iters, train=train,
-                              generator=generator, draws=draws)
+                              draws=draws)
 
 
 def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
                  depth_scale, cfg: ModelConfig, *, train: bool, iters: int,
-                 generator=None, draws=None, ray_ok=None):
-    """The render of ``[R]`` rays.  ``ray_ok`` ``[R]`` bool: the ray
-    budget's live slots (:func:`field.compact_pair_slots`' ok, a prefix);
+                 draws=None, ray_ok=None):
+    """The render of ``[R]`` rays; a training render's ``draws`` are every
+    draw of its sampler (:func:`model.sampler.training_draws`).
+    ``ray_ok`` ``[R]`` bool: the ray budget's live slots
+    (:func:`field.compact_pair_slots`' ok, a prefix);
     the spare slots repeat the batch's last ray and their outputs are cut
     away, so their probe points take no probe-budget slot and read as
     empty space.  The live points keep their ranks (every spare point
@@ -208,16 +290,15 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
     if cfg.entangled:
         # the legacy model samples uniformly only (reference
         # pointneus.py:73-75)
-        draws = draws or {}
         z_all = uniform_z_vals(n_rays, scfg.near, scfg.far, scfg.n_samples,
-                               train, cam_loc.device, u=draws.get("u_z"),
-                               generator=generator)
+                               train, cam_loc.device,
+                               u=draws["u_z"] if train else None)
         probe_overflow = torch.zeros((), dtype=torch.bool,
                                      device=cam_loc.device)
     else:
         z_all, probe_overflow = _sample_z(prior, tp, scene, cam_loc,
                                           ray_dirs, cfg, train, iters,
-                                          beta0, generator, draws, ray_ok)
+                                          beta0, draws, ray_ok)
     z_all = z_all.detach()
     # at most max_shading_pts of a ray's samples are shaded; the entangled
     # model's uniform grid has fewer than that at the default config (64 <
@@ -411,31 +492,45 @@ def _color_maybe_pairs(tp, scene, idx, valid, x, dirs, cfg: ModelConfig,
                                  cfg.view_multires, fused_dtype=fused_dtype)
 
 
-def pseudo_sdf_loss(params, scene, out, cfg: ModelConfig):
+def pseudo_sdf_loss(params, scene, out, cfg: ModelConfig, count_fn=None):
     """L1-to-zero of the SDF at the rendered depth points (reference
     :765-780), a masked mean over the rays whose point has neighbours.
     Dense probe (budget None): the points sit on the surface, mostly
-    occupied.  Differentiable in the latents (K4) and in the points."""
+    occupied.  Differentiable in the latents (K4) and in the points.
+    A rank of a ray-sharded step probes only the rays it rendered
+    (``out["ray_rows"]``), and ``count_fn`` (as in
+    :func:`model.losses.valid_count`) sums the count over the ranks."""
+    pts, mask = out["pts_rendered"], out["ray_mask"]
+    rows = out.get("ray_rows")
+    if rows is not None:
+        live = rows >= 0
+        rows = torch.clamp(rows, min=0)
+        pts, mask = pts[rows], mask[rows] & live
     sdf = field.sdf_probe(params["frozen"], params["train"]["feats_geometry"],
-                          scene, out["pts_rendered"], cfg.k, cfg.r, cfg.rbf,
+                          scene, pts, cfg.k, cfg.r, cfg.rbf,
                           budget_frac=None, fused_agg=cfg.fused_agg)
-    valid = (sdf < field.SDF_FILLER / 2) & out["ray_mask"]
+    valid = (sdf < field.SDF_FILLER / 2) & mask
     abs_sdf = torch.where(valid, torch.abs(sdf), 0.0)
-    return torch.sum(abs_sdf) / torch.clamp(torch.sum(valid), min=1)
+    return torch.sum(abs_sdf) / torch.clamp(valid_count(valid, count_fn),
+                                            min=1)
 
 
 FD_EIKONAL_EPS = 5e-3
 
 
 def fd_eikonal_loss(params, scene, out, cfg: ModelConfig, n_sub: int = 0,
-                    generator=None, sel=None, u=None):
+                    generator=None, sel=None, u=None, count_fn=None):
     """Finite-difference eikonal at the shading points (beyond the
     reference; ``renderer.py:460-505``): ``((s(x + eps u) - s(x - eps u)) /
     (2 eps)| - 1)^2`` (eps ``FD_EIKONAL_EPS``) with a random unit direction
     u, neighbours reused from the centre.  Draws, each optional: ``sel
     [n_sub]`` the subset of shading points (when ``0 < n_sub < M``), ``u
     [M', 3]`` the normal draw before normalisation; absent ones come from
-    ``generator``."""
+    ``generator``.  Under ray sharding (``count_fn``, see
+    :func:`pseudo_sdf_loss`) the outputs are the whole batch's dense
+    layout, so every rank draws the same selection over the whole batch's
+    points; the points other ranks rendered are invalid here and count
+    there."""
     valid = out["valid_pt"].reshape(-1)
     x = out["xyz"].reshape(-1, 3)
     idx = out["nbr_idx"].reshape(-1, cfg.k)
@@ -461,7 +556,7 @@ def fd_eikonal_loss(params, scene, out, cfg: ModelConfig, n_sub: int = 0,
     ok = valid & (torch.abs(sp) < field.SDF_FILLER / 2) & (
         torch.abs(sm) < field.SDF_FILLER / 2)
     pen = torch.where(ok, (torch.abs(fd) - 1.0) ** 2, 0.0)
-    return torch.sum(pen) / torch.clamp(torch.sum(ok), min=1)
+    return torch.sum(pen) / torch.clamp(valid_count(ok, count_fn), min=1)
 
 
 def cloud_anchor_loss(params, scene, cfg: ModelConfig, n_points: int = 2048,
@@ -470,14 +565,19 @@ def cloud_anchor_loss(params, scene, cfg: ModelConfig, n_points: int = 2048,
     ``renderer.py:508-526``).  ``sel [n_points]``: the sampled point ids,
     drawn from ``generator`` when not given."""
     if sel is None:
-        sel = torch.randint(0, scene.points.shape[0], (n_points,),
-                            generator=generator, device=scene.points.device)
+        sel = cloud_anchor_sel(scene, n_points, generator)
     sdf = field.sdf_probe(params["frozen"], params["train"]["feats_geometry"],
                           scene, scene.points[sel], cfg.k, cfg.r, cfg.rbf,
                           budget_frac=None, fused_agg=cfg.fused_agg)
     valid = sdf < field.SDF_FILLER / 2
     return torch.sum(torch.where(valid, torch.abs(sdf), 0.0)) / torch.clamp(
         torch.sum(valid), min=1)
+
+
+def cloud_anchor_sel(scene, n_points: int = 2048, generator=None):
+    """The cloud anchor's draw: ``n_points`` point ids."""
+    return torch.randint(0, scene.points.shape[0], (n_points,),
+                         generator=generator, device=scene.points.device)
 
 
 def tv_loss(params, scene):

@@ -12,10 +12,10 @@ and the SDF evaluations go through a no-grad probe.  At eval no random
 number is drawn: the first grid is not stratified, every ``sample_pdf``
 round is deterministic and the extra columns are a linspace.  A training
 render draws three times: the stratified jitter, the last round's
-``sample_pdf`` and the extra columns.  Each draw can be given as a tensor
-(``draws``), so that a test can hand both packages the same numbers; a draw
-that is not given comes from the caller's ``torch.Generator``, on the
-render's device.
+``sample_pdf`` and the extra columns, all made up front by
+:func:`training_draws`.  Each draw can be given as a tensor (``draws``), so
+that a test can hand both packages the same numbers; a draw that is not
+given comes from the caller's ``torch.Generator``, on the render's device.
 """
 
 import numpy as np
@@ -34,10 +34,10 @@ def linspace(start: float, stop: float, n: int, device) -> torch.Tensor:
 
 
 def uniform_z_vals(n_rays: int, near: float, far: float, n: int,
-                   stratified: bool, device, u=None, generator=None):
+                   stratified: bool, device, u=None):
     """[R, n] z values on ``device``; stratified jitter within bins when
-    training, by ``u`` ``[R, n]`` in [0, 1) (drawn from ``generator`` when
-    not given)."""
+    training, by ``u`` ``[R, n]`` in [0, 1) (:func:`training_draws`'
+    ``"u_z"``)."""
     device = resolve_device(device)
     t = linspace(0.0, 1.0, n, device)
     z = near * (1.0 - t) + far * t
@@ -46,21 +46,19 @@ def uniform_z_vals(n_rays: int, near: float, far: float, n: int,
         mids = 0.5 * (z[..., 1:] + z[..., :-1])
         upper = torch.cat([mids, z[..., -1:]], -1)
         lower = torch.cat([z[..., :1], mids], -1)
-        if u is None:
-            u = torch.rand(z.shape, generator=generator, device=device)
         z = lower + (upper - lower) * u
     return z
 
 
 def sample_pdf(bins: torch.Tensor, pdf: torch.Tensor, n: int,
-               deterministic: bool, u=None, generator=None):
+               deterministic: bool, u=None):
     """Inverse-CDF sampling (reference ray_sampler.py:505-529).
 
     bins ``[R, Z]`` non-decreasing along Z; pdf ``[R, Z-1]`` (need not be
-    normalized); u ``[R, n]``: the draw when not deterministic (from
-    ``generator`` when not given).  ``torch.searchsorted(cdf, u,
-    right=True)`` brackets each u; the JAX package's masked max/min reduce
-    over an ``[R, U, Z]`` mask is its TPU stand-in for the same bracket
+    normalized); u ``[R, n]``: the draw when not deterministic.
+    ``torch.searchsorted(cdf, u, right=True)`` brackets each u; the JAX
+    package's masked max/min reduce over an ``[R, U, Z]`` mask is its TPU
+    stand-in for the same bracket
     (and a ``[4096, 128, 640]`` temporary at eval shapes).  The top bracket
     is clamped to the last column as there
     (``spurfies_tpu/model/sampler.py:82-87``).
@@ -71,8 +69,6 @@ def sample_pdf(bins: torch.Tensor, pdf: torch.Tensor, n: int,
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)   # [R, Z]
     if deterministic:
         u = linspace(0.0, 1.0, n, bins.device).expand(r, n).contiguous()
-    elif u is None:
-        u = torch.rand((r, n), generator=generator, device=bins.device)
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = torch.clamp(inds - 1, min=0)
     above = torch.clamp(inds, max=z - 1)
@@ -115,6 +111,44 @@ def _error_bound(beta, sdf, z_vals, dists, d_star):
     return torch.amax(bound, -1)
 
 
+# the ray-shaped training draws: one row per ray
+RAY_DRAWS = ("u_z", "u_pdf")
+
+
+def training_draws(cfg: SamplerConfig, n_rays: int, iters: int, device,
+                   generator, entangled: bool = False, given=None) -> dict:
+    """The draws of a training render of ``n_rays`` rays, made from
+    ``generator`` in this order (the keys in ``given`` are kept and not
+    drawn): ``"u_z"`` the stratified jitter, ``"u_pdf"`` the last
+    ``sample_pdf`` round's (when ``iters`` > 0) and ``"extra_cols"`` the
+    merged extra columns; the entangled model's uniform grid draws
+    ``"u_z"`` ``[R, n_samples]`` only.  Every training render takes its
+    draws from here; a rank of a ray-sharded step makes them at the whole
+    batch's width and takes its rows, so that its draws are the unsharded
+    step's."""
+    draws = dict(given or {})
+
+    def draw(key, fn):
+        if key not in draws:
+            draws[key] = fn()
+
+    if entangled:
+        draw("u_z", lambda: torch.rand((n_rays, cfg.n_samples),
+                                       generator=generator, device=device))
+        return draws
+    draw("u_z", lambda: torch.rand((n_rays, cfg.n_samples_eval),
+                                   generator=generator, device=device))
+    if iters > 0:
+        draw("u_pdf", lambda: torch.rand((n_rays, cfg.n_samples),
+                                         generator=generator, device=device))
+    if cfg.n_samples_extra > 0:
+        z_cols = cfg.n_samples_eval * max(iters, 1)
+        draw("extra_cols", lambda: torch.randperm(
+            z_cols, generator=generator,
+            device=device)[:cfg.n_samples_extra])
+    return draws
+
+
 def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
                        beta0, iters: int, train: bool, generator=None,
                        draws=None):
@@ -128,7 +162,7 @@ def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
       beta0: ``[]`` current density beta (detached by the caller).
       iters: sampler iterations (eval: max_total_iters).
       generator: the source of a training render's draws that ``draws``
-        does not give (unused at eval).
+        does not give (:func:`training_draws`; unused at eval).
       draws: optional training draws -- ``"u_z"`` ``[R, n_samples_eval]``
         the stratified jitter, ``"u_pdf"`` ``[R, n_samples]`` the last
         round's ``sample_pdf`` and ``"extra_cols"`` ``[n_samples_extra]``
@@ -140,7 +174,9 @@ def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
     """
     n_rays = cam_loc.shape[0]
     dev = cam_loc.device
-    draws = draws or {}
+    if train:
+        draws = training_draws(cfg, n_rays, iters, dev, generator,
+                               given=draws)
 
     def probe(z, first=False):
         pts = cam_loc[:, None, :] + z[..., None] * ray_dirs[:, None, :]
@@ -148,8 +184,7 @@ def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
         return s.reshape(z.shape).detach(), ovf
 
     z_vals = uniform_z_vals(n_rays, cfg.near, cfg.far, cfg.n_samples_eval,
-                            train, dev, u=draws.get("u_z"),
-                            generator=generator)
+                            train, dev, u=draws["u_z"] if train else None)
     sdf, probe_overflow = probe(z_vals, first=True)
 
     dists0 = z_vals[:, 1:] - z_vals[:, :-1]
@@ -208,7 +243,7 @@ def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
         else:
             samples = sample_pdf(z_vals, w_pdf, cfg.n_samples,
                                  deterministic=not train,
-                                 u=draws.get("u_pdf"), generator=generator)
+                                 u=draws["u_pdf"] if train else None)
 
     # near/far + extra merged columns (reference :537-559)
     near_col = torch.full((n_rays, 1), cfg.near, device=dev)
@@ -216,10 +251,7 @@ def error_bound_z_vals(sdf_fn, cam_loc, ray_dirs, cfg: SamplerConfig,
     z_cols = z_vals.shape[-1]
     if cfg.n_samples_extra > 0:
         if train:
-            cols = draws.get("extra_cols")
-            if cols is None:
-                cols = torch.randperm(z_cols, generator=generator,
-                                      device=dev)[:cfg.n_samples_extra]
+            cols = draws["extra_cols"]
         else:
             cols = linspace(0, z_cols - 1, cfg.n_samples_extra,
                             dev).to(torch.int64)

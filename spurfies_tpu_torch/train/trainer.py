@@ -13,11 +13,18 @@
     steps, reading their metrics back once per window.
   * ``make_render_fn`` renders a full image for evaluation.
 
+With ``train.data_parallel`` > 1 (``parallel``), every rank of the group
+holds the parameters and the whole batch, renders its share of the rays and
+counts its share of each loss term; one all-reduce of the flattened
+gradients before the optimizer gives every rank the whole batch's gradient,
+so the ranks take the same step, the unsharded one up to the order of sums.
+
 The JAX package's ``lax.scan`` window has no counterpart: the steps of a
 window are a Python loop of eagerly launched kernels.
 """
 
 import dataclasses
+import math
 import warnings
 
 import numpy as np
@@ -32,11 +39,12 @@ from spurfies_tpu_torch.model.local_loss import (
     find_surface_depth,
     local_feature_loss,
 )
-from spurfies_tpu_torch.model.losses import total_loss
+from spurfies_tpu_torch.model.losses import rgb_loss, total_loss
 from spurfies_tpu_torch.model.networks import init_model_params
 from spurfies_tpu_torch.model.neural_points import build_scene
 from spurfies_tpu_torch.model.renderer import (
     cloud_anchor_loss,
+    cloud_anchor_sel,
     coarse_ray_occupancy,
     fd_eikonal_loss,
     pseudo_sdf_loss,
@@ -45,12 +53,14 @@ from spurfies_tpu_torch.model.renderer import (
 )
 from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
 from spurfies_tpu_torch.ops.voxel_grid import fine_spec
+from spurfies_tpu_torch.parallel.mesh import make_group
 from spurfies_tpu_torch.train.optim import Optimizer, OptState, flatten
 
 _KEEP = ("rgb_values", "depth_values", "normal_map", "acc", "ray_mask")
 
 
-def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16):
+def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16,
+                   group=None):
     """Return ``render_image(tp, scene, frozen, uv, pose, intrinsics)``.
 
     It renders ``uv [n, 2]`` of one view in ``train.render_chunk``-ray
@@ -66,6 +76,15 @@ def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16):
     package's ``FUSED_MLP_DTYPE``); the colour MLPs run in bf16.  The
     entangled model (``frozen`` empty) runs its MLPs in f32.  Eval draws no
     random numbers.
+
+    ``group`` (a :class:`parallel.mesh.RankGroup`; every rank calls):
+    the chunks are the unsharded render's, rank r renders chunks r,
+    r + world, ..., and one all-gather gives every rank the whole image.
+    The JAX package splits each chunk's rays over its mesh instead
+    (``trainer.py:307-345``); a chunk's probe budget then acts on each
+    share, and on an H100 18 % of a validation render's rays moved (depth
+    beyond 2e-3) where a probe round overflowed.  Whole chunks keep
+    every ray's render the unsharded one.
     """
     mcfg = cfg.model
     dev = resolve_device(device)
@@ -113,6 +132,32 @@ def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16):
                               mcfg, train=False, iters=iters)
             return {k: out[k] for k in _KEEP}
 
+        def rendered(chunks):
+            """Every chunk's outputs in order, as numpy: this rank renders
+            every ``world``-th chunk from its rank (all of them outside a
+            group) into one buffer, gathered from the ranks."""
+            world, rank = (1, 0) if group is None else (group.world,
+                                                        group.rank)
+            per = -(-len(chunks) // world)
+            like = _empty(1)                   # the outputs' dtypes, widths
+            cols = [like[k][0].size for k in _KEEP]
+            mine = torch.zeros((per * eff, sum(cols)), device=dev)
+            for i, c in enumerate(chunks[rank::world]):
+                o = run_chunk(c)
+                mine[i * eff:(i + 1) * eff] = torch.cat(
+                    [o[k].reshape(eff, -1).to(torch.float32) for k in _KEEP],
+                    1)
+            every = mine[None] if group is None else group.all_gather_rows(
+                mine)
+            rows = every.reshape(world, per, eff, -1).transpose(0, 1).reshape(
+                world * per * eff, -1)[:len(chunks) * eff].cpu().numpy()
+            full, at = {}, 0
+            for k, c in zip(_KEEP, cols):
+                full[k] = rows[:, at:at + c].reshape(
+                    (-1,) + like[k].shape[1:]).astype(like[k].dtype)
+                at += c
+            return full
+
         if cfg.train.render_skip_empty and scene.occ_fine is not None:
             # one whole-image occupancy pass and one [n]-bool readback
             inp = _inputs(uv_p, pose, intrinsics)
@@ -129,18 +174,15 @@ def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16):
                 return out
             sel_p = np.concatenate(
                 [sel, np.zeros((-len(sel)) % eff, dtype=sel.dtype)])
-            starts = range(0, len(sel_p), eff)
             # every chunk is launched before the one readback below
-            outs = [run_chunk(uv_p[sel_p[i:i + eff]]) for i in starts]
-            for i, o in zip(starts, outs):
-                keep = min(eff, len(sel) - i)
-                for k in out:
-                    out[k][sel[i:i + keep]] = o[k][:keep].cpu().numpy()
+            full = rendered([uv_p[sel_p[i:i + eff]]
+                             for i in range(0, len(sel_p), eff)])
+            for k in out:
+                out[k][sel] = full[k][:len(sel)]
             return out
 
-        outs = [run_chunk(uv_p[i:i + eff]) for i in range(0, n + pad, eff)]
-        return {k: torch.cat([o[k] for o in outs]).cpu().numpy()[:n]
-                for k in _KEEP}
+        full = rendered([uv_p[i:i + eff] for i in range(0, n + pad, eff)])
+        return {k: v[:n] for k, v in full.items()}
 
     return render_image
 
@@ -237,7 +279,7 @@ _SUM_KEYS = ("ray_overflow", "probe_overflow")
 
 
 def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda",
-                    use_local: bool = False):
+                    use_local: bool = False, group=None):
     """``(loss_fn, sample_batch, train_step)`` for ``cfg`` on ``device``
     (``spurfies_tpu/train/trainer.py:147-275``).
 
@@ -259,31 +301,55 @@ def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda",
     ``use_local``: add the local feature loss (``trainer.py:209-227``) at
     the first backward-facing SDF crossing of each ray, against the
     batch's view and its two sources.
+
+    ``group`` (a :class:`parallel.mesh.RankGroup`): the ray-sharded step
+    (``trainer.py:147-190``).  ``sample_batch`` draws the whole batch on
+    every rank, from generators seeded alike, and ``draws`` are the whole
+    batch's.  Each rank renders its share of the rays
+    (``renderer._render_share``); its loss parts are its shares of the
+    whole batch's: the plain means (rgb, mask) count its own rays over the
+    batch's count, the masked means (eikonal, pseudo-SDF, local, fd
+    eikonal) divide by the count summed over the ranks, and the terms that
+    do not depend on the rays (TV, cloud anchor) count on rank 0 only; the
+    cloud anchor's draw is made on every rank, so that their generators
+    stay alike.  ``train_step`` sums the gradients over the ranks in one
+    all-reduce before the optimizer, so the guarded Adam's clip and finite
+    test see the whole batch's gradient and every rank takes the same step.
+    Its metrics are the rank's shares, with ``mse`` for ``psnr`` and
+    ``ray_overflow`` (the whole batch's, the same on every rank) on rank 0
+    only; :meth:`Trainer.run` sums them over the ranks at its readback.
     """
     mcfg, lcfg = cfg.model, cfg.loss
     n_pix = cfg.train.num_pixels
     fast = cfg.train.fast_iters
-    dev = resolve_device(device)
+    dev = resolve_device(device) if group is None else group.device
+    count_fn = None if group is None else group.sum
+    lead = group is None or group.lead
 
     def loss_fn(tp, bundle, batch, step, generator=None, draws=None):
         scene = bundle["scene"]
         draws = draws or {}
         params = {"frozen": bundle["prior"], "train": tp}
         out = render_rays(params, scene, batch["inputs"], mcfg, train=True,
-                          iters=fast, generator=generator, draws=draws)
+                          iters=fast, generator=generator, draws=draws,
+                          group=group)
         if not mcfg.entangled:  # the legacy model: rgb, eikonal, mask only
-            out["tv_loss"] = tv_loss(params, scene)
+            if lead:
+                out["tv_loss"] = tv_loss(params, scene)
             out["pseudo_pts_loss"] = pseudo_sdf_loss(params, scene, out,
-                                                     mcfg)
+                                                     mcfg, count_fn)
             if lcfg.cloud_anchor_weight > 0:
-                out["cloud_anchor_loss"] = cloud_anchor_loss(
-                    params, scene, mcfg, generator=generator,
-                    sel=draws.get("cloud_sel"))
+                sel = draws.get("cloud_sel")
+                if sel is None:
+                    sel = cloud_anchor_sel(scene, generator=generator)
+                if lead:
+                    out["cloud_anchor_loss"] = cloud_anchor_loss(
+                        params, scene, mcfg, sel=sel)
             if lcfg.fd_eikonal_weight > 0:
                 out["fd_eikonal_loss"] = fd_eikonal_loss(
                     params, scene, out, mcfg, n_sub=lcfg.fd_eikonal_points,
                     generator=generator, sel=draws.get("fd_sel"),
-                    u=draws.get("fd_u"))
+                    u=draws.get("fd_u"), count_fn=count_fn)
         if use_local:
             ctx = bundle["local"]
             d_surf, surf_mask = find_surface_depth(out["sdf"], out["z_sel"],
@@ -295,11 +361,18 @@ def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda",
             out["local_loss"] = local_feature_loss(
                 surface, surf_mask & out["ray_mask"], ctx["feats"][v][0],
                 ctx["feats"][src], ctx["cams"][v][0], ctx["cams"][src],
-                ctx["size"], ctx["center"])
-        loss, parts = total_loss(out, batch["gt"], lcfg, step=step)
-        parts["psnr"] = psnr_fn(out["rgb_values"],
-                                batch["gt"]["rgb"].reshape(-1, 3))
+                ctx["size"], ctx["center"], count_fn=count_fn)
+        loss, parts = total_loss(out, batch["gt"], lcfg, step=step,
+                                 count_fn=count_fn)
+        gt_rgb = batch["gt"]["rgb"].reshape(-1, 3)
+        if group is None:
+            parts["psnr"] = psnr_fn(out["rgb_values"], gt_rgb)
+        else:
+            parts["mse"] = rgb_loss(out["rgb_values"], gt_rgb, "l2",
+                                    out["ray_own"])
         parts["ray_overflow"] = out["ray_budget_overflow"].to(torch.float32)
+        if not lead:
+            parts["ray_overflow"] = torch.zeros_like(parts["ray_overflow"])
         parts["probe_overflow"] = out["probe_budget_overflow"].to(
             torch.float32)
         return loss, parts
@@ -333,6 +406,8 @@ def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda",
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        if group is not None:
+            group.all_reduce_(grads)
         optimizer.step(state.params, grads, state.opt_state)
         state.step += 1
         parts = {k: v.detach() for k, v in parts.items()}
@@ -342,6 +417,21 @@ def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda",
         return parts
 
     return loss_fn, sample_batch, train_step
+
+
+def whole_batch_metrics(group, keys, vals):
+    """The ranks' metrics ``vals`` (``[len(keys)]``, one step's or a
+    window's) summed over ``group`` into the whole batch's, in one
+    all-reduce: every part is a rank's share but ``notfinite``, the same on
+    every rank, and ``mse`` becomes ``psnr``.  Returns ``(keys, vals)``."""
+    summed = group.sum(vals)
+    same = torch.tensor([k == "notfinite" for k in keys], device=vals.device)
+    vals = torch.where(same, vals, summed)
+    if "mse" in keys:
+        i = keys.index("mse")
+        vals[i] = -10.0 * torch.log(vals[i]) / math.log(10.0)
+        keys = keys[:i] + ["psnr"] + keys[i + 1:]
+    return keys, vals
 
 
 class Trainer:
@@ -362,15 +452,32 @@ class Trainer:
         ``loss.local_weight > 0`` its features, hd cameras, the source map
         of the train views and the world denormalization go to the device
         (``self.local_ctx``) and every step adds the local feature loss.
+      group: the :class:`parallel.mesh.RankGroup` to shard the rays over;
+        by default, with ``train.data_parallel`` > 1, the group this
+        process joined through ``parallel.launch`` (``trainer.py:484-515``:
+        the same two ``ValueError``s when it has too few ranks or
+        ``num_pixels`` does not split).  Every rank builds the same state
+        on its group's device (``device`` is then ignored), and rank 0's
+        initial parameters are broadcast.  A group of one rank runs the
+        sharded code with its collectives.
     """
 
     def __init__(self, cfg: Config, point_cloud, colors, views,
                  local_bundle=None, device="cuda",
-                 compute_dtype=torch.bfloat16):
-        if cfg.train.data_parallel > 1:
-            raise NotImplementedError(
-                "train.data_parallel > 1: ROADMAP.md Queue 1 item 19")
-        self.device = resolve_device(device)
+                 compute_dtype=torch.bfloat16, group=None):
+        dp = cfg.train.data_parallel
+        if group is None and dp > 1:
+            group = make_group(dp)
+        if group is not None and group.world != dp:
+            raise ValueError(f"train.data_parallel={dp} but the group has "
+                             f"{group.world} ranks")
+        if group is not None and cfg.train.num_pixels % group.world:
+            raise ValueError(
+                f"train.num_pixels={cfg.train.num_pixels} must be a "
+                f"multiple of data_parallel={group.world}")
+        self.group = group
+        self.device = (resolve_device(device) if group is None
+                       else group.device)
         self.compute_dtype = compute_dtype
         seed = cfg.train.seed
         gen = torch.Generator().manual_seed(seed)
@@ -389,6 +496,8 @@ class Trainer:
         self.cfg = cfg
         params = init_model_params(cfg.model, gen, device=self.device)
         tp = dict(params["train"], **latents)
+        if group is not None:
+            group.broadcast_(flatten(tp))
         for leaf in flatten(tp):
             leaf.requires_grad_(True)
         self.load_frozen(params["frozen"])
@@ -414,8 +523,8 @@ class Trainer:
                                           dtype=torch.float32, device=dev)}
         self.loss_fn, self.sample_batch, self.train_step = make_train_step(
             cfg, self.optimizer, self.device,
-            use_local=self.local_ctx is not None)
-        self._render = make_render_fn(cfg, self.device, compute_dtype)
+            use_local=self.local_ctx is not None, group=group)
+        self._render = make_render_fn(cfg, self.device, compute_dtype, group)
 
     @property
     def bundle(self):
@@ -443,8 +552,11 @@ class Trainer:
         """Run ``n_steps`` in windows of ``window``; ``callback(step,
         metrics)`` after each window with each metric's last-step value
         (the overflow counters summed over the window).  Metrics are read
-        back once per window.  Raises when every step of a window (and at
-        least 100 in a row) was skipped as non-finite."""
+        back once per window; under ray sharding they are summed over the
+        ranks there, in one all-reduce (every rank calls ``run``), into
+        the whole batch's.  Raises when every step of a window (and at
+        least 100 in a row) was skipped as non-finite, on every rank
+        alike."""
         done = 0
         while done < n_steps:
             w = min(window, n_steps - done)
@@ -456,8 +568,10 @@ class Trainer:
                     acc[k] = acc[k] + v if k in _SUM_KEYS and k in acc else v
             done += w
             keys = list(acc)
-            vals = torch.stack([acc[k].to(torch.float32) for k in keys]).cpu()
-            last = dict(zip(keys, vals.tolist()))
+            vals = torch.stack([acc[k].to(torch.float32) for k in keys])
+            if self.group is not None:
+                keys, vals = whole_batch_metrics(self.group, keys, vals)
+            last = dict(zip(keys, vals.cpu().tolist()))
             consec = last["notfinite"]
             if consec >= max(w, 100):
                 raise RuntimeError(
@@ -470,15 +584,22 @@ class Trainer:
 
     # ---- checkpoints: params + frozen + step + optimizer state ----------
     def save_checkpoint(self, path: str):
-        torch.save({"params": _detached(self.state.params),
-                    "frozen": self.frozen,
-                    "step": int(self.state.step),
-                    "opt_state": self.state.opt_state.state_dict()}, path)
+        """Write the state to ``path``; under ray sharding rank 0 writes
+        and every rank waits for the file."""
+        if self.group is None or self.group.lead:
+            torch.save({"params": _detached(self.state.params),
+                        "frozen": self.frozen,
+                        "step": int(self.state.step),
+                        "opt_state": self.state.opt_state.state_dict()},
+                       path)
+        if self.group is not None:
+            self.group.barrier()
 
     def restore_checkpoint(self, path: str):
-        """Restore what :meth:`save_checkpoint` wrote.  A file without
-        optimizer state restores its parameters with a fresh optimizer and
-        a warning; a corrupt file raises."""
+        """Restore what :meth:`save_checkpoint` wrote (every rank reads the
+        same file).  A file without optimizer state restores its
+        parameters with a fresh optimizer and a warning; a corrupt file
+        raises."""
         ck = torch.load(path, map_location=self.device, weights_only=True)
         tp = ck["params"]
         for leaf in flatten(tp):

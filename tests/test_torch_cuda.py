@@ -945,3 +945,49 @@ def test_prep_cli_on_the_card_is_the_cpus(cuda, tmp_path, monkeypatch):
     assert len(pts["cuda"]) == len(pts["cpu"]) > 0
     assert np.abs(pts["cuda"] - pts["cpu"]).max() <= 1e-4 * np.abs(
         pts["cpu"]).max()
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_match_one_rank(cuda):
+    """``train.data_parallel=2`` with both ranks on the card over gloo (NCCL
+    refuses two ranks on one device), against one unsharded ``Trainer`` on
+    the card: two steps of ``tests/test_torch_parallel.py``'s TINY scene,
+    by that file's limits (loss parts 1e-5 relative on the first step,
+    ``feats_color`` within 5e-4 and every leaf within 2 lr a step after
+    the second), the ranks' parameters bit-equal."""
+    from _torch_parallel_ranks import STEPS, card_steps, trainer
+
+    from spurfies_tpu_torch.parallel.launch import launch
+    from spurfies_tpu_torch.train.optim import flatten
+
+    r0, r1 = launch(card_steps, 2, devices=("cuda:0", "cuda:0"))
+    assert r0["backend"] == "gloo"
+    tr, _ = trainer([], 1, device="cuda")
+    hist = []
+    tr.run(STEPS, window=1, callback=lambda s, m: hist.append(m))
+    for k, v in hist[0].items():
+        assert abs(r0["hist"][0][k] - v) <= 1e-5 * abs(v) + 1e-12, k
+    assert r0["hist"] == r1["hist"]
+    assert all(np.array_equal(p, q) for p, q in zip(r0["params"],
+                                                    r1["params"]))
+    tp = tr.state.params
+    names = [f"{k}[{i}]" for k in tp for i in range(len(flatten(tp[k])))]
+    diff = {n: float(np.abs(p.detach().cpu().numpy() - q).max())
+            for n, p, q in zip(names, flatten(tp), r0["params"])}
+    assert diff["feats_color[0]"] <= 5e-4, diff
+    assert max(diff.values()) <= 2 * tr.cfg.train.learning_rate * STEPS
+
+
+@pytest.mark.cuda
+def test_one_rank_over_nccl_waits_on_nothing(cuda):
+    """One rank over NCCL runs the sharded step with its collectives on the
+    card: finite, not skipped, and no host sync in a step."""
+    from _torch_parallel_ranks import card_steps
+
+    from spurfies_tpu_torch.parallel.launch import launch
+
+    [r] = launch(card_steps, 1, devices=("cuda:0",))
+    assert r["backend"] == "nccl"
+    assert all(np.isfinite(m["loss"]) and m["notfinite"] == 0
+               for m in r["hist"])
+    assert r["syncs"] == []
