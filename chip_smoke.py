@@ -200,7 +200,24 @@ failure exits non-zero before the last line):
      dp=1 render of the same checkpoint by phase 6's limits; and one rank
      over NCCL (its all-reduce on the card) for DP_NCCL_STEPS steps,
      ms/step and 0 host syncs, beside phase 10's unsharded ms/step;
- 24. the ``kernels`` JSON line (launches by render, training, evaluation
+ 24. the sphere validation (``validate_phase``): the port's
+     ``scripts.validate_pipeline`` at VALIDATE_STEPS steps (counters set
+     to 0 just before it): the launches (steps x PER_STEP, one K1 in the
+     build, chunks x (K1 + K2) in each of the two mesh probes, the iso
+     calibration's probe, view 0's render), then the masked PSNR and the
+     mean radius error held to the JAX package's own script on the CPU
+     within VALIDATE_PSNR_MARGIN dB and VALIDATE_RADIUS_MARGIN
+     (``validate_gate``);
+ 25. the acceptance chain (``chain_phase``): the port's
+     ``scripts.acceptance_chain`` through its ``main`` in the temporary
+     root at CHAIN_STEPS steps, the mesh at CHAIN_MESH_RES and CHAIN_VIEWS
+     views (192x256, the production widths): ``--stop-at CHAIN_STOP``,
+     then ``--resume``, the production run's path; each call's launches
+     (builds, steps x PER_STEP, each render's chunking, the mesh probe),
+     the record's keys against ``artifacts/acceptance_chain_r05.json``'s,
+     one experiment directory, a non-empty mesh, finite Chamfer, PSNR and
+     SSIM;
+ 26. the ``kernels`` JSON line (launches by render, training, evaluation
      and microbenchmark runs), the ``redesign_order`` line (the kernels
      ranked by launches x (ms - bound_ms) in this run) and the
      ``redesign_order_kernel_ms`` line (the same with the C entry's time
@@ -286,6 +303,25 @@ DP_WINDOW = 5
 DP_NCCL_STEPS = 10
 DP_CLI_STEPS = 20
 DP_CLI_RESUME = 10
+# phase 24: the port's validate_pipeline (the analytic sphere) at
+# VALIDATE_STEPS, held to the JAX package's own script run on the CPU with
+# the same steps (`JAX_PLATFORMS=cpu python scripts/validate_pipeline.py
+# --steps 1000`, its JSON in PERF.md; the script's default 2,000 steps do
+# not finish within 70 min on an 8-core CPU): the masked PSNR at most
+# VALIDATE_PSNR_MARGIN dB below JAX's, the mean radius error at most
+# VALIDATE_RADIUS_MARGIN above JAX's
+VALIDATE_STEPS = 1000
+VALIDATE_RES = 128
+JAX_VALIDATE = {"masked_psnr": 23.23, "mesh_mean_radius_err": 0.02289}
+VALIDATE_PSNR_MARGIN = 3.0
+VALIDATE_RADIUS_MARGIN = 0.01
+# phase 25: the port's acceptance chain at a cut budget (steps, mesh grid,
+# views; the widths are the production run's): --stop-at CHAIN_STOP, then
+# --resume to CHAIN_STEPS
+CHAIN_STEPS = 300
+CHAIN_STOP = 200
+CHAIN_MESH_RES = 256
+CHAIN_VIEWS = 2
 # the prior's dtype of cli.train.train_scene on the card
 CLI_DTYPE = "bfloat16"
 # ms/step of the timed training paths, by tag (train_path)
@@ -3762,6 +3798,227 @@ def dp_phase(smi, tmp, cfg, pts, cols, views, prior):
         f"[{smi}]")
 
 
+def validate_gate(got, ref=None):
+    """Phase 24's rule: the port's sphere within the margins of the JAX
+    package's (``JAX_VALIDATE``) -- masked PSNR at least JAX's less
+    VALIDATE_PSNR_MARGIN dB, ``mesh_mean_radius_err`` at most JAX's plus
+    VALIDATE_RADIUS_MARGIN (a NaN, an empty mesh, fails both)."""
+    ref = ref or JAX_VALIDATE
+    floor = ref["masked_psnr"] - VALIDATE_PSNR_MARGIN
+    ceil = ref["mesh_mean_radius_err"] + VALIDATE_RADIUS_MARGIN
+    if not got["masked_psnr"] >= floor:
+        fail(f"validate: masked PSNR {got['masked_psnr']} below {floor} "
+             f"(JAX {ref['masked_psnr']} - {VALIDATE_PSNR_MARGIN})")
+    if not got["mesh_mean_radius_err"] <= ceil:
+        fail(f"validate: mean radius error {got['mesh_mean_radius_err']} "
+             f"above {ceil} (JAX {ref['mesh_mean_radius_err']} + "
+             f"{VALIDATE_RADIUS_MARGIN})")
+
+
+def spy_probe_grid(rec):
+    """A spy on ``mesh_extract.probe_grid`` (by name, for
+    :class:`substituted`) that appends each call's chunks and launches to
+    ``rec["probe"]``."""
+    import torch
+
+    def make(fn):
+        def f(sdf_fn, axes, chunk=EVAL_CHUNK):
+            torch.cuda.synchronize()
+            before = read_counts()
+            vals = fn(sdf_fn, axes, chunk)
+            torch.cuda.synchronize()
+            after = read_counts()
+            n = math.prod(int(a.shape[0]) for a in axes)
+            rec["probe"].append((-(-n // chunk), {k: after[k] - before[k]
+                                                  for k in after}))
+            return vals
+        return f
+    return make
+
+
+def held_launches(tag, rec, launches, knn, per_step, extra=None):
+    """Hold ``launches`` (one run's, counters from 0) to what its parts
+    fix: one K1 in each ``Trainer`` build, ``per_step`` a training step,
+    each render's chunking (:func:`render_counts`), chunks x (K1 + K2) in
+    each mesh probe, plus ``extra``; ``rec`` as :func:`trainer_spies` and
+    :func:`spy_probe_grid` fill it.  Clears ``rec``'s lists."""
+    parts = dict.fromkeys(launches, 0)
+
+    def add(delta):
+        for k in parts:
+            parts[k] += delta[k]
+    for delta in rec["init"]:
+        if delta != expected_counts(delta, {"select_knn": 1}, 1, knn):
+            fail(f"{tag}: a Trainer's build launched {delta}")
+        add(delta)
+    steps = sum(r[0] for r in rec["run"])
+    add(expected_counts(launches, per_step, steps, knn))
+    for tr, uv, pose, K, _, delta in rec["render"]:
+        want = render_counts(tr, uv, pose, K, delta, knn)
+        if delta != want:
+            fail(f"{tag}: a render launched {delta}, expected {want}")
+        add(delta)
+    for chunks, delta in rec["probe"]:
+        want = expected_counts(delta, {"select_knn": 1,
+                                       "pair_sdf_value_agg": 1}, chunks, knn)
+        if delta != want:
+            fail(f"{tag}: a mesh probe of {chunks} chunks launched {delta}, "
+                 f"expected {want}")
+        add(delta)
+    if extra:
+        add(extra)
+    if launches != parts:
+        fail(f"{tag}: launched {launches}, expected {parts} (builds "
+             f"{len(rec['init'])}, {steps} steps, {len(rec['render'])} "
+             f"renders, {len(rec['probe'])} probes)")
+    log(f"{tag}: launches {launches} = {len(rec['init'])} builds + {steps} "
+        f"steps + {len(rec['render'])} renders + {len(rec['probe'])} mesh "
+        "probes" + (f" + {extra}" if extra else ""))
+    for key in ("init", "run", "render", "render_ms", "probe"):
+        rec[key].clear()
+    return steps
+
+
+def validate_phase(smi):
+    """Phase 24: the port's ``scripts.validate_pipeline`` on the card at
+    VALIDATE_STEPS steps (counters set to 0 just before it): the launches
+    (steps x PER_STEP, one K1 in the build, both mesh probes, the
+    calibration's probe and view 0's render), then ``validate_gate``
+    against the JAX package's CPU run."""
+    import torch
+
+    from spurfies_tpu_torch.eval import mesh_extract
+    from spurfies_tpu_torch.scripts import validate_pipeline
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    rec = {"init": [], "run": [], "render": [], "render_ms": [],
+           "probe": []}
+    spies = dict(trainer_spies(rec), probe_grid=spy_probe_grid(rec))
+    sites = [(Trainer, name, None) for name in ("__init__", "run",
+                                                "render_image")]
+    sites.append((mesh_extract, "probe_grid", None))
+    with substituted(lambda fn, _: spies[fn.__name__](fn), sites):
+        zero_counts()
+        t0 = time.perf_counter()
+        got = validate_pipeline.main(["--steps", str(VALIDATE_STEPS),
+                                      "--resolution", str(VALIDATE_RES)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    knn = "select_knn_packed"
+    trainer = rec["render"][0][0]
+    if not 0 < trainer.scene.table.n_points <= 2 ** 15:
+        fail("validate: the sphere does not select the packed K1")
+    if got["prior"] != "pretrained" or len(rec["probe"]) != 2:
+        fail(f"validate: prior {got['prior']}, {len(rec['probe'])} mesh "
+             "probes (expected the repo's prior and 2)")
+    steps = held_launches("validate", rec, launches, knn, PER_STEP,
+                          extra=expected_counts(launches, {
+                              "select_knn": 1, "pair_sdf_value_agg": 1}, 1,
+                              knn))
+    if steps != VALIDATE_STEPS:
+        fail(f"validate: {steps} steps, expected {VALIDATE_STEPS}")
+    log(f"validate: {json.dumps(got)}; JAX (CPU) {json.dumps(JAX_VALIDATE)};"
+        f" margins -{VALIDATE_PSNR_MARGIN} dB, +{VALIDATE_RADIUS_MARGIN}; "
+        f"phase wall {wall:.2f} s [{smi}]")
+    validate_gate(got)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def chain_phase(smi, tmp):
+    """Phase 25: the port's ``scripts.acceptance_chain`` through its
+    ``main`` in ``tmp`` at CHAIN_STEPS steps, the mesh at CHAIN_MESH_RES and
+    CHAIN_VIEWS views: ``--stop-at CHAIN_STOP``, then ``--resume`` (counters
+    set to 0 just before each).  It holds each call's launches, the
+    record's keys to ``artifacts/acceptance_chain_r05.json``'s, one
+    experiment directory, a non-empty mesh and finite Chamfer, PSNR and
+    SSIM."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.eval import mesh_extract
+    from spurfies_tpu_torch.scripts import acceptance_chain
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(tmp, "chain")
+    out = os.path.join(work, "record.json")
+    args = ["--steps", str(CHAIN_STEPS), "--mesh-resolution",
+            str(CHAIN_MESH_RES), "--max-views", str(CHAIN_VIEWS),
+            "--workdir", work, "--out", out]
+    rec = {"init": [], "run": [], "render": [], "render_ms": [],
+           "probe": []}
+    spies = dict(trainer_spies(rec), probe_grid=spy_probe_grid(rec))
+    sites = [(Trainer, name, None) for name in ("__init__", "run",
+                                                "render_image")]
+    sites.append((mesh_extract, "probe_grid", None))
+    knn = "select_knn_packed"
+    records, t_phase = [], time.perf_counter()
+    with substituted(lambda fn, _: spies[fn.__name__](fn), sites):
+        for tag, extra, steps, renders in (
+                ("stop", ["--stop-at", str(CHAIN_STOP)], CHAIN_STOP, 1),
+                ("resume", ["--resume"], CHAIN_STEPS - CHAIN_STOP,
+                 1 + CHAIN_VIEWS + 4)):
+            zero_counts()
+            t0 = time.perf_counter()
+            records.append(acceptance_chain.main(args + extra))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            tr = rec["render"][0][0]
+            if not 0 < tr.scene.table.n_points <= 2 ** 15:
+                fail("chain: the DTU scan does not select the packed K1")
+            n_render, n_probe = len(rec["render"]), len(rec["probe"])
+            got = held_launches(f"chain {tag}", rec, launches, knn, PER_STEP)
+            del tr
+            if (got, n_render, n_probe) != (steps, renders, tag == "resume"):
+                fail(f"chain {tag}: {got} steps, {n_render} renders, "
+                     f"{n_probe} probes; expected {steps}, {renders}, "
+                     f"{int(tag == 'resume')}")
+            log(f"chain {tag}: {wall:.2f} s; stages " + json.dumps(
+                records[-1]["stages"]) + f" [{smi}]")
+            if tag == "stop" and os.path.exists(out):
+                fail("chain: --stop-at wrote the record")
+    torch.cuda.empty_cache()
+
+    stop, full = records
+    if "nvs" in stop or [(c["from"], c["to"]) for c in stop["stages"][
+            "train"]["calls"]] != [(0, CHAIN_STOP)]:
+        fail("chain: the --stop-at call evaluated, or trained "
+             f"{stop['stages']['train']['calls']}")
+    with open(os.path.join(here, "artifacts",
+                           "acceptance_chain_r05.json")) as f:
+        r05 = json.load(f)
+    with open(out) as f:
+        written = json.load(f)
+    missing = [k for k in r05 if k not in full] + [
+        f"{k}.{kk}" for k, v in r05.items() if isinstance(v, dict)
+        for kk in v if kk != "note" and kk not in full.get(k, {})]
+    if missing or written != json.loads(json.dumps(full)):
+        fail(f"chain: the record lacks {missing} of the r05 record's keys, "
+             "or differs from the file")
+    exps = os.listdir(os.path.join(work, "exps", "dtu_pn_scan24"))
+    calls = [(c["from"], c["to"]) for c in full["stages"]["train"]["calls"]]
+    if len(exps) != 1 or calls != [(0, CHAIN_STOP),
+                                   (CHAIN_STOP, CHAIN_STEPS)]:
+        fail(f"chain: experiments {exps}, train calls {calls}")
+    nvs, near, cham = full["nvs"], full["nvs_nearviews"], full["chamfer"]
+    scores = nvs["psnr"] + nvs["ssim"] + near["psnr"] + near["ssim"] + [
+        cham[k] for k in ("acc", "comp", "overall")]
+    if not full["mesh"]["n_faces"] or len(nvs["psnr"]) != CHAIN_VIEWS or \
+            len(near["psnr"]) != 4 or not np.all(np.isfinite(scores)):
+        fail(f"chain: mesh {full['mesh']}, NVS {nvs['psnr']}, near "
+             f"{near['psnr']}, Chamfer {cham}")
+    rays = full["stages"]["train"]["rays_per_s"]
+    log(f"chain: {CHAIN_STEPS} steps ({rays:.1f} train rays/s), mesh "
+        f"{full['mesh']} at {CHAIN_MESH_RES}, NVS PSNR "
+        f"{nvs['mean_psnr']:.2f} SSIM {nvs['mean_ssim']:.4f}, near PSNR "
+        f"{near['mean_psnr']:.2f} SSIM {near['mean_ssim']:.4f}, Chamfer "
+        f"{json.dumps(cham)}, probe budget {json.dumps(full['probe_budget'])};"
+        f" phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
+
+
 def main():
     try:
         import torch
@@ -4256,7 +4513,8 @@ def main():
     # CLIs on its trained scan; 17. K9 through the port's micro_gather;
     # 18. occ_compact in training; 19. the entangled model; 20. the local
     # loss through the CLI on phase 15's scan; 21. prior pretraining;
-    # 22. point-cloud prep on phase 15's images ---
+    # 22. point-cloud prep on phase 15's images; 23. ray sharding; 24. the
+    # sphere validation; 25. the acceptance chain at a cut budget ---
     with tempfile.TemporaryDirectory() as tmp:
         launches_cli, launches_cli_render, cli_ms = cli_phase(smi, tmp)
         launches_eval, eval_best = eval_phase(smi, tmp)
@@ -4271,8 +4529,10 @@ def main():
             smi, tmp, cfg, pts_a, cols_a, views_a, view_a)
         prep_phase(smi, tmp)
         dp_phase(smi, tmp, cfg, pts_a, cols_a, views_a, prior_a)
+        validate_phase(smi)
+        chain_phase(smi, tmp)
 
-    # --- 24. report ---
+    # --- 26. report ---
     render_runs = (launches_render, launches_unfused, launches_colour_render,
                    launches_cli_render, launches_ent_render,
                    launches_local_render, launches_prior_render)

@@ -369,3 +369,33 @@ def test_within_rejects_kink_flips_above_their_share():
     with pytest.raises(SystemExit, match="kink flips may be at most"):
         smoke.within("three kink flips", out, ref,
                      kink=(layers, _rows_of(u)))
+
+
+@pytest.mark.parametrize("psnr, err, ok", [
+    (17.0, 0.0299, True),          # on the PSNR margin, inside the radius's
+    (25.0, 0.001, True),           # better than JAX on both
+    (16.99, 0.02, False),          # 3.01 dB below JAX
+    (20.0, 0.0301, False),         # 0.0101 above JAX
+    (float("nan"), 0.02, False),   # no PSNR
+    (20.0, float("nan"), False),   # an empty mesh
+])
+def test_validate_gate_holds_phase_24s_margins(psnr, err, ok):
+    """Phase 24 passes the port's sphere at JAX's masked PSNR less 3 dB
+    and JAX's mean radius error plus 0.01, and rejects a breach of either
+    or a NaN (the script reports an empty mesh as NaN)."""
+    ref = {"masked_psnr": 20.0, "mesh_mean_radius_err": 0.02}
+    got = {"masked_psnr": psnr, "mesh_mean_radius_err": err}
+    if ok:
+        smoke.validate_gate(got, ref)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.validate_gate(got, ref)
+
+
+def test_validate_gate_reference_is_the_jax_scripts_cpu_run():
+    """The default reference is filled with finite numbers: the JAX
+    script's JSON at VALIDATE_STEPS steps, as PERF.md records it."""
+    ref = smoke.JAX_VALIDATE
+    assert smoke.VALIDATE_STEPS == 1000
+    assert np.isfinite(ref["masked_psnr"]) and ref["masked_psnr"] > 10
+    assert 0 < ref["mesh_mean_radius_err"] < 0.1
