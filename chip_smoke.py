@@ -10,7 +10,8 @@ failure exits non-zero before the last line):
 
   1. device: the card's name and ``nvidia-smi`` name / power limit;
   2. build: every kernel of ``spurfies_tpu_torch/csrc`` with nvcc for
-     sm_90a and its host routine (``host_dedup.cpp``) with the host
+     sm_90a and its host routines (``host_dedup.cpp``, ``host_jpeg.cpp``)
+     with the host
      compiler, one process per source, all at once (seconds, and each entry
      function's registers and spills); the HGMMA and HMMA counts of the
      SASS of the wgmma kernels (WGMMA_KERNELS: K3, K2, K6a, K6b, K7a, K7b
@@ -217,7 +218,31 @@ failure exits non-zero before the last line):
      the record's keys against ``artifacts/acceptance_chain_r05.json``'s,
      one experiment directory, a non-empty mesh, finite Chamfer, PSNR and
      SSIM;
- 26. the ``kernels`` JSON line (launches by render, training, evaluation
+ 26. JPEG input (``jpeg_phase``): every fixture of ``tests/fixtures/jpeg``
+     decoded by ``read_image`` and ``read_bgr`` and held to the SHA-256 of
+     imageio's and cv2's arrays recorded in its ``hashes.json`` (neither
+     library is on the card's machine; ``read_bgr`` turns the EXIF-6 file
+     as cv2 does), the decoder's ms per megapixel on this host; then the
+     three committed views trained through ``cli.train.main`` three ways
+     (counters set to 0 just before each): as an own-data scene (the
+     ``.json`` and ``.ply`` of ``export_synthetic_own_data`` at the
+     views' scene, ``configs/own_data.yaml``), as the mip-NeRF ``garden``
+     layout (the files named as ``TRAIN_FRAMES["garden"]``,
+     ``configs/mip_nerf.yaml``) and as the scene that
+     ``cli.prep_pointcloud`` makes of them (phase 22's random DUSt3R at
+     full width; no launch in the prep), each JPEG_STEPS steps: launches =
+     the build's K1 + steps x PER_STEP + each render's chunking, rgb_loss
+     finite and falling from the first third of the JPEG_WINDOWS windows
+     to the last;
+ 27. the 100k-step run's script (``run100k_phase``): the port's
+     ``scripts.run_100k`` through its ``main`` in the temporary root, cut
+     to RUN100K_STEPS steps at the production widths (default config, 1024
+     rays, the dust3r_like scene): ``--stop-at RUN100K_KILL``, then
+     ``--resume`` (the kill), the production run's path; each call's
+     launches (the build, the steps, each evaluation's two mesh probes,
+     calibration probe and two renders), the record's keys against
+     ``artifacts/run100k_default.json``'s, the events, finite evaluations;
+ 28. the ``kernels`` JSON line (launches by render, training, evaluation
      and microbenchmark runs), the ``redesign_order`` line (the kernels
      ranked by launches x (ms - bound_ms) in this run) and the
      ``redesign_order_kernel_ms`` line (the same with the C entry's time
@@ -322,6 +347,23 @@ CHAIN_STEPS = 300
 CHAIN_STOP = 200
 CHAIN_MESH_RES = 256
 CHAIN_VIEWS = 2
+# phase 26: JPEG input; each CLI run trains JPEG_STEPS steps in windows of
+# JPEG_STEPS // JPEG_WINDOWS (a validation render after each), and rgb_loss
+# must fall from the mean of the first JPEG_WINDOWS // 3 windows to that of
+# the last: a window's rgb_loss is its last step's, one batch of 1024 rays,
+# so single windows are noisy (the prep scene's read 0.430, 0.329, 0.328,
+# 0.327, 0.322, 0.439 over 60 steps)
+JPEG_STEPS = 120
+JPEG_WINDOWS = 12
+JPEG_DECODE_REPS = 5
+# phase 27: the port's run_100k cut to RUN100K_STEPS, killed (and split
+# over two calls) at RUN100K_KILL, evaluated there and at the end
+# (a checkpoint falls on a window's end, and the kill on a checkpoint, as
+# in the production run: windows of 500, checkpoints every 15k, kill at 45k)
+RUN100K_STEPS = 600
+RUN100K_KILL = 300
+RUN100K_WINDOW = 50
+RUN100K_CKPT = 150
 # the prior's dtype of cli.train.train_scene on the card
 CLI_DTYPE = "bfloat16"
 # ms/step of the timed training paths, by tag (train_path)
@@ -4019,6 +4061,290 @@ def chain_phase(smi, tmp):
         f" phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
 
 
+def sha256_digest(img):
+    """Shape, dtype and SHA-256 of an array's bytes (C order), as
+    ``tests/test_torch_jpeg.py`` records them."""
+    import hashlib
+
+    import numpy as np
+    img = np.ascontiguousarray(img)
+    return {"shape": list(img.shape), "dtype": str(img.dtype),
+            "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+
+
+def jpeg_cli(tag, rec, knn_of, argv, smi):
+    """``cli.train.main(argv)`` (counters set to 0 just before it) with its
+    launches held (``held_launches``: the build's K1, JPEG_STEPS x
+    PER_STEP, each validation render's chunking) and rgb_loss finite and
+    falling in its ``metrics.jsonl``.  Returns (ms a step, first and last
+    rgb_loss means)."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.cli import train as cli_train
+
+    zero_counts()
+    t0 = time.perf_counter()
+    [(trainer, exp)] = cli_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    knn = knn_of(trainer)
+    n_pts = trainer.scene.points.shape[0]
+    del trainer
+    torch.cuda.empty_cache()
+    steps = held_launches(f"jpeg {tag}", rec, launches, knn, PER_STEP)
+    with open(os.path.join(exp.plots_dir, "logs", "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    losses = [r["rgb_loss"] for r in rows if "rgb_loss" in r]
+    part = JPEG_WINDOWS // 3
+    first, last = np.mean(losses[:part]), np.mean(losses[-part:])
+    log(f"jpeg {tag}: {n_pts} points (K1 {knn.split('_')[-1]}), {steps} "
+        f"steps in {wall:.2f} s of CLI; rgb_loss by window "
+        + ", ".join(f"{v:.5f}" for v in losses) + f" [{smi}]")
+    if steps != JPEG_STEPS or len(losses) != JPEG_WINDOWS:
+        fail(f"jpeg {tag}: {steps} steps, {len(losses)} windows")
+    if not np.all(np.isfinite(losses)) or not last < first:
+        fail(f"jpeg {tag}: rgb_loss not finite or not falling ({first} -> "
+             f"{last})")
+    return wall / steps * 1e3, first, last
+
+
+def jpeg_phase(smi, tmp):
+    """Phase 26: the fixtures of ``tests/fixtures/jpeg`` decoded on this
+    host and held to the hashes that imageio and cv2 gave
+    (``hashes.json``), the decoder's ms per megapixel, then the three views
+    trained through ``cli.train.main`` as an own-data scene, as mip-NeRF
+    ``garden`` and as the scene ``cli.prep_pointcloud`` makes of them."""
+    import shutil
+
+    import torch
+
+    from spurfies_tpu_torch.cli import prep_pointcloud as cli_prep
+    from spurfies_tpu_torch.data import jpeg
+    from spurfies_tpu_torch.data.mip_nerf import TRAIN_FRAMES
+    from spurfies_tpu_torch.data.mvs_local import read_bgr
+    from spurfies_tpu_torch.data.scene_data import read_image
+    from spurfies_tpu_torch.data.synthetic import export_synthetic_own_data
+    from spurfies_tpu_torch.eval import mesh_extract
+    from spurfies_tpu_torch.prep import dust3r_net as dn
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    fixtures = os.path.join(here, "tests", "fixtures", "jpeg")
+    with open(os.path.join(fixtures, "hashes.json")) as f:
+        record = json.load(f)
+    scene = record["scene"]
+    for name, want in sorted(record["files"].items()):
+        path = os.path.join(fixtures, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        got = {"imageio": sha256_digest(read_image(path)),
+               "cv2": sha256_digest(read_bgr(path))}
+        h, w = want["imageio"]["shape"][:2]
+        ms = best_s(lambda: jpeg.decode_jpeg(data),
+                    JPEG_DECODE_REPS) * 1e3
+        same = {k: "bit-equal to" if got[k] == want[k] else "DIFFERENT from"
+                for k in got}
+        log(f"jpeg: {name} {w}x{h} ({len(data):,} bytes), EXIF "
+            f"orientation {jpeg.orientation(data)}: read_image "
+            f"{same['imageio']} imageio, read_bgr {same['cv2']} cv2; "
+            f"decode {ms:.2f} ms = {ms / (h * w / 1e6):.2f} ms/MP "
+            f"(best of {JPEG_DECODE_REPS}, one host thread) [{smi}]")
+        if got != want:
+            fail(f"jpeg: {name} decodes to {got}, recorded {want}")
+
+    views = sorted(n for n in record["files"] if n.startswith("view_"))
+    work = os.path.join(tmp, "jpeg")
+    rec = {"init": [], "run": [], "render": [], "render_ms": [],
+           "probe": []}
+    spies = dict(trainer_spies(rec), probe_grid=spy_probe_grid(rec))
+    sites = [(Trainer, name, None) for name in ("__init__", "run",
+                                                "render_image")]
+    sites.append((mesh_extract, "probe_grid", None))
+
+    def knn_of(trainer):
+        return ("select_knn_packed" if 0 < trainer.scene.table.n_points
+                <= 2 ** 15 else "select_knn_exact")
+
+    every = JPEG_STEPS // JPEG_WINDOWS
+    common = [f"train.opt_steps={JPEG_STEPS}",
+              f"train.render_freq={every}",
+              f"train.checkpoint_freq={JPEG_STEPS}"]
+
+    def copy_views(dst, names):
+        os.makedirs(dst, exist_ok=True)
+        for src, name in zip(views, names):
+            shutil.copy(os.path.join(fixtures, src), os.path.join(dst, name))
+
+    # (a) own data: the views' scene as export_synthetic_own_data writes it,
+    # its PNGs replaced by the committed JPEGs
+    own = os.path.join(work, "own")
+    export_synthetic_own_data(own, scan=scene["scan"],
+                              n_views=scene["n_views"],
+                              img_res=tuple(scene["img_res"]),
+                              seed=scene["seed"])
+    inst = os.path.join(own, "own_data", scene["scan"])
+    shutil.rmtree(os.path.join(inst, "image"))
+    copy_views(os.path.join(inst, "image"), views)
+    runs = {}
+    with substituted(lambda fn, _: spies[fn.__name__](fn), sites):
+        runs["own_data"] = jpeg_cli("own_data", rec, knn_of, [
+            "--config", os.path.join(here, "configs", "own_data.yaml"),
+            "--scans", scene["scan"], f"dataset.data_dir_root={own}",
+            f"exps_folder={os.path.join(work, 'exps_own')}"] + common, smi)
+
+        # (b) mip-NeRF garden: the same scene, the views under the
+        # dataset's names
+        mip = os.path.join(work, "mip")
+        garden = os.path.join(mip, "mipnerf", "garden")
+        names = TRAIN_FRAMES["garden"]
+        copy_views(os.path.join(garden, "image"), names)
+        with open(os.path.join(inst, f"{scene['scan']}.json")) as f:
+            meta = json.load(f)
+        for fr, name in zip(meta["frames"], names):
+            fr["file_path"] = f"image/{name}"
+        with open(os.path.join(garden, "garden.json"), "w") as f:
+            json.dump(meta, f)
+        shutil.copy(os.path.join(inst, f"{scene['scan']}.ply"),
+                    os.path.join(garden, "garden.ply"))
+        runs["mipnerf_garden"] = jpeg_cli("mipnerf garden", rec, knn_of, [
+            "--config", os.path.join(here, "configs", "mip_nerf.yaml"),
+            "--scans", "garden", f"dataset.data_dir_root={mip}",
+            "loss.local_weight=0",       # no Vis-MVSNet checkpoint
+            f"exps_folder={os.path.join(work, 'exps_mip')}"] + common, smi)
+
+        # (c) the prep CLI on the JPEGs (phase 22's random DUSt3R), then
+        # the scene it wrote, the views beside it
+        ckpt = os.path.join(tmp, "prep", "dust3r.pth")
+        if not os.path.exists(ckpt):
+            os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+            torch.save(dn.random_dust3r_state(dn.Dust3rConfig(), seed=0,
+                                              dtype=torch.float16), ckpt)
+        prep_root = os.path.join(work, "prep")
+        zero_counts()
+        t0 = time.perf_counter()
+        res = cli_prep.main(["--scan", "jpeg_prep", "--images",
+                             os.path.join(inst, "image"), "--ckpt", ckpt,
+                             "--out-root", prep_root, "--conf",
+                             str(PREP_CONF), "--device", "cuda"])
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        if any(read_counts().values()):
+            fail(f"jpeg prep: the prep CLI launched {read_counts()}")
+        copy_views(os.path.join(res["out_dir"], "image"), views)
+        log(f"jpeg prep: cli.prep_pointcloud on the three JPEGs in "
+            f"{prep_s:.2f} s: {len(res['points']):,} points, alignment "
+            f"loss {res['loss']:.6g} [{smi}]")
+        torch.cuda.empty_cache()
+        runs["prep"] = jpeg_cli("prep", rec, knn_of, [
+            "--config", os.path.join(here, "configs", "own_data.yaml"),
+            "--scans", "jpeg_prep", f"dataset.data_dir_root={prep_root}",
+            f"exps_folder={os.path.join(work, 'exps_prep')}"] + common, smi)
+    log("jpeg: ms/step by scene " + json.dumps(
+        {k: round(v[0], 2) for k, v in runs.items()})
+        + f"; phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
+
+
+def run100k_phase(smi, tmp):
+    """Phase 27: the port's ``scripts.run_100k`` through its ``main`` in
+    ``tmp`` at RUN100K_STEPS steps: ``--stop-at RUN100K_KILL``, then
+    ``--resume`` (counters set to 0 just before each).  It holds each
+    call's launches, the record's keys to
+    ``artifacts/run100k_default.json``'s, its events and finite
+    evaluations."""
+    import numpy as np
+    import torch
+
+    from spurfies_tpu_torch.eval import mesh_extract
+    from spurfies_tpu_torch.scripts import run_100k
+    from spurfies_tpu_torch.train.trainer import Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(tmp, "run100k")
+    out = os.path.join(work, "record.json")
+    args = ["--steps", str(RUN100K_STEPS), "--kill-at", str(RUN100K_KILL),
+            "--eval-at", str(RUN100K_KILL), str(RUN100K_STEPS), "--window",
+            str(RUN100K_WINDOW), "--ckpt-dir", os.path.join(work, "ckpts"),
+            "--out", out]
+    ov = [f"train.checkpoint_freq={RUN100K_CKPT}"]
+    rec = {"init": [], "run": [], "render": [], "render_ms": [],
+           "probe": []}
+    spies = dict(trainer_spies(rec), probe_grid=spy_probe_grid(rec))
+    sites = [(Trainer, name, None) for name in ("__init__", "run",
+                                                "render_image")]
+    sites.append((mesh_extract, "probe_grid", None))
+    knn = "select_knn_packed"
+    records, t_phase = [], time.perf_counter()
+    with substituted(lambda fn, _: spies[fn.__name__](fn), sites):
+        for tag, extra, steps in (
+                ("stop", ["--stop-at", str(RUN100K_KILL)], RUN100K_KILL),
+                ("resume", ["--resume"], RUN100K_STEPS - RUN100K_KILL)):
+            zero_counts()
+            t0 = time.perf_counter()
+            records.append(run_100k.main(args + extra + ov))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            tr = rec["render"][0][0]
+            if not 0 < tr.scene.table.n_points <= 2 ** 15:
+                fail("run100k: the scene does not select the packed K1")
+            del tr
+            n_render, n_probe = len(rec["render"]), len(rec["probe"])
+            # each evaluation: the calibration's probe of the cloud (K1 +
+            # K2 once) and the beta render through the module-level
+            # render, launched as the render of the same view before it
+            extra_launches = expected_counts(
+                launches, {"select_knn": 1, "pair_sdf_value_agg": 1},
+                n_render, knn)
+            for r in rec["render"]:
+                for k in extra_launches:
+                    extra_launches[k] += r[5][k]
+            got = held_launches(f"run100k {tag}", rec, launches, knn,
+                                PER_STEP, extra=extra_launches)
+            if (got, n_render, n_probe) != (steps, 1, 2):
+                fail(f"run100k {tag}: {got} steps, {n_render} renders, "
+                     f"{n_probe} probes; expected {steps}, 1, 2")
+            log(f"run100k {tag}: {wall:.2f} s; windows " + json.dumps(
+                records[-1]["windows"][-(steps // RUN100K_WINDOW):])
+                + f" [{smi}]")
+    torch.cuda.empty_cache()
+
+    stop, full = (json.loads(json.dumps(r)) for r in records)
+    with open(os.path.join(here, "artifacts", "run100k_default.json")) as f:
+        ref = json.load(f)
+    with open(out) as f:
+        written = json.load(f)
+    ev_keys = list(ref["evals"]["30000"]) + ["masked_psnr_beta3e3"]
+    if sorted(full) != sorted(ref) or written != full or any(
+            list(w) != list(ref["windows"][0]) for w in full["windows"]) \
+            or any(sorted(e) != sorted(ev_keys)
+                   for e in full["evals"].values()):
+        fail(f"run100k: the record's keys {sorted(full)} are not the JAX "
+             "record's, or differ from the file")
+    events = [(e["step"], e["event"]) for e in full["events"]]
+    want = [(s, "checkpoint") for s in range(
+        RUN100K_CKPT, RUN100K_STEPS + 1, RUN100K_CKPT)]
+    want.insert(RUN100K_KILL // RUN100K_CKPT,
+                (RUN100K_KILL, f"host-resume from {RUN100K_KILL}"))
+    steps = [w["step"] for w in full["windows"]]
+    if events != want or list(stop["evals"]) != [str(RUN100K_KILL)] or \
+            list(full["evals"]) != [str(RUN100K_KILL), str(RUN100K_STEPS)] \
+            or steps != list(range(RUN100K_WINDOW, RUN100K_STEPS + 1,
+                                   RUN100K_WINDOW)):
+        fail(f"run100k: events {events}, evals {list(full['evals'])}, "
+             f"windows {steps}")
+    vals = [v for e in full["evals"].values() for v in e.values()]
+    if not all(v is not None and np.isfinite(v) for v in vals) or any(
+            w["notfinite"] for w in full["windows"]):
+        fail(f"run100k: evaluations {full['evals']}")
+    ms = [w["ms_per_step"] for w in full["windows"]]
+    log(f"run100k: {RUN100K_STEPS} steps, ms/step by window {ms}; evals "
+        f"{json.dumps(full['evals'])}; total_wall_s {full['total_wall_s']};"
+        f" phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
+
+
 def main():
     try:
         import torch
@@ -4514,7 +4840,8 @@ def main():
     # 18. occ_compact in training; 19. the entangled model; 20. the local
     # loss through the CLI on phase 15's scan; 21. prior pretraining;
     # 22. point-cloud prep on phase 15's images; 23. ray sharding; 24. the
-    # sphere validation; 25. the acceptance chain at a cut budget ---
+    # sphere validation; 25. the acceptance chain at a cut budget; 26. JPEG
+    # input; 27. the 100k-step run's script at a cut budget ---
     with tempfile.TemporaryDirectory() as tmp:
         launches_cli, launches_cli_render, cli_ms = cli_phase(smi, tmp)
         launches_eval, eval_best = eval_phase(smi, tmp)
@@ -4531,8 +4858,10 @@ def main():
         dp_phase(smi, tmp, cfg, pts_a, cols_a, views_a, prior_a)
         validate_phase(smi)
         chain_phase(smi, tmp)
+        jpeg_phase(smi, tmp)
+        run100k_phase(smi, tmp)
 
-    # --- 26. report ---
+    # --- 28. report ---
     render_runs = (launches_render, launches_unfused, launches_colour_render,
                    launches_cli_render, launches_ent_render,
                    launches_local_render, launches_prior_render)

@@ -30,9 +30,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from spurfies_tpu_torch.data import jpeg
 from spurfies_tpu_torch.data.scene_data import (
+    decode_image,
     glob_images,
-    read_image,
     resize_linear,
 )
 from spurfies_tpu_torch.device import resolve_device
@@ -77,8 +78,14 @@ def scale_intrinsics(cam: np.ndarray, scale: float) -> np.ndarray:
 
 def read_bgr(path: str) -> np.ndarray:
     """uint8 ``[H, W, 3]`` in BGR order, as ``cv2.imread(path)`` gives it:
-    16-bit samples keep their high byte, gray repeats, alpha goes."""
-    img = np.asarray(read_image(path))
+    16-bit samples keep their high byte, gray repeats, alpha goes, and a
+    JPEG is turned as its EXIF orientation tag says."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == jpeg.SIGNATURE:
+        img = jpeg.decode_jpeg(data, str(path), oriented=True)
+    else:
+        img = np.asarray(decode_image(data, str(path)))
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
     if img.ndim == 2:

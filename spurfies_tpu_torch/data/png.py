@@ -22,7 +22,7 @@ import zlib
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels: gray, RGB, gray+alpha, RGBA
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _COLOR_TYPE = {v: k for k, v in _CHANNELS.items()}
@@ -36,7 +36,7 @@ def read_png(path) -> np.ndarray:
 
 
 def _chunks(data: bytes):
-    if data[:8] != _SIGNATURE:
+    if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file")
     pos = 8
     while pos + 12 <= len(data):
@@ -174,7 +174,7 @@ def encode_png(img, filter_type=1) -> bytes:
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
     ihdr = struct.pack(">IIBBBBB", w, h, depth, _COLOR_TYPE[ch], 0, 0, 0)
-    return (_SIGNATURE + chunk(b"IHDR", ihdr)
+    return (SIGNATURE + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + chunk(b"IEND", b""))
 

@@ -5,9 +5,10 @@ share one protocol: per-view (uv, intrinsics 4x4, pose c2w 4x4) + flattened
 rgb/mask ``[H*W, 3]`` (SURVEY §2 L5).  The trainer wants all train views
 stacked, so loaders produce a SceneData with stacked train/eval stacks.
 
-Images are read without imageio or cv2: PNG through ``data.png``, JPEG
-through Pillow, the cubic and bilinear resizes through ``F.interpolate``
-and the nearest one by cv2's own index rule.
+Images are read without imageio, Pillow or cv2: PNG through ``data.png``,
+JPEG through ``data.jpeg`` (the host decoder), the cubic and bilinear
+resizes through ``F.interpolate`` and the nearest one by cv2's own index
+rule.
 """
 
 import glob
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spurfies_tpu_torch.data.png import read_png
+from spurfies_tpu_torch.data import jpeg, png
 
 
 def make_uv(h: int, w: int) -> np.ndarray:
@@ -71,24 +72,28 @@ class SceneData:
         return self.train.stacked(self.uv)
 
 
-def read_image(path: str) -> np.ndarray:
-    """The pixels of an image file as imageio gives them: PNG through
-    ``data.png``, JPEG through Pillow.  Pillow reads a 16-bit PNG with more
-    than one channel as 8 bits (the high byte), gray+alpha as RGBA."""
-    if path.lower().endswith(".png"):
-        img = read_png(path)
+def decode_image(data: bytes, name: str = "image") -> np.ndarray:
+    """The pixels of an image file's bytes as imageio gives them, by the
+    file's signature: PNG through ``data.png``, JPEG through ``data.jpeg``
+    (bit-equal; the EXIF orientation is ignored).  Pillow reads a 16-bit
+    PNG with more than one channel as 8 bits (the high byte), gray+alpha as
+    RGBA.  Any other format raises a ``ValueError``."""
+    if data[:8] == png.SIGNATURE:
+        img = png.decode_png(data)
         if img.dtype == np.uint16 and img.ndim == 3:
             img = (img >> 8).astype(np.uint8)
             if img.shape[2] == 2:
                 img = img[..., [0, 0, 0, 1]]
         return img
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(f"reading {path} needs Pillow (the JPEG decoder); "
-                          "the package is not installed") from e
-    with Image.open(path) as im:
-        return np.asarray(im)
+    if data[:2] == jpeg.SIGNATURE:
+        return jpeg.decode_jpeg(data, name)
+    raise ValueError(f"{name}: neither a PNG nor a JPEG file")
+
+
+def read_image(path: str) -> np.ndarray:
+    """:func:`decode_image` of the file at ``path``."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), str(path))
 
 
 def resize_cubic(img: np.ndarray, img_res) -> np.ndarray:

@@ -24,7 +24,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("select_knn", "sdf_agg", "agg_bwd", "scatter_rows", "color_mlp",
            "gather_rows")
-HOST_SOURCES = ("host_dedup",)
+HOST_SOURCES = ("host_dedup", "host_jpeg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # IEEE order as written: no FMA contraction

@@ -51,14 +51,22 @@ def build(overrides=(), prior=PRIOR_ASSET, device="cuda"):
     cfg = apply_overrides(cfg, list(overrides))
     pts, cols, views = make_synthetic_scene(
         n_points=8000, n_views=3, img_res=IMG_RES, radius=RADIUS)
-    dev = resolve_device(device)
-    trainer = Trainer(cfg, pts, cols, views, device=dev,
-                      compute_dtype=(torch.bfloat16 if dev.type == "cuda"
+    trainer, tag = make_trainer(cfg, pts, cols, views, prior,
+                                resolve_device(device))
+    return trainer, views, tag
+
+
+def make_trainer(cfg, pts, cols, views, prior, device):
+    """A ``Trainer`` on the scene (the prior's matmuls in bf16 on the card,
+    f32 on the CPU) with the prior at ``prior`` when that file exists.
+    Returns ``(trainer, "pretrained" or "random")``."""
+    trainer = Trainer(cfg, pts, cols, views, device=device,
+                      compute_dtype=(torch.bfloat16 if device.type == "cuda"
                                      else torch.float32))
     if prior is not None and os.path.isfile(prior):
-        trainer.load_frozen(load_prior_npz(prior, dev))
-        return trainer, views, "pretrained"
-    return trainer, views, "random"
+        trainer.load_frozen(load_prior_npz(prior, device))
+        return trainer, "pretrained"
+    return trainer, "random"
 
 
 def train(trainer, steps):

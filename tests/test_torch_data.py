@@ -307,8 +307,8 @@ def _mipnerf_scene(root, ext, scan="garden"):
 
 @pytest.mark.parametrize("ext", ["png", "JPG"])
 def test_load_mipnerf_matches_jax(tmp_path, ext):
-    """PNG through ``data.png``, JPEG through Pillow (as imageio reads
-    it); the scene overrides are the JAX package's."""
+    """PNG through ``data.png``, JPEG through ``data.jpeg`` (as imageio
+    reads it); the scene overrides are the JAX package's."""
     _mipnerf_scene(str(tmp_path), ext)
     _assert_scene_equal(tmip.load_mipnerf(str(tmp_path), "garden"),
                         jmip.load_mipnerf(str(tmp_path), "garden"))
@@ -316,13 +316,19 @@ def test_load_mipnerf_matches_jax(tmp_path, ext):
 
 
 def test_jpeg_without_pillow_raises(tmp_path, monkeypatch):
-    """A JPEG with no Pillow to decode it raises, naming the package; it is
-    never skipped."""
+    """With Pillow blocked a JPEG still loads, through the port's decoder,
+    as the JAX package loads it; a format that is neither PNG nor JPEG
+    raises a ``ValueError`` naming the file."""
     path = str(tmp_path / "a.jpg")
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
+    bmp = str(tmp_path / "a.bmp")
+    img = _image("smooth", (12, 20, 3), np.uint8, seed=3)
+    Image.fromarray(img).save(path)
+    Image.fromarray(img).save(bmp)
+    ref = jsd.load_image(path)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="Pillow"):
-        tsd.load_image(path)
+    np.testing.assert_array_equal(tsd.load_image(path), ref)
+    with pytest.raises(ValueError, match="a.bmp"):
+        tsd.load_image(bmp)
 
 
 def test_ply_codec_matches_jax(tmp_path):

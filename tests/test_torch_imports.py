@@ -28,8 +28,6 @@ ABSENT = re.compile(
     r"^(imageio|cv2|matplotlib|yaml|tensorboardX|PIL|sklearn)(\.|$)")
 BLOCKED = ("jax", "jaxlib", "optax", "orbax", "spurfies_tpu", "imageio", "cv2",
            "matplotlib", "yaml", "tensorboardX", "PIL", "sklearn")
-# the one place that may import Pillow: the JPEG branch
-JPEG_BRANCH = ("data/scene_data.py", "read_image")
 
 
 def _port_modules():
@@ -95,14 +93,11 @@ def test_absent_pattern():
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_absent_library_imports(path):
-    """imageio, cv2, matplotlib, yaml, tensorboardX and sklearn nowhere;
-    Pillow only in the JPEG branch of ``read_image``."""
+    """imageio, cv2, matplotlib, yaml, tensorboardX, Pillow and sklearn
+    nowhere (JPEGs go through the port's own decoder)."""
     rel = path.relative_to(ROOT).as_posix()
     bad = [(m, fn) for m, fn in _imported(path, with_function=True)
-           if m and ABSENT.match(m)
-           and not (m.split(".")[0] == "PIL"
-                    and (rel, fn) == ("spurfies_tpu_torch/" + JPEG_BRANCH[0],
-                                      JPEG_BRANCH[1]))]
+           if m and ABSENT.match(m)]
     assert not bad, f"{rel} imports {bad}"
 
 
