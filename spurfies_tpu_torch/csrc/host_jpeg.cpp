@@ -1,28 +1,49 @@
-// Baseline and extended sequential Huffman JPEG decoder, on the host: the
-// port's reader of JPEG files (what the JAX package reads through imageio,
-// i.e. libjpeg-turbo under Pillow at its defaults).
+// Sequential and progressive Huffman JPEG decoder, on the host: the port's
+// reader of JPEG files (what the JAX package reads through imageio, i.e.
+// libjpeg-turbo under Pillow at its defaults, and through cv2.imread).
 //
-// Scope: SOF0/SOF1, 8-bit samples; DQT (8- and 16-bit tables), DHT, DRI
-// and RST0-7, byte stuffing; interleaved and non-interleaved scans;
-// 1 component (grey) or 3 (YCbCr, or RGB under Adobe transform 0 or the
-// component ids 'R', 'G', 'B') with every component at 1x1, 2x1 or 2x2 of
-// the largest sampling factors (4:4:4, 4:2:2, 4:2:0). Anything else
-// (progressive, lossless, arithmetic coding, 12-bit samples, 4
-// components, other sampling factors, truncated data) is an error with a
-// message that names the feature.
+// Scope: SOF0/SOF1 (baseline and extended sequential) and SOF2
+// (progressive), 8-bit samples; DQT (8- and 16-bit tables), DHT, DRI and
+// RST0-7, byte stuffing; interleaved and non-interleaved scans; 1
+// component (grey) or 3 (YCbCr, or RGB under Adobe transform 0 or the
+// component ids 'R', 'G', 'B') at any sampling factors whose ratios to the
+// largest are integers (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...). A
+// progressive scan is checked as jdphuff.c's start_pass_phuff_decoder
+// checks it (an error there is an error here; a JWRN_BOGUS_PROGRESSION
+// warning decodes as libjpeg decodes it). Anything else is an error with a
+// message that names the feature: arithmetic coding (SOF9-11), lossless
+// (SOF3), hierarchical (SOF5-7), 12-bit samples, 4 components
+// (CMYK/YCCK), fractional sampling ratios, a progressive script that
+// leaves one of the first nine AC coefficients unfinished (libjpeg would
+// smooth the blocks, jdcoefct.c decompress_smooth_data) and truncated
+// data.
+//
+// Damaged data decode as libjpeg decodes them: a read past a segment's
+// data gives zero bits and leaves its later MCUs as they are
+// (insufficient_data), a bad Huffman code reads as 0, a wrong restart
+// marker resyncs as jpeg_resync_to_restart does, other Ss/Se/Ah/Al in a
+// sequential scan are ignored (JWRN_NOT_SEQUENTIAL).
 //
 // Every stage is libjpeg's integer arithmetic, so the pixels are bit-equal
-// to libjpeg-turbo's (whose SIMD paths are bit-exact with its C paths):
+// to libjpeg-turbo's (whose SIMD paths are bit-exact with its C paths while
+// the dequantized coefficients fit in 16 bits; past that, on damaged data
+// only, this computes as its C code does):
+//   * the four progressive scan decoders of jdphuff.c (DC first and
+//     refine, AC first and refine with their EOB runs),
 //   * the islow IDCT of jidctint.c (CONST_BITS 13, PASS1_BITS 2, its
-//     DESCALE rounding and the 1024-entry range-limit table),
-//   * the fancy upsampling of jdsample.c: h2v1 (3/4, 1/4 with +1/+2
-//     bias), h2v2 (3/4, 1/4 in both directions, +8/+7 bias before >> 4),
-//     edge rows and columns replicated, plain replication when a
-//     component is at most 2 samples wide,
+//     DESCALE rounding and the 1024-entry range-limit table) on the
+//     quantization table each component latched at its first scan,
+//   * the upsampling that jdsample.c's jinit_upsampler picks: fancy h2v1
+//     (3/4, 1/4 with +1/+2 bias) and h2v2 (3/4, 1/4 in both directions,
+//     +8/+7 bias before >> 4) when the component is more than 2 samples
+//     wide, fancy h1v2 (3/4, 1/4 down the column, +1/+2 bias), and
+//     replication (int_upsample) for every other integral ratio; edge rows
+//     and columns replicated,
 //   * the YCbCr -> RGB tables of jdcolor.c (SCALEBITS 16, ONE_HALF, clamp).
 // Built by the host compiler through ops/cuda_build.py at first use.
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -64,7 +85,14 @@ struct Component {
     std::vector<int16_t> coef;   // bw * bh * 64, natural order
     std::vector<uint8_t> plane;  // (bw * 8) x (bh * 8) samples
     int pred = 0;
+    bool q_latched = false;      // jdinput.c latch_quant_tables
+    uint16_t q[64];
+    int coef_bits[64];           // progressive: Al of each zigzag
+                                 // coefficient's last scan, -1 before any
 };
+
+// the kinds of scan (jdphuff.c's four decoders, and the sequential one)
+enum Scan { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
 
 struct Decoder {
     const uint8_t *d;
@@ -78,14 +106,22 @@ struct Decoder {
     bool qt_defined[4] = {false, false, false, false};
     Huffman dc[4], ac[4];
     int restart_interval = 0;
+    bool progressive = false;
+    unsigned eobrun = 0;  // blocks left in the current EOB run
     bool jfif = false, adobe = false;
     int adobe_transform = -1;
     int orientation = 1;
     bool eoi = false;
     // entropy reader
     uint64_t buf = 0;
-    int cnt = 0;
+    int cnt = 0;                // bits in buf
+    int real = 0;               // of them, bits of the scan's data; the
+                                // rest are zeros after its marker
     bool marker_hit = false;
+    bool insufficient = false;  // libjpeg's insufficient_data: a read went
+                                // past the data (JWRN_HIT_MARKER)
+    int next_rst = 0;           // the RSTn expected next
+    size_t marker_at = 0;       // where the last marker read begins
 
     Decoder(const uint8_t *data, size_t size) : d(data), n(size) {}
 
@@ -103,13 +139,17 @@ struct Decoder {
 
     // ---- markers --------------------------------------------------------
     int next_marker() {
-        // skip to 0xFF, then over fill bytes
-        int c = u8();
-        while (c != 0xFF) c = u8();
-        do {
-            c = u8();
-        } while (c == 0xFF);
-        return c;
+        // skip to 0xFF, then over fill bytes; a stuffed 0xFF00 left in
+        // the data is skipped too (jdmarker.c next_marker)
+        for (;;) {
+            int c = u8();
+            while (c != 0xFF) c = u8();
+            do {
+                c = u8();
+            } while (c == 0xFF);
+            marker_at = pos - 2;
+            if (c != 0) return c;
+        }
     }
 
     void parse_headers(bool stop_at_frame_scan) {
@@ -127,10 +167,11 @@ struct Decoder {
             switch (m) {
             case 0xC0:
             case 0xC1:
-                read_sof();
+                read_sof(false);
                 break;
             case 0xC2:
-                throw JpegError("progressive JPEG (SOF2) is not supported");
+                read_sof(true);
+                break;
             case 0xC3:
                 throw JpegError("lossless JPEG (SOF3) is not supported");
             case 0xC5: case 0xC6: case 0xC7:
@@ -212,8 +253,9 @@ struct Decoder {
         }
     }
 
-    void read_sof() {
+    void read_sof(bool prog) {
         if (frame) throw JpegError("corrupt data: two SOF markers");
+        progressive = prog;
         int len;
         size_t at = segment(&len);
         const uint8_t *p = d + at;
@@ -245,6 +287,7 @@ struct Decoder {
             c.tq = p[8 + 3 * i];
             if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
                 throw JpegError("corrupt data: bad component in SOF");
+            std::fill(c.coef_bits, c.coef_bits + 64, -1);
         }
         if (nc == 1) comps[0].h = comps[0].v = 1;  // one block an MCU
         hmax = vmax = 1;
@@ -252,15 +295,14 @@ struct Decoder {
             hmax = std::max(hmax, c.h);
             vmax = std::max(vmax, c.v);
         }
-        for (auto &c : comps) {
-            int rh = hmax / c.h, rv = vmax / c.v;
-            bool ok = hmax % c.h == 0 && vmax % c.v == 0 &&
-                      ((rh == 1 && rv == 1) || (rh == 2 && rv == 1) ||
-                       (rh == 2 && rv == 2));
-            if (!ok)
-                throw JpegError("sampling factors other than 4:4:4, 4:2:2 "
-                                "and 4:2:0 are not supported");
-        }
+        // jdsample.c jinit_upsampler: every integral ratio upsamples
+        for (auto &c : comps)
+            if (hmax % c.h || vmax % c.v)
+                throw JpegError(
+                    "fractional sampling (a component at " +
+                    std::to_string(c.h) + "x" + std::to_string(c.v) +
+                    " of " + std::to_string(hmax) + "x" +
+                    std::to_string(vmax) + ") is not supported");
         mcux = (width + 8 * hmax - 1) / (8 * hmax);
         mcuy = (height + 8 * vmax - 1) / (8 * vmax);
         for (auto &c : comps) {
@@ -362,44 +404,55 @@ struct Decoder {
                     if (q >= n) truncated();
                     if (d[q] == 0x00) {
                         pos = q + 1;
+                        real += 8;
                     } else {
                         marker_hit = true;  // zeros from here, as libjpeg
                         byte = 0;
                     }
                 } else {
                     ++pos;
+                    real += 8;
                 }
             }
             buf |= (uint64_t)byte << (56 - cnt);
             cnt += 8;
         }
     }
+    // drops k bits; a read past the scan's data sets insufficient, as
+    // jdhuff.c jpeg_fill_bit_buffer does when it must stuff zeros
+    inline void take(int k) {
+        buf <<= k;
+        cnt -= k;
+        if (k > real) {
+            insufficient = true;
+            real = 0;
+        } else {
+            real -= k;
+        }
+    }
     inline int bits(int k) {
         if (k == 0) return 0;
         if (cnt < k) fill();
         int v = (int)(buf >> (64 - k));
-        buf <<= k;
-        cnt -= k;
+        take(k);
         return v;
     }
     inline int decode(const Huffman &h) {
-        if (cnt < 16) fill();
+        if (cnt < 17) fill();
         int look = (int)(buf >> (64 - kLookBits));
         int l = h.look_len[look];
         if (l) {
-            buf <<= l;
-            cnt -= l;
+            take(l);
             return h.look_val[look];
         }
         l = kLookBits + 1;
         int code = (int)(buf >> (64 - l));
-        while (code > h.maxcode[l]) {
+        while (code > h.maxcode[l]) {  // maxcode[17] stops it
             ++l;
-            if (l > 16) throw JpegError("corrupt data: bad Huffman code");
             code = (int)(buf >> (64 - l));
         }
-        buf <<= l;
-        cnt -= l;
+        take(l);
+        if (l > 16) return 0;  // jpeg_huff_decode: JWRN_HUFF_BAD_CODE
         return h.vals[(h.valoffset[l] + code) & 255];
     }
     static inline int extend(int v, int s) {
@@ -409,7 +462,7 @@ struct Decoder {
     void decode_block(Component &c, int16_t *blk) {
         int s = decode(dc[c.dc_table]);
         int diff = s ? extend(bits(s), s) : 0;
-        c.pred += diff;
+        c.pred = (int)((unsigned)c.pred + (unsigned)diff);  // as jdhuff.c
         blk[0] = (int16_t)c.pred;
         const Huffman &h = ac[c.ac_table];
         for (int k = 1; k < 64; ++k) {
@@ -426,28 +479,177 @@ struct Decoder {
         }
     }
 
+    // ---- the progressive scans: jdphuff.c's decode_mcu_* ---------------
+    static inline int16_t shifted(int v, int al) {
+        return (int16_t)(int)((unsigned)v << al);  // LEFT_SHIFT, then JCOEF
+    }
+
+    void decode_dc_first(Component &c, int16_t *blk, int al) {
+        int s = decode(dc[c.dc_table]);
+        int diff = s ? extend(bits(s), s) : 0;
+        if ((c.pred >= 0 && diff > INT_MAX - c.pred) ||
+            (c.pred < 0 && diff < INT_MIN - c.pred))
+            throw JpegError("corrupt data: a DC coefficient out of range");
+        c.pred += diff;
+        blk[0] = shifted(c.pred, al);
+    }
+
+    void decode_ac_first(const Component &c, int16_t *blk, int ss, int se,
+                         int al) {
+        if (eobrun > 0) {  // a band of zeros
+            --eobrun;
+            return;
+        }
+        const Huffman &h = ac[c.ac_table];
+        for (int k = ss; k <= se; ++k) {
+            int rs = decode(h);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                k += r;  // at most 78: kNatural's extra entries
+                blk[kNatural[k]] = shifted(extend(bits(s), s), al);
+            } else if (r == 15) {
+                k += 15;  // ZRL
+            } else {      // EOBr: a run of 2^r + r more bits bands
+                eobrun = 1u << r;
+                if (r) eobrun += bits(r);
+                --eobrun;  // this band
+                break;
+            }
+        }
+    }
+
+    // decode_mcu_AC_refine: a correction bit for each coefficient already
+    // nonzero that the band passes, new coefficients of +-1 << al
+    void decode_ac_refine(const Component &c, int16_t *blk, int ss, int se,
+                          int al) {
+        const int p1 = 1 << al, m1 = -(1 << al);
+        auto correct = [&](int16_t &coef) {
+            if (bits(1) && (coef & p1) == 0)
+                coef = (int16_t)(coef >= 0 ? coef + p1 : coef + m1);
+        };
+        const Huffman &h = ac[c.ac_table];
+        int k = ss;
+        if (eobrun == 0) {
+            for (; k <= se; ++k) {
+                int rs = decode(h);
+                int r = rs >> 4, s = rs & 15;
+                if (s) {  // a size other than 1 is libjpeg's warning only
+                    s = bits(1) ? p1 : m1;
+                } else if (r != 15) {
+                    eobrun = 1u << r;
+                    if (r) eobrun += bits(r);
+                    break;  // the rest of the block: the EOB run below
+                }
+                // pass the nonzero coefficients and r zeros, correcting
+                do {
+                    int16_t &coef = blk[kNatural[k]];
+                    if (coef != 0)
+                        correct(coef);
+                    else if (--r < 0)
+                        break;  // the zero that becomes s
+                    ++k;
+                } while (k <= se);
+                if (s) blk[kNatural[k]] = (int16_t)s;  // k <= 64
+            }
+        }
+        if (eobrun > 0) {
+            for (; k <= se; ++k)
+                if (blk[kNatural[k]] != 0) correct(blk[kNatural[k]]);
+            --eobrun;
+        }
+    }
+
+    // process_restart (jdhuff.c, jdphuff.c) with jdmarker.c's
+    // read_restart_marker and jpeg_resync_to_restart: the expected RSTn, or
+    // one 3 to 5 ahead of it, is read and the data go on after it; one or
+    // two behind is skipped and the next marker looked at; one or two
+    // ahead, or a marker that is no RSTn, stays unread and the segment
+    // reads as empty
     void restart() {
         buf = 0;
         cnt = 0;
-        marker_hit = false;
-        size_t q = pos;
-        while (q < n && d[q] != 0xFF) ++q;  // padding bytes: libjpeg warns
-        while (q < n && d[q] == 0xFF) ++q;
-        if (q >= n) truncated();
-        if (d[q] < 0xD0 || d[q] > 0xD7)
-            throw JpegError("corrupt data: a restart marker is missing");
-        pos = q + 1;
+        real = 0;
+        auto rst = [&](int ahead) { return 0xD0 + ((next_rst + ahead) & 7); };
+        int m = next_marker();
+        for (;;) {
+            if (m == rst(0) || (m >= 0xD0 && m <= 0xD7 && m != rst(1) &&
+                                m != rst(2) && m != rst(7) && m != rst(6))) {
+                marker_hit = false;
+                insufficient = false;
+                break;
+            }
+            if (m >= 0xC0 && (m < 0xD0 || m > 0xD7 || m == rst(1) ||
+                              m == rst(2))) {
+                pos = marker_at;
+                marker_hit = true;
+                break;
+            }
+            m = next_marker();  // an invalid or an earlier marker
+        }
+        next_rst = (next_rst + 1) & 7;
         for (auto &c : comps) c.pred = 0;
+        eobrun = 0;
+    }
+
+    // jdphuff.c start_pass_phuff_decoder's checks of a progressive scan
+    // (JERR_BAD_PROGRESSION) and the kind of scan they leave
+    Scan scan_kind(int ns, int ss, int se, int ah, int al) const {
+        // jdhuff.c only warns about other parameters in a sequential
+        // scan (JWRN_NOT_SEQUENTIAL: baseline files with them all zero)
+        if (!progressive) return kSequential;
+        std::string why;
+        if (ss == 0 && se != 0)
+            why = "a DC scan with Se != 0";
+        else if (ss > se)
+            why = "Ss > Se";
+        else if (se > 63)
+            why = "Se > 63";
+        else if (ss != 0 && ns != 1)
+            why = "an AC scan of more than one component";
+        else if (ah != 0 && al != ah - 1)
+            why = "a refinement scan with Al != Ah - 1";
+        else if (al > 13)
+            why = "Al > 13";
+        if (!why.empty())
+            throw JpegError(
+                "corrupt data: bad progressive scan (Ss=" +
+                std::to_string(ss) + " Se=" + std::to_string(se) +
+                " Ah=" + std::to_string(ah) + " Al=" + std::to_string(al) +
+                "): " + why);
+        if (ss == 0) return ah ? kDcRefine : kDcFirst;
+        return ah ? kAcRefine : kAcFirst;
+    }
+
+    // libjpeg-turbo smooths the blocks (jdcoefct.c smoothing_ok, 10 saved
+    // coefficients) when every component's DC is known, its quantizers at
+    // the first ten zigzag positions are nonzero, and some component's
+    // coefficients 1..9 are unfinished
+    bool would_smooth() const {
+        bool useful = false;
+        for (const auto &c : comps) {
+            if (!c.q_latched) return false;
+            for (int k = 0; k < 10; ++k)
+                if (c.q[kNatural[k]] == 0) return false;
+            if (c.coef_bits[0] < 0) return false;
+            for (int k = 1; k < 10; ++k) useful |= c.coef_bits[k] != 0;
+        }
+        return useful;
     }
 
     void read_sos_and_scan() {
         int len;
         size_t at = segment(&len);
         const uint8_t *p = d + at;
-        int ns = p[0];
+        int ns = len > 0 ? p[0] : 0;
         if (ns < 1 || ns > 4 || len < 4 + 2 * ns)
             throw JpegError("corrupt data: bad SOS");
+        int ss = p[1 + 2 * ns], se = p[2 + 2 * ns];
+        int ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
+        Scan kind = scan_kind(ns, ss, se, ah, al);
+        bool need_dc = kind == kSequential || kind == kDcFirst;
+        bool need_ac = kind == kSequential || ss != 0;
         std::vector<Component *> sc;
+        int blocks = 0;
         for (int i = 0; i < ns; ++i) {
             int id = p[1 + 2 * i], t = p[2 + 2 * i];
             Component *c = nullptr;
@@ -456,50 +658,90 @@ struct Decoder {
             if (!c) throw JpegError("corrupt data: SOS names no component");
             c->dc_table = t >> 4;
             c->ac_table = t & 15;
-            if (c->dc_table > 3 || c->ac_table > 3 ||
-                !dc[c->dc_table].defined || !ac[c->ac_table].defined)
+            if ((need_dc &&
+                 (c->dc_table > 3 || !dc[c->dc_table].defined)) ||
+                (need_ac && (c->ac_table > 3 || !ac[c->ac_table].defined)))
                 throw JpegError("corrupt data: a Huffman table is missing");
-            if (!qt_defined[c->tq])
-                throw JpegError("corrupt data: a quantization table is "
-                                "missing");
+            if (!c->q_latched) {
+                if (!qt_defined[c->tq])
+                    throw JpegError("corrupt data: a quantization table is "
+                                    "missing");
+                memcpy(c->q, qt[c->tq], sizeof c->q);
+                c->q_latched = true;
+            }
+            blocks += c->h * c->v;
             sc.push_back(c);
         }
-        int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], a = p[3 + 2 * ns];
-        if (ss != 0 || se != 63 || a != 0)
-            throw JpegError("corrupt data: a progressive scan in a "
-                            "sequential JPEG");
+        // jdinput.c per_scan_setup: D_MAX_BLOCKS_IN_MCU
+        if (ns > 1 && blocks > 10)
+            throw JpegError("corrupt data: more than 10 blocks in an MCU");
         for (auto *c : sc) {
             if (c->coef.empty())
                 c->coef.assign((size_t)c->bw * c->bh * 64, 0);
             c->pred = 0;
+            for (int k = ss; progressive && k <= se; ++k)
+                c->coef_bits[k] = al;
         }
+        eobrun = 0;
         buf = 0;
         cnt = 0;
+        real = 0;
         marker_hit = false;
+        insufficient = false;
+        next_rst = 0;
+        auto block = [&](Component &c, int16_t *blk) {
+            switch (kind) {
+            case kSequential:
+                decode_block(c, blk);
+                break;
+            case kDcFirst:
+                decode_dc_first(c, blk, al);
+                break;
+            case kDcRefine:
+                if (bits(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+                break;
+            case kAcFirst:
+                decode_ac_first(c, blk, ss, se, al);
+                break;
+            case kAcRefine:
+                decode_ac_refine(c, blk, ss, se, al);
+                break;
+            }
+        };
+        // the restart interval counts MCUs: blocks in a non-interleaved
+        // scan
         int64_t done = 0;
         auto maybe_restart = [&]() {
             if (restart_interval && done && done % restart_interval == 0)
                 restart();
         };
-        if (ns == 1) {
+        // past the data, an MCU is left as it is (a DC refinement reads
+        // its zero bits: they change nothing)
+        auto live = [&]() { return !insufficient || kind == kDcRefine; };
+        if (ns == 1) {  // the component's own blocks (width_in_blocks)
             Component &c = *sc[0];
             int w = (c.dw + 7) / 8, hh = (c.dh + 7) / 8;
             for (int by = 0; by < hh; ++by)
                 for (int bx = 0; bx < w; ++bx) {
                     maybe_restart();
-                    decode_block(c, &c.coef[((size_t)by * c.bw + bx) * 64]);
+                    if (live())
+                        block(c, &c.coef[((size_t)by * c.bw + bx) * 64]);
                     ++done;
                 }
-        } else {
+        } else {  // the MCU grid
             for (int my = 0; my < mcuy; ++my)
                 for (int mx = 0; mx < mcux; ++mx) {
                     maybe_restart();
+                    if (!live()) {
+                        ++done;
+                        continue;
+                    }
                     for (auto *c : sc)
                         for (int y = 0; y < c->v; ++y)
                             for (int x = 0; x < c->h; ++x) {
                                 size_t b = (size_t)(my * c->v + y) * c->bw +
                                            mx * c->h + x;
-                                decode_block(*c, &c->coef[b * 64]);
+                                block(*c, &c->coef[b * 64]);
                             }
                     ++done;
                 }
@@ -643,7 +885,7 @@ struct Decoder {
                 throw JpegError("corrupt data: a component has no scan");
             int stride = c.bw * 8;
             c.plane.assign((size_t)stride * c.bh * 8, 0);
-            const uint16_t *q = qt[c.tq];
+            const uint16_t *q = c.q;
             for (int by = 0; by < c.bh; ++by)
                 for (int bx = 0; bx < c.bw; ++bx)
                     idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], q,
@@ -656,42 +898,57 @@ struct Decoder {
     // one output row of component c, upsampled to the image's width
     std::vector<uint8_t> tmp;  // an upsampled row before its crop
 
+    // jdsample.c jinit_upsampler's choice, fancy where it is fancy
     void upsample_row(const Component &c, int y, uint8_t *row) {
         int stride = c.bw * 8;
         int rh = hmax / c.h, rv = vmax / c.v;
-        if (rh == 1) {
-            memcpy(row, &c.plane[(size_t)y * stride], width);
-            return;
-        }
         int dw = c.dw;
         int last = dw - 1;
-        tmp.resize(2 * (size_t)dw);
-        if (dw <= 2) {  // jdsample.c: no fancy upsampling this narrow
-            const uint8_t *in = &c.plane[(size_t)(y / rv) * stride];
-            for (int x = 0; x < 2 * dw; ++x) tmp[x] = in[x / 2];
-        } else if (rv == 1) {  // h2v1_fancy_upsample
-            const uint8_t *in = &c.plane[(size_t)y * stride];
-            for (int j = 0; j < dw; ++j) {
-                int l = in[j > 0 ? j - 1 : 0], m = in[j] * 3,
-                    r = in[j < last ? j + 1 : last];
-                tmp[2 * j] = (uint8_t)((m + l + 1) >> 2);
-                tmp[2 * j + 1] = (uint8_t)((m + r + 2) >> 2);
-            }
-        } else {  // h2v2_fancy_upsample
+        auto in_row = [&](int i) { return &c.plane[(size_t)i * stride]; };
+        if (rh == 1 && rv == 2) {  // h1v2_fancy_upsample, at any width
             int i = y / 2;
             int nb = (y & 1) ? (i + 1 < c.dh ? i + 1 : c.dh - 1)
                              : (i > 0 ? i - 1 : 0);
-            const uint8_t *in0 = &c.plane[(size_t)i * stride];
-            const uint8_t *in1 = &c.plane[(size_t)nb * stride];
-            auto colsum = [&](int j) { return in0[j] * 3 + in1[j]; };
-            for (int j = 0; j < dw; ++j) {
-                int l = colsum(j > 0 ? j - 1 : 0), m = colsum(j) * 3,
-                    r = colsum(j < last ? j + 1 : last);
-                tmp[2 * j] = (uint8_t)((m + l + 8) >> 4);
-                tmp[2 * j + 1] = (uint8_t)((m + r + 7) >> 4);
-            }
+            int bias = (y & 1) ? 2 : 1;
+            const uint8_t *in0 = in_row(i), *in1 = in_row(nb);
+            for (int x = 0; x < width; ++x)
+                row[x] = (uint8_t)((in0[x] * 3 + in1[x] + bias) >> 2);
+            return;
         }
-        memcpy(row, tmp.data(), width);
+        if (rh == 2 && rv <= 2 && dw > 2) {
+            tmp.resize(2 * (size_t)dw);
+            if (rv == 1) {  // h2v1_fancy_upsample
+                const uint8_t *in = in_row(y);
+                for (int j = 0; j < dw; ++j) {
+                    int l = in[j > 0 ? j - 1 : 0], m = in[j] * 3,
+                        r = in[j < last ? j + 1 : last];
+                    tmp[2 * j] = (uint8_t)((m + l + 1) >> 2);
+                    tmp[2 * j + 1] = (uint8_t)((m + r + 2) >> 2);
+                }
+            } else {  // h2v2_fancy_upsample
+                int i = y / 2;
+                int nb = (y & 1) ? (i + 1 < c.dh ? i + 1 : c.dh - 1)
+                                 : (i > 0 ? i - 1 : 0);
+                const uint8_t *in0 = in_row(i), *in1 = in_row(nb);
+                auto colsum = [&](int j) { return in0[j] * 3 + in1[j]; };
+                for (int j = 0; j < dw; ++j) {
+                    int l = colsum(j > 0 ? j - 1 : 0), m = colsum(j) * 3,
+                        r = colsum(j < last ? j + 1 : last);
+                    tmp[2 * j] = (uint8_t)((m + l + 8) >> 4);
+                    tmp[2 * j + 1] = (uint8_t)((m + r + 7) >> 4);
+                }
+            }
+            memcpy(row, tmp.data(), width);
+            return;
+        }
+        // fullsize_upsample, int_upsample, and h2v1_upsample /
+        // h2v2_upsample where a component is at most 2 samples wide:
+        // replication
+        const uint8_t *in = in_row(y / rv);
+        if (rh == 1)
+            memcpy(row, in, width);
+        else
+            for (int x = 0; x < width; ++x) row[x] = in[x / rh];
     }
 
     bool rgb_space() const {
@@ -790,6 +1047,10 @@ int host_jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
         if ((int64_t)dec.height * dec.width * (int64_t)dec.comps.size() !=
             out_size)
             throw JpegError("output buffer of the wrong size");
+        if (dec.progressive && dec.would_smooth())
+            throw JpegError("incomplete progressive script (one of the "
+                            "first nine AC coefficients is unfinished: "
+                            "libjpeg's block smoothing is not supported)");
         dec.reconstruct();
         dec.write(out);
         return 0;

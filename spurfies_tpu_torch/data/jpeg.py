@@ -1,16 +1,20 @@
 """JPEG reader on the port's host decoder (what the JAX package reads
-through imageio, i.e. libjpeg-turbo under Pillow).
+through imageio, i.e. libjpeg-turbo under Pillow, and through cv2).
 
 ``read_jpeg`` / ``decode_jpeg`` return the pixels bit-equal to
 ``imageio.v2.imread``'s: ``[H, W]`` uint8 for grey, ``[H, W, 3]`` for
 colour.  The decoder (``csrc/host_jpeg.cpp``, built by the host compiler at
-first use through ``ops.cuda_build``) takes baseline and extended
-sequential Huffman JPEG with 8-bit samples, grey or three components at
-4:4:4, 4:2:2 or 4:2:0, restart markers and any image size; anything else
-(progressive, arithmetic coding, 12-bit samples, CMYK/YCCK, other sampling
-factors, truncated data) raises a ``ValueError`` that names the file and
-the feature.  A library that does not build raises too: there is no other
-decoder.
+first use through ``ops.cuda_build``) takes baseline, extended sequential
+and progressive Huffman JPEG with 8-bit samples, grey or three components
+at any integral sampling ratio (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...),
+restart markers and any image size, and reads damaged data as libjpeg
+does (zeros past the end of a segment, its restart resync).  Anything
+else raises a ``ValueError`` that names the file and the feature:
+arithmetic coding, lossless and hierarchical JPEG, 12-bit samples,
+CMYK/YCCK, fractional sampling ratios, progressive scans that libjpeg
+rejects, a progressive script that stops before the first nine AC
+coefficients are whole (libjpeg smooths such blocks), truncated data.  A
+library that does not build raises too: there is no other decoder.
 
 The pixels of ``read_jpeg`` ignore the EXIF orientation tag, as
 imageio's do; ``decode_jpeg(..., oriented=True)`` turns them the way

@@ -13,6 +13,7 @@ The record holds every key of ``artifacts/acceptance_chain_r05.json``.
 
 import _torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
+import importlib.util
 import json
 import os
 import sys
@@ -121,6 +122,29 @@ def test_record_scores_are_finite(chain):
     assert np.all(np.isfinite(scores))
     pb = full["probe_budget"]
     assert 0 < pb["occupied"] <= pb["points"] and 0 < pb["share"] <= 1
+
+
+def test_chain_budget_reproduces_the_record(chain, tmp_path):
+    """``chip_chain_budget.py`` on the finished run: its budgeted mesh is
+    the record's (faces, Chamfer to 1e-6, the points dropped), and the mesh
+    without the budget is scored too."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_chain_budget", ROOT / "chip_chain_budget.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    out = tmp_path / "budget.json"
+    assert script.main(["--workdir", str(chain["work"]), "--record",
+                        str(chain["work"] / "record.json"), "--out",
+                        str(out), "--device", "cpu"]) == 0
+    res, full = json.loads(out.read_text()), chain["full"]
+    assert res["step"] == STEPS and res["resolution"] == 32
+    assert res["budget_0.25"]["n_faces"] == full["mesh"]["n_faces"]
+    assert (res["budget_0.25"]["occupied_dropped"]
+            == full["probe_budget"]["occupied_dropped"])
+    assert res["budget_None"]["occupied_dropped"] == 0
+    assert res["budget_None"]["n_faces"] > 0
+    assert np.all(np.isfinite([res["budget_None"]["chamfer"][k]
+                               for k in ("acc", "comp", "overall")]))
 
 
 def test_chain_refuses_a_used_workdir_without_resume(chain):
