@@ -222,7 +222,10 @@ failure exits non-zero before the last line):
      decoded by ``read_image`` and ``read_bgr`` and held to the SHA-256 of
      imageio's and cv2's arrays recorded in its ``hashes.json`` (neither
      library is on the card's machine; ``read_bgr`` turns the EXIF-6 file
-     as cv2 does), the decoder's ms per megapixel on this host; then the
+     as cv2 does, and raises a ``ValueError`` on the grey lossless file,
+     whose ``"cv2"`` is null), each file's JPEG process (baseline,
+     progressive, lossless, arithmetic, no DHT) and the decoder's ms per
+     megapixel on this host; then the
      three committed views trained through ``cli.train.main`` three ways
      (counters set to 0 just before each): as an own-data scene (the
      ``.json`` and ``.ply`` of ``export_synthetic_own_data`` at the
@@ -4061,6 +4064,28 @@ def chain_phase(smi, tmp):
         f" phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
 
 
+# the JPEG processes the host decoder reads, by SOF marker
+JPEG_FRAMES = {0xC0: "baseline", 0xC1: "extended sequential",
+               0xC2: "progressive", 0xC3: "lossless",
+               0xC9: "arithmetic sequential", 0xCA: "arithmetic progressive"}
+
+
+def jpeg_frame_kind(data):
+    """The file's JPEG process by its SOF marker, and "no DHT" for a
+    Huffman file without DHT segments (a Motion-JPEG frame)."""
+    pos, dht, kind = 2, False, "no SOF"
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        m = data[pos + 1]
+        if m == 0xDA:
+            break
+        dht |= m == 0xC4
+        kind = JPEG_FRAMES.get(m, kind)
+        pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+    huffman = kind in ("baseline", "extended sequential", "progressive",
+                       "lossless")
+    return kind + (", no DHT" if huffman and not dht else "")
+
+
 def sha256_digest(img):
     """Shape, dtype and SHA-256 of an array's bytes (C order), as
     ``tests/test_torch_jpeg.py`` records them."""
@@ -4140,14 +4165,24 @@ def jpeg_phase(smi, tmp):
         path = os.path.join(fixtures, name)
         with open(path, "rb") as f:
             data = f.read()
-        got = {"imageio": sha256_digest(read_image(path)),
-               "cv2": sha256_digest(read_bgr(path))}
+        got = {"imageio": sha256_digest(read_image(path))}
+        if want["cv2"] is None:  # cv2 reads nothing: read_bgr must refuse
+            try:
+                got["cv2"] = sha256_digest(read_bgr(path))
+            except ValueError:
+                got["cv2"] = None
+        else:
+            got["cv2"] = sha256_digest(read_bgr(path))
         h, w = want["imageio"]["shape"][:2]
         ms = best_s(lambda: jpeg.decode_jpeg(data),
                     JPEG_DECODE_REPS) * 1e3
         same = {k: "bit-equal to" if got[k] == want[k] else "DIFFERENT from"
                 for k in got}
-        log(f"jpeg: {name} {w}x{h} ({len(data):,} bytes), EXIF "
+        if want["cv2"] is None:
+            same["cv2"] = ("refusing as" if got["cv2"] is None
+                           else "reading what refuses in")
+        log(f"jpeg: {name} [{jpeg_frame_kind(data)}] {w}x{h} "
+            f"({len(data):,} bytes), EXIF "
             f"orientation {jpeg.orientation(data)}: read_image "
             f"{same['imageio']} imageio, read_bgr {same['cv2']} cv2; "
             f"decode {ms:.2f} ms = {ms / (h * w / 1e6):.2f} ms/MP "

@@ -79,11 +79,12 @@ def scale_intrinsics(cam: np.ndarray, scale: float) -> np.ndarray:
 def read_bgr(path: str) -> np.ndarray:
     """uint8 ``[H, W, 3]`` in BGR order, as ``cv2.imread(path)`` gives it:
     16-bit samples keep their high byte, gray repeats, alpha goes, and a
-    JPEG is turned as its EXIF orientation tag says."""
+    JPEG is turned as its EXIF orientation tag says (a grey lossless JPEG,
+    which cv2 reads as ``None``, raises a ``ValueError``)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == jpeg.SIGNATURE:
-        img = jpeg.decode_jpeg(data, str(path), oriented=True)
+        img = jpeg.decode_jpeg(data, str(path), as_cv2=True)
     else:
         img = np.asarray(decode_image(data, str(path)))
     if img.dtype == np.uint16:
