@@ -1,0 +1,10 @@
+"""The share of the measured window in which no operation ran on the
+device, in percent, in the render cells: the traced window's busy seconds
+a image over the measured window's seconds a image
+(:func:`benchmark.trace.idle_pct`)."""
+
+from benchmark.trace import idle_pct
+
+
+def read(run):
+    return idle_pct(run) if run.kind == "render" else None
