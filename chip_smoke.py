@@ -1314,25 +1314,27 @@ def fused_color_set(on):
 
 
 def counters():
-    from spurfies_tpu_torch.ops import (
+    """The program's launch counters (``utils.profiling.COUNTS``), with
+    every kernel module imported, so that each has registered its names."""
+    from spurfies_tpu_torch.ops import (  # noqa: F401
         fused_color,
         gather_rows,
         pair_mlp,
         scatter_rows,
+        select_knn,
     )
-    from spurfies_tpu_torch.ops import select_knn as sk
-    return (sk.LAUNCHES, pair_mlp.LAUNCHES, scatter_rows.LAUNCHES,
-            fused_color.LAUNCHES, gather_rows.LAUNCHES)
+    from spurfies_tpu_torch.utils.profiling import COUNTS
+    return COUNTS
 
 
 def zero_counts():
-    for c in counters():
-        for key in c:
-            c[key] = 0
+    c = counters()
+    for key in c:
+        c[key] = 0
 
 
 def read_counts():
-    return {k: v for c in counters() for k, v in c.items()}
+    return dict(counters())
 
 
 def sum_order_within(what, out, ref, abs_sum, count, hold=True):

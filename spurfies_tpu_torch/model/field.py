@@ -53,6 +53,7 @@ from spurfies_tpu_torch.ops.pair_mlp import (
 )
 from spurfies_tpu_torch.ops.scatter_rows import scatter_add_rows
 from spurfies_tpu_torch.ops.voxel_grid import fine_occupancy, query_grid
+from spurfies_tpu_torch.utils import profiling
 
 SDF_FILLER = 1000.0
 FUSED_COLOR = False     # K8a/K8b in aggregate_color (field.py:163)
@@ -178,36 +179,38 @@ def sdf_probe(prior: PriorLayers, geo_latents, scene, x, k, r, rbf,
     a slot; the others read as empty space and never raise the flag (the
     ray budget's spare slots, whose outputs are cut away).
     """
-    m = x.shape[0]
-    budget = (max(int(m * budget_frac) // 128 * 128, 128)
-              if budget_frac is not None else m)
-    if budget_frac is None or m < 1024 or budget >= m:
-        idx, _ = query_grid(x, scene.table, scene.spec, k=k)
-        sdf, _ = aggregate_sdf(prior, geo_latents, scene.points, idx,
-                               idx >= 0, x, rbf, need_grad=need_grad,
-                               fused_agg=fused_agg)
-        if return_overflow:
-            return sdf, torch.zeros((), dtype=torch.bool, device=x.device)
-        return sdf
+    with profiling.span("field.probe"):
+        m = x.shape[0]
+        budget = (max(int(m * budget_frac) // 128 * 128, 128)
+                  if budget_frac is not None else m)
+        if budget_frac is None or m < 1024 or budget >= m:
+            idx, _ = query_grid(x, scene.table, scene.spec, k=k)
+            sdf, _ = aggregate_sdf(prior, geo_latents, scene.points, idx,
+                                   idx >= 0, x, rbf, need_grad=need_grad,
+                                   fused_agg=fused_agg)
+            if return_overflow:
+                return sdf, torch.zeros((), dtype=torch.bool, device=x.device)
+            return sdf
 
-    occ = fine_occupancy(x, scene.occ_fine, scene.spec)
-    if live is not None:
-        occ = occ & live
-    sel, sel_ok, overflowed = compact_pair_slots(occ, budget)
-    x_c = x[sel]
-    idx_c, _ = query_grid(x_c, scene.table, scene.spec, k=k)
-    valid_c = (idx_c >= 0) & sel_ok[:, None]
-    sdf_c, _ = aggregate_sdf(prior, geo_latents, scene.points, idx_c,
-                             valid_c, x_c, rbf, need_grad=need_grad,
-                             fused_agg=fused_agg)
-    # unused budget slots scatter into a spare last element (a masked
-    # index would cost a device sync)
-    out = torch.full((m + 1,), SDF_FILLER, dtype=x.dtype, device=x.device)
-    out[torch.where(sel_ok, sel, m)] = torch.where(sel_ok, sdf_c, SDF_FILLER)
-    out = out[:m]
-    if return_overflow:
-        return out, overflowed
-    return out
+        occ = fine_occupancy(x, scene.occ_fine, scene.spec)
+        if live is not None:
+            occ = occ & live
+        sel, sel_ok, overflowed = compact_pair_slots(occ, budget)
+        x_c = x[sel]
+        idx_c, _ = query_grid(x_c, scene.table, scene.spec, k=k)
+        valid_c = (idx_c >= 0) & sel_ok[:, None]
+        sdf_c, _ = aggregate_sdf(prior, geo_latents, scene.points, idx_c,
+                                 valid_c, x_c, rbf, need_grad=need_grad,
+                                 fused_agg=fused_agg)
+        # unused budget slots scatter into a spare last element (a masked
+        # index would cost a device sync)
+        out = torch.full((m + 1,), SDF_FILLER, dtype=x.dtype, device=x.device)
+        out[torch.where(sel_ok, sel, m)] = torch.where(sel_ok, sdf_c,
+                                                       SDF_FILLER)
+        out = out[:m]
+        if return_overflow:
+            return out, overflowed
+        return out
 
 
 def select_rows(table, idx):

@@ -42,6 +42,7 @@ from spurfies_tpu_torch.ops.voxel_grid import (
     fine_occupancy,
     query_grid,
 )
+from spurfies_tpu_torch.utils import profiling
 
 
 def _take(vals: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -243,28 +244,29 @@ def _sample_z(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
     >= 1; a training render's calibrated fraction applies to the first,
     uniform-z probe only, the later surface-concentrated probes keep the
     gated 0.25."""
-    n_rays = ray_dirs.shape[0]
-    if cfg.probe_budget_frac >= 1:
-        pf_first = pf_rest = None
-    elif train and 0 < cfg.probe_budget_frac < 1:
-        pf_first, pf_rest = cfg.probe_budget_frac, 0.25
-    else:
-        pf_first = pf_rest = 0.25
-    geo = tp["feats_geometry"].detach()
+    with profiling.span("sampler.z_vals"):
+        n_rays = ray_dirs.shape[0]
+        if cfg.probe_budget_frac >= 1:
+            pf_first = pf_rest = None
+        elif train and 0 < cfg.probe_budget_frac < 1:
+            pf_first, pf_rest = cfg.probe_budget_frac, 0.25
+        else:
+            pf_first = pf_rest = 0.25
+        geo = tp["feats_geometry"].detach()
 
-    def sdf_probe_fn(x, first=False):
-        # the sampler's probe points are ray-major [R * Z]
-        live = None if ray_ok is None else ray_ok[:, None].expand(
-            n_rays, x.shape[0] // n_rays).reshape(-1)
-        return field.sdf_probe(prior, geo, scene, x, cfg.probe_k or cfg.k,
-                               cfg.r, cfg.rbf,
-                               budget_frac=pf_first if first else pf_rest,
-                               need_grad=False, return_overflow=True,
-                               fused_agg=cfg.fused_agg, live=live)
+        def sdf_probe_fn(x, first=False):
+            # the sampler's probe points are ray-major [R * Z]
+            live = None if ray_ok is None else ray_ok[:, None].expand(
+                n_rays, x.shape[0] // n_rays).reshape(-1)
+            return field.sdf_probe(prior, geo, scene, x, cfg.probe_k or cfg.k,
+                                   cfg.r, cfg.rbf,
+                                   budget_frac=pf_first if first else pf_rest,
+                                   need_grad=False, return_overflow=True,
+                                   fused_agg=cfg.fused_agg, live=live)
 
-    return error_bound_z_vals(sdf_probe_fn, cam_loc, ray_dirs,
-                              cfg.ray_sampler, beta0, iters, train=train,
-                              draws=draws)
+        return error_bound_z_vals(sdf_probe_fn, cam_loc, ray_dirs,
+                                  cfg.ray_sampler, beta0, iters, train=train,
+                                  draws=draws)
 
 
 def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
@@ -300,103 +302,111 @@ def _render_body(prior: PriorLayers, tp, scene, cam_loc, ray_dirs,
                                           ray_dirs, cfg, train, iters,
                                           beta0, draws, ray_ok)
     z_all = z_all.detach()
-    # at most max_shading_pts of a ray's samples are shaded; the entangled
-    # model's uniform grid has fewer than that at the default config (64 <
-    # 80), where the JAX package's compaction keeps 64 columns and its
-    # shading fails on the mismatch (tests/test_torch_entangled.py)
-    S = min(S, z_all.shape[1])
-    points = cam_loc[:, None, :] + z_all[..., None] * ray_dirs[:, None, :]
-    flat_pts = points.reshape(-1, 3)
+    with profiling.span("field.sdf"):
+        # at most max_shading_pts of a ray's samples are shaded; the entangled
+        # model's uniform grid has fewer than that at the default config (64 <
+        # 80), where the JAX package's compaction keeps 64 columns and its
+        # shading fails on the mismatch (tests/test_torch_entangled.py)
+        S = min(S, z_all.shape[1])
+        points = cam_loc[:, None, :] + z_all[..., None] * ray_dirs[:, None, :]
+        flat_pts = points.reshape(-1, 3)
 
-    if cfg.occ_compact and train and not 0 < cfg.ray_budget_frac < 1:
-        # the training occ_compact (renderer.py:231-267): fine occupancy
-        # picks the S columns first and only those run the kNN query.
-        # Occupancy over-selects; a column with no neighbour renders as
-        # empty space (its -1 ids reach the kernels as dump pairs), and
-        # each valid column's delta spans to the next VALID column's z (a
-        # reverse cummin), as the reference's compacted deltas do
-        occ = fine_occupancy(flat_pts, scene.occ_fine, scene.spec)
-        sel, sel_col = compact_rays(occ.reshape(n_rays, -1), S)
-        z_sel = torch.where(sel_col, _take(z_all, sel), 0.0)
-        q_pts = cam_loc[:, None, :] + z_sel[..., None] * ray_dirs[:, None, :]
-        nbr_idx, _ = query_grid(q_pts.reshape(-1, 3), scene.table,
-                                scene.spec, k=K)
-        nbr_idx = torch.where(sel_col[..., None],
-                              nbr_idx.reshape(n_rays, S, K), -1)
-        nbr_valid = nbr_idx >= 0
-        sel_valid = torch.any(nbr_valid, dim=-1)            # [R, S]
-        z_v = torch.where(sel_valid, z_sel, torch.inf)
-        nxt = torch.flip(torch.cummin(torch.flip(z_v, (-1,)), -1).values,
-                         (-1,))
-        nxt = torch.cat([nxt[..., 1:], torch.full_like(nxt[..., :1],
-                                                       torch.inf)], -1)
-        deltas = torch.where(sel_valid & torch.isfinite(nxt), nxt - z_sel,
-                             0.0)
-        deltas = torch.clamp(deltas, min=0.0)
-    else:
-        # query all samples, then first-S compaction by has-neighbour
-        idx_all, _ = query_grid(flat_pts, scene.table, scene.spec, k=K)
-        idx_all = idx_all.reshape(n_rays, -1, K)
-        has_any = torch.any(idx_all >= 0, dim=-1)           # [R, Z]
-        sel, sel_valid = compact_rays(has_any, S)           # [R, S]
-        z_sel = torch.where(sel_valid, _take(z_all, sel), 0.0)
-        nbr_idx = _take(idx_all, sel)                       # [R, S, K]
-        nbr_valid = (nbr_idx >= 0) & sel_valid[..., None]
+        if cfg.occ_compact and train and not 0 < cfg.ray_budget_frac < 1:
+            # the training occ_compact (renderer.py:231-267): fine occupancy
+            # picks the S columns first and only those run the kNN query.
+            # Occupancy over-selects; a column with no neighbour renders as
+            # empty space (its -1 ids reach the kernels as dump pairs), and
+            # each valid column's delta spans to the next VALID column's z (a
+            # reverse cummin), as the reference's compacted deltas do
+            occ = fine_occupancy(flat_pts, scene.occ_fine, scene.spec)
+            sel, sel_col = compact_rays(occ.reshape(n_rays, -1), S)
+            z_sel = torch.where(sel_col, _take(z_all, sel), 0.0)
+            q_pts = (cam_loc[:, None, :]
+                     + z_sel[..., None] * ray_dirs[:, None, :])
+            nbr_idx, _ = query_grid(q_pts.reshape(-1, 3), scene.table,
+                                    scene.spec, k=K)
+            nbr_idx = torch.where(sel_col[..., None],
+                                  nbr_idx.reshape(n_rays, S, K), -1)
+            nbr_valid = nbr_idx >= 0
+            sel_valid = torch.any(nbr_valid, dim=-1)            # [R, S]
+            z_v = torch.where(sel_valid, z_sel, torch.inf)
+            nxt = torch.flip(torch.cummin(torch.flip(z_v, (-1,)), -1).values,
+                             (-1,))
+            nxt = torch.cat([nxt[..., 1:], torch.full_like(nxt[..., :1],
+                                                           torch.inf)], -1)
+            deltas = torch.where(sel_valid & torch.isfinite(nxt), nxt - z_sel,
+                                 0.0)
+            deltas = torch.clamp(deltas, min=0.0)
+        else:
+            # query all samples, then first-S compaction by has-neighbour
+            idx_all, _ = query_grid(flat_pts, scene.table, scene.spec, k=K)
+            idx_all = idx_all.reshape(n_rays, -1, K)
+            has_any = torch.any(idx_all >= 0, dim=-1)           # [R, Z]
+            sel, sel_valid = compact_rays(has_any, S)           # [R, S]
+            z_sel = torch.where(sel_valid, _take(z_all, sel), 0.0)
+            nbr_idx = _take(idx_all, sel)                       # [R, S, K]
+            nbr_valid = (nbr_idx >= 0) & sel_valid[..., None]
 
-        # deltas over the compacted grid (reference filter_points :226-232)
-        z_pad = torch.cat([z_sel, torch.zeros_like(z_sel[..., :1])], -1)
-        deltas = z_pad[..., 1:] - z_pad[..., :-1]
-        deltas = torch.clamp(torch.where(sel_valid, deltas, 0.0), min=0.0)
+            # deltas over the compacted grid (reference filter_points :226-232)
+            z_pad = torch.cat([z_sel, torch.zeros_like(z_sel[..., :1])], -1)
+            deltas = z_pad[..., 1:] - z_pad[..., :-1]
+            deltas = torch.clamp(torch.where(sel_valid, deltas, 0.0), min=0.0)
 
-    shading_pts = cam_loc[:, None, :] + z_sel[..., None] * ray_dirs[:, None, :]
-    flat_x = shading_pts.reshape(-1, 3)
-    flat_idx = nbr_idx.reshape(-1, K)
-    flat_valid = nbr_valid.reshape(-1, K)
+        shading_pts = (cam_loc[:, None, :]
+                       + z_sel[..., None] * ray_dirs[:, None, :])
+        flat_x = shading_pts.reshape(-1, 3)
+        flat_idx = nbr_idx.reshape(-1, K)
+        flat_valid = nbr_valid.reshape(-1, K)
 
-    colors = None
-    if cfg.entangled:
-        flat_dirs = ray_dirs[:, None, :].expand(n_rays, S, 3).reshape(-1, 3)
-        sdf_flat, grad_flat, colors_flat = field.entangled_sdf_grad_color(
-            tp, tp["feats"], scene.points, flat_idx, flat_valid, flat_x,
-            flat_dirs)
-        colors = colors_flat.reshape(n_rays, S, 3)
-    elif cfg.render_budget_frac > 0:
-        # the first `budget` valid shading points of the flat [R*S] grid
-        # (a sort, renderer.py:302-329); dropped points render as empty
-        # space
-        m = flat_x.shape[0]
-        budget = max(int(m * cfg.render_budget_frac) // 128 * 128, 128)
-        ar = torch.arange(m, device=flat_x.device)
-        order = torch.sort(torch.where(sel_valid.reshape(-1), ar, m)).values
-        order = order[:budget]
-        bsel_ok = order < m
-        bsel = torch.clamp(order, max=m - 1)
-        s_c, g_c = field.sdf_and_grad(
-            prior, tp["feats_geometry"], scene.points, flat_idx[bsel],
-            flat_valid[bsel] & bsel_ok[:, None], flat_x[bsel], cfg.rbf,
-            fused_agg=cfg.fused_agg)
-        to = (torch.where(bsel_ok, bsel, m),)
-        sdf_flat = torch.full((m + 1,), field.SDF_FILLER, device=ar.device)
-        sdf_flat = torch.index_put(sdf_flat, to, torch.where(
-            bsel_ok, s_c, field.SDF_FILLER))[:m]
-        grad_flat = torch.index_put(
-            torch.zeros((m + 1, 3), device=ar.device), to,
-            torch.where(bsel_ok[:, None], g_c, 0.0))[:m]
-        covered = torch.index_put(torch.zeros(
-            (m + 1,), dtype=torch.bool, device=ar.device), to, bsel_ok)[:m]
-        sel_valid = sel_valid & covered.reshape(n_rays, S)
-    elif cfg.pair_budget_frac > 0:
-        budget = max(int(n_rays * S * K * cfg.pair_budget_frac) // 256 * 256,
-                     256)
-        sdf_flat, grad_flat = field.sdf_and_grad_pairs(
-            prior, tp["feats_geometry"], scene.points, flat_idx, flat_valid,
-            flat_x, cfg.rbf, budget)
-    else:
-        sdf_flat, grad_flat = field.sdf_and_grad(
-            prior, tp["feats_geometry"], scene.points, flat_idx, flat_valid,
-            flat_x, cfg.rbf, fused_agg=cfg.fused_agg)
-    sdf = sdf_flat.reshape(n_rays, S)
-    gradients = grad_flat.reshape(n_rays, S, 3)
+        colors = None
+        if cfg.entangled:
+            flat_dirs = ray_dirs[:, None, :].expand(n_rays, S, 3).reshape(
+                -1, 3)
+            sdf_flat, grad_flat, colors_flat = field.entangled_sdf_grad_color(
+                tp, tp["feats"], scene.points, flat_idx, flat_valid, flat_x,
+                flat_dirs)
+            colors = colors_flat.reshape(n_rays, S, 3)
+        elif cfg.render_budget_frac > 0:
+            # the first `budget` valid shading points of the flat [R*S] grid
+            # (a sort, renderer.py:302-329); dropped points render as empty
+            # space
+            m = flat_x.shape[0]
+            budget = max(int(m * cfg.render_budget_frac) // 128 * 128, 128)
+            ar = torch.arange(m, device=flat_x.device)
+            order = torch.sort(torch.where(sel_valid.reshape(-1), ar,
+                                           m)).values
+            order = order[:budget]
+            bsel_ok = order < m
+            bsel = torch.clamp(order, max=m - 1)
+            s_c, g_c = field.sdf_and_grad(
+                prior, tp["feats_geometry"], scene.points, flat_idx[bsel],
+                flat_valid[bsel] & bsel_ok[:, None], flat_x[bsel], cfg.rbf,
+                fused_agg=cfg.fused_agg)
+            to = (torch.where(bsel_ok, bsel, m),)
+            sdf_flat = torch.full((m + 1,), field.SDF_FILLER, device=ar.device)
+            sdf_flat = torch.index_put(sdf_flat, to, torch.where(
+                bsel_ok, s_c, field.SDF_FILLER))[:m]
+            grad_flat = torch.index_put(
+                torch.zeros((m + 1, 3), device=ar.device), to,
+                torch.where(bsel_ok[:, None], g_c, 0.0))[:m]
+            covered = torch.index_put(torch.zeros(
+                (m + 1,), dtype=torch.bool, device=ar.device), to, bsel_ok)[:m]
+            sel_valid = sel_valid & covered.reshape(n_rays, S)
+        elif cfg.pair_budget_frac > 0:
+            budget = max(int(n_rays * S * K * cfg.pair_budget_frac)
+                         // 256 * 256,
+                         256)
+            sdf_flat, grad_flat = field.sdf_and_grad_pairs(
+                prior, tp["feats_geometry"], scene.points, flat_idx,
+                flat_valid,
+                flat_x, cfg.rbf, budget)
+        else:
+            sdf_flat, grad_flat = field.sdf_and_grad(
+                prior, tp["feats_geometry"], scene.points, flat_idx,
+                flat_valid,
+                flat_x, cfg.rbf, fused_agg=cfg.fused_agg)
+        sdf = sdf_flat.reshape(n_rays, S)
+        gradients = grad_flat.reshape(n_rays, S, 3)
 
     valid_pt = sel_valid
     beta = get_beta(tp["beta"], cfg.density.beta_min)
@@ -481,15 +491,17 @@ def _color_maybe_pairs(tp, scene, idx, valid, x, dirs, cfg: ModelConfig,
     """Dense or pair-compacted colour (``model.color_pair_frac``;
     ``renderer.py:426-438``).  ``fused_dtype``: the prior's compute dtype,
     which the fused colour kernels run in (``field.FUSED_COLOR``)."""
-    if cfg.color_pair_frac > 0:
-        m, k = idx.shape
-        budget = max(int(m * k * cfg.color_pair_frac) // 256 * 256, 256)
-        return field.aggregate_color_pairs(
-            tp, tp["feats_color"], scene.points, idx, valid, x, dirs,
-            cfg.rbf, budget, cfg.pos_multires, cfg.view_multires)
-    return field.aggregate_color(tp, tp["feats_color"], scene.points, idx,
-                                 valid, x, dirs, cfg.rbf, cfg.pos_multires,
-                                 cfg.view_multires, fused_dtype=fused_dtype)
+    with profiling.span("field.color"):
+        if cfg.color_pair_frac > 0:
+            m, k = idx.shape
+            budget = max(int(m * k * cfg.color_pair_frac) // 256 * 256, 256)
+            return field.aggregate_color_pairs(
+                tp, tp["feats_color"], scene.points, idx, valid, x, dirs,
+                cfg.rbf, budget, cfg.pos_multires, cfg.view_multires)
+        return field.aggregate_color(tp, tp["feats_color"], scene.points, idx,
+                                     valid, x, dirs, cfg.rbf, cfg.pos_multires,
+                                     cfg.view_multires,
+                                     fused_dtype=fused_dtype)
 
 
 def pseudo_sdf_loss(params, scene, out, cfg: ModelConfig, count_fn=None):

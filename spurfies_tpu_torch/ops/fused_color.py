@@ -33,6 +33,7 @@ import torch
 from spurfies_tpu_torch.core.embedder import positional_encoding
 from spurfies_tpu_torch.ops import cuda_build
 from spurfies_tpu_torch.ops.pair_mlp import _swizzle128
+from spurfies_tpu_torch.utils import profiling
 
 PK = 8                  # neighbours per point
 POS_MULTIRES = 6        # posenc(x_pi) -> 39 columns
@@ -60,8 +61,8 @@ PACK = ((0, 0, True, HID, 128, 0), (2, 1, True, HID, HID, 0),
         (33, 3, False, HID, HID, 0), (37, 2, False, HID, HID, 0),
         (41, 1, False, HID, HID, 0), (45, 0, False, LAT, HID, 39))
 
-LAUNCHES = {"pack_color_weights": 0, "fused_color_fwd": 0,
-            "fused_color_bwd": 0}
+profiling.register("pack_color_weights", "fused_color_fwd",
+                   "fused_color_bwd")
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
@@ -274,7 +275,7 @@ def pack_color_weights(f_color, r):
     err = _lib().color_pack_launch(ws, out.data_ptr(),
                                    torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "pack_color_weights")
-    LAUNCHES["pack_color_weights"] += 1
+    profiling.count("pack_color_weights")
     return out
 
 
@@ -324,7 +325,7 @@ def fused_color_fwd(x_pi, lat, wn, dir_enc, f_color, r, dt, packed=None):
         packed.data_ptr(), bs, g.data_ptr(), rgb.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "fused_color_fwd")
-    LAUNCHES["fused_color_fwd"] += 1
+    profiling.count("fused_color_fwd")
     return rgb
 
 
@@ -361,7 +362,7 @@ def fused_color_bwd(x_pi, lat, wn, dir_enc, f_color, r, rgb_bar, dt,
             dlat.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         cuda_build.check(err, "fused_color_bwd")
-        LAUNCHES["fused_color_bwd"] += 1
+        profiling.count("fused_color_bwd")
     shapes = F_SHAPES + R_SHAPES
     dws, off = [], 0
     for fi, fo in shapes:

@@ -15,8 +15,9 @@ import ctypes
 import torch
 
 from spurfies_tpu_torch.ops import cuda_build
+from spurfies_tpu_torch.utils import profiling
 
-LAUNCHES = {"gather_rows": 0}
+profiling.register("gather_rows")
 ROWS_PER_BLOCK = 32             # the default; the microbenchmark sweeps it
 
 _P = ctypes.c_void_p
@@ -67,5 +68,5 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
         rows_per_block, int(vec4),
         torch.cuda.current_stream(table.device).cuda_stream)
     cuda_build.check(err, "gather_rows")
-    LAUNCHES["gather_rows"] += 1
+    profiling.count("gather_rows")
     return out

@@ -35,6 +35,11 @@ LeakyReLU, ``s`` rounded to the compute dtype, the down-sweep delta
 rounded after each gate and each product (``r`` is that delta).  K4 sums
 with atomics, so it agrees with its plain version up to f32 reordering.
 
+While a profiler session runs, K3 and K2 hand their ``idx_ext`` to the
+program's real-pair counter (:func:`utils.profiling.hold_pairs`), on the
+CPU path and the card's alike; every launch is counted in
+``utils.profiling.COUNTS``.
+
 Pair rows are point-major: ``idx_ext [P, k]`` indexes a table
 ``[N+1, 32+3] = [latent | position]`` whose row N is the dump row at
 ``DUMP_POS``; an invalid pair points there and gets w == 0 exactly.  An
@@ -48,16 +53,17 @@ import torch
 
 from spurfies_tpu_torch.device import constant
 from spurfies_tpu_torch.ops import cuda_build
+from spurfies_tpu_torch.utils import profiling
 
 DUMP_POS = 1.0e9        # dump-row position: w = exp(-rbf^2 * ~1e18) == 0
 HID = 256
 LAT = 32
 _OUT0 = 40              # the last down-sweep width, padded to 8s
 
-LAUNCHES = {"pair_sdf_value_agg": 0, "pair_sdf_aggregate": 0,
-            "pair_sdf_aggregate_bwd": 0, "pair_sdf_rows_grad": 0,
-            "pair_sdf_rows_value": 0, "pair_sdf_value_and_input_grad": 0,
-            "pair_sdf_value": 0}
+profiling.register("pair_sdf_value_agg", "pair_sdf_aggregate",
+                   "pair_sdf_aggregate_bwd", "pair_sdf_rows_grad",
+                   "pair_sdf_rows_value", "pair_sdf_value_and_input_grad",
+                   "pair_sdf_value")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -303,7 +309,7 @@ def _launch_agg(name, table, idx_ext, x, layers: PriorLayers, rbf: float,
         *(t.data_ptr() for t in outs),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, name)
-    LAUNCHES[name] += 1
+    profiling.count(name)
     return outs
 
 
@@ -318,7 +324,9 @@ def pair_sdf_value_agg(table, idx_ext, x, layers: PriorLayers, rbf: float):
     terms, which are +-0, so they are what adding them in j order gives;
     a point with no real pair gets ``(0, 0)``.  Its ``pt`` is K3's
     ``pt[:, :2]`` bit for bit."""
-    if _check_inputs("pair_sdf_value_agg", table, idx_ext, x):
+    cpu = _check_inputs("pair_sdf_value_agg", table, idx_ext, x)
+    profiling.hold_pairs("k2", idx_ext, table.shape[0] - 1)
+    if cpu:
         return pair_sdf_value_agg_ref(table, idx_ext, x, layers, rbf)
     pt = torch.empty((idx_ext.shape[0], 2), dtype=torch.float32,
                      device=x.device)
@@ -338,7 +346,9 @@ def pair_sdf_aggregate(table, idx_ext, x, layers: PriorLayers, rbf: float):
     has the prior's gradient at the dump position.  No consumer reads it:
     K4 drops the rows whose w is 0.  Each point's sums skip the dump pairs'
     terms, which are +-0, so they are what adding them in j order gives."""
-    if _check_inputs("pair_sdf_aggregate", table, idx_ext, x):
+    cpu = _check_inputs("pair_sdf_aggregate", table, idx_ext, x)
+    profiling.hold_pairs("k3", idx_ext, table.shape[0] - 1)
+    if cpu:
         return pair_sdf_aggregate_ref(table, idx_ext, x, layers, rbf)
     p, k = idx_ext.shape
     pt = torch.empty((p, 5), dtype=torch.float32, device=x.device)
@@ -419,7 +429,7 @@ def pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n: int):
         idx_ext.data_ptr(), p * k, k, n, out.data_ptr(),
         torch._C._cuda_getCurrentRawStream(w.get_device()))
     cuda_build.check(err, "pair_sdf_aggregate_bwd")
-    LAUNCHES["pair_sdf_aggregate_bwd"] += 1
+    profiling.count("pair_sdf_aggregate_bwd")
     return out
 
 
@@ -534,7 +544,7 @@ def _launch_rows(name, entry, ins, layers: PriorLayers, out_cols):
         *(t.data_ptr() for t in outs),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, name)
-    LAUNCHES[name] += 1
+    profiling.count(name)
     return outs
 
 

@@ -20,8 +20,9 @@ import ctypes
 import torch
 
 from spurfies_tpu_torch.ops import cuda_build
+from spurfies_tpu_torch.utils import profiling
 
-LAUNCHES = {"scatter_add_rows": 0}
+profiling.register("scatter_add_rows")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,5 +69,5 @@ def scatter_add_rows(ct: torch.Tensor, idx: torch.Tensor, n: int):
         ct.data_ptr(), ct.stride(0), idx.data_ptr(), m, d, n, out.data_ptr(),
         torch.cuda.current_stream(ct.device).cuda_stream)
     cuda_build.check(err, "scatter_add_rows")
-    LAUNCHES["scatter_add_rows"] += 1
+    profiling.count("scatter_add_rows")
     return out

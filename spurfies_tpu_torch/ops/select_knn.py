@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from spurfies_tpu_torch.ops import cuda_build
+from spurfies_tpu_torch.utils import profiling
 
 ID_BITS = 15
 _ID_MASK = (1 << ID_BITS) - 1
@@ -35,7 +36,7 @@ SUPPORTED_K = (1, 2, 4, 8, 16)
 GROUP = 4                      # kPackedGroup: lanes a query, packed
 EXACT_GROUP = 8                # kExactGroup: lanes a query, exact
 
-LAUNCHES = {"select_knn_packed": 0, "select_knn_exact": 0}
+profiling.register("select_knn_packed", "select_knn_exact")
 
 _SIG = {"select_knn_launch": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -123,5 +124,5 @@ def select_knn(x, cid, qidx, qpos, radius2: float, k: int = 8,
         qidx.shape[0], q, k, float(radius2), int(packed), out_idx.data_ptr(),
         out_d2.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "select_knn")
-    LAUNCHES["select_knn_packed" if packed else "select_knn_exact"] += 1
+    profiling.count("select_knn_packed" if packed else "select_knn_exact")
     return out_idx, out_d2

@@ -23,6 +23,8 @@ from dataclasses import dataclass
 
 import torch
 
+from spurfies_tpu_torch.utils import profiling
+
 B1, B2, EPS = 0.9, 0.999, 1e-8
 LATENT_KEYS = ("feats_color", "feats_geometry", "feats")
 
@@ -100,34 +102,35 @@ class Optimizer:
     def step(self, params, grads, state: OptState):
         """One update of the leaves of ``params`` by ``grads`` (a list in
         :func:`flatten` order)."""
-        leaves = flatten(params)
-        labels = self.labels(params)
-        sq = torch.stack([torch.sum(g * g) for g in grads]).sum()
-        norm = torch.sqrt(sq)
-        finite = torch.isfinite(norm)
-        scale = torch.where(
-            finite, torch.clamp(self.clip / torch.clamp(norm, min=1e-12),
-                                max=1.0), 0.0)
-        step_size, bc1, bc2, count_inc = {}, {}, {}, {}
-        for group, schedule in self.schedules.items():
-            c = state.count[group]
-            count_inc[group] = c + 1
-            cf = count_inc[group].to(torch.float32)
-            bc1[group] = 1.0 - torch.pow(B1, cf)
-            bc2[group] = 1.0 - torch.pow(B2, cf)
-            step_size[group] = -schedule(c)
-        for i, (p, g, group) in enumerate(zip(leaves, grads, labels)):
-            g = g * scale
-            mu = (1.0 - B1) * g + B1 * state.mu[i]
-            nu = (1.0 - B2) * (g * g) + B2 * state.nu[i]
-            upd = (mu / bc1[group]) / (torch.sqrt(nu / bc2[group]) + EPS)
-            upd = step_size[group] * upd
-            p.add_(torch.where(finite, upd, 0.0))
-            state.mu[i] = torch.where(finite, mu, state.mu[i])
-            state.nu[i] = torch.where(finite, nu, state.nu[i])
-        for group in self.schedules:
-            state.count[group] = torch.where(finite, count_inc[group],
-                                             state.count[group])
-        state.notfinite_count = torch.where(
-            finite, 0, state.notfinite_count + 1).to(torch.int32)
-        return state
+        with profiling.span("optim.step"):
+            leaves = flatten(params)
+            labels = self.labels(params)
+            sq = torch.stack([torch.sum(g * g) for g in grads]).sum()
+            norm = torch.sqrt(sq)
+            finite = torch.isfinite(norm)
+            scale = torch.where(
+                finite, torch.clamp(self.clip / torch.clamp(norm, min=1e-12),
+                                    max=1.0), 0.0)
+            step_size, bc1, bc2, count_inc = {}, {}, {}, {}
+            for group, schedule in self.schedules.items():
+                c = state.count[group]
+                count_inc[group] = c + 1
+                cf = count_inc[group].to(torch.float32)
+                bc1[group] = 1.0 - torch.pow(B1, cf)
+                bc2[group] = 1.0 - torch.pow(B2, cf)
+                step_size[group] = -schedule(c)
+            for i, (p, g, group) in enumerate(zip(leaves, grads, labels)):
+                g = g * scale
+                mu = (1.0 - B1) * g + B1 * state.mu[i]
+                nu = (1.0 - B2) * (g * g) + B2 * state.nu[i]
+                upd = (mu / bc1[group]) / (torch.sqrt(nu / bc2[group]) + EPS)
+                upd = step_size[group] * upd
+                p.add_(torch.where(finite, upd, 0.0))
+                state.mu[i] = torch.where(finite, mu, state.mu[i])
+                state.nu[i] = torch.where(finite, nu, state.nu[i])
+            for group in self.schedules:
+                state.count[group] = torch.where(finite, count_inc[group],
+                                                 state.count[group])
+            state.notfinite_count = torch.where(
+                finite, 0, state.notfinite_count + 1).to(torch.int32)
+            return state

@@ -55,6 +55,7 @@ from spurfies_tpu_torch.ops.pair_mlp import _prep_layers
 from spurfies_tpu_torch.ops.voxel_grid import fine_spec
 from spurfies_tpu_torch.parallel.mesh import make_group
 from spurfies_tpu_torch.train.optim import Optimizer, OptState, flatten
+from spurfies_tpu_torch.utils import profiling
 
 _KEEP = ("rgb_values", "depth_values", "normal_map", "acc", "ray_mask")
 
@@ -116,6 +117,10 @@ def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16,
 
     @torch.no_grad()
     def render_image(tp, scene, frozen, uv, pose, intrinsics):
+        with profiling.unit("render.image"):
+            return _render_image(tp, scene, frozen, uv, pose, intrinsics)
+
+    def _render_image(tp, scene, frozen, uv, pose, intrinsics):
         pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
         intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32,
                                      device=dev)
@@ -150,7 +155,9 @@ def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16,
             every = mine[None] if group is None else group.all_gather_rows(
                 mine)
             rows = every.reshape(world, per, eff, -1).transpose(0, 1).reshape(
-                world * per * eff, -1)[:len(chunks) * eff].cpu().numpy()
+                world * per * eff, -1)[:len(chunks) * eff]
+            with profiling.span("readback"):
+                rows = rows.cpu().numpy()
             full, at = {}, 0
             for k, c in zip(_KEEP, cols):
                 full[k] = rows[:, at:at + c].reshape(
@@ -160,14 +167,17 @@ def make_render_fn(cfg: Config, device="cuda", compute_dtype=torch.bfloat16,
 
         if cfg.train.render_skip_empty and scene.occ_fine is not None:
             # one whole-image occupancy pass and one [n]-bool readback
-            inp = _inputs(uv_p, pose, intrinsics)
-            dirs_b, cam_b = get_camera_params(inp["uv"], inp["pose"],
-                                              inp["intrinsics"])
-            dirs = dirs_b.reshape(-1, 3)
-            cam = torch.broadcast_to(cam_b[:, None, :],
-                                     dirs_b.shape).reshape(-1, 3)
-            occ = coarse_ray_occupancy(cam, dirs, scene,
-                                       mcfg.ray_sampler).cpu().numpy()[:n]
+            with profiling.span("render.occupancy"):
+                inp = _inputs(uv_p, pose, intrinsics)
+                dirs_b, cam_b = get_camera_params(inp["uv"], inp["pose"],
+                                                  inp["intrinsics"])
+                dirs = dirs_b.reshape(-1, 3)
+                cam = torch.broadcast_to(cam_b[:, None, :],
+                                         dirs_b.shape).reshape(-1, 3)
+                occ = coarse_ray_occupancy(cam, dirs, scene,
+                                           mcfg.ray_sampler)
+                with profiling.span("readback"):
+                    occ = occ.cpu().numpy()[:n]
             out = _empty(n)
             sel = np.nonzero(occ)[0]
             if len(sel) == 0:
@@ -334,47 +344,53 @@ def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda",
                           iters=fast, generator=generator, draws=draws,
                           group=group)
         if not mcfg.entangled:  # the legacy model: rgb, eikonal, mask only
-            if lead:
-                out["tv_loss"] = tv_loss(params, scene)
-            out["pseudo_pts_loss"] = pseudo_sdf_loss(params, scene, out,
-                                                     mcfg, count_fn)
-            if lcfg.cloud_anchor_weight > 0:
-                sel = draws.get("cloud_sel")
-                if sel is None:
-                    sel = cloud_anchor_sel(scene, generator=generator)
+            with profiling.span("losses"):
                 if lead:
-                    out["cloud_anchor_loss"] = cloud_anchor_loss(
-                        params, scene, mcfg, sel=sel)
-            if lcfg.fd_eikonal_weight > 0:
-                out["fd_eikonal_loss"] = fd_eikonal_loss(
-                    params, scene, out, mcfg, n_sub=lcfg.fd_eikonal_points,
-                    generator=generator, sel=draws.get("fd_sel"),
-                    u=draws.get("fd_u"), count_fn=count_fn)
+                    out["tv_loss"] = tv_loss(params, scene)
+                out["pseudo_pts_loss"] = pseudo_sdf_loss(params, scene, out,
+                                                         mcfg, count_fn)
+                if lcfg.cloud_anchor_weight > 0:
+                    sel = draws.get("cloud_sel")
+                    if sel is None:
+                        sel = cloud_anchor_sel(scene, generator=generator)
+                    if lead:
+                        out["cloud_anchor_loss"] = cloud_anchor_loss(
+                            params, scene, mcfg, sel=sel)
+                if lcfg.fd_eikonal_weight > 0:
+                    out["fd_eikonal_loss"] = fd_eikonal_loss(
+                        params, scene, out, mcfg,
+                        n_sub=lcfg.fd_eikonal_points, generator=generator,
+                        sel=draws.get("fd_sel"), u=draws.get("fd_u"),
+                        count_fn=count_fn)
         if use_local:
-            ctx = bundle["local"]
-            d_surf, surf_mask = find_surface_depth(out["sdf"], out["z_sel"],
-                                                   out["valid_pt"])
-            surface = out["cam_loc"] + out["ray_dirs"] * d_surf[:, None]
-            # the view as a [1] index: nothing is read back
-            v = batch["view"]
-            src = ctx["src"][v][0]
-            out["local_loss"] = local_feature_loss(
-                surface, surf_mask & out["ray_mask"], ctx["feats"][v][0],
-                ctx["feats"][src], ctx["cams"][v][0], ctx["cams"][src],
-                ctx["size"], ctx["center"], count_fn=count_fn)
-        loss, parts = total_loss(out, batch["gt"], lcfg, step=step,
-                                 count_fn=count_fn)
-        gt_rgb = batch["gt"]["rgb"].reshape(-1, 3)
-        if group is None:
-            parts["psnr"] = psnr_fn(out["rgb_values"], gt_rgb)
-        else:
-            parts["mse"] = rgb_loss(out["rgb_values"], gt_rgb, "l2",
-                                    out["ray_own"])
-        parts["ray_overflow"] = out["ray_budget_overflow"].to(torch.float32)
-        if not lead:
-            parts["ray_overflow"] = torch.zeros_like(parts["ray_overflow"])
-        parts["probe_overflow"] = out["probe_budget_overflow"].to(
-            torch.float32)
+            with profiling.span("local_loss"):
+                ctx = bundle["local"]
+                d_surf, surf_mask = find_surface_depth(
+                    out["sdf"], out["z_sel"], out["valid_pt"])
+                surface = out["cam_loc"] + out["ray_dirs"] * d_surf[:, None]
+                # the view as a [1] index: nothing is read back
+                v = batch["view"]
+                src = ctx["src"][v][0]
+                out["local_loss"] = local_feature_loss(
+                    surface, surf_mask & out["ray_mask"], ctx["feats"][v][0],
+                    ctx["feats"][src], ctx["cams"][v][0], ctx["cams"][src],
+                    ctx["size"], ctx["center"], count_fn=count_fn)
+        with profiling.span("losses"):
+            loss, parts = total_loss(out, batch["gt"], lcfg, step=step,
+                                     count_fn=count_fn)
+            gt_rgb = batch["gt"]["rgb"].reshape(-1, 3)
+            if group is None:
+                parts["psnr"] = psnr_fn(out["rgb_values"], gt_rgb)
+            else:
+                parts["mse"] = rgb_loss(out["rgb_values"], gt_rgb, "l2",
+                                        out["ray_own"])
+            parts["ray_overflow"] = out["ray_budget_overflow"].to(
+                torch.float32)
+            if not lead:
+                parts["ray_overflow"] = torch.zeros_like(
+                    parts["ray_overflow"])
+            parts["probe_overflow"] = out["probe_budget_overflow"].to(
+                torch.float32)
         return loss, parts
 
     def sample_batch(views, generator, v=None, pix=None):
@@ -398,23 +414,25 @@ def make_train_step(cfg: Config, optimizer: Optimizer, device="cuda",
 
     def train_step(bundle, state: TrainState, generator, draws=None,
                    batch=None):
-        if batch is None:
-            batch = sample_batch(bundle["views"], generator)
-        leaves = flatten(state.params)
-        loss, parts = loss_fn(state.params, bundle, batch, state.step,
-                              generator, draws)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        if group is not None:
-            group.all_reduce_(grads)
-        optimizer.step(state.params, grads, state.opt_state)
-        state.step += 1
-        parts = {k: v.detach() for k, v in parts.items()}
-        # consecutive non-finite skips (finite_guarded_clip's counter)
-        parts["notfinite"] = state.opt_state.notfinite_count.to(
-            torch.float32)
-        return parts
+        with profiling.unit("trainer.step"):
+            if batch is None:
+                batch = sample_batch(bundle["views"], generator)
+            leaves = flatten(state.params)
+            loss, parts = loss_fn(state.params, bundle, batch, state.step,
+                                  generator, draws)
+            with profiling.span("trainer.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+            if group is not None:
+                group.all_reduce_(grads)
+            optimizer.step(state.params, grads, state.opt_state)
+            state.step += 1
+            parts = {k: v.detach() for k, v in parts.items()}
+            # consecutive non-finite skips (finite_guarded_clip's counter)
+            parts["notfinite"] = state.opt_state.notfinite_count.to(
+                torch.float32)
+            return parts
 
     return loss_fn, sample_batch, train_step
 
@@ -571,7 +589,8 @@ class Trainer:
             vals = torch.stack([acc[k].to(torch.float32) for k in keys])
             if self.group is not None:
                 keys, vals = whole_batch_metrics(self.group, keys, vals)
-            last = dict(zip(keys, vals.cpu().tolist()))
+            with profiling.span("readback"):
+                last = dict(zip(keys, vals.cpu().tolist()))
             consec = last["notfinite"]
             if consec >= max(w, 100):
                 raise RuntimeError(

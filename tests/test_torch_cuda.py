@@ -29,6 +29,8 @@ from spurfies_tpu_torch.ops import scatter_rows as sr
 from spurfies_tpu_torch.ops import select_knn as sk
 from spurfies_tpu_torch.ops import voxel_grid as vg
 from spurfies_tpu_torch.train.trainer import make_render_fn
+from spurfies_tpu_torch.utils import profiling
+from spurfies_tpu_torch.utils.profiling import COUNTS
 
 SPEC = vg.VoxelGridSpec()
 RBF = 45.0
@@ -57,12 +59,12 @@ def test_select_knn_matches_plain(cuda, packed):
     cid[:8] = -7                       # outside the table: no neighbours
     cid[8:16] = SPEC.num_cells + 5
     r2 = float(np.float32(SPEC.radius(2.0) ** 2))
-    before = dict(sk.LAUNCHES)
+    before = dict(COUNTS)
     ki, kd = sk.select_knn(x, cid, qt.idx, qt.pos, r2, 8, packed)
     ri, rd = sk.select_knn_ref(x, cid, qt.idx, qt.pos, r2, 8, packed)
     torch.cuda.synchronize()
     key = "select_knn_packed" if packed else "select_knn_exact"
-    assert sk.LAUNCHES[key] == before[key] + 1
+    assert COUNTS[key] == before[key] + 1
     assert torch.equal(ki, ri)
     assert bool((ki[:16] == -1).all())
     assert torch.equal(torch.isinf(kd), torch.isinf(rd))
@@ -107,11 +109,11 @@ def test_select_knn_packed_edges(cuda, q, m, k):
     whole block of 64 queries (1, 63, 65, 1001) or many blocks."""
     args = _knn_lists(cuda, q, m, seed=q + m + k, k=k)
     r2 = float(np.float32(0.04 ** 2))
-    before = sk.LAUNCHES["select_knn_packed"]
+    before = COUNTS["select_knn_packed"]
     ki, kd = sk.select_knn(*args, r2, k, True)
     ri, rd = sk.select_knn_ref(*args, r2, k, True)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES["select_knn_packed"] == before + 1
+    assert COUNTS["select_knn_packed"] == before + 1
     assert torch.equal(ki, ri)
     assert torch.equal(kd, rd)
 
@@ -134,11 +136,11 @@ def test_select_knn_exact_edges(cuda, q, m, k):
     two = (qidx[:, 1] >= 0).nonzero()[:, 0]
     qpos[two, :, 1] = qpos[two, :, 0]
     r2 = float(np.float32(0.04 ** 2))
-    before = sk.LAUNCHES["select_knn_exact"]
+    before = COUNTS["select_knn_exact"]
     ki, kd = sk.select_knn(x, cid, qidx, qpos, r2, k, False)
     ri, rd = sk.select_knn_ref(x, cid, qidx, qpos, r2, k, False)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES["select_knn_exact"] == before + 1
+    assert COUNTS["select_knn_exact"] == before + 1
     assert torch.equal(ki, ri)
     assert torch.equal(kd, rd)
     if m >= 1001 and k > 1:
@@ -188,12 +190,12 @@ def _within(out, ref, share):
 @pytest.mark.cuda
 def test_pair_sdf_value_agg_matches_plain(cuda):
     table, idx_ext, x, prior = _pair_inputs(cuda)
-    before = pair_mlp.LAUNCHES["pair_sdf_value_agg"]
+    before = COUNTS["pair_sdf_value_agg"]
     with torch.no_grad():
         pt = pair_mlp.pair_sdf_value_agg(table, idx_ext, x, prior, RBF)
         ref = pair_mlp.pair_sdf_value_agg_ref(table, idx_ext, x, prior, RBF)
     torch.cuda.synchronize()
-    assert pair_mlp.LAUNCHES["pair_sdf_value_agg"] == before + 1
+    assert COUNTS["pair_sdf_value_agg"] == before + 1
     assert pt.shape == ref.shape == (x.shape[0], 2)
     assert bool(torch.isfinite(pt).all())
     assert bool((pt[:5] == 0).all())          # all-dump points: w == 0
@@ -203,14 +205,14 @@ def test_pair_sdf_value_agg_matches_plain(cuda):
 @pytest.mark.cuda
 def test_pair_sdf_aggregate_matches_plain(cuda):
     table, idx_ext, x, prior = _pair_inputs(cuda)
-    before = pair_mlp.LAUNCHES["pair_sdf_aggregate"]
+    before = COUNTS["pair_sdf_aggregate"]
     with torch.no_grad():
         pt, w, r_lat = pair_mlp.pair_sdf_aggregate(table, idx_ext, x, prior,
                                                    RBF)
         pt_r, w_r, r_r = pair_mlp.pair_sdf_aggregate_ref(table, idx_ext, x,
                                                          prior, RBF)
     torch.cuda.synchronize()
-    assert pair_mlp.LAUNCHES["pair_sdf_aggregate"] == before + 1
+    assert COUNTS["pair_sdf_aggregate"] == before + 1
     assert pt.shape == (x.shape[0], 5) and w.shape == w_r.shape
     assert r_lat.shape == r_r.shape and r_lat.dtype == torch.bfloat16
     assert bool(torch.isfinite(pt).all())
@@ -278,12 +280,12 @@ def test_pair_sdf_value_agg_skips_dump_pairs(cuda, m):
     that fills no whole tile: pt by ``_within``, and exactly (0, 0) on every
     point with no real pair (the kernel computes no dump pair)."""
     table, idx_ext, x, prior = _mixed_pairs(cuda, m)
-    before = pair_mlp.LAUNCHES["pair_sdf_value_agg"]
+    before = COUNTS["pair_sdf_value_agg"]
     with torch.no_grad():
         pt = pair_mlp.pair_sdf_value_agg(table, idx_ext, x, prior, RBF)
         ref = pair_mlp.pair_sdf_value_agg_ref(table, idx_ext, x, prior, RBF)
     torch.cuda.synchronize()
-    assert pair_mlp.LAUNCHES["pair_sdf_value_agg"] == before + 1
+    assert COUNTS["pair_sdf_value_agg"] == before + 1
     assert pt.shape == ref.shape == (m, 2) and bool(torch.isfinite(pt).all())
     real = ((idx_ext >= 0) & (idx_ext < table.shape[0] - 1))
     assert bool((pt[~real.any(1)] == 0).all())
@@ -318,7 +320,7 @@ def test_render_through_kernels_matches_plain_render(cuda):
     cfg = apply_overrides(Config(), ["model.ray_sampler.n_samples_eval=32",
                                      "model.ray_sampler.max_total_iters=2"])
     outs = {}
-    before = {**sk.LAUNCHES, **pair_mlp.LAUNCHES}
+    before = dict(COUNTS)
     for dev in ("cpu", cuda):
         gen = torch.Generator().manual_seed(0)
         scene, latents = build_scene(pts, cfg.model, cols, generator=gen,
@@ -329,7 +331,7 @@ def test_render_through_kernels_matches_plain_render(cuda):
         outs[str(dev)] = render(tp, scene, load_prior_npz(device=dev),
                                 views["uv"], views["pose"][0],
                                 views["intrinsics"][0])
-    after = {**sk.LAUNCHES, **pair_mlp.LAUNCHES}
+    after = dict(COUNTS)
     for key in ("select_knn_packed", "pair_sdf_value_agg",
                 "pair_sdf_aggregate"):
         assert after[key] > before[key], key
@@ -364,11 +366,11 @@ def _rows_kernel_matches_plain(dev, kernel, m):
     prior = pair_mlp._prep_layers(load_prior_npz(device=dev), torch.bfloat16)
     fn = getattr(pair_mlp, kernel)
     ref = getattr(pair_mlp, kernel + "_ref")
-    before = pair_mlp.LAUNCHES[kernel]
+    before = COUNTS[kernel]
     with torch.no_grad():
         outs, refs = fn(*args, prior), ref(*args, prior)
     torch.cuda.synchronize()
-    assert pair_mlp.LAUNCHES[kernel] == before + 1
+    assert COUNTS[kernel] == before + 1
     if not isinstance(outs, tuple):
         outs, refs = (outs,), (refs,)
     assert len(outs) == len(refs)
@@ -529,11 +531,11 @@ def test_scatter_add_rows_matches_plain(cuda, kind, m, d, n, stride):
     wide, idx = _scatter_inputs(kind, m, d, n, stride)
     ct = wide.to(cuda)[:, :d]
     idx = idx.to(cuda)
-    before = sr.LAUNCHES["scatter_add_rows"]
+    before = COUNTS["scatter_add_rows"]
     out = sr.scatter_add_rows(ct, idx, n)
     ref = sr.scatter_add_rows_ref(ct, idx, n)
     torch.cuda.synchronize()
-    assert sr.LAUNCHES["scatter_add_rows"] == before + 1
+    assert COUNTS["scatter_add_rows"] == before + 1
     assert out.shape == (n, d)
     assert torch.equal(torch.isnan(out), torch.isnan(ref))
     assert int(torch.isnan(ref).sum()) == (1 if kind == "step" else 0)
@@ -556,11 +558,11 @@ def test_pair_sdf_aggregate_bwd_matches_plain(cuda):
                                                   RBF)
     num_bar = torch.from_numpy(np.random.default_rng(2).normal(
         size=x.shape[0]).astype(np.float32)).to(cuda)
-    before = pair_mlp.LAUNCHES["pair_sdf_aggregate_bwd"]
+    before = COUNTS["pair_sdf_aggregate_bwd"]
     out = pair_mlp.pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n)
     ref = pair_mlp.pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n)
     torch.cuda.synchronize()
-    assert pair_mlp.LAUNCHES["pair_sdf_aggregate_bwd"] == before + 1
+    assert COUNTS["pair_sdf_aggregate_bwd"] == before + 1
     assert out.shape == (n, 32) and bool(torch.isfinite(out).all())
     flat = idx_ext.reshape(-1).long()
     keep = (flat >= 0) & (flat < n) & (w != 0)
@@ -611,12 +613,12 @@ def test_pair_sdf_aggregate_bwd_training_shapes(cuda, kind):
     into more than 2**15 latent rows: within the f32 sum-order limit, and
     two launches within it of each other (the atomics' order changes)."""
     num_bar, w, r_lat, idx_ext, n = _bwd_case(kind, cuda)
-    before = pair_mlp.LAUNCHES["pair_sdf_aggregate_bwd"]
+    before = COUNTS["pair_sdf_aggregate_bwd"]
     out = pair_mlp.pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n)
     again = pair_mlp.pair_sdf_aggregate_bwd(num_bar, w, r_lat, idx_ext, n)
     ref = pair_mlp.pair_sdf_aggregate_bwd_ref(num_bar, w, r_lat, idx_ext, n)
     torch.cuda.synchronize()
-    assert pair_mlp.LAUNCHES["pair_sdf_aggregate_bwd"] == before + 2
+    assert COUNTS["pair_sdf_aggregate_bwd"] == before + 2
     assert out.shape == (n, 32) and bool(torch.isfinite(out).all())
     flat = idx_ext.reshape(-1).long()
     keep = (flat >= 0) & (flat < n) & (w != 0)
@@ -639,18 +641,52 @@ def test_train_steps_through_kernels(cuda):
     pts, cols, views = make_synthetic_scene(n_points=1500, img_res=(24, 40))
     cfg = apply_overrides(Config(), ["model.ray_sampler.n_samples_eval=32",
                                      "train.num_pixels=256"])
-    before = {**sk.LAUNCHES, **pair_mlp.LAUNCHES, **sr.LAUNCHES}
+    before = dict(COUNTS)
     trainer = Trainer(cfg, pts, cols, views, device=cuda)
     trainer.load_frozen(load_prior_npz(device=cuda))
     metrics = []
     trainer.run(4, window=2, callback=lambda s, m: metrics.append(m))
-    after = {**sk.LAUNCHES, **pair_mlp.LAUNCHES, **sr.LAUNCHES}
+    after = dict(COUNTS)
     for key in ("select_knn_packed", "pair_sdf_value_agg",
                 "pair_sdf_aggregate", "pair_sdf_aggregate_bwd",
                 "scatter_add_rows"):
         assert after[key] > before[key], key
     assert all(np.isfinite(m["loss"]) and m["notfinite"] == 0
                for m in metrics)
+
+
+@pytest.mark.cuda
+def test_traced_train_window_records_the_span_set(cuda):
+    """Three Trainer steps under the profiler with CUDA activity alone (the
+    benchmark's traced window) record the program's spans, one unit a
+    step, nested, and the real pairs handed to K3 and K2.  Where the host
+    waits on the card is read from a trace, not asserted here."""
+    from spurfies_tpu_torch.train.trainer import Trainer
+    pts, cols, views = make_synthetic_scene(n_points=1500, img_res=(24, 40))
+    cfg = apply_overrides(Config(), ["model.ray_sampler.n_samples_eval=32",
+                                     "train.num_pixels=256"])
+    trainer = Trainer(cfg, pts, cols, views, device=cuda)
+    trainer.load_frozen(load_prior_npz(device=cuda))
+    trainer.run(1, window=1)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        trainer.run(3, window=3)
+    spans = profiling.spans()
+    assert {s.name for s in spans} == {
+        "trainer.step", "trainer.backward", "optim.step", "losses",
+        "sampler.z_vals", "field.probe", "field.sdf", "field.color",
+        "readback"}
+    assert [s.unit for s in spans if s.name == "trainer.step"] == [0, 1, 2]
+    for s in spans:
+        assert s.end_ns >= s.start_ns > 0
+        if s.parent >= 0:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+            assert p.unit == s.unit
+    pairs = profiling.real_pairs()
+    for key in ("k3", "k2"):
+        real, slots, launches = pairs[key]
+        assert launches >= 3 and 0 < real < slots
 
 
 @pytest.mark.cuda
@@ -668,12 +704,12 @@ def test_train_steps_under_options_through_kernels(cuda, overrides, keys):
     pts, cols, views = make_synthetic_scene(n_points=1500, img_res=(24, 40))
     cfg = apply_overrides(Config(), ["model.ray_sampler.n_samples_eval=32",
                                      "train.num_pixels=256"] + overrides)
-    before = {**pair_mlp.LAUNCHES, **sr.LAUNCHES}
+    before = dict(COUNTS)
     trainer = Trainer(cfg, pts, cols, views, device=cuda)
     trainer.load_frozen(load_prior_npz(device=cuda))
     metrics = []
     trainer.run(4, window=2, callback=lambda s, m: metrics.append(m))
-    after = {**pair_mlp.LAUNCHES, **sr.LAUNCHES}
+    after = dict(COUNTS)
     for key in keys:
         assert after[key] > before[key], key
     if "model.fused_agg=false" in overrides:
@@ -733,15 +769,15 @@ def test_fused_color_kernels_match_plain(cuda, p):
     from spurfies_tpu_torch.ops import fused_color as fc
 
     ins, f_color, r, rgb_bar = _colour_inputs(cuda, p)
-    before = dict(fc.LAUNCHES)
+    before = dict(COUNTS)
     rgb = fc.fused_color_fwd(*ins, f_color, r, torch.bfloat16)
     rgb_r = fc.fused_color_fwd_ref(*ins, f_color, r, torch.bfloat16)
     dlat, dws, dbs = fc.fused_color_bwd(*ins, f_color, r, rgb_bar,
                                         torch.bfloat16)
     ref = fc.fused_color_bwd_ref(*ins, f_color, r, rgb_bar, torch.bfloat16)
     torch.cuda.synchronize()
-    assert fc.LAUNCHES["fused_color_fwd"] == before["fused_color_fwd"] + 1
-    assert fc.LAUNCHES["fused_color_bwd"] == before["fused_color_bwd"] + 1
+    assert COUNTS["fused_color_fwd"] == before["fused_color_fwd"] + 1
+    assert COUNTS["fused_color_bwd"] == before["fused_color_bwd"] + 1
     assert rgb.shape == (p, 3) and bool(torch.isfinite(rgb).all())
     _within(rgb, rgb_r, 1e-3)
     assert dlat.shape == (8 * p, 64) and bool(torch.isfinite(dlat).all())
@@ -778,11 +814,11 @@ def test_pack_color_weights_matches_plain(cuda):
     from spurfies_tpu_torch.ops import fused_color as fc
 
     _, f_color, r, _ = _colour_inputs(cuda, 1)
-    before = fc.LAUNCHES["pack_color_weights"]
+    before = COUNTS["pack_color_weights"]
     out = fc.pack_color_weights(f_color, r)
     ref = fc.pack_color_weights_ref(f_color, r)
     torch.cuda.synchronize()
-    assert fc.LAUNCHES["pack_color_weights"] == before + 1
+    assert COUNTS["pack_color_weights"] == before + 1
     assert torch.equal(out, ref)
 
 
@@ -791,14 +827,13 @@ def test_train_steps_under_fused_color_through_kernels(cuda):
     """A few Trainer steps with ``field.FUSED_COLOR`` on launch K8a and
     K8b once a step each (and the colour latents' K5), keep the loss
     finite and skip no step."""
-    from spurfies_tpu_torch.ops import fused_color as fc
     from spurfies_tpu_torch.train.trainer import Trainer
     pts, cols, views = make_synthetic_scene(n_points=1500, img_res=(24, 40))
     cfg = apply_overrides(Config(), ["model.ray_sampler.n_samples_eval=32",
                                      "train.num_pixels=256"])
     trainer = Trainer(cfg, pts, cols, views, device=cuda)
     trainer.load_frozen(load_prior_npz(device=cuda))
-    before = {**fc.LAUNCHES, **sr.LAUNCHES}
+    before = dict(COUNTS)
     metrics = []
     saved = field.FUSED_COLOR
     try:
@@ -806,7 +841,7 @@ def test_train_steps_under_fused_color_through_kernels(cuda):
         trainer.run(4, window=2, callback=lambda s, m: metrics.append(m))
     finally:
         field.FUSED_COLOR = saved
-    after = {**fc.LAUNCHES, **sr.LAUNCHES}
+    after = dict(COUNTS)
     assert after["fused_color_fwd"] == before["fused_color_fwd"] + 4
     assert after["fused_color_bwd"] == before["fused_color_bwd"] + 4
     assert after["scatter_add_rows"] == before["scatter_add_rows"] + 4
@@ -827,10 +862,10 @@ def test_gather_rows_matches_plain(cuda, m, n, d, rpb):
     table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) \
         .to(cuda)
     idx = torch.from_numpy(rng.integers(0, n, m).astype(np.int32)).to(cuda)
-    before = gr.LAUNCHES["gather_rows"]
+    before = COUNTS["gather_rows"]
     got = gr.gather_rows(table, idx, rows_per_block=rpb)
     torch.cuda.synchronize()
-    assert gr.LAUNCHES["gather_rows"] == before + 1
+    assert COUNTS["gather_rows"] == before + 1
     assert torch.equal(got, gr.gather_rows_ref(table, idx))
 
 
@@ -896,10 +931,10 @@ def test_pretraining_step_on_the_card(cuda, monkeypatch):
     params = tpre.init_prior_params(cfg, torch.Generator().manual_seed(0),
                                     cuda)
     qidx = torch.randperm(cfg.n_query, device=cuda)[:cfg.batch_queries]
-    before = sk.LAUNCHES["select_knn_packed"]
+    before = COUNTS["select_knn_packed"]
     loss, _ = tpre.prior_loss(params, corpus, spec, cfg, 1, qidx)
     grads = torch.autograd.grad(loss, flatten(params))
-    assert sk.LAUNCHES["select_knn_packed"] == before + 1
+    assert COUNTS["select_knn_packed"] == before + 1
     monkeypatch.setattr(vg, "select_knn", sk.select_knn_ref)
     loss_p, _ = tpre.prior_loss(params, corpus, spec, cfg, 1, qidx)
     grads_p = torch.autograd.grad(loss_p, flatten(params))

@@ -21,6 +21,7 @@ import torch
 
 from spurfies_tpu_torch.ops import gather_rows as gr
 from spurfies_tpu_torch.scripts import micro_gather
+from spurfies_tpu_torch.utils.profiling import COUNTS
 
 ROOT = Path(__file__).resolve().parent.parent
 _SPEC = importlib.util.spec_from_file_location(
@@ -56,9 +57,9 @@ def test_gather_rows_checks_its_inputs():
         gr.gather_rows(t[0], i)
     with pytest.raises(ValueError, match=r"idx \[m\]"):
         gr.gather_rows(t, i[:, None])
-    before = gr.LAUNCHES["gather_rows"]
+    before = COUNTS["gather_rows"]
     gr.gather_rows(t, i)                 # the plain version: no launch
-    assert gr.LAUNCHES["gather_rows"] == before
+    assert COUNTS["gather_rows"] == before
 
 
 def test_micro_gather_needs_a_card(monkeypatch, capsys):

@@ -65,19 +65,6 @@ def test_peak_tflops_is_the_h100s():
     assert not any(k.startswith("v") for k in tflops.BF16_PEAK_TFLOPS)
 
 
-def test_ray_rate_meter():
-    syncs = []
-    meter = profiling.RayRateMeter(lambda: syncs.append(1))
-    assert meter.rays_per_sec == 0.0
-    with meter.measure(1000):
-        pass
-    with meter.measure(24):
-        pass
-    assert meter.rays == 1024 and len(syncs) == 4
-    assert meter.seconds > 0
-    assert meter.rays_per_sec == pytest.approx(1024 / meter.seconds)
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "tr")) as d:
         torch.ones(64, 64) @ torch.ones(64, 64)
